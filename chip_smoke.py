@@ -6,29 +6,47 @@
 Phases, each printed as one JSON line (name, seconds, what was compared and
 the largest difference); any failure raises and exits non-zero:
 
-1. build    — compile the CUDA int8 scan kernel (nvcc, sm_90a) and the
-              native featurizer (g++), both at once, from the sources here;
-2. kernel   — the kernel against its plain torch version on the card:
-              (a) 1,048,576 × 384 random unit vectors, 328 queries, k = 64;
-              (b) a clustered corpus with kb = 2 that forces targeted repairs
-                  and the over-budget exact fallback;
-              (c) padding (valid_n < N), a `where` row mask and exact ties;
-3. bench    — the bench.py slice on the held-out corpus: chunk, hashed
-              encoder, int8 store, retrieve_batch_fused over 328 queries,
-              checked against the standard (host-rerank) retrieve;
-4. full     — a 1,048,576-row int8 store built through the port's encoder
-              from synthetic texts; retrieve_batch_fused at batch 328 through
-              the kernel (launch count must rise), timed with CUDA events,
-              plus the kernel's own time, its plain version's and its bound.
+1. build           — compile the three CUDA sources (nvcc, sm_90a) and the
+                     native featurizer (g++), all at once, from the sources here;
+2. kernel          — the int8 scan kernel against its plain torch version:
+                     (a) 1,048,576 × 384 random unit vectors, 328 queries, k = 64;
+                     (b) a clustered corpus with kb = 2 that forces targeted
+                         repairs and the over-budget exact fallback;
+                     (c) padding (valid_n < N), a `where` row mask and exact ties;
+3. kernel_f32_bf16 — the float scan kernel (fp32 and bf16) against its plain
+                     version at 1,048,576 × 384, B = 328 (scores within
+                     rtol·(1+|s|), rtol 1e-5 fp32 / 1e-2 bf16; ids equal where
+                     neighbouring scores are 1e-5·(1+|s|) apart), and through
+                     scan_topk on the repair, fallback, padding, mask and tie
+                     cases; ms per launch, bound, plain and library ms;
+4. kernel_adc      — both PQ ADC kernels (residual and plain) against their
+                     plain version at 1,048,576 rows, M = 48, C = 2048,
+                     B = 328, bit for bit, and on the same cases;
+5. bench           — the bench.py slice on the held-out corpus: chunk, hashed
+                     encoder, int8 store, retrieve_batch_fused over 328 queries,
+                     checked against the standard (host-rerank) retrieve;
+6. full            — a 1,048,576-row int8 store built through the port's
+                     encoder from synthetic texts; retrieve_batch_fused at batch
+                     328 through the int8 kernel (launch count must rise), timed
+                     with CUDA events, plus the kernel's own time and bound;
+7. formats         — the same 1M texts and embeddings in an fp32, a bf16, a
+                     residual pq and a plain pq store (config.json's store
+                     values): retrieve_batch at batch 328 without and with PRF
+                     (each format's kernel must launch), a `where`-filtered
+                     search, the whole scan route held against its plain
+                     version, set-up seconds, device bytes per vector and
+                     recall@3 against the fp32 exact top-3.
 
-Then the kernel table line, the card's name and power limit, and as the last
-line ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
-result. It imports nothing of JAX or of the JAX package.
+Then the kernel table line (all four kernels), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA
+it exits 1 and prints no result. It imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -50,9 +68,29 @@ BENCH_RETRIEVER = {"top_k": 3, "similarity_threshold": 0.05, "rerank": True,
                    "diversity_penalty": 0.1}
 BENCH_STORE = {"format": "int8", "block_size": 256, "rescore_k": 64}
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate and int8 tensor-core rate
+# config.json's vector_store values (rag.vector_store) for the formats phase
+CONFIG_STORE = {"block_size": 1024, "rescore_k": 64, "pq_subspaces": 48, "pq_clusters": 256,
+                "pq_aniso_eta": 0.0}
+FORMAT_STORES = {
+    "fp32": {"format": "fp32"},
+    "bf16": {"format": "bf16"},
+    "pq": {"format": "pq"},
+    "pq_plain": {"format": "pq", "pq_residual": False},
+}
+FORMAT_KERNEL = {"fp32": "scan_topk_f32", "bf16": "scan_topk_bf16",
+                 "pq": "adc_scan_topk_residual", "pq_plain": "adc_scan_topk_plain"}
+SCAN_BLOCK = 1024  # config.json's block_size: the kernels' main-path block
+SCAN_KB = 3  # kb of the pq stores' 64-candidate scan at 1M rows, B = 328
+PQ_M, PQ_C, PQ_K = 48, 2048, 256
+FLOAT_RTOL = {"fp32": 1e-5, "bf16": 1e-2}
+ID_RTOL = 1e-5  # the f32 sum-order bound: ranks farther apart must agree
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, int8 tensor-core rate,
+# f32 on the CUDA cores, bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1.979e15
+PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 
 def emit(obj) -> None:
@@ -90,6 +128,82 @@ def compare_partials(kernel_out, plain_out):
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def check_float_ranked(got, ref, rtol: float, dim: int) -> float:
+    """Kernel 2's tolerance rule on ranked lists along ``dim`` (a block's kb
+    partials, or a final top-k): scores within rtol·(1 + |s|); ids equal at
+    every rank whose score is more than ID_RTOL·(1 + |s|) from both
+    neighbours' (the f32 sum-order bound) and at every -1e30 rank. Returns
+    the largest score difference over the non-sentinel entries."""
+    import torch
+
+    (gs, gi), (rs, ri) = got, ref
+    gs, rs = gs.double().cpu(), rs.double().cpu()
+    gi, ri = gi.cpu().long(), ri.cpu().long()
+    diff = (gs - rs).abs()
+    if bool((diff > rtol * (1 + rs.abs())).any()):
+        raise AssertionError(f"float scan scores differ by up to {float(diff.max())}")
+    tol = ID_RTOL * (1 + rs.abs())
+    step = rs.narrow(dim, 0, rs.shape[dim] - 1) - rs.narrow(dim, 1, rs.shape[dim] - 1)
+    inf = torch.full_like(rs.narrow(dim, 0, 1), float("inf"))
+    gap_prev = torch.cat([inf, step], dim)
+    gap_next = torch.cat([step, inf], dim)
+    need = ((gap_prev > tol) & (gap_next > tol)) | (rs <= -1e29)
+    bad = int(((gi != ri) & need).sum())
+    if bad:
+        raise AssertionError(f"float scan ids differ at {bad} separated ranks")
+    real = rs > -1e29
+    return float(diff[real].max()) if bool(real.any()) else 0.0
+
+
+def check_bits(got, ref, what: str) -> float:
+    """ADC kernels: ids and scores identical."""
+    import torch
+
+    if not (torch.equal(got[1].cpu().long(), ref[1].cpu().long())
+            and torch.equal(got[0].cpu(), ref[0].cpu())):
+        bad = int((got[1].cpu().long() != ref[1].cpu().long()).sum())
+        raise AssertionError(f"{what}: not bit-identical to the plain version ({bad} ids differ)")
+    return 0.0
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every scan wrapper replaced by its plain torch version (the same host
+    side around it), to hold a whole scan route against its plain form."""
+    from crs_tpu_torch.ops import scan
+
+    names = ("block_topk_int8", "block_topk_float", "block_topk_adc")
+    saved = {n: getattr(scan, n) for n in names}
+    for n in names:
+        setattr(scan, n, getattr(scan, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(scan, n, fn)
+
+
+def bound(bytes_moved: float, ops: float, ops_rate: float) -> dict:
+    """The least time for the work: max(bytes / HBM rate, ops / peak rate)."""
+    bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_rate * 1e3
+    return {"bytes": bytes_moved, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def clustered_case(rng, n: int, d: int, b: int, hot: int = 50):
+    """Every query owns a hot run of rows near it, so its top-k crowds into
+    one block: small kb trips ceilings (repair) or the budget (fallback)."""
+    import numpy as np
+
+    base = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    for qi in range(b):
+        st = (256 * qi) % (n - hot - 10)
+        base[st:st + hot] = q[qi][None] * 10 + 0.01 * rng.standard_normal((hot, d))
+    return base, q
+
+
 def partial_inputs(codes, scales, queries, valid_n, row_mask=None):
     """The kernel's operands as ``scan_topk_int8`` builds them."""
     import torch
@@ -107,6 +221,13 @@ def partial_inputs(codes, scales, queries, valid_n, row_mask=None):
         allowed = allowed & _pad_rows(row_mask, vecs.shape[0])
     bias = torch.where(allowed, 0.0, NEG_INF).float()
     return q_codes, vecs, vs, bias
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def device_ms(dev, fn, iters: int, warmup: int = 1) -> float:
@@ -159,17 +280,18 @@ def device_profile(fn, batch_ms: float, top: int = 8) -> dict:
 def phase_build(ph: Phase) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
-    from crs_tpu_torch.ops.scan import build_kernel
+    from crs_tpu_torch.ops.scan import build_kernels
     from crs_tpu_torch.rag.hashed_features import build_native
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        kernel_f, native_f = pool.submit(build_kernel), pool.submit(build_native)
-        kernel, native = kernel_f.result(), native_f.result()
-    ptxas = [ln.strip() for ln in kernel.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    ph.info.update({"cuda_kernel_build_s": round(kernel.seconds, 3),
-                    "native_featurizer_build_s": round(native.seconds, 3),
-                    "ptxas": ptxas})
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, started together
+        kernels_f, native_f = pool.submit(build_kernels), pool.submit(build_native)
+        kernels, native = kernels_f.result(), native_f.result()
+    ph.info.update({
+        "cuda_build_s": {src: round(r.seconds, 3) for src, r in kernels.items()},
+        "native_featurizer_build_s": round(native.seconds, 3),
+        "ptxas": {src: [ln.strip() for ln in r.log.splitlines()
+                        if "registers" in ln or "spill" in ln] for src, r in kernels.items()},
+    })
 
 
 def phase_kernel(ph: Phase, dev, seed: int, rows: int) -> float:
@@ -271,6 +393,224 @@ def phase_kernel(ph: Phase, dev, seed: int, rows: int) -> float:
     return max_err
 
 
+def phase_kernel_f32_bf16(ph: Phase, dev, seed: int, rows: int) -> dict:
+    """Kernel 2 against its plain version at the main shape and on the
+    repair / fallback / padding / mask / tie cases; its times and bound."""
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.ops.scan import (
+        FLOAT_QUERY_TILE, STATS, _pad_rows, block_topk_float, block_topk_float_plain, scan_topk,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    x = torch.randn((rows, DIM), generator=g, device=dev)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    q = torch.randn((BATCH, DIM), generator=g, device=dev)
+    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    bias = torch.zeros(rows, device=dev)
+    bias[rows - 1000:] = -1e30  # padding rows at the tail
+    nblocks = rows // SCAN_BLOCK
+    out = {}
+    for name, dtype, ops_rate in (("fp32", torch.float32, PEAK_F32_OPS_PER_S),
+                                  ("bf16", torch.bfloat16, PEAK_BF16_OPS_PER_S)):
+        v = x.to(dtype)
+        qq = _pad_rows(q.to(dtype), FLOAT_QUERY_TILE)
+        err = check_float_ranked(block_topk_float(qq, v, bias, SCAN_KB, SCAN_BLOCK),
+                                 block_topk_float_plain(qq, v, bias, SCAN_KB, SCAN_BLOCK),
+                                 FLOAT_RTOL[name], dim=2)
+        ms = device_ms(dev, lambda: block_topk_float(qq, v, bias, SCAN_KB, SCAN_BLOCK), iters=10,
+                       warmup=2)
+        plain_ms = device_ms(dev, lambda: block_topk_float_plain(qq, v, bias, SCAN_KB,
+                                                                 SCAN_BLOCK), iters=2)
+        q_real = q.to(dtype)
+
+        def library():  # two calls: torch.matmul (no TF32) and torch.topk per block
+            s = torch.matmul(q_real, v.T)
+            return torch.topk(s.view(BATCH, nblocks, SCAN_BLOCK), SCAN_KB, dim=-1)
+
+        library_ms = device_ms(dev, library, iters=5)
+        nq = qq.shape[0] // FLOAT_QUERY_TILE
+        b = bound(v.numel() * v.element_size() + qq.numel() * qq.element_size() + rows * 4
+                  + nq * nblocks * SCAN_KB * FLOAT_QUERY_TILE * 8,
+                  2.0 * BATCH * rows * DIM, ops_rate)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_composition_ms": library_ms, **b}
+        del v, qq
+    del x
+    out["shape"] = {"rows": rows, "dim": DIM, "batch": BATCH, "block_size": SCAN_BLOCK,
+                    "kb": SCAN_KB}
+    out["library_composition"] = "torch.matmul (TF32 off) + torch.topk per block: two calls"
+
+    # the scan's host side around the kernel, GPU against the CPU plain path
+    rng = np.random.default_rng(seed + 3)
+    n, d, b, k = 4096, 64, 16, 40
+    base, qc = clustered_case(rng, n, d, b)
+    mask = rng.random(n) < 0.5
+    tie = rng.standard_normal((n, d)).astype(np.float32)
+    tie /= np.linalg.norm(tie, axis=1, keepdims=True)
+    tie[3000:3100] = tie[0:100]  # duplicated rows: exact ties
+    sparse = np.zeros(n, bool)
+    sparse[rng.choice(n, 4, replace=False)] = True
+    sparse[:b] = sparse[3000:3000 + b] = True  # fewer allowed rows than k: -1e30 ranks
+    cases = {  # name: (vectors, queries, kb, repair, mask, valid_n)
+        "repair": (base, qc, 2, 256, None, n),
+        "fallback": (base, qc, 2, 4, None, n),
+        "repair_masked": (base, qc, 2, 256, mask, n - 37),
+        "ties_padding_mask": (tie, tie[:b].copy(), 0, 256, sparse, n - 300),
+    }
+    counts = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for case, (v, qv, kb, repair, m, valid) in cases.items():
+            args = dict(k=k, valid_n=valid, block_size=256, kb=kb, repair=repair)
+            m_t = None if m is None else torch.from_numpy(m)
+            STATS.reset()
+            got = scan_topk(torch.from_numpy(v).to(dtype).to(dev), torch.from_numpy(qv).to(dev),
+                            row_mask=None if m_t is None else m_t.to(dev), **args)
+            counts[f"{name}/{case}"] = {"launches": STATS.launches, "repairs": STATS.repairs,
+                                        "fallbacks": STATS.fallbacks}
+            ref = scan_topk(torch.from_numpy(v).to(dtype), torch.from_numpy(qv), row_mask=m_t,
+                            **args)
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                           check_float_ranked(got, ref, FLOAT_RTOL[name], dim=1))
+            if m is not None and bool((ref[0] > -1e29).any()):
+                ok = ref[1][ref[0] > -1e29]
+                if not bool(m_t[ok].all()) or int(ok.max()) >= valid:
+                    raise AssertionError(f"{name}/{case}: masked or padding rows returned")
+        for case, key in (("repair", "repairs"), ("fallback", "fallbacks")):
+            if counts[f"{name}/{case}"][key] < 1:
+                raise AssertionError(f"{name}/{case}: the {key[:-1]} path did not run: {counts}")
+    out["cases"] = counts
+    ph.info.update(out)
+    return out
+
+
+def adc_case(rng, n: int, d: int, b: int, m: int, c: int):
+    """Random residual-PQ state with hot rows (each query's best code in most
+    subspaces, so its top-k crowds into one block), duplicated rows (ties),
+    and the LUTs built by the port on the CPU."""
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.ops.pq import adc_lut, residual_adc_luts
+
+    rot = torch.from_numpy(np.linalg.qr(rng.standard_normal((d, d)))[0].astype(np.float32))
+    coarse = torch.from_numpy((rng.standard_normal((c, d)) * 0.3).astype(np.float32))
+    cents = torch.from_numpy((rng.standard_normal((m, 256, d // m)) * 0.1).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    cid = rng.integers(0, c, n)
+    ext = np.concatenate([(cid // 256)[:, None], (cid % 256)[:, None],
+                          rng.integers(0, 256, (n, m))], 1).astype(np.uint8)
+    ext[3000:3100] = ext[0:100]
+    cl, lut = residual_adc_luts(rot, coarse, cents, q)
+    plut = adc_lut(cents, q)
+    codes = ext[:, 2:].copy()
+    for qi in range(b):
+        st = (256 * qi) % (n - 60)
+        best = lut[qi].argmax(dim=1).numpy()
+        ext[st:st + 50, 2:] = np.where(rng.random((50, m)) < 0.7, best[None], ext[st:st + 50, 2:])
+        best = plut[qi].argmax(dim=1).numpy()
+        codes[st + 128:st + 178] = np.where(rng.random((50, m)) < 0.7, best[None],
+                                            codes[st + 128:st + 178])
+    return cl, lut, torch.from_numpy(ext), plut, torch.from_numpy(codes)
+
+
+def phase_kernel_adc(ph: Phase, dev, seed: int, rows: int) -> dict:
+    """Kernels 3 and 5 against their plain version, bit for bit, at the main
+    shape and on the repair / fallback / padding / mask / tie cases."""
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.ops.scan import (
+        ADC_QUERY_TILE, STATS, _pad_rows, adc_tables, block_topk_adc, block_topk_adc_plain,
+        scan_topk_pq_adc_luts, scan_topk_residual_pq_adc_luts,
+    )
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 4)
+    codes = torch.randint(0, PQ_K, (rows, PQ_M + 2), generator=g, device=dev).to(torch.uint8)
+    cid = torch.randint(0, PQ_C, (rows,), generator=g, device=dev)
+    codes[:, 0], codes[:, 1] = (cid // 256).to(torch.uint8), (cid % 256).to(torch.uint8)
+    lut = torch.randn((BATCH, PQ_M, PQ_K), generator=g, device=dev) * 0.05
+    cl = torch.randn((BATCH, PQ_C), generator=g, device=dev) * 0.3
+    lut_bf, hi, lo = adc_tables(_pad_rows(lut, ADC_QUERY_TILE), _pad_rows(cl, ADC_QUERY_TILE))
+    bias = torch.zeros(rows, device=dev)
+    bias[rows - 1000:] = -1e30
+    bias[:rows - 1000:7] = -1e30  # a `where` mask: every 7th row dropped
+    nblocks = rows // SCAN_BLOCK
+    nq = lut_bf.shape[0] // ADC_QUERY_TILE
+    out = {}
+    for name, resid in (("residual", True), ("plain", False)):
+        cd = codes if resid else codes[:, 2:].contiguous()
+        extra = (hi, lo) if resid else ()
+        err = check_bits(block_topk_adc(lut_bf, cd, bias, SCAN_KB, SCAN_BLOCK, *extra),
+                         block_topk_adc_plain(lut_bf, cd, bias, SCAN_KB, SCAN_BLOCK, *extra),
+                         f"{name} ADC partials")
+        ms = device_ms(dev, lambda: block_topk_adc(lut_bf, cd, bias, SCAN_KB, SCAN_BLOCK, *extra),
+                       iters=10, warmup=2)
+        plain_ms = device_ms(dev, lambda: block_topk_adc_plain(lut_bf, cd, bias, SCAN_KB,
+                                                               SCAN_BLOCK, *extra), iters=2)
+        # the nearest library composition: a gather of every (row, subspace)
+        # LUT entry, a sum, and torch.topk per block, 16,384 rows at a time
+        lut_flat = lut_bf[:BATCH].float().reshape(BATCH, PQ_M * PQ_K)
+        off = 2 if resid else 0
+        flat_idx = (torch.arange(PQ_M, device=dev) * PQ_K + cd[:, off:].long()).reshape(-1)
+        cid_l = cid.long()
+        coarse_f = (hi[:BATCH].float() + lo[:BATCH].float()) if resid else None
+        step = 16384
+
+        def library():
+            for r0 in range(0, rows, step):
+                s = lut_flat.index_select(1, flat_idx[r0 * PQ_M:(r0 + step) * PQ_M])
+                s = s.view(BATCH, step, PQ_M).sum(-1)
+                if resid:
+                    s = s + coarse_f.index_select(1, cid_l[r0:r0 + step])
+                torch.topk(s.view(BATCH, step // SCAN_BLOCK, SCAN_BLOCK), SCAN_KB, dim=-1)
+
+        library_ms = device_ms(dev, library, iters=3)
+        del flat_idx
+        b = bound(cd.numel() + rows * 4 + lut_bf.numel() * 2 + (hi.numel() * 4 if resid else 0)
+                  + nq * nblocks * SCAN_KB * ADC_QUERY_TILE * 8,
+                  float(BATCH) * rows * (PQ_M + (2 if resid else 1)), PEAK_F32_OPS_PER_S)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_composition_ms": library_ms, **b}
+    del codes, lut_bf, hi, lo
+    out["shape"] = {"rows": rows, "m": PQ_M, "coarse": PQ_C, "clusters": PQ_K, "batch": BATCH,
+                    "block_size": SCAN_BLOCK, "kb": SCAN_KB}
+    out["library_composition"] = ("torch.index_select of the LUT entries + sum + torch.topk "
+                                  "per block, 16,384 rows a step: not one call")
+    out["bound_note"] = "operations = B·N·(M+2) (residual) or B·N·(M+1) f32 adds at 67 TFLOP/s"
+
+    rng = np.random.default_rng(seed + 5)
+    n, d, b, k = 4096, 64, 16, 40
+    cl_c, lut_c, ext_c, plut_c, codes_c = adc_case(rng, n, d, b, 8, 512)
+    mask = rng.random(n) < 0.6
+    sparse = np.zeros(n, bool)
+    sparse[rng.choice(n, 12, replace=False)] = True
+    cases = {"repair": (256, None, n), "fallback": (2, None, n), "no_repair": (0, None, n),
+             "repair_masked_padded": (256, mask, n - 37), "exhausted_mask": (256, sparse, n)}
+    counts = {}
+    for case, (repair, m, valid) in cases.items():
+        m_t = None if m is None else torch.from_numpy(m)
+        for name, fn, ops in (
+                ("residual", scan_topk_residual_pq_adc_luts, (cl_c, lut_c, ext_c)),
+                ("plain", scan_topk_pq_adc_luts, (plut_c, codes_c))):
+            args = dict(k=k, valid_n=valid, block_size=256, repair=repair)
+            STATS.reset()
+            got = fn(*(t.to(dev) for t in ops), row_mask=None if m_t is None else m_t.to(dev),
+                     **args)
+            counts[f"{name}/{case}"] = {"launches": STATS.launches, "repairs": STATS.repairs,
+                                        "fallbacks": STATS.fallbacks}
+            check_bits(got, fn(*ops, row_mask=m_t, **args), f"{name}/{case}")
+    for name in ("residual", "plain"):
+        if counts[f"{name}/repair"]["repairs"] < 1 or counts[f"{name}/fallback"]["fallbacks"] < 1:
+            raise AssertionError(f"{name}: the repair/fallback paths did not run: {counts}")
+    out["cases"] = counts
+    ph.info.update(out)
+    return out
+
+
 def _questions():
     with open(QA) as f:
         qs = [x["question"] for x in json.load(f)]
@@ -340,7 +680,7 @@ def synthetic_corpus(rng, rows: int, n_topics: int = 1024, topic_words: int = 48
     return texts, queries
 
 
-def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float) -> dict:
+def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dict) -> dict:
     import numpy as np
     import torch
 
@@ -359,7 +699,6 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float) -> dict:
     t0 = time.perf_counter()
     emb = em.embed_chunks(texts)
     store.create_index(texts, emb)
-    del emb
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_index = time.perf_counter() - t0
@@ -421,6 +760,7 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float) -> dict:
     int8_ops = 2 * BATCH * store.n * DIM
     bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     ops_ms = int8_ops / PEAK_INT8_OPS_PER_S * 1e3
+    shared.update(texts=texts, queries=queries, emb=emb, em=em)
     ph.info.update({
         "rows": store.n, "dim": DIM, "batch": BATCH,
         "host_setup_s": {"texts": round(t_texts, 3), "featurize_embed_index": round(t_index, 3),
@@ -444,6 +784,88 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float) -> dict:
     }
 
 
+def phase_formats(ph: Phase, dev, shared: dict) -> dict:
+    """The full phase's 1M texts and embeddings in every other store format:
+    each format's main path (retrieve_batch at batch 328, without and with
+    PRF) must launch that format's kernel; returns each kernel's launches."""
+    import torch
+
+    from crs_tpu_torch.ops.scan import STATS
+    from crs_tpu_torch.ops.topk import exact_topk
+    from crs_tpu_torch.rag import ContextRetriever, VectorStore
+
+    texts, queries, emb, em = (shared[k] for k in ("texts", "queries", "emb", "em"))
+    n = emb.shape[0]
+    q_emb = em.embed(queries)
+    exact = exact_topk(emb, q_emb, 3, n)  # the fp32 exact top-3 on the same embeddings
+    exact_ids = exact[1].cpu().tolist()
+    mds = [{"shard": i % 4} for i in range(n)]
+    launches = {}
+    doc_tokens = []
+    for name, cfg in FORMAT_STORES.items():
+        sync(dev)
+        t0 = time.perf_counter()
+        store = VectorStore(dict(CONFIG_STORE, **cfg), device=dev)
+        store.create_index(texts, emb)
+        sync(dev)
+        setup_s = time.perf_counter() - t0
+        store.metadatas = mds
+        train_s = store.build_seconds.get("pq_train", 0.0)
+        info = {"setup_s": setup_s, "pq_train_s": train_s, "setup_without_pq_train_s":
+                setup_s - train_s, "device_bytes_per_vector": store.memory_bytes() / n}
+        kernel = FORMAT_KERNEL[name]
+        retr = ContextRetriever(store, em, BENCH_RETRIEVER)
+        if doc_tokens:  # the host rerank's per-document tokens: same texts, built once
+            retr._doc_tokens, retr._doc_tokens_n = doc_tokens[0], n
+        for prf in (0.0, 0.3):
+            retr.prf_beta = prf
+            out = {}
+
+            def serve():
+                out["results"] = retr.retrieve_batch(queries)
+
+            # this format's main path: counts to 0 just before, read just after
+            STATS.reset()
+            warmup, iters = 2, 10
+            batch_ms = device_ms(dev, serve, iters=iters, warmup=warmup)
+            count = STATS.by_kernel.get(kernel, 0)
+            if count == 0:
+                raise AssertionError(f"{name}: {kernel} never launched on its main path")
+            empty = sum(1 for r in out["results"] if not r)
+            if empty:
+                raise AssertionError(f"{name} prf={prf}: {empty} queries returned no context")
+            info[f"prf_beta_{prf}"] = {
+                "ms_per_batch": batch_ms, "ms_per_query": batch_ms / BATCH,
+                "launches_per_batch": count / (warmup + iters),
+                "repairs": STATS.repairs, "fallbacks": STATS.fallbacks}
+            if prf == 0.0:
+                launches[name] = count
+        if not doc_tokens:
+            doc_tokens.append(retr._doc_tokens)
+        res = store.search(q_emb[0], top_k=5, where={"shard": 1})
+        if len(res["ids"][0]) != 5 or any(md["shard"] != 1 for md in res["metadatas"][0]):
+            raise AssertionError(f"{name}: the where-filtered search returned {res['metadatas']}")
+        got = store.search_batch_dev(q_emb, 3)
+        info["recall_at_3_vs_fp32_exact"] = sum(
+            len(set(g) & set(e)) for g, e in zip(got[1].cpu().tolist(), exact_ids)) / (3 * BATCH)
+        with plain_kernels():  # the same route with every kernel's plain version
+            ref = store.search_batch_dev(q_emb, 3)
+        if store.format == "pq":
+            check_bits(got, ref, f"{name} search_batch_dev")
+            info["route_vs_plain"] = "bit-identical"
+        else:
+            info["route_vs_plain_max_abs"] = check_float_ranked(got, ref, FLOAT_RTOL[name], 1)
+        if name == "fp32":  # the exact format: its top-3 is the exact top-3
+            info["vs_exact_max_abs"] = check_float_ranked(got, exact, FLOAT_RTOL[name], 1)
+        ph.info[name] = info
+        del store, retr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    ph.info.update({"rows": n, "batch": BATCH, "store_config": CONFIG_STORE,
+                    "retriever": BENCH_RETRIEVER, "main_path_launches": launches})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -459,17 +881,44 @@ def main(argv=None) -> int:
     from crs_tpu_torch import resolve_device
 
     dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions and yardsticks in full f32
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     with Phase("build") as ph:
         phase_build(ph)
     with Phase("kernel") as ph:
         max_err = phase_kernel(ph, dev, args.seed, FULL_ROWS)
+    with Phase("kernel_f32_bf16") as ph:
+        flt = phase_kernel_f32_bf16(ph, dev, args.seed, FULL_ROWS)
+    with Phase("kernel_adc") as ph:
+        adc = phase_kernel_adc(ph, dev, args.seed, FULL_ROWS)
     with Phase("bench") as ph:
         phase_bench(ph, dev)
+    shared = {}
     with Phase("full") as ph:
-        row = phase_full(ph, dev, args.seed, FULL_ROWS, max_err)
+        row = phase_full(ph, dev, args.seed, FULL_ROWS, max_err, shared)
+    with Phase("formats") as ph:
+        launches = phase_formats(ph, dev, shared)
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
-    emit({"kernels": [row]})
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_composition_ms")
+    rows = [row, {
+        "name": "scan_topk_f32_bf16", "route": "cuda",
+        "source": "crs_tpu_torch/csrc/scan_topk_f32_bf16.cu",
+        "replaces": "crs_tpu/ops/pallas_scan.py:144",
+        "launches": launches["fp32"] + launches["bf16"],
+        "max_abs_err": max(flt["fp32"]["max_abs_err"], flt["bf16"]["max_abs_err"]),
+        **{k: flt["fp32"][k] for k in keys}, "library_ms": None,
+        "by_dtype": {dt: {"launches": launches[dt], **{k: flt[dt][k] for k in keys}}
+                     for dt in ("fp32", "bf16")},
+    }]
+    for name, fmt, line in (("residual", "pq", 674), ("plain", "pq_plain", 521)):
+        rows.append({
+            "name": f"adc_scan_topk_{name}", "route": "cuda",
+            "source": "crs_tpu_torch/csrc/pq_adc_scan_topk.cu",
+            "replaces": f"crs_tpu/ops/pallas_scan.py:{line}", "launches": launches[fmt],
+            "max_abs_err": adc[name]["max_abs_err"], **{k: adc[name][k] for k in keys},
+            "library_ms": None})
+    emit({"kernels": rows})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)

@@ -1,10 +1,11 @@
 """crs_tpu_torch: the PyTorch/CUDA port of ``crs_tpu``.
 
-The batched int8 RAG retrieve (hashed query embedding, int8 store, fused
-scan → rerank → MMR) on an NVIDIA H100. Module names mirror ``crs_tpu``'s so
-each counterpart is easy to find; the one TPU kernel on this path
-(``crs_tpu.ops.pallas_scan.pallas_topk_int8``) is the hand-written CUDA
-kernel in ``csrc/int8_scan_topk.cu``.
+The batched RAG retrieve (hashed query embedding; fp32, bf16, int8 or PQ
+store; scan → rerank → MMR, with pseudo-relevance feedback) on an NVIDIA
+H100. Module names mirror ``crs_tpu``'s so each counterpart is easy to
+find; the TPU kernels on this path (``crs_tpu.ops.pallas_scan``'s
+``pallas_topk_int8``, ``pallas_topk``, ``pallas_topk_residual_pq_adc`` and
+``pallas_topk_pq_adc``) are hand-written CUDA kernels in ``csrc/``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA and without an explicit ``"cpu"`` they raise.

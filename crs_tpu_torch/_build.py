@@ -12,13 +12,22 @@ import os
 import shutil
 import subprocess
 import time
-from typing import List
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Tuple
 
-__all__ = ["BUILD_DIR", "REPO_ROOT", "BuildResult", "build_library", "nvcc_path"]
+__all__ = [
+    "BUILD_DIR", "CSRC_DIR", "CUDA_SOURCES", "REPO_ROOT", "BuildResult", "build_cuda",
+    "build_library", "nvcc_path",
+]
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(_PKG_DIR)
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+
+# Every CUDA kernel of the port: one source each, one library each
+# (``lib<stem>.so``), so the nvcc runs can start together.
+CUDA_SOURCES = ("int8_scan_topk.cu", "scan_topk_f32_bf16.cu", "pq_adc_scan_topk.cu")
 
 
 def nvcc_path() -> str:
@@ -40,8 +49,9 @@ def compile_command(source: str, output: str) -> List[str]:
     return ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", source, "-o", output]
 
 
-def _stale(source: str, output: str) -> bool:
-    return not os.path.exists(output) or os.path.getmtime(output) < os.path.getmtime(source)
+def _stale(sources: List[str], output: str) -> bool:
+    return not os.path.exists(output) or any(
+        os.path.getmtime(output) < os.path.getmtime(src) for src in sources)
 
 
 class BuildResult:
@@ -52,11 +62,13 @@ class BuildResult:
         self.path, self.seconds, self.log = path, seconds, log
 
 
-def build_library(source: str, name: str, timeout: float = 600.0) -> BuildResult:
-    """Compile ``source`` into ``BUILD_DIR/name`` when stale; raise
-    ``RuntimeError`` with the compiler's output when it fails."""
+def build_library(source: str, name: str, timeout: float = 600.0,
+                  deps: Tuple[str, ...] = ()) -> BuildResult:
+    """Compile ``source`` into ``BUILD_DIR/name`` when it or one of the
+    headers ``deps`` is newer than the built file; raise ``RuntimeError``
+    with the compiler's output when it fails."""
     output = os.path.join(BUILD_DIR, name)
-    if not _stale(source, output):
+    if not _stale([source, *deps], output):
         return BuildResult(output, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{output}.{os.getpid()}.tmp"
@@ -75,3 +87,20 @@ def build_library(source: str, name: str, timeout: float = 600.0) -> BuildResult
     os.replace(tmp, output)
     return BuildResult(output, time.perf_counter() - t0, log)
 
+
+def build_cuda(source: str) -> BuildResult:
+    """Build one of :data:`CUDA_SOURCES` into ``BUILD_DIR/lib<stem>.so``."""
+    if source not in CUDA_SOURCES:
+        raise ValueError(f"{source} is not one of the port's CUDA sources {CUDA_SOURCES}")
+    stem = os.path.splitext(source)[0]
+    headers = tuple(os.path.join(CSRC_DIR, h) for h in sorted(os.listdir(CSRC_DIR))
+                    if h.endswith(".cuh"))
+    return build_library(os.path.join(CSRC_DIR, source), f"lib{stem}.so", deps=headers)
+
+
+def build_all_cuda() -> Dict[str, BuildResult]:
+    """Build every CUDA source at once (one ``nvcc`` each, all started
+    together); raises the first build error."""
+    with ThreadPoolExecutor(max_workers=len(CUDA_SOURCES)) as pool:
+        futures = {src: pool.submit(build_cuda, src) for src in CUDA_SOURCES}
+        return {src: f.result() for src, f in futures.items()}

@@ -1,0 +1,205 @@
+// PQ ADC scans with per-block top-kb, for Hopper (sm_90a).
+//
+// Replaces two TPU kernels of crs_tpu/ops/pallas_scan.py:
+//   RESIDUAL = true:  pallas_topk_residual_pq_adc / _scan_kernel_residual_pq_adc
+//   RESIDUAL = false: pallas_topk_pq_adc / _scan_kernel_pq_adc
+// For each query tile and each corpus block of block_size rows:
+//   s = ((0 + hi[cid]) + lo[cid])      (RESIDUAL only; s = 0 otherwise)
+//   s = s + lut[m][code_m]  for m = 0 .. M-1, in order
+//   s = s + bias            (0, or -1e30 for padding and `where`-masked rows)
+// then the per-block top-kb of block_topk.cuh. The tables arrive rounded as
+// the TPU kernels round them: the residual LUT in bf16, the coarse LUT as a
+// hi+lo bf16 pair (one 32-bit word per (query, coarse id), hi in the low
+// half). The Pallas kernels add the same values as one-hot matrix products,
+// in which every other product is an exact zero, in this order; every add
+// here is an explicit __fadd_rn, so the scores are theirs to the bit.
+//
+// What bounds it on an H100: the corpus is M+2 bytes a row (52 MB at
+// N = 1,048,576, M = 48) ≈ 0.016 ms at 3.35 TB/s, so bytes do not bound
+// it: the work does. Each (query, row) costs M + 2 f32 adds on looked-up
+// values (coarse pair, M residual terms, bias), B·N·(M+2) ≈ 1.7e10 at
+// B = 328 — ≈ 0.26 ms at the 67 TFLOP/s of the CUDA cores, counting one
+// add as one operation. The lookups themselves are shared-memory loads,
+// which the card's published peaks do not list; at one 32-lane load per
+// SM per clock they would take at least as long as the adds.
+//
+// Design: the LUT lookup is a gather from shared memory (the one-hot matrix
+// product is a TPU idiom). One CUDA block per (query tile of 8, run of corpus
+// blocks), 256 threads = 8 warps. The tile's residual LUTs live in shared
+// memory for the whole run, laid out [m][code][query]: the 8 queries' bf16
+// values of one (subspace, code) are one 16-byte entry, so a row's lookup in
+// subspace m is a single 16-byte load for all 8 queries (random codes make
+// any shared-memory gather bank-conflicted; a wide load spreads the cost over
+// 8 values instead of 1). 8·M·K·2 bytes = 192 KB at M = 48, K = 256, which
+// is why the tile is 8 queries and why the grid walks several corpus blocks
+// per CUDA block (the LUT is loaded once per run, not once per block). The
+// coarse hi/lo table (B·C·4 bytes, 2.7 MB at B = 328, C = 2048) stays in
+// device memory, read through L2 as [coarse id][query] (one 32-byte sector
+// per row for the tile): in shared memory it would cost 8·C·4 = 64 KB more
+// per block, which does not fit beside the LUTs. Each chunk of 256 rows is
+// staged in shared memory (M+2 bytes a row); thread t scores row t for all 8
+// queries, the scores go to shared memory, and warp w folds them into query
+// w's running top-kb.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "block_topk.cuh"
+
+namespace {
+
+constexpr int CHUNK = 256;      // corpus rows per step; thread t scores row t
+constexpr int QUERY_TILE = 8;   // queries per CUDA block (= warps)
+constexpr int THREADS = 256;
+constexpr int ROWS_PER_LANE = CHUNK / 32;
+constexpr int MAX_KB = 32;
+
+__host__ __device__ inline size_t round16(size_t x) { return (x + 15) / 16 * 16; }
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// the 8 bf16 of a 16-byte entry, in order, widened exactly
+__device__ __forceinline__ void unpack8(const uint4 v, float (&f)[QUERY_TILE]) {
+    f[0] = bf16_lo(v.x); f[1] = bf16_hi(v.x);
+    f[2] = bf16_lo(v.y); f[3] = bf16_hi(v.y);
+    f[4] = bf16_lo(v.z); f[5] = bf16_hi(v.z);
+    f[6] = bf16_lo(v.w); f[7] = bf16_hi(v.w);
+}
+
+template <bool RESIDUAL>
+__global__ void __launch_bounds__(THREADS, 1)
+adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUERY_TILE]
+                     const uint32_t* __restrict__ hilo,      // [nq, c, QUERY_TILE] (RESIDUAL)
+                     const uint8_t* __restrict__ codes,      // [nblocks·block_size, cols]
+                     const float* __restrict__ bias,         // [nblocks·block_size]
+                     float* __restrict__ out_s,              // [nq, nblocks, kb, QUERY_TILE]
+                     int* __restrict__ out_i,
+                     int nblocks, int block_size, int blocks_per_cta, int m, int kc, int c,
+                     int kb) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int cols = m + (RESIDUAL ? 2 : 0);
+    const size_t lut_bytes = (size_t)QUERY_TILE * m * kc * 2;  // a multiple of 16
+    const size_t code_bytes = (size_t)CHUNK * cols;            // a multiple of 16
+    const uint4* lut_s = reinterpret_cast<const uint4*>(smem);  // [m·kc] entries of 8 queries
+    unsigned char* codes_s = smem + lut_bytes;
+    float* sc = reinterpret_cast<float*>(smem + lut_bytes + round16(code_bytes));  // [QT][CHUNK]
+
+    const int iq = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+
+    {  // the query tile's LUTs → shared memory, 16 bytes per load
+        const uint4* src = reinterpret_cast<const uint4*>(lut + (long long)iq * QUERY_TILE * m * kc);
+        uint4* dst = reinterpret_cast<uint4*>(smem);
+        for (int idx = tid; idx < (int)(lut_bytes / 16); idx += THREADS) dst[idx] = src[idx];
+    }
+    const uint4* hilo_q =
+        RESIDUAL ? reinterpret_cast<const uint4*>(hilo + (long long)iq * c * QUERY_TILE) : nullptr;
+    const int off = RESIDUAL ? 2 : 0;
+
+    const int blk_begin = blockIdx.x * blocks_per_cta;
+    const int blk_end = min(nblocks, blk_begin + blocks_per_cta);
+    for (int blk = blk_begin; blk < blk_end; ++blk) {
+        float ls = block_topk::NEG_INF;
+        int li = 0;
+        for (int c0 = 0; c0 < block_size; c0 += CHUNK) {
+            const long long row0 = (long long)blk * block_size + c0;
+            __syncthreads();  // LUT loaded / previous chunk's codes and scores consumed
+            {
+                const uint4* src = reinterpret_cast<const uint4*>(codes + row0 * cols);
+                uint4* dst = reinterpret_cast<uint4*>(codes_s);
+                for (int idx = tid; idx < (int)(code_bytes / 16); idx += THREADS) dst[idx] = src[idx];
+            }
+            __syncthreads();
+
+            const unsigned char* my = codes_s + tid * cols;
+            float s[QUERY_TILE];
+            if (RESIDUAL) {
+                // word q of the row's 32-byte entry: hi in the low half, lo in the high half
+                const int cid = ((int)my[0] << 8) | (int)my[1];
+                const uint4 a = __ldg(hilo_q + 2 * cid), b = __ldg(hilo_q + 2 * cid + 1);
+                const uint32_t w[QUERY_TILE] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+                for (int qq = 0; qq < QUERY_TILE; ++qq)
+                    s[qq] = __fadd_rn(__fadd_rn(0.0f, bf16_lo(w[qq])), bf16_hi(w[qq]));
+            } else {
+#pragma unroll
+                for (int qq = 0; qq < QUERY_TILE; ++qq) s[qq] = 0.0f;
+            }
+            for (int mm = 0; mm < m; ++mm) {
+                float r[QUERY_TILE];
+                unpack8(lut_s[mm * kc + my[off + mm]], r);
+#pragma unroll
+                for (int qq = 0; qq < QUERY_TILE; ++qq) s[qq] = __fadd_rn(s[qq], r[qq]);
+            }
+            const float b = bias[row0 + tid];
+#pragma unroll
+            for (int qq = 0; qq < QUERY_TILE; ++qq) sc[qq * CHUNK + tid] = __fadd_rn(s[qq], b);
+            __syncthreads();
+
+            float v[ROWS_PER_LANE];
+#pragma unroll
+            for (int j = 0; j < ROWS_PER_LANE; ++j) v[j] = sc[warp * CHUNK + lane + 32 * j];
+            block_topk::merge_chunk<ROWS_PER_LANE>(v, (int)row0, c0 > 0, ls, li, kb, lane);
+        }
+        if (lane < kb) {
+            const long long o = (((long long)iq * nblocks + blk) * kb + lane) * QUERY_TILE + warp;
+            out_s[o] = ls;
+            out_i[o] = li;
+        }
+    }
+}
+
+template <bool RESIDUAL>
+int launch(const void* lut, const void* hilo, const void* codes, const void* bias, void* out_s,
+           void* out_i, int nq, int nblocks, int block_size, int grid_x, int m, int kc, int c,
+           int kb, void* stream) {
+    const int cols = m + (RESIDUAL ? 2 : 0);
+    const size_t smem = (size_t)QUERY_TILE * m * kc * 2 + round16((size_t)CHUNK * cols) +
+                        (size_t)QUERY_TILE * CHUNK * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(adc_scan_topk_kernel<RESIDUAL>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int per_cta = (nblocks + grid_x - 1) / grid_x;
+    const dim3 grid((unsigned)((nblocks + per_cta - 1) / per_cta), (unsigned)nq);
+    adc_scan_topk_kernel<RESIDUAL><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        static_cast<const __nv_bfloat16*>(lut), static_cast<const uint32_t*>(hilo),
+        static_cast<const uint8_t*>(codes), static_cast<const float*>(bias),
+        static_cast<float*>(out_s), static_cast<int*>(out_i), nblocks, block_size, per_cta, m,
+        kc, c, kb);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int adc_scan_topk_chunk_rows() { return CHUNK; }
+int adc_scan_topk_query_tile() { return QUERY_TILE; }
+int adc_scan_topk_max_kb() { return MAX_KB; }
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// The caller checks shapes: LUT rows = nq·QUERY_TILE, code rows =
+// nblocks·block_size, block_size % CHUNK == 0, kc <= 256, c <= 65536,
+// 1 <= kb <= MAX_KB, the shared memory within the card's limit, 16-byte
+// aligned pointers. grid_x = CUDA blocks wanted along the corpus.
+int adc_scan_topk_residual_launch(const void* lut, const void* hilo, const void* codes,
+                                  const void* bias, void* out_s, void* out_i, int nq, int nblocks,
+                                  int block_size, int grid_x, int m, int kc, int c, int kb,
+                                  void* stream) {
+    return launch<true>(lut, hilo, codes, bias, out_s, out_i, nq, nblocks, block_size, grid_x, m,
+                        kc, c, kb, stream);
+}
+
+int adc_scan_topk_plain_launch(const void* lut, const void* hilo, const void* codes,
+                               const void* bias, void* out_s, void* out_i, int nq, int nblocks,
+                               int block_size, int grid_x, int m, int kc, int c, int kb,
+                               void* stream) {
+    return launch<false>(lut, hilo, codes, bias, out_s, out_i, nq, nblocks, block_size, grid_x, m,
+                         kc, c, kb, stream);
+}
+
+}  // extern "C"

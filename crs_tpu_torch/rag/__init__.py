@@ -1,4 +1,4 @@
-"""The port's RAG layer: text, hashed embedding, int8 store, retriever."""
+"""The port's RAG layer: text, hashed embedding, fp32/bf16/int8/pq store, retriever."""
 
 from .chunking import Chunk, TextChunker
 from .document_processing import DocumentProcessor

@@ -1,13 +1,25 @@
-"""Device-resident int8 vector store (port of ``crs_tpu.rag.index``).
+"""Device-resident compressed vector store (port of ``crs_tpu.rag.index``).
 
-Corpus vectors live on the device as per-row int8 codes + float32 scales,
-padded to a multiple of ``block_size`` rows. Search is the int8 scan
-(``ops.scan`` through the CUDA kernel on the card) followed by an fp32
-rescore of the top ``rescore_k`` candidates. Persistence uses the JAX
-package's on-disk format (``index_meta.json`` + ``index_arrays.npz``), so an
-index either package saved loads in the other.
+The corpus lives on the device, padded to a multiple of ``block_size`` rows,
+in one of four formats:
 
-Only the ``int8`` format is ported; ``fp32``, ``bf16`` and ``pq`` raise.
+- ``fp32`` / ``bf16`` — exact cosine scan (``ops.scan.scan_topk``, the CUDA
+  float scan, on the card above ``4·block_size`` rows);
+- ``int8`` — per-row scalar quantization, int8 scan + fp32 rescore;
+- ``pq`` — residual (default) or plain product quantization, an ADC scan
+  for candidates (``scan_topk_residual_pq_adc`` / ``scan_topk_pq_adc`` on
+  the card) and the ``pq_rescore`` mode's rescore: ``int8`` (an int8 mirror
+  on the device), ``host`` (the mirror in host RAM, optionally a memmap
+  under ``pq_host_mmap``) or ``none`` (the ADC ranking).
+
+Off the card, or below the threshold, search takes the route ``crs_tpu``
+takes off the TPU (``exact_topk`` / ``blockwise_topk`` / the XLA-style ADC),
+so the two packages agree on one state. Persistence uses the JAX package's
+on-disk format (``index_meta.json`` + ``index_arrays.npz``), so an index
+either package saved loads in the other.
+
+Not ported: ``pq_sorted`` (the sorted residual-ADC kernel) and ``add``;
+both raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,21 +27,27 @@ from __future__ import annotations
 import json
 import logging
 import os
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.pq import (
+    PQCodebook, ResidualPQ, _pq_reconstruct, aniso_eta_from_threshold, pq_adc_topk, pq_encode,
+    residual_codes_ext, residual_pq_adc_topk, residual_pq_encode, train_pq, train_residual_pq,
+)
 from ..ops.quant import int8_topk, scalar_quantize
-from ..ops.scan import scan_topk_int8
-from ..ops.topk import NEG_INF, topk_stable
+from ..ops.scan import scan_topk, scan_topk_int8, scan_topk_pq_adc, scan_topk_residual_pq_adc
+from ..ops.topk import NEG_INF, blockwise_topk, exact_topk, topk_stable
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["VectorStore", "INDEX_FORMATS"]
 
 INDEX_FORMATS = ("fp32", "bf16", "int8", "pq")
+_FLOAT_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 def _pad_rows(arr: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -51,15 +69,18 @@ def _as_f32(x: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
 def _check_format(fmt: str) -> None:
     if fmt not in INDEX_FORMATS:
         raise ValueError(f"unknown index format: {fmt}")
-    if fmt != "int8":
-        raise NotImplementedError(
-            f"the {fmt!r} index format is not ported to crs_tpu_torch yet "
-            "(ROADMAP: modules to port, rag/index.py); use format='int8'"
-        )
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class VectorStore:
-    """Stateful shell around the on-device int8 index + host metadata."""
+    """Stateful shell around the on-device index arrays + host metadata."""
+
+    _MMAP_CODES = "mirror_codes.i8"
+    _MMAP_SCALES = "mirror_scales.f32"
 
     def __init__(self, config: Optional[Dict[str, Any]] = None,
                  device: Optional[Union[str, torch.device]] = None):
@@ -70,6 +91,24 @@ class VectorStore:
         self.block_size = int(config.get("block_size", 4096))
         self.persist_directory = config.get("persist_directory")
         self.rescore_k = int(config.get("rescore_k", 64))
+        self.pq_residual = bool(config.get("pq_residual", True))
+        self.pq_subspaces = int(config.get("pq_subspaces", 12 if self.pq_residual else 48))
+        self.pq_clusters = int(config.get("pq_clusters", 256))
+        self.pq_iters = int(config.get("pq_iters", 25))
+        self.pq_coarse_clusters = config.get("pq_coarse_clusters", "auto")
+        self.pq_opq_iters = int(config.get("pq_opq_iters", 4))
+        self.pq_aniso_eta = config.get("pq_aniso_eta", 0.0)
+        self.pq_rescore = str(config.get("pq_rescore", "int8"))
+        if self.pq_rescore not in ("int8", "host", "none"):
+            raise ValueError(f"unknown pq_rescore mode: {self.pq_rescore}")
+        self.pq_host_mmap = config.get("pq_host_mmap") or None
+        if config.get("pq_sorted", False):
+            raise NotImplementedError(
+                "pq_sorted (the sorted residual-ADC scan, crs_tpu's "
+                "pallas_topk_residual_pq_adc_sorted — kernel 4 of the TPU kernel table) "
+                "is not ported to crs_tpu_torch yet (ROADMAP: TPU kernels still to port)")
+        self.seed = int(config.get("seed", 0))
+        self.build_seconds: Dict[str, float] = {}
         self._clear()
         if self.persist_directory and os.path.exists(
             os.path.join(self.persist_directory, "index_meta.json")
@@ -82,9 +121,43 @@ class VectorStore:
         self.ids: List[str] = []
         self.documents: List[str] = []
         self.metadatas: List[Dict[str, Any]] = []
-        self._codes: Optional[torch.Tensor] = None  # [padded, D] int8
+        self._vectors: Optional[torch.Tensor] = None  # fp32/bf16 formats
+        self._codes: Optional[torch.Tensor] = None  # [padded, D] int8 (int8 / pq mirror)
         self._scales: Optional[torch.Tensor] = None  # [padded] f32
+        self._pq_codebook: Optional[PQCodebook] = None
+        self._pq_codes: Optional[torch.Tensor] = None  # [padded, M] uint8
+        self._rpq: Optional[ResidualPQ] = None
+        self._pq_coarse_ids: Optional[torch.Tensor] = None  # [padded] int32
+        self._pq_codes_ext: Optional[torch.Tensor] = None  # scan layout cache
+        self._codes_host: Optional[np.ndarray] = None  # pq_rescore="host" mirror
+        self._scales_host: Optional[np.ndarray] = None
         self._md_cols: Dict[str, Tuple[np.ndarray, np.ndarray, int]] = {}
+
+    # -- host rescore mirror (RAM or disk-backed) ---------------------------
+    def _mirror_set(self, codes: np.ndarray, scales: np.ndarray) -> None:
+        """Install the pq_rescore="host" mirror: RAM, or raw np.memmap files
+        under ``pq_host_mmap``."""
+        rows, cols = codes.shape
+        if self.pq_host_mmap:
+            os.makedirs(self.pq_host_mmap, exist_ok=True)
+            c = np.memmap(os.path.join(self.pq_host_mmap, self._MMAP_CODES), np.int8,
+                          mode="w+", shape=(rows, cols))
+            s = np.memmap(os.path.join(self.pq_host_mmap, self._MMAP_SCALES), np.float32,
+                          mode="w+", shape=(rows,))
+        else:
+            c, s = np.zeros((rows, cols), np.int8), np.zeros((rows,), np.float32)
+        c[:] = codes
+        s[:] = scales
+        self._codes_host, self._scales_host = c, s
+
+    def _aniso_eta(self) -> Optional[float]:
+        """pq_aniso_eta config → η for ops/pq.py (None = isotropic)."""
+        e = self.pq_aniso_eta
+        if e == "auto":
+            e = aniso_eta_from_threshold(0.2, max(self.dim, 2))
+        else:
+            e = float(e)
+        return e if e > 1.0 else None
 
     # -- build -------------------------------------------------------------
     def create_index(
@@ -111,16 +184,77 @@ class VectorStore:
                 self.ids.append(ids[i] if ids else f"chunk_{i}")
                 self.documents.append(str(c))
                 self.metadatas.append({})
-        padded = _pad_rows(emb.to(self.device), self.block_size)
-        self._codes, self._scales = scalar_quantize(padded)
+        self._build_device_arrays(_pad_rows(emb.to(self.device), self.block_size))
         logger.info("Indexed %d vectors (dim=%d, format=%s)", self.n, self.dim, self.format)
         if self.persist_directory:
             self.save(self.persist_directory)
 
+    def _build_device_arrays(self, padded: torch.Tensor) -> None:
+        """``crs_tpu``'s single-device ``_build_device_arrays``; PQ training
+        takes a ``torch.Generator`` seeded with ``seed`` and its seconds go
+        to ``build_seconds["pq_train"]``."""
+        self.build_seconds = {}
+        if self.format in _FLOAT_DTYPES:
+            self._vectors = padded.to(_FLOAT_DTYPES[self.format])
+            return
+        if self.format == "int8":
+            self._codes, self._scales = scalar_quantize(padded)
+            return
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed)
+        valid = padded[: self.n] if self.n > 0 else padded
+        m = min(self.pq_subspaces, self.dim)  # largest count ≤ configured dividing the dim
+        while self.dim % m != 0:
+            m -= 1
+        eta = self._aniso_eta()
+        t0 = time.perf_counter()
+        if self.pq_residual:
+            coarse = self.pq_coarse_clusters
+            if coarse == "auto":
+                coarse = min(2048, max(16, self.n // 8))
+            self._rpq = train_residual_pq(gen, valid, m, self.pq_clusters, int(coarse),
+                                          self.pq_iters, self.pq_opq_iters, aniso_eta=eta)
+            _sync(self.device)
+            self.build_seconds["pq_train"] = time.perf_counter() - t0
+            self._pq_coarse_ids, self._pq_codes = residual_pq_encode(self._rpq, padded, eta)
+            self._pq_codebook = self._rpq.codebook
+        else:
+            dirs = all_dirs = None
+            if eta is not None:
+                dirs = valid / torch.clamp_min(
+                    torch.linalg.vector_norm(valid, dim=1, keepdim=True), 1e-12)
+                all_dirs = padded / torch.clamp_min(
+                    torch.linalg.vector_norm(padded, dim=1, keepdim=True), 1e-12)
+            self._pq_codebook = train_pq(gen, valid, m, self.pq_clusters, self.pq_iters,
+                                         dirs=dirs, aniso_eta=eta)
+            _sync(self.device)
+            self.build_seconds["pq_train"] = time.perf_counter() - t0
+            self._pq_codes = pq_encode(self._pq_codebook, padded, all_dirs, eta)
+        if self.pq_rescore == "int8":
+            self._codes, self._scales = scalar_quantize(padded)
+        elif self.pq_rescore == "host":  # numpy, as crs_tpu builds it (a true division)
+            arr = padded.cpu().numpy()
+            s_np = np.maximum(np.max(np.abs(arr), axis=-1), 1e-12) / 127.0
+            self._mirror_set(np.clip(np.round(arr / s_np[:, None]), -127, 127).astype(np.int8),
+                             s_np.astype(np.float32))
+
     def _padded_rows(self) -> int:
-        return 0 if self._codes is None else self._codes.shape[0]
+        for arr in (self._vectors, self._codes, self._pq_codes):
+            if arr is not None:
+                return arr.shape[0]
+        return 0
+
+    def add(self, chunks: Sequence[Any], embeddings: Any) -> None:
+        raise NotImplementedError(
+            "VectorStore.add / _grow are not ported to crs_tpu_torch yet "
+            "(ROADMAP: modules to port, rag/index.py); rebuild with create_index")
 
     # -- query -------------------------------------------------------------
+    def _scan_here(self, rows: int) -> bool:
+        """The kernel route: on the card and at ≥ 4·block_size rows (the
+        size at which ``crs_tpu`` takes its Pallas kernels on a TPU)."""
+        return self.device.type == "cuda" and rows >= 4 * self.block_size
+
     def search_batch(
         self,
         query_embeddings: Union[np.ndarray, torch.Tensor],  # [B, D]
@@ -136,22 +270,98 @@ class VectorStore:
         k = min(top_k, self.n)
         if where:
             return self._masked_search(q, k, where)
+        if self.format == "pq" and self.pq_rescore == "host":
+            cand_k = min(max(self.rescore_k, k), self.n)
+            adc_s, cand = self.search_batch_dev(q, cand_k)
+            return self._host_rescore(q, adc_s, cand, k)
         return self.search_batch_dev(q, k)
 
     def search_batch_dev(self, q: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Device-level batched search, no host sync."""
+        """Device-level batched search, no host sync. For pq with the
+        host/none rescore modes the result is the ADC ranking."""
         k = min(top_k, self.n)
-        if self.device.type == "cuda" and self._codes.shape[0] >= 4 * self.block_size:
+        if self.format in _FLOAT_DTYPES:
+            if self._scan_here(self._vectors.shape[0]):
+                return scan_topk(self._vectors, q, k, self.n, self.block_size)
+            if self._vectors.shape[0] > 65536:
+                return blockwise_topk(self._vectors, q, k, self.n)
+            return exact_topk(self._vectors, q, k, self.n)
+        if self.format == "int8":
+            if self._scan_here(self._codes.shape[0]):
+                cand_k = min(max(self.rescore_k, k), self.n)
+                _, cand = scan_topk_int8(self._codes, self._scales, q, cand_k, self.n)
+                return _rescore(self._codes, self._scales, q, cand, k, self.n)
+            return int8_topk(self._codes, self._scales, q, k, self.n,
+                             rescore_k=max(self.rescore_k, k))
+        if self.pq_rescore == "int8":
             cand_k = min(max(self.rescore_k, k), self.n)
-            _, cand = scan_topk_int8(self._codes, self._scales, q, cand_k, self.n)
+            _, cand = self._pq_adc_candidates(q, cand_k)
             return _rescore(self._codes, self._scales, q, cand, k, self.n)
-        return int8_topk(self._codes, self._scales, q, k, self.n,
-                         rescore_k=max(self.rescore_k, k))
+        return self._pq_adc_candidates(q, k)
+
+    def _pq_adc_candidates(self, q: torch.Tensor, cand_k: int,
+                           row_mask: Optional[torch.Tensor] = None):
+        """ADC scan over the compressed codes → (scores, ids) of the top
+        ``cand_k`` rows, through the ADC kernels on the route of
+        :meth:`_scan_here` (residual: also C % 256 == 0 and C ≤ 65536)."""
+        rows = self._pq_codes.shape[0]
+        if self._rpq is not None:
+            num_coarse = self._rpq.coarse.shape[0]
+            if self._scan_here(rows) and num_coarse % 256 == 0 and num_coarse <= 65536:
+                return scan_topk_residual_pq_adc(
+                    self._rpq.rotation, self._rpq.coarse, self._rpq.codebook.centroids,
+                    self._residual_ext(), q, cand_k, self.n, self.block_size, row_mask=row_mask)
+            return residual_pq_adc_topk(self._rpq, self._pq_coarse_ids, self._pq_codes, q,
+                                        cand_k, self.n, row_mask=row_mask)
+        if self._scan_here(rows):
+            return scan_topk_pq_adc(self._pq_codebook.centroids, self._pq_codes, q, cand_k,
+                                    self.n, self.block_size, row_mask=row_mask)
+        return pq_adc_topk(self._pq_codebook, self._pq_codes, q, cand_k, self.n,
+                           row_mask=row_mask)
+
+    def _residual_ext(self) -> torch.Tensor:
+        """Cached [padded, M+2] uint8 rows of the residual ADC scan (coarse
+        id hi/lo bytes + residual codes); cleared by every rebuild/load."""
+        if self._pq_codes_ext is None:
+            self._pq_codes_ext = residual_codes_ext(self._pq_coarse_ids, self._pq_codes)
+        return self._pq_codes_ext
+
+    def _host_rescore(self, q: torch.Tensor, adc_s, cand, top_k: int):
+        """pq_rescore="host": rescore the ADC candidates against the host
+        int8 mirror (numpy, as ``crs_tpu`` does it); masked/padded candidates
+        keep their -1e30 ADC score. Returns tensors on the store's device."""
+        cand = cand.cpu().numpy()
+        adc_s = adc_s.cpu().numpy()
+        q_np = q.cpu().numpy().astype(np.float32)
+        rows = np.clip(cand, 0, max(self.n - 1, 0))
+        vecs = self._codes_host[rows].astype(np.float32) * self._scales_host[rows][..., None]
+        exact = np.einsum("bd,bcd->bc", q_np, vecs)
+        exact = np.where(adc_s <= -1e29, -1e30, exact)
+        k_eff = min(top_k, exact.shape[1])
+        sel = np.argpartition(-exact, k_eff - 1, axis=1)[:, :k_eff]
+        part = np.take_along_axis(exact, sel, axis=1)
+        sel = np.take_along_axis(sel, np.argsort(-part, axis=1), axis=1)
+        s = np.take_along_axis(exact, sel, axis=1).astype(np.float32)
+        i = np.take_along_axis(cand, sel, axis=1).astype(np.int64)
+        return torch.from_numpy(s).to(self.device), torch.from_numpy(i).to(self.device)
 
     def gather_vectors_dev(self, rows: torch.Tensor) -> torch.Tensor:
-        """Device-level dense-row gather (for MMR), no host sync."""
+        """Device-level dense-row gather (for MMR and PRF), no host sync."""
         rows = torch.clamp_min(rows, 0)
-        return self._codes[rows].float() * self._scales[rows][..., None]
+        if self._vectors is not None:
+            return self._vectors[rows].float()
+        if self._codes is not None:
+            return self._codes[rows].float() * self._scales[rows][..., None]
+        return self._pq_reconstruct_rows(rows)
+
+    def _pq_reconstruct_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """PQ codes of ``rows`` decoded back to f32 (the stand-in for the
+        dense gather when the pq store keeps no device mirror)."""
+        rec = _pq_reconstruct(self._pq_codebook, self._pq_codes[rows])
+        if self._rpq is not None:  # rotated space: add coarse, rotate back
+            rec = rec + self._rpq.coarse[self._pq_coarse_ids[rows].long()]
+            rec = rec @ self._rpq.rotation.T
+        return rec
 
     def _md_column(self, key: str) -> Tuple[np.ndarray, np.ndarray]:
         """Typed per-key metadata column + missing mask, cached per key."""
@@ -193,12 +403,21 @@ class VectorStore:
         return mask, int(allowed.sum())
 
     def _masked_search(self, q: torch.Tensor, k: int, where: Dict[str, Any]):
-        """Metadata-filtered search; the mask applies to the scan's scores,
-        the int8 codes are never densified."""
+        """Metadata-filtered search in the index's own format (codes are
+        never densified): the mask reaches the scan as its row mask — in the
+        kernels, their bias row."""
         mask_np, n_allowed = self._row_mask(where)
         k_eff = min(k, max(n_allowed, 1))
         mask = torch.from_numpy(mask_np).to(self.device)
         cand_k = min(max(self.rescore_k, k_eff), self.n)
+        if self.format in _FLOAT_DTYPES:
+            return exact_topk(self._vectors, q, k_eff, self.n, row_mask=mask)
+        if self.format == "pq" and self.pq_rescore != "int8":
+            pq_host = self.pq_rescore == "host"
+            adc_s, cand = self._pq_adc_candidates(q, cand_k if pq_host else k_eff, row_mask=mask)
+            if pq_host:
+                return self._host_rescore(q, adc_s, cand, k_eff)
+            return adc_s, cand
         return int8_topk(self._codes, self._scales, q, k_eff, self.n,
                          rescore_k=cand_k, row_mask=mask)
 
@@ -249,24 +468,55 @@ class VectorStore:
             "distances": out_dist,
         }
 
+    def memory_bytes(self) -> int:
+        """Device bytes of the index: vectors or codes, scales, PQ codes and
+        coarse ids, codebooks, rotation and coarse centroids."""
+        arrays = [self._vectors, self._codes, self._scales, self._pq_codes, self._pq_coarse_ids]
+        if self._pq_codebook is not None:
+            arrays.append(self._pq_codebook.centroids)
+        if self._rpq is not None:
+            arrays += [self._rpq.rotation, self._rpq.coarse]
+        return sum(a.numel() * a.element_size() for a in arrays if a is not None)
+
     # -- persistence (the JAX package's format) ------------------------------
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)
-        np.savez_compressed(
-            os.path.join(directory, "index_arrays.npz"),
-            codes=self._codes.cpu().numpy(), scales=self._scales.cpu().numpy(),
-        )
+        arrays: Dict[str, np.ndarray] = {}
+        for name in ("_vectors", "_codes", "_scales", "_pq_codes", "_pq_coarse_ids"):
+            arr = getattr(self, name)
+            if arr is not None:
+                arrays[name.lstrip("_")] = (arr.float() if arr.dtype == torch.bfloat16
+                                            else arr).cpu().numpy()
+        if self._pq_codebook is not None:
+            arrays["pq_centroids"] = self._pq_codebook.centroids.cpu().numpy()
+        if self._rpq is not None:
+            arrays["pq_rotation"] = self._rpq.rotation.cpu().numpy()
+            arrays["pq_coarse"] = self._rpq.coarse.cpu().numpy()
+        mmap_meta = None
+        if self._codes_host is not None:
+            if self.pq_host_mmap:
+                self._codes_host.flush()
+                self._scales_host.flush()
+                mmap_meta = {"dir": os.path.abspath(self.pq_host_mmap),
+                             "rows": int(self._codes_host.shape[0]),
+                             "cols": int(self._codes_host.shape[1])}
+            else:
+                arrays["codes_host"] = self._codes_host
+                arrays["scales_host"] = self._scales_host
+        np.savez_compressed(os.path.join(directory, "index_arrays.npz"), **arrays)
         meta = {
             "n": self.n,
             "dim": self.dim,
             "format": self.format,
-            "pq_rescore": "int8",
-            "pq_aniso_eta": 0.0,
+            "pq_rescore": self.pq_rescore,
+            "pq_aniso_eta": self.pq_aniso_eta,
             "block_size": self.block_size,
             "ids": self.ids,
             "documents": self.documents,
             "metadatas": self.metadatas,
         }
+        if mmap_meta:
+            meta["host_mirror_mmap"] = mmap_meta
         with open(os.path.join(directory, "index_meta.json"), "w") as f:
             json.dump(meta, f)
         logger.info("Saved index (%d vectors) to %s", self.n, directory)
@@ -275,19 +525,47 @@ class VectorStore:
         with open(os.path.join(directory, "index_meta.json")) as f:
             meta = json.load(f)
         _check_format(meta["format"])
+        dev = self.device
+
+        def tensor(a: np.ndarray, dtype=None) -> torch.Tensor:
+            t = torch.from_numpy(np.array(a))  # a writable copy
+            return (t if dtype is None else t.to(dtype)).to(dev)
+
         with np.load(os.path.join(directory, "index_arrays.npz")) as arrays:
-            codes = arrays["codes"].astype(np.int8)
-            scales = arrays["scales"].astype(np.float32)
-        self._clear()
-        self.n = meta["n"]
-        self.dim = meta["dim"]
-        self.format = meta["format"]
-        self.block_size = meta.get("block_size", self.block_size)
-        self.ids = meta["ids"]
-        self.documents = meta["documents"]
-        self.metadatas = meta["metadatas"]
-        self._codes = torch.from_numpy(codes).to(self.device)
-        self._scales = torch.from_numpy(scales).to(self.device)
+            self._clear()
+            self.n = meta["n"]
+            self.dim = meta["dim"]
+            self.format = meta["format"]
+            self.pq_rescore = meta.get("pq_rescore", self.pq_rescore)
+            self.pq_aniso_eta = meta.get("pq_aniso_eta", self.pq_aniso_eta)
+            self.block_size = meta.get("block_size", self.block_size)
+            self.ids = meta["ids"]
+            self.documents = meta["documents"]
+            self.metadatas = meta["metadatas"]
+            if "codes_host" in arrays:
+                self._codes_host = arrays["codes_host"].astype(np.int8)
+                self._scales_host = arrays["scales_host"].astype(np.float32)
+            elif meta.get("host_mirror_mmap"):
+                mm = meta["host_mirror_mmap"]
+                self.pq_host_mmap = mm["dir"]
+                self._codes_host = np.memmap(os.path.join(mm["dir"], self._MMAP_CODES), np.int8,
+                                             mode="r+", shape=(mm["rows"], mm["cols"]))
+                self._scales_host = np.memmap(os.path.join(mm["dir"], self._MMAP_SCALES),
+                                              np.float32, mode="r+", shape=(mm["rows"],))
+            if "vectors" in arrays:
+                self._vectors = tensor(arrays["vectors"], _FLOAT_DTYPES.get(self.format,
+                                                                             torch.float32))
+            if "codes" in arrays:
+                self._codes = tensor(arrays["codes"], torch.int8)
+                self._scales = tensor(arrays["scales"], torch.float32)
+            if "pq_codes" in arrays:
+                self._pq_codes = tensor(arrays["pq_codes"])  # stored dtype (uint8)
+                self._pq_codebook = PQCodebook(tensor(arrays["pq_centroids"], torch.float32))
+            if "pq_rotation" in arrays:
+                self._rpq = ResidualPQ(rotation=tensor(arrays["pq_rotation"], torch.float32),
+                                       coarse=tensor(arrays["pq_coarse"], torch.float32),
+                                       codebook=self._pq_codebook)
+                self._pq_coarse_ids = tensor(arrays["pq_coarse_ids"], torch.int32)
         logger.info("Loaded index (%d vectors, %s) from %s", self.n, self.format, directory)
 
 

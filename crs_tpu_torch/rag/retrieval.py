@@ -1,13 +1,13 @@
 """Context retrieval: threshold filtering, hybrid rerank, MMR diversity
-(port of ``crs_tpu.rag.retrieval``, int8 store).
+(port of ``crs_tpu.rag.retrieval``, every store format).
 
-- ``retrieve_batch``: scan → candidate gather on the device, then the host
-  token-overlap rerank (0.7·semantic + 0.3·overlap) and a batched MMR;
-- ``retrieve_batch_fused``: the serving path — scan → hashed-presence rerank
-  → threshold → MMR all on the device, one host sync per batch.
-
-Pseudo-relevance feedback (``prf_beta > 0``) and the pq format are not
-ported yet and raise.
+- ``retrieve_batch``: (optional pseudo-relevance feedback) → scan →
+  candidate gather on the device, then the host token-overlap rerank
+  (0.7·semantic + 0.3·overlap) and a batched MMR;
+- ``retrieve_batch_fused``: scan → hashed-presence rerank → threshold →
+  MMR all on the device, one host sync per batch. Its fp32/bf16 and pq
+  branches take ``exact_topk`` and the f32 ``residual_pq_adc_topk``, as
+  ``crs_tpu``'s do: they reach no scan kernel.
 """
 
 from __future__ import annotations
@@ -20,8 +20,9 @@ import numpy as np
 import torch
 
 from ..ops.mmr import mmr_select_batch
+from ..ops.pq import residual_pq_adc_topk
 from ..ops.quant import int8_topk
-from ..ops.topk import NEG_INF
+from ..ops.topk import NEG_INF, exact_topk, topk_stable
 from .embedding import EmbeddingModel
 from .hashed_features import _fnv1a
 from .index import VectorStore
@@ -56,12 +57,9 @@ class ContextRetriever:
         self.diversity_penalty = float(config.get("diversity_penalty", 0.1))
         self.rerank_semantic_weight = float(config.get("rerank_semantic_weight", 0.7))
         self.rerank_fetch_mult = int(config.get("rerank_fetch_mult", 2))
+        # pseudo-relevance feedback: q' = normalize(q + β·centroid(top prf_k))
         self.prf_beta = float(config.get("prf_beta", 0.0))
-        if self.prf_beta > 0:
-            raise NotImplementedError(
-                "pseudo-relevance feedback (prf_beta > 0) is not ported to crs_tpu_torch yet "
-                "(ROADMAP: modules to port, rag/retrieval.py)"
-            )
+        self.prf_k = int(config.get("prf_k", 3))
         self._doc_tokens: Optional[List[set]] = None
         self._doc_tokens_n = -1
         self._doc_token_ids: Optional[torch.Tensor] = None
@@ -82,6 +80,8 @@ class ContextRetriever:
             self.rerank_fetch_mult * k if (self.rerank or use_mmr) else k, self.store.n
         )
         q_emb = self.embedder.embed(list(queries)).to(self.store.device)
+        if self.prf_beta > 0:
+            q_emb = self._prf_requery(q_emb, where)
         if where:
             s_dev, r_dev = self.store._masked_search(q_emb, fetch_k, where)
         else:
@@ -123,6 +123,18 @@ class ContextRetriever:
                 out.append(self._hit(r, s, rank_s))
             results.append(out)
         return results
+
+    def _prf_requery(self, q_emb: torch.Tensor, where) -> torch.Tensor:
+        """Rocchio PRF: blend the centroid of the top-``prf_k`` rows into the
+        query embedding (one extra scan + gather, on the device)."""
+        k0 = min(max(self.prf_k, 1), max(self.store.n, 1))
+        if where:
+            _, r0 = self.store._masked_search(q_emb, k0, where)
+        else:
+            _, r0 = self.store.search_batch_dev(q_emb, k0)
+        cent = self.store.gather_vectors_dev(r0).mean(dim=1)  # [B, D]
+        q2 = q_emb + self.prf_beta * cent
+        return q2 / torch.clamp_min(torch.linalg.vector_norm(q2, dim=-1, keepdim=True), 1e-12)
 
     def _hit(self, r, s, rank_s) -> Dict[str, Any]:
         return {
@@ -183,6 +195,11 @@ class ContextRetriever:
         if self.store.n == 0 or not queries:
             return [[] for _ in queries]
         store = self.store
+        if store.format == "pq" and store._rpq is None:
+            return self.retrieve_batch(queries, top_k, where=where)  # as crs_tpu: unfused
+        if store.format == "pq" and store._codes is None:
+            raise ValueError("the fused path rescores pq candidates against the device int8 "
+                             "mirror: it needs pq_rescore='int8'")
         dev = store.device
         self._ensure_presence()
         fetch_k = min(
@@ -197,8 +214,17 @@ class ContextRetriever:
             row_mask = torch.from_numpy(mask_np).to(dev)
         else:
             row_mask = torch.ones((store._padded_rows(),), dtype=torch.bool, device=dev)
+        pq_args = None
+        if store.format == "pq":
+            # residual-ADC candidates + int8 rescore inside the fused path
+            args = (store._codes, store._scales)
+            pq_args = (store._rpq, store._pq_coarse_ids, store._pq_codes)
+        elif store.format == "int8":
+            args = (store._codes, store._scales)
+        else:
+            args = (store._vectors.float(), None)
         out = _fused_retrieve(
-            store._codes, store._scales, self._doc_token_ids, row_mask,
+            args[0], args[1], self._doc_token_ids, row_mask, pq_args,
             q_emb, q_tok, q_inv, store.n,
             k=k, fetch_k=fetch_k,
             w=self.rerank_semantic_weight if self.rerank else 1.0,
@@ -233,15 +259,32 @@ class ContextRetriever:
         return out
 
 
-def _fused_retrieve(codes, scales, doc_token_ids, row_mask, q_emb, q_tok, q_inv, valid_n,
-                    *, k: int, fetch_k: int, w: float, threshold: float, lam: float,
-                    use_mmr: bool, rescore_k: int):
-    """The post-embedding retrieval on the device: int8 scan (with the
-    metadata row mask) + rescore → candidate gather → hashed-presence rerank
-    → threshold → MMR → final top-k."""
-    sim, rows = int8_topk(codes, scales, q_emb, fetch_k, valid_n,
-                          rescore_k=rescore_k, row_mask=row_mask)
-    cand = codes[rows].float() * scales[rows][..., None]
+def _fused_retrieve(vec_or_codes, scales, doc_token_ids, row_mask, pq_args, q_emb, q_tok,
+                    q_inv, valid_n, *, k: int, fetch_k: int, w: float, threshold: float,
+                    lam: float, use_mmr: bool, rescore_k: int):
+    """The post-embedding retrieval on the device: the format's scan (with
+    the metadata row mask) → candidate gather → hashed-presence rerank →
+    threshold → MMR → final top-k. ``pq_args`` = (rpq, coarse ids, codes)
+    switches the scan to residual-ADC candidates + int8 rescore; ``scales``
+    None means float vectors (exact top-k)."""
+    if pq_args is not None:
+        rpq, coarse_ids, pq_codes = pq_args
+        _, cand_rows = residual_pq_adc_topk(rpq, coarse_ids, pq_codes, q_emb,
+                                            max(rescore_k, fetch_k), valid_n, row_mask=row_mask)
+        cand_vecs = vec_or_codes[cand_rows].float() * scales[cand_rows][..., None]
+        exact = torch.bmm(cand_vecs, q_emb.float()[:, :, None])[..., 0]
+        # filtered rows may sit among the candidates when few rows pass
+        exact = torch.where((cand_rows < valid_n) & row_mask[cand_rows], exact, NEG_INF)
+        sim, sel = topk_stable(exact, min(fetch_k, exact.shape[1]))
+        rows = torch.gather(cand_rows, 1, sel)
+        cand = torch.gather(cand_vecs, 1, sel[:, :, None].expand(-1, -1, cand_vecs.shape[2]))
+    elif scales is None:
+        sim, rows = exact_topk(vec_or_codes, q_emb, fetch_k, valid_n, row_mask=row_mask)
+        cand = vec_or_codes[rows].float()
+    else:
+        sim, rows = int8_topk(vec_or_codes, scales, q_emb, fetch_k, valid_n,
+                              rescore_k=rescore_k, row_mask=row_mask)
+        cand = vec_or_codes[rows].float() * scales[rows][..., None]
 
     # overlap(q, d) = |tokens(d) ∩ tokens(q)| / |q|: exact equality count of
     # candidate token ids [B, F, T] against the query's padded ids [B, Q]

@@ -52,17 +52,24 @@ def _entry_points():
         "EmbeddingModel": lambda dev: EmbeddingModel({"backend": "hashed", "embedding_dim": 16}, device=dev),
         "HashedEncoder": lambda dev: HashedEncoder(dim=16, num_features=64, device=dev),
         "VectorStore": lambda dev: VectorStore({"format": "int8"}, device=dev),
+        "VectorStore_fp32": lambda dev: VectorStore({"format": "fp32"}, device=dev),
+        "VectorStore_bf16": lambda dev: VectorStore({"format": "bf16"}, device=dev),
+        "VectorStore_pq": lambda dev: VectorStore({"format": "pq"}, device=dev),
     }
 
 
-@pytest.mark.parametrize("name", ["resolve_device", "EmbeddingModel", "HashedEncoder", "VectorStore"])
+ENTRY_POINTS = ["resolve_device", "EmbeddingModel", "HashedEncoder", "VectorStore",
+                "VectorStore_fp32", "VectorStore_bf16", "VectorStore_pq"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_cuda_request_raises_without_cuda(no_cuda, name, device):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name](device)
 
 
-@pytest.mark.parametrize("name", ["resolve_device", "EmbeddingModel", "HashedEncoder", "VectorStore"])
+@pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_explicit_cpu_runs(no_cuda, name):
     assert _entry_points()[name]("cpu") is not None
 
@@ -76,17 +83,18 @@ def test_unported_options_raise():
     for backend in ("lexical", "minilm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EmbeddingModel({"backend": backend}, device="cpu")
-    for fmt in ("fp32", "bf16", "pq"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VectorStore({"format": fmt}, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        VectorStore({"format": "pq", "pq_sorted": True}, device="cpu")
     with pytest.raises(ValueError):
         VectorStore({"format": "int4"}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DocumentProcessor().process_file("paper.pdf")
-    store = VectorStore({"format": "int8"}, device="cpu")
+    for fmt in ("fp32", "bf16", "int8", "pq"):  # every format is ported; add is not
+        store = VectorStore({"format": fmt}, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            store.add(["a"], [[0.0] * 16])
     em = EmbeddingModel({"backend": "hashed", "embedding_dim": 16}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContextRetriever(store, em, {"prf_beta": 0.5})
+    assert ContextRetriever(store, em, {"prf_beta": 0.5}).prf_beta == 0.5  # PRF is ported
 
 
 class _FakeLib:
@@ -173,3 +181,136 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fake_card, monkeypatch, b
         codes = torch.empty((64, 512), dtype=torch.int8, device="meta").T
     with pytest.raises(ValueError):
         fake_card.block_topk_int8(q, codes, rs, bias, kb, **kwargs)
+
+
+# -- the float and ADC kernels' wrappers ----------------------------------------
+
+class _FakeKernels:
+    """Stands in for a loaded kernel library: records each launcher's calls."""
+
+    def __init__(self, err):
+        self.err, self.calls = err, []
+
+    def __getattr__(self, name):
+        if not name.endswith("_launch"):
+            raise AttributeError(name)
+
+        def launch(*args):
+            self.calls.append((name, args))
+            return self.err
+
+        return launch
+
+
+def _float_operands(dtype=torch.float32, kb=2, d=64, rows=1024, queries=64):
+    return (torch.empty((queries, d), dtype=dtype, device="meta"),
+            torch.empty((rows, d), dtype=dtype, device="meta"),
+            torch.empty((rows,), dtype=torch.float32, device="meta"), kb, 512)
+
+
+def _adc_operands(residual=True, kb=2, m=8, rows=1024, queries=8, c=512):
+    lut = torch.empty((queries, m, 256), dtype=torch.bfloat16, device="meta")
+    codes = torch.empty((rows, m + (2 if residual else 0)), dtype=torch.uint8, device="meta")
+    bias = torch.empty((rows,), dtype=torch.float32, device="meta")
+    coarse = (torch.empty((queries, c), dtype=torch.bfloat16, device="meta"),) * 2
+    return (lut, codes, bias, kb, 512) + (coarse if residual else ())
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    """Non-CPU tensors reach the kernels; the plain versions must not run."""
+    from crs_tpu_torch.ops import scan
+
+    def plain_must_not_run(*args, **kwargs):
+        raise AssertionError("the wrapper fell back to the plain version")
+
+    for name in ("block_topk_float_plain", "block_topk_adc_plain"):
+        monkeypatch.setattr(scan, name, plain_must_not_run)
+    monkeypatch.setattr(scan, "_stream_handle", lambda device: 0)
+    monkeypatch.setattr(scan, "_adc_grid_x", lambda nblocks, nq, dev: 4)
+    return scan
+
+
+def _call(scan, which, **kw):
+    if which.startswith("float"):
+        dtype = torch.float32 if which == "float_f32" else torch.bfloat16
+        return scan.block_topk_float(*_float_operands(dtype=dtype, **kw))
+    return scan.block_topk_adc(*_adc_operands(residual=which == "adc_residual", **kw))
+
+
+KERNEL_CALLS = {"float_f32": "scan_topk_f32", "float_bf16": "scan_topk_bf16",
+                "adc_residual": "adc_scan_topk_residual", "adc_plain": "adc_scan_topk_plain"}
+
+
+@pytest.mark.parametrize("which", sorted(KERNEL_CALLS))
+@pytest.mark.parametrize("err", [1, 700])
+def test_new_wrappers_raise_when_launch_fails(fake_kernels, monkeypatch, which, err):
+    lib = _FakeKernels(err)
+    monkeypatch.setattr(fake_kernels, "_load_kernel_lib", lambda source: lib)
+    before = dict(fake_kernels.STATS.by_kernel)
+    with pytest.raises(RuntimeError, match=f"CUDA error {err}"):
+        _call(fake_kernels, which)
+    assert [c[0] for c in lib.calls] == [KERNEL_CALLS[which] + "_launch"]
+    assert fake_kernels.STATS.by_kernel == before  # a failed launch is not counted
+
+
+@pytest.mark.parametrize("which", sorted(KERNEL_CALLS))
+def test_new_wrappers_raise_without_a_card(fake_kernels, monkeypatch, which):
+    """A CUDA request on a machine without nvcc or a card raises; no fallback."""
+    def no_nvcc(source):
+        raise RuntimeError(f"compiler for {source} not found")
+
+    monkeypatch.setattr(fake_kernels, "_load_kernel_lib", no_nvcc)
+    with pytest.raises(RuntimeError, match="not found"):
+        _call(fake_kernels, which)
+
+
+@pytest.mark.parametrize("which", sorted(KERNEL_CALLS))
+def test_new_wrappers_count_a_launch(fake_kernels, monkeypatch, which):
+    lib = _FakeKernels(0)
+    monkeypatch.setattr(fake_kernels, "_load_kernel_lib", lambda source: lib)
+    fake_kernels.STATS.reset()
+    out_s, out_i = _call(fake_kernels, which, kb=3)
+    assert fake_kernels.STATS.by_kernel == {KERNEL_CALLS[which]: 1}
+    tile = 64 if which.startswith("float") else 8
+    assert out_s.shape == (1, 2, 3, tile) and out_i.dtype == torch.int32
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rows", "kb", "block_size", "dim", "lut_width"])
+@pytest.mark.parametrize("family", ["float", "adc"])
+def test_new_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monkeypatch, family,
+                                                          bad):
+    monkeypatch.setattr(fake_kernels, "_load_kernel_lib", lambda source: _FakeKernels(0))
+    args = list(_float_operands() if family == "float" else _adc_operands())
+    if bad == "dtype":
+        args[1] = args[1].to(torch.float16 if family == "float" else torch.int8)
+    elif bad == "rows":
+        args[1], args[2] = args[1][:700], args[2][:700]
+    elif bad == "kb":
+        args[3] = 33
+    elif bad == "block_size":
+        args[4] = 300
+    elif bad == "dim":  # float: D not a multiple of 32; adc: codes not M+2 wide
+        args[1] = torch.empty((1024, 40 if family == "float" else 9),
+                              dtype=args[1].dtype, device="meta")
+    else:  # float: queries not a whole tile; adc: M·K past the shared memory
+        args[0] = (torch.empty((65, 64), device="meta") if family == "float" else
+                   torch.empty((8, 64, 256), dtype=torch.bfloat16, device="meta"))
+        if family == "adc":
+            args[1] = torch.empty((1024, 66), dtype=torch.uint8, device="meta")
+    fn = fake_kernels.block_topk_float if family == "float" else fake_kernels.block_topk_adc
+    with pytest.raises(ValueError):
+        fn(*args)
+
+
+def test_build_lists_every_kernel_source():
+    from crs_tpu_torch import _build
+
+    assert set(_build.CUDA_SOURCES) == {"int8_scan_topk.cu", "scan_topk_f32_bf16.cu",
+                                        "pq_adc_scan_topk.cu"}
+    on_disk = {p.name for p in (REPO / "crs_tpu_torch" / "csrc").glob("*.cu")}
+    assert on_disk == set(_build.CUDA_SOURCES)
+    cmd = _build.compile_command("x.cu", "libx.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    with pytest.raises(ValueError):
+        _build.build_cuda("not_a_kernel.cu")
