@@ -1,46 +1,68 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``crs_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--phases a,b,...]
 
 Phases, each printed as one JSON line (name, seconds, what was compared and
 the largest difference); any failure raises and exits non-zero:
 
-1. build           — compile the three CUDA sources (nvcc, sm_90a) and the
-                     native featurizer (g++), all at once, from the sources here;
-2. kernel          — the int8 scan kernel against its plain torch version:
-                     (a) 1,048,576 × 384 random unit vectors, 328 queries, k = 64;
-                     (b) a clustered corpus with kb = 2 that forces targeted
-                         repairs and the over-budget exact fallback;
-                     (c) padding (valid_n < N), a `where` row mask and exact ties;
-3. kernel_f32_bf16 — the float scan kernel (fp32 and bf16) against its plain
-                     version at 1,048,576 × 384, B = 328 (scores within
-                     rtol·(1+|s|), rtol 1e-5 fp32 / 1e-2 bf16; ids equal where
-                     neighbouring scores are 1e-5·(1+|s|) apart), and through
-                     scan_topk on the repair, fallback, padding, mask and tie
-                     cases; ms per launch, bound, plain and library ms;
-4. kernel_adc      — both PQ ADC kernels (residual and plain) against their
-                     plain version at 1,048,576 rows, M = 48, C = 2048,
-                     B = 328, bit for bit, and on the same cases;
-5. bench           — the bench.py slice on the held-out corpus: chunk, hashed
-                     encoder, int8 store, retrieve_batch_fused over 328 queries,
-                     checked against the standard (host-rerank) retrieve;
-6. full            — a 1,048,576-row int8 store built through the port's
-                     encoder from synthetic texts; retrieve_batch_fused at batch
-                     328 through the int8 kernel (launch count must rise), timed
-                     with CUDA events, plus the kernel's own time and bound;
-7. formats         — the same 1M texts and embeddings in an fp32, a bf16, a
-                     residual pq and a plain pq store (config.json's store
-                     values): retrieve_batch at batch 328 without and with PRF
-                     (each format's kernel must launch), a `where`-filtered
-                     search, the whole scan route held against its plain
-                     version, set-up seconds, device bytes per vector and
-                     recall@3 against the fp32 exact top-3.
+1. build              — compile the five CUDA sources (nvcc, sm_90a) and the
+                        native featurizer (g++), all at once, from the sources here;
+2. kernel             — the int8 scan kernel against its plain torch version:
+                        (a) 1,048,576 × 384 random unit vectors, 328 queries, k = 64;
+                        (b) a clustered corpus with kb = 2 that forces targeted
+                            repairs and the over-budget exact fallback;
+                        (c) padding (valid_n < N), a `where` row mask and exact ties;
+3. kernel_f32_bf16    — the float scan kernel (fp32 and bf16) against its plain
+                        version at 1,048,576 × 384, B = 328 (scores within
+                        rtol·(1+|s|), rtol 1e-5 fp32 / 1e-2 bf16; ids equal where
+                        neighbouring scores are 1e-5·(1+|s|) apart), and through
+                        scan_topk on the repair, fallback, padding, mask and tie
+                        cases; ms per launch, bound, plain and library ms;
+4. kernel_adc         — both PQ ADC kernels (residual and plain) against their
+                        plain version at 1,048,576 rows, M = 48, C = 2048,
+                        B = 328, bit for bit, and on the same cases;
+5. kernel_q4          — the int4 and NF4 matmul kernels against their plain
+                        versions at the 1b widths and mistral-7b's MLP, R ∈ {1, 8,
+                        64} (|kernel − plain| ≤ 1e-5·Σ|x·w|); device ms per
+                        launch (torch.profiler), plain and library ms, bound;
+6. kernel_decode_attn — the int8 decode-attention kernel against its plain
+                        version at B ∈ {1, 8}, Hkv 8, G 2, hd 128, S ∈ {2176,
+                        4096}, partial masks and an all-masked row (exact zeros);
+7. bench              — the bench.py slice on the held-out corpus: chunk, hashed
+                        encoder, int8 store, retrieve_batch_fused over 328 queries,
+                        checked against the standard (host-rerank) retrieve;
+8. full               — a 1,048,576-row int8 store built through the port's
+                        encoder from synthetic texts; retrieve_batch_fused at batch
+                        328 through the int8 kernel (launch count must rise), timed
+                        with CUDA events, plus the kernel's own time and bound;
+9. formats            — the same 1M texts and embeddings in an fp32, a bf16, a
+                        residual pq and a plain pq store (config.json's store
+                        values): retrieve_batch at batch 328 without and with PRF
+                        (each format's kernel must launch), a `where`-filtered
+                        search, the whole scan route held against its plain
+                        version, each pq store built twice from one seed (same
+                        bits), set-up seconds, device bytes per vector and
+                        recall@3 against the fp32 exact top-3;
+10. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
+                        random weights from the seed, through
+                        create_model_interface: greedy generate_batch of 64
+                        tokens at batch 1 and 8 on RAG-sized prompts, with 113
+                        q4/NF4 and 16 attention launches per decode step;
+                        prefill and decode times, weight and cache bytes, the
+                        first decode step's logits against the plain versions,
+                        greedy-token agreement with them;
+11. rag               — RAGPipeline (hashed embedding, int8 store) over the
+                        held-out corpus with the nf4 model: query() with
+                        config.json's generation values (sampled), ms per query
+                        split into retrieve and generate, chunks checked
+                        against the same pipeline on the CPU.
 
-Then the kernel table line (all four kernels), the card's name and power
+Then the kernel table line (all seven kernels), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA
-it exits 1 and prints no result. It imports nothing of JAX or of the JAX
-package.
+it exits 1 and prints no result; ``--phases`` with a subset exits 2 after
+the phases, with no table and no result. It imports nothing of JAX or of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -168,19 +190,25 @@ def check_bits(got, ref, what: str) -> float:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Every scan wrapper replaced by its plain torch version (the same host
-    side around it), to hold a whole scan route against its plain form."""
-    from crs_tpu_torch.ops import scan
+    """Every kernel wrapper replaced by its plain torch version (the same
+    code around it), to hold a whole route against its plain form."""
+    from crs_tpu_torch.models import quantized, transformer
+    from crs_tpu_torch.ops import decode_attention, qgemm, scan
 
-    names = ("block_topk_int8", "block_topk_float", "block_topk_adc")
-    saved = {n: getattr(scan, n) for n in names}
-    for n in names:
-        setattr(scan, n, getattr(scan, n + "_plain"))
+    swaps = [(scan, n, getattr(scan, n + "_plain"))
+             for n in ("block_topk_int8", "block_topk_float", "block_topk_adc")]
+    swaps += [(quantized, "q4_matmul", qgemm.emulate_q4_matmul),
+              (quantized, "nf4_matmul", qgemm.emulate_nf4_matmul),
+              (transformer, "decode_attention_int8",
+               decode_attention.emulate_decode_attention_int8)]
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in swaps]
+    for mod, n, fn in swaps:
+        setattr(mod, n, fn)
     try:
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(scan, n, fn)
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
 
 
 def bound(bytes_moved: float, ops: float, ops_rate: float) -> dict:
@@ -611,6 +639,218 @@ def phase_kernel_adc(ph: Phase, dev, seed: int, rows: int) -> dict:
     return out
 
 
+# kernel_q4: the 1b linear layers (in → out) and mistral-7b's MLP, at R rows
+Q4_SHAPES = {"1b": ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048), (2048, 32000)),
+             "mistral-7b": ((4096, 14336), (14336, 4096))}
+Q4_ROWS = (1, 8, 64)
+Q4_GROUP = 128
+# one 1b decode step's linear layers: q, k, v, o, gate, up, down per layer; lm_head
+Q4_STEP_1B = ((2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048), (2048, 5632),
+              (2048, 5632), (5632, 2048))
+Q4_RTOL = 1e-5  # |kernel − plain| ≤ Q4_RTOL · Σ_k |x_k·w_k,n|: only the f32 sum order differs
+ATTN_SHAPES = ((1, 2176), (1, 4096), (8, 2176), (8, 4096))  # (B, S); Hkv 8, G 2, hd 128
+ATTN_TOL = 2.0 ** -7  # |kernel − plain| ≤ ATTN_TOL · Σ_s |p_s·v_s,d|: one bf16 step of p
+L2_BYTES = 50e6
+
+
+def cold_copies(nbytes: float) -> int:
+    """Copies of an operand to cycle through so a timed run reads ~150 MB,
+    past the 50 MB L2: a decode step finds its weights and cache cold."""
+    return max(1, math.ceil(3 * L2_BYTES / max(nbytes, 1)))
+
+
+def kernel_device_ms(fn, iters: int, names) -> float:
+    """Mean device time per call of the kernels whose names contain one of
+    ``names``, from torch.profiler over ``iters`` calls; None when the
+    profiler records no device time for them. A decode-sized launch is
+    shorter than the host's work around it, so CUDA events around a loop
+    would time the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and any(n in ev.key for n in names))
+    return total / 1e3 / iters if total > 0 else None
+
+
+def phase_kernel_q4(ph: Phase, dev, seed: int) -> dict:
+    """Kernels 8 and 9 against their plain versions at the 1b and mistral-7b
+    widths, R ∈ Q4_ROWS, random codes and scales; ms per launch (weights
+    cold), plain and library-composition ms, bound. Returns each kernel's
+    kernel-table numbers, the mean over one 1b decode step's 113 launches at
+    R = 8."""
+    import torch
+
+    from crs_tpu_torch.ops import qgemm
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 6)
+    out = {}
+    for kind, nf4 in (("int4", False), ("nf4", True)):
+        kernel = qgemm.nf4_matmul if nf4 else qgemm.q4_matmul
+        plain = qgemm.emulate_nf4_matmul if nf4 else qgemm.emulate_q4_matmul
+        unpack = qgemm._unpack_nf4 if nf4 else qgemm._unpack_int4
+        per_shape = {}
+        worst = 0.0
+        for model, shapes in Q4_SHAPES.items():
+            for k, n in shapes:
+                codes = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
+                                      dtype=torch.int32).to(torch.int8)
+                if nf4:
+                    codes = codes.view(torch.uint8)
+                scales = torch.rand((k // Q4_GROUP, n), generator=g, device=dev) * 0.02 + 1e-3
+                w = (unpack(codes).to(torch.bfloat16)
+                     * torch.repeat_interleave(scales, Q4_GROUP, 0).to(torch.bfloat16)).float()
+                nbytes = codes.numel() + scales.numel() * 4
+                copies = [(codes.clone(), scales.clone()) for _ in range(cold_copies(nbytes) - 1)]
+                copies.append((codes, scales))
+                for r in Q4_ROWS:
+                    x = torch.randn((r, k), generator=g, device=dev).to(torch.bfloat16)
+                    got, ref = kernel(x, codes, scales), plain(x, codes, scales)
+                    absref = x.float().abs() @ w.abs()
+                    ratio = float(((got - ref).abs() / (absref + 1e-30)).max())
+                    if not ratio <= Q4_RTOL or not bool(torch.isfinite(got).all()):
+                        raise AssertionError(f"{kind} {k}→{n} R={r}: kernel differs from the plain "
+                                             f"version by {ratio}·Σ|x·w| (limit {Q4_RTOL})")
+                    worst = max(worst, float((got - ref).abs().max()))
+                    it = iter(range(1 << 30))
+
+                    def run():
+                        c, s = copies[next(it) % len(copies)]
+                        kernel(x, c, s)
+
+                    wall_ms = device_ms(dev, run, iters=max(20, len(copies)), warmup=3)
+                    ms = kernel_device_ms(run, max(20, len(copies)), ("q4_matmul_kernel",
+                                                                     "q4_split_sum_kernel"))
+                    plain_ms = device_ms(dev, lambda: plain(x, codes, scales), iters=3)
+                    gs = Q4_GROUP
+
+                    def library():  # dequantize, then torch.matmul in bf16
+                        wd = (unpack(codes).float().view(k // gs, gs, n)
+                              * scales[:, None, :]).view(k, n).to(torch.bfloat16)
+                        return torch.matmul(x, wd)
+
+                    library_ms = device_ms(dev, library, iters=5)
+                    b = bound(nbytes + x.numel() * 2 + r * n * 4, 2.0 * r * k * n,
+                              PEAK_BF16_OPS_PER_S)
+                    per_shape[f"{model} {k}->{n} R={r}"] = {
+                        "ms": wall_ms if ms is None else ms, "device_ms": ms,
+                        "wall_ms_per_call": wall_ms, "plain_ms": plain_ms, "library_composition_ms": library_ms,
+                        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                        "max_abs_err": float((got - ref).abs().max()), "err_over_abs_sum": ratio,
+                        "ksplit": qgemm.q4_split_k(k // 2, n, r, Q4_GROUP // 2,
+                                                   qgemm._sm_count(dev))}
+                del copies, w
+        step = list(Q4_STEP_1B) * 16 + [(2048, 32000)]  # 113 launches per 1b decode step
+
+        def step_sum(key):
+            return sum(per_shape[f"1b {k}->{n} R=8"][key] for k, n in step)
+
+        out[kind] = {"max_abs_err": worst, "ms": step_sum("ms") / len(step),
+                     "plain_ms": step_sum("plain_ms") / len(step),
+                     "library_composition_ms": step_sum("library_composition_ms") / len(step),
+                     "bound_ms": step_sum("bound_ms") / len(step), "bound_by": "bytes",
+                     "step_ms_at_r8": step_sum("ms"), "step_bound_ms_at_r8": step_sum("bound_ms"),
+                     "shapes": per_shape}
+    out["note"] = ("ms / plain_ms / bound_ms: mean per launch over one 1b decode step's 113 "
+                   "launches at R = 8; ms is the kernels' device time (torch.profiler; "
+                   "wall_ms_per_call is the host-bound call time by CUDA events); weights "
+                   "cycled through copies past the L2; tolerance "
+                   f"|kernel − plain| ≤ {Q4_RTOL}·Σ|x·w|")
+    out["library_composition"] = "dequantize to bf16 + torch.matmul: two steps, not one call"
+    ph.info.update(out)
+    return out
+
+
+def phase_kernel_decode_attn(ph: Phase, dev, seed: int) -> dict:
+    """Kernel 10 against its plain version at B ∈ {1, 8}, Hkv 8, G 2,
+    hd 128, S ∈ {2176, 4096}: left-padded partial masks, and one all-masked
+    row at B = 8 (exact zeros); ms (cache cold), plain and library ms, bound."""
+    import torch
+
+    from crs_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 7)
+    hkv, grp, hd = 8, 2, 128
+    per_shape = {}
+    worst = 0.0
+    for b, s in ATTN_SHAPES:
+        q = torch.randn((b, hkv, grp, hd), generator=g, device=dev)
+        kc = torch.randint(-127, 128, (b, hkv, s, hd), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        vc = torch.randint(-127, 128, (b, hkv, s, hd), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        ks = torch.rand((b, hkv, s), generator=g, device=dev) * 0.05 + 1e-3
+        vs = torch.rand((b, hkv, s), generator=g, device=dev) * 0.05 + 1e-3
+        start = torch.randint(0, s // 2, (b,), generator=g, device=dev)
+        length = torch.randint(s // 4, s // 2, (b,), generator=g, device=dev)
+        pos = torch.arange(s, device=dev)[None, :]
+        valid = (pos >= start[:, None]) & (pos < (start + length)[:, None])
+        if b > 1:
+            valid[b // 2] = False  # a batch row with no valid slot
+        ops = (q, kc, ks, vc, vs, valid)
+        got, ref = da.decode_attention_int8(*ops), da.emulate_decode_attention_int8(*ops)
+        scores = torch.einsum("bhgd,bhsd->bhgs", q.to(torch.bfloat16).float(), kc.float())
+        scores = torch.where(valid[:, None, None, :], scores * (ks[:, :, None, :] / hd ** 0.5),
+                             -1e30)
+        p = torch.softmax(scores, -1) * vs[:, :, None, :]
+        abs_sum = torch.einsum("bhgs,bhsd->bhgd", p.abs(), vc.float().abs())
+        excess = float(((got - ref).abs() - ATTN_TOL * abs_sum).max())
+        if excess > 0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"decode attention B={b} S={s}: kernel differs from the plain "
+                                 f"version past {ATTN_TOL}·Σ|p·v| (by {excess})")
+        if b > 1 and bool(got[b // 2].any()):
+            raise AssertionError("decode attention: the all-masked row is not exact zeros")
+        worst = max(worst, float((got - ref).abs().max()))
+        nbytes = 2 * (kc.numel() + ks.numel() * 4) + b * s * 4 + q.numel() * 4
+        copies = [tuple(t.clone() for t in (kc, ks, vc, vs)) for _ in range(cold_copies(nbytes) - 1)]
+        copies.append((kc, ks, vc, vs))
+        it = iter(range(1 << 30))
+
+        def run():
+            c = copies[next(it) % len(copies)]
+            da.decode_attention_int8(q, c[0], c[1], c[2], c[3], valid)
+
+        wall_ms = device_ms(dev, run, iters=max(20, len(copies)), warmup=3)
+        ms = kernel_device_ms(run, max(20, len(copies)), ("decode_attention_int8_kernel",))
+        plain_ms = device_ms(dev, lambda: da.emulate_decode_attention_int8(*ops), iters=3)
+        bias = torch.where(valid, 0.0, -1e30)[:, None, None, :]
+
+        def library():  # dequantize, einsum, softmax, einsum
+            kd = (kc.float() * ks[..., None]).to(torch.bfloat16)
+            vd = (vc.float() * vs[..., None]).to(torch.bfloat16)
+            sc = torch.einsum("bhgd,bhsd->bhgs", q.to(torch.bfloat16), kd).float() / hd ** 0.5
+            pr = torch.softmax(sc + bias, -1).to(torch.bfloat16)
+            return torch.einsum("bhgs,bhsd->bhgd", pr, vd)
+
+        library_ms = device_ms(dev, library, iters=5)
+        bd = bound(nbytes + got.numel() * 4, 4.0 * b * hkv * grp * s * hd, PEAK_BF16_OPS_PER_S)
+        per_shape[f"B={b} S={s}"] = {"ms": wall_ms if ms is None else ms, "device_ms": ms,
+                                     "wall_ms_per_call": wall_ms, "plain_ms": plain_ms,
+                                     "library_composition_ms": library_ms,
+                                     "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+                                     "max_abs_err": float((got - ref).abs().max())}
+        del copies
+    main = per_shape["B=8 S=2176"]  # the generate phase's batch-8 shape
+    out = {"max_abs_err": worst, **{k: main[k] for k in ("ms", "plain_ms", "library_composition_ms",
+                                                           "bound_ms", "bound_by")},
+           "shapes": per_shape, "hkv": hkv, "group": grp, "head_dim": hd,
+           "note": f"kernel-table numbers at B=8, S=2176 (ms: the kernel's device time by "
+                   f"torch.profiler); tolerance |kernel − plain| ≤ "
+                   f"{ATTN_TOL}·Σ_s|p·v|; cache cycled through copies past the L2",
+           "library_composition": "dequantize + einsum + softmax + einsum: not one call"}
+    ph.info.update(out)
+    return out
+
+
 def _questions():
     with open(QA) as f:
         qs = [x["question"] for x in json.load(f)]
@@ -754,6 +994,13 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dic
     kernel_ms = device_ms(dev, lambda: block_topk_int8(*ops, kb), iters=10, warmup=2)
     plain_ms = device_ms(dev, lambda: block_topk_int8_plain(*ops, kb), iters=2, warmup=1)
     q_codes, vecs = ops[0], ops[1]
+
+    def library():  # dequantize, torch.matmul (TF32 off), torch.topk per block: three calls
+        dense = vecs.float() * ops[2][:, None]
+        s = torch.matmul(q_emb, dense.T)
+        return torch.topk(s.view(BATCH, nblocks, 256), kb, dim=-1)
+
+    library_ms = device_ms(dev, library, iters=3)
     nq = q_codes.shape[0] // 64
     bytes_moved = (vecs.numel() + 4 * vecs.shape[0] * 2 + q_codes.numel()
                    + nq * nblocks * kb * 64 * 8)
@@ -771,6 +1018,8 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dic
                       "profile": profile},
         "rescore_vs_dense_max_abs": rescore_err,
         "kernel": {"kb": kb, "nblocks": nblocks, "ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_composition_ms": library_ms,
+                   "library_composition": "dequantize + torch.matmul + torch.topk per block",
                    "bytes": bytes_moved, "int8_ops": int8_ops,
                    "bound_ms": max(bytes_ms, ops_ms)},
     })
@@ -780,8 +1029,29 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dic
         "replaces": "crs_tpu/ops/pallas_scan.py:172",
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "library_ms": None, "library_composition_ms": library_ms,
     }
+
+
+def pq_rebuild_identical(store, cfg: dict, texts, emb, dev) -> str:
+    """Build the pq store a second time from the same seed and require the
+    same codes, coarse ids, codebooks, rotation and coarse centroids."""
+    import torch
+
+    from crs_tpu_torch.rag import VectorStore
+
+    again = VectorStore(cfg, device=dev)
+    again.create_index(texts, emb)
+    pairs = {"codes": (store._pq_codes, again._pq_codes),
+             "codebook": (store._pq_codebook.centroids, again._pq_codebook.centroids)}
+    if store._rpq is not None:
+        pairs.update({"coarse_ids": (store._pq_coarse_ids, again._pq_coarse_ids),
+                      "rotation": (store._rpq.rotation, again._rpq.rotation),
+                      "coarse": (store._rpq.coarse, again._rpq.coarse)})
+    differ = [k for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"two pq builds from one seed differ in {differ}")
+    return "identical: " + ", ".join(pairs)
 
 
 def phase_formats(ph: Phase, dev, shared: dict) -> dict:
@@ -810,9 +1080,13 @@ def phase_formats(ph: Phase, dev, shared: dict) -> dict:
         sync(dev)
         setup_s = time.perf_counter() - t0
         store.metadatas = mds
+        if store.format == "pq":  # PQ training must give the same bits from one seed
+            info_det = pq_rebuild_identical(store, dict(CONFIG_STORE, **cfg), texts, emb, dev)
         train_s = store.build_seconds.get("pq_train", 0.0)
         info = {"setup_s": setup_s, "pq_train_s": train_s, "setup_without_pq_train_s":
                 setup_s - train_s, "device_bytes_per_vector": store.memory_bytes() / n}
+        if store.format == "pq":
+            info["rebuild_from_same_seed"] = info_det
         kernel = FORMAT_KERNEL[name]
         retr = ContextRetriever(store, em, BENCH_RETRIEVER)
         if doc_tokens:  # the host rerank's per-document tokens: same texts, built once
@@ -866,42 +1140,250 @@ def phase_formats(ph: Phase, dev, shared: dict) -> dict:
     return launches
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+GEN_CONFIG = "1b"
+GEN_NEW_TOKENS = 64
+GEN_BATCHES = (1, 8)
+GEN_LOGITS_RTOL = 5e-2  # ‖kernels − plain‖₂ / ‖plain‖₂ of the first decode step's logits
+Q4_LAUNCHES_PER_STEP_1B = 16 * 7 + 1  # every linear layer and the lm_head
+ATTN_LAUNCHES_PER_STEP_1B = 16
+CONFIG_JSON = os.path.join(REPO, "config.json")
 
+
+def rag_prompts(n: int):
+    """RAG-sized prompts: the generator's instruct prompt over ~1,400
+    characters of held-out text and a held-out question (≈1,500 bytes)."""
+    from crs_tpu_torch.rag.generation import RAGGenerator
+
+    with open(CORPUS, encoding="utf-8") as f:
+        text = f.read()
+    with open(QA) as f:
+        questions = [x["question"] for x in json.load(f)]
+    fmt = RAGGenerator(None, {"max_context_chars": 1400})
+    out = []
+    for i in range(n):
+        start = (i * 997) % max(1, len(text) - 1400)
+        ctx = fmt._truncate_context(text[start:start + 2000])
+        out.append(fmt._format_instruct_prompt(questions[i % len(questions)], ctx))
+    return out
+
+
+def kernel_counts():
+    from crs_tpu_torch.ops import decode_attention, qgemm
+
+    return {**qgemm.STATS.by_kernel, **decode_attention.STATS.by_kernel}
+
+
+def reset_counts() -> None:
+    from crs_tpu_torch.ops import decode_attention, qgemm, scan
+
+    for stats in (scan.STATS, qgemm.STATS, decode_attention.STATS):
+        stats.reset()
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               (cache.k_codes, cache.k_scales, cache.v_codes, cache.v_scales, cache.mask))
+
+
+def clone_cache(cache):
+    import dataclasses
+
+    return dataclasses.replace(cache, **{f.name: getattr(cache, f.name).clone()
+                                         for f in dataclasses.fields(cache) if f.name != "length"})
+
+
+def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
+    """The 1b model as int4 and as nf4 with an int8 KV cache, random init
+    from the seed, through create_model_interface: greedy generate_batch at
+    batch 1 and 8 on RAG-sized prompts, 64 new tokens (the main path: every
+    decode step's linear layers through kernel 8 or 9, its attention through
+    kernel 10); prefill and decode times; the first decode step's logits
+    through the kernels against the plain versions; greedy-token agreement
+    with the plain versions over the 64 steps (reported, not gated)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
-    from crs_tpu_torch import resolve_device
+    from crs_tpu_torch.models import create_model_interface, params_num_bytes
+    from crs_tpu_torch.models.sampling import SamplingParams, generate_tokens
+    from crs_tpu_torch.models.transformer import decode_step, init_cache, prefill
 
-    dev = resolve_device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions and yardsticks in full f32
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-    with Phase("build") as ph:
-        phase_build(ph)
-    with Phase("kernel") as ph:
-        max_err = phase_kernel(ph, dev, args.seed, FULL_ROWS)
-    with Phase("kernel_f32_bf16") as ph:
-        flt = phase_kernel_f32_bf16(ph, dev, args.seed, FULL_ROWS)
-    with Phase("kernel_adc") as ph:
-        adc = phase_kernel_adc(ph, dev, args.seed, FULL_ROWS)
-    with Phase("bench") as ph:
-        phase_bench(ph, dev)
-    shared = {}
-    with Phase("full") as ph:
-        row = phase_full(ph, dev, args.seed, FULL_ROWS, max_err, shared)
-    with Phase("formats") as ph:
-        launches = phase_formats(ph, dev, shared)
-    emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
+    from crs_tpu_torch.models.quantized import _int8_product
+
+    prompts = rag_prompts(max(GEN_BATCHES))
+    out = {"config": GEN_CONFIG, "kv_bits": 8, "new_tokens": GEN_NEW_TOKENS,
+           "prompt_bytes": [len(p.encode("utf-8")) for p in prompts]}
+    # the int8 weight route's exact product (torch._int_mm on the card)
+    # against the CPU's float64 one, at decode and prefill row counts
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 8)
+    w8 = torch.randint(-127, 128, (2048, 5632), generator=g, device=dev, dtype=torch.int32)
+    for rows in (1, 8, 300):
+        x8 = torch.randint(-127, 128, (rows, 2048), generator=g, device=dev, dtype=torch.int32)
+        x8, w = x8.to(torch.int8), w8.to(torch.int8)
+        if not torch.equal(_int8_product(x8, w).cpu(), _int8_product(x8.cpu(), w.cpu())):
+            raise AssertionError(f"the int8 product on the card differs at {rows} rows")
+    out["int8_route"] = "torch._int_mm equals the exact CPU product at 1, 8 and 300 rows"
+    launches = {}
+    for kind in ("int4", "nf4"):
+        kernel = "nf4_matmul" if kind == "nf4" else "q4_matmul"
+        model = create_model_interface(kind, {"config": GEN_CONFIG, "kv_bits": 8, "seed": seed},
+                                       device=dev)
+        t0 = time.perf_counter()
+        model.load()
+        info = {"load_s": time.perf_counter() - t0,
+                "weight_bytes": params_num_bytes(model.params),
+                "bits_per_param": model.get_model_info()["bits_per_param"]}
+        params, cfg = model.params, model.cfg
+        for b in GEN_BATCHES:
+            batch = prompts[:b]
+            model.generate_batch(batch, 2)  # warm-up
+            # the main path: counts to 0 just before, read just after
+            reset_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            texts = model.generate_batch(batch, GEN_NEW_TOKENS)
+            sync(dev)
+            total_ms = (time.perf_counter() - t0) * 1e3
+            counts = kernel_counts()
+            steps = GEN_NEW_TOKENS - 1  # decode steps: the last token needs none
+            if counts.get(kernel, 0) != Q4_LAUNCHES_PER_STEP_1B * steps \
+                    or counts.get("decode_attention_int8", 0) != ATTN_LAUNCHES_PER_STEP_1B * steps:
+                raise AssertionError(f"{kind} B={b}: launches {counts} for {steps} decode steps")
+            launches[kind] = launches.get(kind, 0) + counts.get(kernel, 0)
+            launches["attn"] = launches.get("attn", 0) + counts.get("decode_attention_int8", 0)
+            if len(texts) != b or not all(isinstance(t, str) for t in texts):
+                raise AssertionError(f"{kind} B={b}: generate_batch returned {texts!r}")
+
+            # prefill and decode alone (outside the counted run)
+            ids, mask = model.encode_batch(batch, GEN_NEW_TOKENS)
+            cache = init_cache(cfg, b, ids.shape[1] + GEN_NEW_TOKENS, device=dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, cfg, ids, cache, mask)
+            sync(dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            token = torch.argmax(logits[:, -1], dim=-1)
+            start = clone_cache(cache)
+            state = {"cache": clone_cache(cache)}
+
+            def step():
+                state["logits"], state["cache"] = decode_step(params, cfg, token, state["cache"])
+
+            decode_ms = device_ms(dev, step, iters=16, warmup=2)
+            step_profile = device_profile(step, decode_ms, top=6)
+            # the first decode step: kernels against plain versions, same cache
+            got, _ = decode_step(params, cfg, token, clone_cache(start))
+            with plain_kernels():
+                ref, _ = decode_step(params, cfg, token, clone_cache(start))
+            rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+            if not rel <= GEN_LOGITS_RTOL or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{kind} B={b}: first-step logits differ from the plain "
+                                     f"versions by {rel} (relative L2, limit {GEN_LOGITS_RTOL})")
+            # greedy tokens over the 64 steps, kernels and plain versions
+            sp = SamplingParams(max_new_tokens=GEN_NEW_TOKENS, eos_id=-1, pad_id=0)
+            g = torch.Generator(device=dev)
+            tk, _ = generate_tokens(params, cfg, ids, mask, g, sp)
+            with plain_kernels():
+                tp, _ = generate_tokens(params, cfg, ids, mask, g, sp)
+            same = (tk == tp).float()
+            first_diff = [int(torch.nonzero(r == 0)[0]) if bool((r == 0).any()) else None
+                          for r in same]
+            info[f"batch_{b}"] = {
+                "prompt_tokens": int(ids.shape[1]), "generate_ms": total_ms,
+                "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+                "tokens_per_s": b * 1000.0 / decode_ms, "decode_step_profile": step_profile,
+                "kv_cache_bytes": cache_bytes(start), "main_path_launches": counts,
+                "launches_per_decode_step": {k: v / steps for k, v in counts.items()},
+                "first_step_logits_rel_l2_vs_plain": rel,
+                "first_step_logits_max_abs_diff": float((got - ref).abs().max()),
+                "first_step_top1_equal": float((got.argmax(-1) == ref.argmax(-1)).float().mean()),
+                "greedy_token_agreement_vs_plain": float(same.mean()),
+                "first_divergent_step": first_diff,
+                "sample": texts[0][:80],
+            }
+            del cache, start, state
+        out[kind] = info
+        if kind == "nf4":
+            shared["nf4_model"] = model
+        else:
+            del model, params
+        torch.cuda.empty_cache()
+    out["main_path_launches"] = launches
+    out["note"] = ("decode_ms_per_token: CUDA events over 16 decode steps (host work included); "
+                   "prefill_ms: host clock around one prefill; generate_ms: one greedy "
+                   "generate_batch of 64 tokens, prefill included")
+    ph.info.update(out)
+    return out
+
+
+def phase_rag(ph: Phase, dev, seed: int, shared: dict) -> dict:
+    """RAGPipeline (hashed embedding, int8 store, bench.py's retrieval and
+    config.json's chunking and generation values) over the held-out corpus with the nf4 1b model of the
+    generate phase: query() on held-out questions, sampling through a
+    torch.Generator; ms per query split into retrieve and generate; the
+    retrieved chunks checked against the same pipeline on the CPU."""
+    import torch
+
+    from crs_tpu_torch.rag import RAGPipeline
+
+    with open(CONFIG_JSON) as f:
+        rag_cfg = json.load(f)["rag"]
+    cfg = {"chunking": rag_cfg["chunking"],
+           "embedding": {"backend": "hashed", "embedding_dim": DIM},
+           "vector_store": {**rag_cfg["vector_store"], "format": "int8", "persist_directory": None},
+           "retrieval": BENCH_RETRIEVER, "generation": rag_cfg["generation"]}
+    model = shared["nf4_model"]
+    pipe = RAGPipeline(cfg, device=dev).setup(model)
+    pipe.index_documents(CORPUS)
+    ref = RAGPipeline(cfg, device="cpu").setup()
+    ref.index_documents(CORPUS)
+    with open(QA) as f:
+        questions = [x["question"] for x in json.load(f)][:4]
+    pipe.retrieve(questions[0])  # warm-up
+    model.generate_batch([questions[0]], 2)
+    rows = []
+    # the main path: counts to 0 just before, read just after
+    reset_counts()
+    for q in questions:
+        sync(dev)
+        t0 = time.perf_counter()
+        res = pipe.query(q, return_chunks=True)
+        sync(dev)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        rows.append((q, res, total_ms))
+    counts = kernel_counts()
+    if counts.get("nf4_matmul", 0) == 0 or counts.get("decode_attention_int8", 0) == 0:
+        raise AssertionError(f"rag: the generator's kernels did not launch: {counts}")
+    per_query = []
+    for q, res, total_ms in rows:
+        t0 = time.perf_counter()
+        chunks = pipe.retrieve(q)
+        sync(dev)
+        retrieve_ms = (time.perf_counter() - t0) * 1e3
+        want = [c["id"] for c in ref.retrieve(q)]
+        if [c["id"] for c in res["chunks"]] != want or [c["id"] for c in chunks] != want:
+            raise AssertionError(f"rag: {q!r} retrieved {[c['id'] for c in res['chunks']]}, "
+                                 f"the CPU pipeline {want}")
+        if not want or not isinstance(res["answer"], str):
+            raise AssertionError(f"rag: {q!r} got no context ({want}) or no answer")
+        per_query.append({"question": q, "ms": total_ms, "retrieve_ms": retrieve_ms,
+                          "generate_ms": total_ms - retrieve_ms, "chunks": want,
+                          "answer_chars": len(res["answer"])})
+    out = {"chunks_indexed": pipe.store.n, "queries": per_query,
+           "ms_per_query": sum(r["ms"] for r in per_query) / len(per_query),
+           "retrieve_ms_per_query": sum(r["retrieve_ms"] for r in per_query) / len(per_query),
+           "generate_ms_per_query": sum(r["generate_ms"] for r in per_query) / len(per_query),
+           "main_path_launches": counts, "generation": cfg["generation"],
+           "compared": "retrieved chunk ids equal the CPU pipeline's"}
+    ph.info.update(out)
+    return out
+
+
+def kernel_table(res: dict) -> list:
+    """The kernel line: every ported kernel with its launches on its main
+    path and its numbers from this run."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_composition_ms")
-    rows = [row, {
+    flt, adc, launches = res["kernel_f32_bf16"], res["kernel_adc"], res["formats"]
+    rows = [res["full"], {
         "name": "scan_topk_f32_bf16", "route": "cuda",
         "source": "crs_tpu_torch/csrc/scan_topk_f32_bf16.cu",
         "replaces": "crs_tpu/ops/pallas_scan.py:144",
@@ -918,7 +1400,80 @@ def main(argv=None) -> int:
             "replaces": f"crs_tpu/ops/pallas_scan.py:{line}", "launches": launches[fmt],
             "max_abs_err": adc[name]["max_abs_err"], **{k: adc[name][k] for k in keys},
             "library_ms": None})
-    emit({"kernels": rows})
+    gen, q4, attn = res["generate"], res["kernel_q4"], res["kernel_decode_attn"]
+    for name, kind, line in (("q4_matmul", "int4", 105), ("nf4_matmul", "nf4", 161)):
+        rows.append({
+            "name": name, "route": "cuda", "source": "crs_tpu_torch/csrc/q4_matmul.cu",
+            "replaces": f"crs_tpu/ops/qgemm.py:{line}",
+            "launches": gen["main_path_launches"][kind],
+            "max_abs_err": q4[kind]["max_abs_err"], **{k: q4[kind][k] for k in keys},
+            "library_ms": None})
+    rows.append({
+        "name": "decode_attention_int8", "route": "cuda",
+        "source": "crs_tpu_torch/csrc/decode_attention_int8.cu",
+        "replaces": "crs_tpu/ops/decode_attention.py:69",
+        "launches": gen["main_path_launches"]["attn"], "max_abs_err": attn["max_abs_err"],
+        **{k: attn[k] for k in keys}, "library_ms": None})
+    return rows
+
+
+ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_q4",
+              "kernel_decode_attn", "bench", "full", "formats", "generate", "rag")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated subset of the phases, for development runs; the "
+                         "kernel table and the last line need all of them")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = set(phases) - set(ALL_PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from crs_tpu_torch import resolve_device
+
+    dev = resolve_device("cuda")
+    # plain versions and yardsticks in full f32, bf16 products summed in f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t_start = time.perf_counter()
+    res = {}
+    shared = {}
+    steps = {
+        "build": lambda ph: phase_build(ph),
+        "kernel": lambda ph: phase_kernel(ph, dev, args.seed, FULL_ROWS),
+        "kernel_f32_bf16": lambda ph: phase_kernel_f32_bf16(ph, dev, args.seed, FULL_ROWS),
+        "kernel_adc": lambda ph: phase_kernel_adc(ph, dev, args.seed, FULL_ROWS),
+        "kernel_q4": lambda ph: phase_kernel_q4(ph, dev, args.seed),
+        "kernel_decode_attn": lambda ph: phase_kernel_decode_attn(ph, dev, args.seed),
+        "bench": lambda ph: phase_bench(ph, dev),
+        "full": lambda ph: phase_full(ph, dev, args.seed, FULL_ROWS, res.get("kernel", 0.0),
+                                      shared),
+        "formats": lambda ph: phase_formats(ph, dev, shared),
+        "generate": lambda ph: phase_generate(ph, dev, args.seed, shared),
+        "rag": lambda ph: phase_rag(ph, dev, args.seed, shared),
+    }
+    for name in ALL_PHASES:
+        if name in phases:
+            with Phase(name) as ph:
+                res[name] = steps[name](ph)
+    emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
+    if set(phases) != set(ALL_PHASES):
+        print("chip_smoke: a subset of the phases ran; no kernel table, no result",
+              file=sys.stderr)
+        return 2
+    emit({"kernels": kernel_table(res)})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)

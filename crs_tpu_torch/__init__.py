@@ -1,11 +1,15 @@
 """crs_tpu_torch: the PyTorch/CUDA port of ``crs_tpu``.
 
-The batched RAG retrieve (hashed query embedding; fp32, bf16, int8 or PQ
-store; scan → rerank → MMR, with pseudo-relevance feedback) on an NVIDIA
-H100. Module names mirror ``crs_tpu``'s so each counterpart is easy to
-find; the TPU kernels on this path (``crs_tpu.ops.pallas_scan``'s
-``pallas_topk_int8``, ``pallas_topk``, ``pallas_topk_residual_pq_adc`` and
-``pallas_topk_pq_adc``) are hand-written CUDA kernels in ``csrc/``.
+Ported so far: the batched RAG retrieve (hashed query embedding; fp32,
+bf16, int8 or PQ store; scan → rerank → MMR, with pseudo-relevance
+feedback) and the generator (the quantized causal LM with prefill and
+int8-KV decode, sampling, the model interface, answer generation and the
+RAG pipeline) on an NVIDIA H100. Module names mirror ``crs_tpu``'s so each
+counterpart is easy to find; the TPU kernels on these paths are
+hand-written CUDA kernels in ``csrc/``: the scans of
+``crs_tpu.ops.pallas_scan`` (``pallas_topk_int8``, ``pallas_topk``,
+``pallas_topk_residual_pq_adc``, ``pallas_topk_pq_adc``), the int4 / NF4
+matmuls of ``crs_tpu.ops.qgemm`` and ``crs_tpu.ops.decode_attention``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA and without an explicit ``"cpu"`` they raise.

@@ -5,7 +5,8 @@ its device arrays) and returns the port's objects on ``device``, so both
 packages can run on one state: the ``HashedEncoder`` projection, the
 ``VectorStore`` in each format (int8 codes and scales; fp32/bf16 vectors;
 PQ codebooks, rotation, coarse centroids, coarse ids and codes with the
-int8 mirror) and the retriever's per-chunk token ids.
+int8 mirror), the retriever's per-chunk token ids, and a model's params
+tree (numpy arrays, bf16 ones included, and quantized-tensor nodes).
 """
 
 from __future__ import annotations
@@ -21,11 +22,38 @@ from .rag.index import _FLOAT_DTYPES, VectorStore
 from .rag.retrieval import ContextRetriever
 
 __all__ = [
-    "embedding_model_from_numpy", "int8_store_from_numpy", "float_store_from_numpy",
+    "params_from_numpy", "embedding_model_from_numpy", "int8_store_from_numpy", "float_store_from_numpy",
     "pq_store_from_numpy", "retriever_from_numpy",
 ]
 
 Device = Optional[Union[str, torch.device]]
+
+
+def _tensor_from_numpy(a) -> torch.Tensor:
+    """An array as a tensor with the same bits; bfloat16 arrays (ml_dtypes)
+    travel as their uint16 words."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def params_from_numpy(tree: Any, device: Device = "cpu") -> Any:
+    """A ``crs_tpu`` params tree (dicts, lists, arrays given as numpy, and
+    ``QuantizedTensor`` nodes whose codes / scales are arrays) as the port's
+    params on ``device``, bit for bit."""
+    from .models.quantized import QuantizedTensor
+
+    dev = torch.device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, dev) for v in tree]
+    if all(hasattr(tree, a) for a in ("codes", "scales", "bits", "group_size", "shape")):
+        return QuantizedTensor(_tensor_from_numpy(tree.codes).to(dev),
+                               _tensor_from_numpy(tree.scales).to(dev), tree.bits,
+                               int(tree.group_size), tuple(int(d) for d in tree.shape))
+    return _tensor_from_numpy(tree).to(dev)
 
 
 def embedding_model_from_numpy(proj: np.ndarray, config: Optional[Dict[str, Any]] = None,

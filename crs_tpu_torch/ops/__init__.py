@@ -1,5 +1,7 @@
-"""Search primitives of the port; ``scan`` holds the CUDA scan kernels'
-wrappers (int8, fp32/bf16, PQ ADC), ``pq`` the product quantizer."""
+"""Kernels and primitives of the port: ``scan`` holds the CUDA scan
+kernels' wrappers (int8, fp32/bf16, PQ ADC), ``pq`` the product quantizer,
+``qgemm`` the int4 / NF4 matmul wrappers, ``decode_attention`` the int8-KV
+decode-attention wrapper, ``launch`` what they share."""
 
 from .mmr import mmr_select, mmr_select_batch
 from .pq import (

@@ -1,0 +1,79 @@
+"""Loading and launching the port's CUDA kernels outside the scans.
+
+Each source in ``csrc/`` is one shared library with a plain C interface: a
+``<kernel>_launch`` function per kernel that enqueues it on the given stream
+and returns the CUDA error code. The library is built at first use
+(``_build.build_cuda``) and bound with ``ctypes``. A wrapper counts a launch
+only after its launcher returned 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, Sequence
+
+import torch
+
+__all__ = ["KernelStats", "load_library", "stream_handle", "check_operands", "launch",
+           "ARG_INT", "ARG_PTR", "ARG_FLOAT"]
+
+ARG_INT, ARG_PTR, ARG_FLOAT = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+
+
+class KernelStats:
+    """Per-process launch counts, in all and by kernel."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_kernel: Dict[str, int] = {}
+
+    def count_launch(self, kernel: str) -> None:
+        self.launches += 1
+        self.by_kernel[kernel] = self.by_kernel.get(kernel, 0) + 1
+
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def load_library(source: str, launchers: Dict[str, Sequence]) -> ctypes.CDLL:
+    """The built library of ``source`` (one of ``_build.CUDA_SOURCES``) with
+    each launcher of ``launchers`` {name: argument types} typed."""
+    lib = _libs.get(source)
+    if lib is None:
+        from .._build import build_cuda
+
+        lib = ctypes.CDLL(build_cuda(source).path)
+        for name, argtypes in launchers.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
+        _libs[source] = lib
+    return lib
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_operands(dev: torch.device, *specs) -> None:
+    """Each spec is (name, tensor, dtype): on ``dev``, of ``dtype``,
+    contiguous and 16-byte aligned — what every kernel takes."""
+    for name, t, dtype in specs:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def launch(stats: KernelStats, kernel: str, fn: Callable[..., int], *args) -> None:
+    """Call a launcher; raise on a non-zero CUDA error, count it otherwise."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    stats.count_launch(kernel)

@@ -44,6 +44,7 @@ _ROW_BLOCK = 1 << 16  # rows per assignment block of k-means / nearest-centroid
 _ENCODE_BLOCK_ROWS = 1 << 16
 _ANISO_TRAIN_MAX = 65536  # anisotropic training subsample cap (crs_tpu's)
 _ADC_DENSE_MAX_ROWS = 1 << 18  # past this many rows the ADC top-k goes blockwise
+_ONE_HOT_MAX = 1 << 24  # one-hot entries per chunk of a cluster sum (64 MB in f32)
 
 
 class PQCodebook(NamedTuple):
@@ -68,6 +69,19 @@ def _assign(points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         dots = points[r0:r0 + _ROW_BLOCK] @ centroids.T
         out[r0:r0 + _ROW_BLOCK] = torch.argmax(2.0 * dots - c_norms[None, :], dim=1)
     return out
+
+
+def _cluster_sums(assign: torch.Tensor, values: torch.Tensor, k: int) -> torch.Tensor:
+    """Σ of ``values`` rows per cluster, [k, W]: ``crs_tpu``'s one-hot
+    product, taken over row chunks so no [N, k] one-hot is held at once.
+    Each chunk's product and the chunk order are fixed, so the sums are the
+    same bits on every run (``index_add_`` adds with atomics on the card)."""
+    step = max(1, _ONE_HOT_MAX // max(k, 1))
+    sums = torch.zeros((k, values.shape[1]), dtype=torch.float32, device=values.device)
+    for r0 in range(0, values.shape[0], step):
+        one_hot = torch.nn.functional.one_hot(assign[r0:r0 + step], k).float()
+        sums += one_hot.T @ values[r0:r0 + step]
+    return sums
 
 
 def _draw(generator: torch.Generator, n: int, count: int) -> torch.Tensor:
@@ -104,7 +118,7 @@ def kmeans(
             min_d2 = torch.minimum(min_d2, torch.sum((points - points[idx][None, :]) ** 2, dim=1))
     for _ in range(num_iters):
         assign = _assign(points, centroids)
-        sums = torch.zeros_like(centroids).index_add_(0, assign, points)
+        sums = _cluster_sums(assign, points, num_clusters)
         counts = torch.bincount(assign, minlength=num_clusters).float()
         centroids = torch.where(counts[:, None] > 0,
                                 sums / torch.clamp_min(counts[:, None], 1.0), centroids)
@@ -146,8 +160,8 @@ def _kmeans_aniso(
                 + w * (a[:, None] - udots) ** 2)
         assign = torch.argmin(loss, dim=1)
         counts = torch.bincount(assign, minlength=num_clusters).float()
-        s = torch.zeros((num_clusters, d), device=dev).index_add_(0, assign, ax)
-        uu = torch.zeros((num_clusters, d * d), device=dev).index_add_(0, assign, uu_rows)
+        s = _cluster_sums(assign, ax, num_clusters)
+        uu = _cluster_sums(assign, uu_rows, num_clusters)
         g = counts[:, None, None] * eye[None] + w * uu.view(num_clusters, d, d)
         g = torch.where(counts[:, None, None] > 0, g, eye[None])
         new = torch.linalg.solve(g, s[..., None])[..., 0]

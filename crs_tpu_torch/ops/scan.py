@@ -39,6 +39,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from .launch import KernelStats, check_operands, launch, stream_handle
 from .quant import _int8_topk_dense, int8_dot, int8_rowdot, scalar_quantize
 from .topk import NEG_INF, blockwise_topk, topk_stable
 
@@ -67,22 +68,14 @@ _INT_BIG = 2**31 - 1
 KernelOut = Tuple[torch.Tensor, torch.Tensor]
 
 
-class ScanStats:
+class ScanStats(KernelStats):
     """Per-process counts: kernel launches (in all and by kernel), targeted
     repairs, exact fallbacks."""
 
-    def __init__(self) -> None:
-        self.reset()
-
     def reset(self) -> None:
-        self.launches = 0
-        self.by_kernel: Dict[str, int] = {}
+        super().reset()
         self.repairs = 0
         self.fallbacks = 0
-
-    def count_launch(self, kernel: str) -> None:
-        self.launches += 1
-        self.by_kernel[kernel] = self.by_kernel.get(kernel, 0) + 1
 
 
 STATS = ScanStats()
@@ -142,31 +135,14 @@ def _load_lib() -> ctypes.CDLL:
     return _load_kernel_lib("int8_scan_topk.cu")
 
 
-def _stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _check_operands(dev: torch.device, *specs) -> None:
-    """Each spec is (name, tensor, dtype): same device, dtype, contiguous,
-    16-byte aligned — what every kernel takes."""
-    for name, t, dtype in specs:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the corpus on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+_stream_handle = stream_handle
+_check_operands = check_operands
 
 
 def _launch(kernel: str, source: str, *args) -> None:
     """Call ``kernel``'s launcher; raise on a non-zero CUDA error, count it
     otherwise."""
-    err = getattr(_load_kernel_lib(source), f"{kernel}_launch")(*args)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    STATS.count_launch(kernel)
+    launch(STATS, kernel, getattr(_load_kernel_lib(source), f"{kernel}_launch"), *args)
 
 
 def _partials(nq: int, nblocks: int, kb: int, tile: int, dev) -> KernelOut:
@@ -260,14 +236,9 @@ def block_topk_int8(
     nq = q_codes.shape[0] // QUERY_TILE
     nblocks = n_rows // BLOCK_ROWS
     out_s, out_i = _partials(nq, nblocks, kb, QUERY_TILE, dev)
-    lib = _load_lib()
-    err = lib.int8_scan_topk_launch(
-        q_codes.data_ptr(), codes.data_ptr(), row_scale.data_ptr(), bias.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), nq, nblocks, d, kb, _stream_handle(dev),
-    )
-    if err != 0:
-        raise RuntimeError(f"int8_scan_topk launch failed: CUDA error {err}")
-    STATS.count_launch("int8_scan_topk")
+    launch(STATS, "int8_scan_topk", _load_lib().int8_scan_topk_launch,
+           q_codes.data_ptr(), codes.data_ptr(), row_scale.data_ptr(), bias.data_ptr(),
+           out_s.data_ptr(), out_i.data_ptr(), nq, nblocks, d, kb, _stream_handle(dev))
     return out_s, out_i
 
 

@@ -1,12 +1,15 @@
-"""The port's RAG layer: text, hashed embedding, fp32/bf16/int8/pq store, retriever."""
+"""The port's RAG layer: text, hashed embedding, fp32/bf16/int8/pq store,
+retriever, answer generation and the pipeline."""
 
 from .chunking import Chunk, TextChunker
 from .document_processing import DocumentProcessor
 from .embedding import EmbeddingModel, HashedEncoder
+from .generation import RAGGenerator
 from .index import VectorStore
+from .pipeline import RAGPipeline
 from .retrieval import ContextRetriever
 
 __all__ = [
     "Chunk", "TextChunker", "DocumentProcessor", "EmbeddingModel", "HashedEncoder",
-    "VectorStore", "ContextRetriever",
+    "VectorStore", "ContextRetriever", "RAGGenerator", "RAGPipeline",
 ]

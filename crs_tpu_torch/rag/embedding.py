@@ -102,6 +102,8 @@ class EmbeddingModel:
         config = config or {}
         self.backend = config.get("backend", "minilm")
         self.embedding_dim = int(config.get("embedding_dim", 384))
+        self.batch_size = int(config.get("batch_size", 32))
+        self.normalize = bool(config.get("normalize", True))
         self.device = resolve_device(device)
         seed = int(config.get("seed", 0))
         if self.backend == "hashed":
@@ -132,6 +134,20 @@ class EmbeddingModel:
             for i in range(0, len(texts), 512)
         ]
         return outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+
+    # the hashed backend fits no corpus statistics: the pipeline's hooks are no-ops
+    def fit(self, corpus_texts: Sequence[str]) -> None:
+        pass
+
+    def save_state(self, directory: str) -> None:
+        pass
+
+    def load_state(self, directory: str) -> bool:
+        return False
+
+    def get_stats(self) -> Dict[str, Any]:
+        return {"backend": self.backend, "embedding_dim": self.embedding_dim,
+                "batch_size": self.batch_size, "normalize": self.normalize}
 
     def embed_chunks(self, chunks: Sequence[Any]) -> torch.Tensor:
         return self.embed([c.text if hasattr(c, "text") else str(c) for c in chunks])

@@ -468,6 +468,14 @@ class VectorStore:
             "distances": out_dist,
         }
 
+    def get_stats(self) -> Dict[str, Any]:
+        stats = {"num_vectors": self.n, "embedding_dim": self.dim, "format": self.format,
+                 "memory_bytes": self.memory_bytes()}
+        if self._codes_host is not None:  # pq_rescore="host": the mirror in host RAM
+            stats["host_mirror_bytes"] = int(self._codes_host.nbytes + self._scales_host.nbytes)
+            stats["host_mirror_mmap"] = bool(isinstance(self._codes_host, np.memmap))
+        return stats
+
     def memory_bytes(self) -> int:
         """Device bytes of the index: vectors or codes, scales, PQ codes and
         coarse ids, codebooks, rotation and coarse centroids."""

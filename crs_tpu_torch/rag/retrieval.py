@@ -4,7 +4,8 @@
 - ``retrieve_batch``: (optional pseudo-relevance feedback) → scan →
   candidate gather on the device, then the host token-overlap rerank
   (0.7·semantic + 0.3·overlap) and a batched MMR;
-- ``retrieve_batch_fused``: scan → hashed-presence rerank → threshold →
+- ``retrieve_batch_fused`` (what ``retrieve_batch`` takes when the config
+  sets ``fused``): scan → hashed-presence rerank → threshold →
   MMR all on the device, one host sync per batch. Its fp32/bf16 and pq
   branches take ``exact_topk`` and the f32 ``residual_pq_adc_topk``, as
   ``crs_tpu``'s do: they reach no scan kernel.
@@ -29,7 +30,19 @@ from .index import VectorStore
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ContextRetriever"]
+__all__ = ["ContextRetriever", "distance_to_similarity"]
+
+
+def distance_to_similarity(distance: float, metric: str = "cosine") -> float:
+    """A distance from an external store as a similarity: cosine (squared
+    L2 of unit vectors) → 1 − d²/2; l2 → 1/(1+d); ip → (2 − d)/2."""
+    if metric == "cosine":
+        return 1.0 - distance * distance / 2.0
+    if metric == "l2":
+        return 1.0 / (1.0 + distance)
+    if metric == "ip":
+        return (2.0 - distance) / 2.0
+    raise ValueError(f"unknown metric: {metric}")
 
 
 def _tokenize(text: str) -> set:
@@ -60,6 +73,8 @@ class ContextRetriever:
         # pseudo-relevance feedback: q' = normalize(q + β·centroid(top prf_k))
         self.prf_beta = float(config.get("prf_beta", 0.0))
         self.prf_k = int(config.get("prf_k", 3))
+        # fused=True: batches take retrieve_batch_fused (hashed-presence rerank)
+        self.fused = bool(config.get("fused", False))
         self._doc_tokens: Optional[List[set]] = None
         self._doc_tokens_n = -1
         self._doc_token_ids: Optional[torch.Tensor] = None
@@ -72,6 +87,8 @@ class ContextRetriever:
 
     def retrieve_batch(self, queries: Sequence[str], top_k: Optional[int] = None,
                        where: Optional[Dict[str, Any]] = None) -> List[List[Dict[str, Any]]]:
+        if self.fused:
+            return self.retrieve_batch_fused(queries, top_k, where=where)
         k = top_k or self.top_k
         if self.store.n == 0 or not queries:
             return [[] for _ in queries]
@@ -195,8 +212,12 @@ class ContextRetriever:
         if self.store.n == 0 or not queries:
             return [[] for _ in queries]
         store = self.store
-        if store.format == "pq" and store._rpq is None:
-            return self.retrieve_batch(queries, top_k, where=where)  # as crs_tpu: unfused
+        if store.format == "pq" and store._rpq is None:  # as crs_tpu: unfused
+            fused_flag, self.fused = self.fused, False  # no recursion back here
+            try:
+                return self.retrieve_batch(queries, top_k, where=where)
+            finally:
+                self.fused = fused_flag
         if store.format == "pq" and store._codes is None:
             raise ValueError("the fused path rescores pq candidates against the device int8 "
                              "mirror: it needs pq_rescore='int8'")
@@ -243,6 +264,15 @@ class ContextRetriever:
                 hits.append(self._hit(r, s, rank_s))
             results.append(hits)
         return results
+
+    # -- context assembly -----------------------------------------------------
+    def get_context_string(self, query: str, top_k: Optional[int] = None,
+                           separator: str = "\n\n") -> str:
+        return separator.join(c["text"] for c in self.retrieve(query, top_k))
+
+    @staticmethod
+    def context_from_results(results: List[Dict[str, Any]], separator: str = "\n\n") -> str:
+        return separator.join(c["text"] for c in results)
 
     def _overlap_matrix(self, queries: Sequence[str], rows: np.ndarray) -> np.ndarray:
         if self._doc_tokens_n != self.store.n:

@@ -1,0 +1,114 @@
+"""The port's int8-KV decode attention (kernel 10) against ``crs_tpu``'s.
+
+The JAX side runs ``decode_attention_int8`` as its own tests run it, in
+Pallas interpret mode; the port runs the kernel's plain torch version
+(``emulate_decode_attention_int8``), which the wrapper takes for CPU tensors.
+
+Tolerances:
+- ``quantize_kv_rows``: codes and scales bit for bit (the jitted JAX
+  function: XLA's ``x / 127`` is a product with float32(1/127));
+- the attention: |port − crs_tpu| ≤ 1e-5 · Σ_s |p_s·v_s,d| + 2⁻⁸ · max_s
+  |p_s·v_s,d| + 1e-6: products are exact in f32, the sums run in another
+  order and exp may differ in its last bit, which can move one bf16 rounding
+  of p·v_scale by one step (2⁻⁸ of that term) — and exact zeros for a batch
+  row with no valid slot.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
+SUM_RTOL = 1e-5
+
+
+def _case(seed, b, hkv, g, s, hd=128):
+    from crs_tpu.ops.decode_attention import quantize_kv_rows
+
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hkv, g, hd)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, hd)).astype(np.float32)
+    v = (rng.standard_normal((b, hkv, s, hd)) * 0.5 + 0.2).astype(np.float32)
+    kc, ks = jax.jit(quantize_kv_rows)(jnp.asarray(k))
+    vc, vs = jax.jit(quantize_kv_rows)(jnp.asarray(v))
+    start = rng.integers(0, s // 2, b)
+    length = rng.integers(1, s // 2, b)
+    pos = np.arange(s)[None, :]
+    valid = (pos >= start[:, None]) & (pos < (start + length)[:, None])
+    valid[:, -1] = True  # the decode token's own slot
+    if b > 1:
+        valid[1] = False  # a batch row with no valid slot
+    return q, kc, ks, vc, vs, valid
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 128), (1, 2, 2, 64), (4, 8, 7, 128)])
+def test_quantize_kv_rows_bits(shape):
+    from crs_tpu.ops.decode_attention import quantize_kv_rows as jq
+
+    from crs_tpu_torch.ops.decode_attention import quantize_kv_rows as tq
+
+    x = np.random.default_rng(sum(shape)).standard_normal(shape).astype(np.float32) * 3
+    x[0, 0, 0] = 0.0  # the 1e-12 scale floor
+    jc, js = jax.jit(jq)(jnp.asarray(x))
+    tc, ts = tq(torch.from_numpy(x))
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    assert np.array_equal(tc.numpy(), np.asarray(jc))
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+    # bf16 input, as the model hands it over
+    jc, js = jax.jit(jq)(jnp.asarray(x, jnp.bfloat16))
+    tc, ts = tq(torch.from_numpy(x).bfloat16())
+    assert np.array_equal(tc.numpy(), np.asarray(jc)) and np.array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("b,hkv,g", [(3, 2, 2), (1, 1, 4), (2, 1, 1)])
+def test_decode_attention_matches_pallas(s, b, hkv, g):
+    from crs_tpu.ops import decode_attention as jd
+
+    from crs_tpu_torch.ops import decode_attention as td
+
+    q, kc, ks, vc, vs, valid = _case(s + b + g, b, hkv, g, s)
+    assert jd.decode_attention_supported(128, s) and td.decode_attention_supported(128, s)
+    ref = np.asarray(jd.decode_attention_int8(jnp.asarray(q), kc, ks, vc, vs, jnp.asarray(valid)))
+    ops = [torch.from_numpy(np.array(a)) for a in (q, kc, ks, vc, vs, valid)]
+    got = td.decode_attention_int8(*ops)
+    assert got.dtype == torch.float32 and got.shape == (b, hkv, g, 128)
+    assert torch.equal(got, td.emulate_decode_attention_int8(*ops))  # CPU: the plain version
+    # the tolerance scale: Σ_s |p_s · v_s,d| with p from the plain softmax
+    qb = ops[0].bfloat16().float()
+    sc = torch.einsum("bhgd,bhsd->bhgs", qb, ops[1].float()) * ops[2][:, :, None, :] / 128 ** 0.5
+    sc = torch.where(ops[5][:, None, None, :], sc, -1e30)
+    p = torch.softmax(sc, -1) * ops[4][:, :, None, :]
+    terms = p.abs()[..., None] * ops[3].float().abs()[:, :, None]  # [b, h, g, s, d]
+    tol = SUM_RTOL * terms.sum(3) + 2 ** -8 * terms.amax(3) + 1e-6
+    assert np.all(np.abs(got.numpy() - ref) <= tol.numpy())
+    if b > 1:
+        assert not got[1].any() and not np.asarray(ref)[1].any()  # exact zeros, no NaN
+
+
+def test_emulation_matches_crs_tpu_emulation_on_unaligned_dims():
+    """hd 64 and S 96: the shapes ``crs_tpu`` sends to its XLA emulation."""
+    from crs_tpu.ops import decode_attention as jd
+
+    from crs_tpu_torch.ops import decode_attention as td
+
+    q, kc, ks, vc, vs, valid = _case(5, 2, 2, 2, 96, hd=64)
+    assert not td.decode_attention_supported(64, 96)
+    ref = np.asarray(jax.jit(jd.emulate_decode_attention_int8)(
+        jnp.asarray(q), kc, ks, vc, vs, jnp.asarray(valid)))
+    got = td.emulate_decode_attention_int8(
+        *[torch.from_numpy(np.array(a)) for a in (q, kc, ks, vc, vs, valid)]).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    assert not got[1].any()

@@ -7,6 +7,16 @@ import pathlib
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "crs_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
@@ -45,7 +55,9 @@ def no_cuda(monkeypatch):
 def _entry_points():
     from crs_tpu_torch import resolve_device
     from crs_tpu_torch.rag.embedding import EmbeddingModel, HashedEncoder
+    from crs_tpu_torch.models import TorchModel, create_model_interface
     from crs_tpu_torch.rag.index import VectorStore
+    from crs_tpu_torch.rag.pipeline import RAGPipeline
 
     return {
         "resolve_device": lambda dev: resolve_device(dev),
@@ -55,11 +67,17 @@ def _entry_points():
         "VectorStore_fp32": lambda dev: VectorStore({"format": "fp32"}, device=dev),
         "VectorStore_bf16": lambda dev: VectorStore({"format": "bf16"}, device=dev),
         "VectorStore_pq": lambda dev: VectorStore({"format": "pq"}, device=dev),
+        "TorchModel": lambda dev: TorchModel({"config": "tiny"}, device=dev),
+        "create_model_interface": lambda dev: create_model_interface(
+            "nf4", {"config": "tiny", "kv_bits": 8}, device=dev),
+        "RAGPipeline": lambda dev: RAGPipeline(
+            {"embedding": {"backend": "hashed", "embedding_dim": 16}}, device=dev).setup(),
     }
 
 
 ENTRY_POINTS = ["resolve_device", "EmbeddingModel", "HashedEncoder", "VectorStore",
-                "VectorStore_fp32", "VectorStore_bf16", "VectorStore_pq"]
+                "VectorStore_fp32", "VectorStore_bf16", "VectorStore_pq", "TorchModel",
+                "create_model_interface", "RAGPipeline"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -95,6 +113,30 @@ def test_unported_options_raise():
             store.add(["a"], [[0.0] * 16])
     em = EmbeddingModel({"backend": "hashed", "embedding_dim": 16}, device="cpu")
     assert ContextRetriever(store, em, {"prf_beta": 0.5}).prf_beta == 0.5  # PRF is ported
+
+
+def test_unported_model_options_raise(tmp_path):
+    from crs_tpu_torch.models import TorchModel, create_model_interface
+    from crs_tpu_torch.rag.pipeline import RAGPipeline
+
+    for kind in ("gptq", "awq"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            create_model_interface(kind, {"config": "tiny"}, device="cpu")
+    for flag in ("fuse_projections", "fused_mlp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TorchModel({"config": "tiny", flag: True}, device="cpu")
+    (tmp_path / "config.json").write_text("{}")  # a Hugging Face directory, not a native one
+    with pytest.raises(NotImplementedError, match="Hugging Face"):
+        TorchModel({"model_path": str(tmp_path)}, device="cpu").load()
+    model = TorchModel({"config": "tiny"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="evaluation"):
+        model.get_loglikelihood("a", "b")
+    for backend in ("lexical", "minilm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            RAGPipeline({"embedding": {"backend": backend}}, device="cpu").setup()
+    pipe = RAGPipeline({"embedding": {"backend": "hashed", "embedding_dim": 16}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="evaluation"):
+        pipe.setup().evaluate([{"question": "q"}])
 
 
 class _FakeLib:
@@ -307,10 +349,154 @@ def test_build_lists_every_kernel_source():
     from crs_tpu_torch import _build
 
     assert set(_build.CUDA_SOURCES) == {"int8_scan_topk.cu", "scan_topk_f32_bf16.cu",
-                                        "pq_adc_scan_topk.cu"}
+                                        "pq_adc_scan_topk.cu", "q4_matmul.cu",
+                                        "decode_attention_int8.cu"}
     on_disk = {p.name for p in (REPO / "crs_tpu_torch" / "csrc").glob("*.cu")}
     assert on_disk == set(_build.CUDA_SOURCES)
     cmd = _build.compile_command("x.cu", "libx.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     with pytest.raises(ValueError):
         _build.build_cuda("not_a_kernel.cu")
+
+
+# -- the generator's kernels: q4 / NF4 matmul and int8 decode attention -------
+
+def _q4_operands(nf4=False, r=8, k=512, n=256, device="meta"):
+    x = torch.empty((r, k), dtype=torch.bfloat16, device=device)
+    codes = torch.empty((k // 2, n), dtype=torch.uint8 if nf4 else torch.int8, device=device)
+    scales = torch.empty((k // 128, n), dtype=torch.float32, device=device)
+    return x, codes, scales
+
+
+def _attn_operands(b=2, hkv=2, g=2, s=256, hd=128, device="meta"):
+    return (torch.empty((b, hkv, g, hd), dtype=torch.float32, device=device),
+            torch.empty((b, hkv, s, hd), dtype=torch.int8, device=device),
+            torch.empty((b, hkv, s), dtype=torch.float32, device=device),
+            torch.empty((b, hkv, s, hd), dtype=torch.int8, device=device),
+            torch.empty((b, hkv, s), dtype=torch.float32, device=device),
+            torch.empty((b, s), dtype=torch.bool, device=device))
+
+
+@pytest.fixture
+def fake_generator_kernels(monkeypatch):
+    """Non-CPU tensors reach the kernels; the plain versions must not run."""
+    from crs_tpu_torch.ops import decode_attention, launch, qgemm
+
+    def plain_must_not_run(*args, **kwargs):
+        raise AssertionError("the wrapper fell back to the plain version")
+
+    for mod, name in ((qgemm, "emulate_q4_matmul"), (qgemm, "emulate_nf4_matmul"),
+                      (decode_attention, "emulate_decode_attention_int8")):
+        monkeypatch.setattr(mod, name, plain_must_not_run)
+    for mod in (qgemm, decode_attention):
+        monkeypatch.setattr(mod, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(qgemm, "_sm_count", lambda dev: 132)
+    return qgemm, decode_attention, launch
+
+
+GEN_CALLS = {"q4_matmul": "q4_matmul_launch", "nf4_matmul": "q4_matmul_launch",
+             "decode_attention_int8": "decode_attention_int8_launch"}
+
+
+def _gen_call(mods, which, **kw):
+    qgemm, attn, _ = mods
+    if which == "decode_attention_int8":
+        return attn.decode_attention_int8(*_attn_operands(**kw))
+    nf4 = which == "nf4_matmul"
+    return getattr(qgemm, which)(*_q4_operands(nf4=nf4, **kw))
+
+
+def _patch_lib(mods, monkeypatch, lib):
+    qgemm, attn, _ = mods
+    for mod in (qgemm, attn):
+        monkeypatch.setattr(mod, "load_library", lambda source, launchers: lib)
+
+
+@pytest.mark.parametrize("which", sorted(GEN_CALLS))
+@pytest.mark.parametrize("err", [1, 700])
+def test_generator_wrappers_raise_when_launch_fails(fake_generator_kernels, monkeypatch, which,
+                                                    err):
+    lib = _FakeKernels(err)
+    _patch_lib(fake_generator_kernels, monkeypatch, lib)
+    stats = (fake_generator_kernels[1] if which.startswith("decode")
+             else fake_generator_kernels[0]).STATS
+    before = dict(stats.by_kernel)
+    with pytest.raises(RuntimeError, match=f"CUDA error {err}"):
+        _gen_call(fake_generator_kernels, which)
+    assert [c[0] for c in lib.calls] == [GEN_CALLS[which]]
+    assert stats.by_kernel == before  # a failed launch is not counted
+
+
+@pytest.mark.parametrize("which", sorted(GEN_CALLS))
+def test_generator_wrappers_raise_without_a_card(fake_generator_kernels, monkeypatch, which):
+    def no_nvcc(source, launchers):
+        raise RuntimeError(f"compiler for {source} not found")
+
+    for mod in fake_generator_kernels[:2]:
+        monkeypatch.setattr(mod, "load_library", no_nvcc)
+    with pytest.raises(RuntimeError, match="not found"):
+        _gen_call(fake_generator_kernels, which)
+
+
+@pytest.mark.parametrize("which", sorted(GEN_CALLS))
+def test_generator_wrappers_count_a_launch(fake_generator_kernels, monkeypatch, which):
+    lib = _FakeKernels(0)
+    _patch_lib(fake_generator_kernels, monkeypatch, lib)
+    qgemm, attn, _ = fake_generator_kernels
+    qgemm.STATS.reset()
+    attn.STATS.reset()
+    out = _gen_call(fake_generator_kernels, which)
+    stats = attn.STATS if which.startswith("decode") else qgemm.STATS
+    assert stats.by_kernel == {which: 1} and stats.launches == 1
+    assert out.dtype == torch.float32
+    args = lib.calls[0][1]
+    if which == "decode_attention_int8":
+        assert out.shape == (2, 2, 2, 128)
+        assert args[7:11] == (4, 2, 2, 256)  # blocks, hkv, G, S
+    else:
+        assert out.shape == (8, 256)
+        r, k2, n, gs2, split, nf4 = args[6:12]
+        assert (r, k2, n, gs2, nf4) == (8, 256, 256, 64, int(which == "nf4_matmul"))
+        assert split >= 1 and k2 % split == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "rows", "width", "contiguous"])
+@pytest.mark.parametrize("which", ["q4_matmul", "nf4_matmul"])
+def test_q4_wrappers_reject_what_the_kernel_does_not_take(fake_generator_kernels, monkeypatch,
+                                                          which, bad):
+    _patch_lib(fake_generator_kernels, monkeypatch, _FakeKernels(0))
+    nf4 = which == "nf4_matmul"
+    x, codes, scales = _q4_operands(nf4=nf4)
+    if bad == "dtype":  # int4 codes are int8, NF4 codes uint8
+        codes = codes.view(torch.int8 if nf4 else torch.uint8)
+    elif bad == "shape":
+        scales = scales[:, :128]
+    elif bad == "rows":  # past the decode-sized rows
+        x = torch.empty((65, 512), dtype=torch.bfloat16, device="meta")
+    elif bad == "width":  # N not a multiple of 128
+        codes, scales = codes[:, :200], scales[:, :200]
+    else:
+        codes = torch.empty((256, 256), dtype=codes.dtype, device="meta").T
+    with pytest.raises(ValueError):
+        getattr(fake_generator_kernels[0], which)(x, codes, scales)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "group", "seq", "shape", "contiguous"])
+def test_decode_attention_wrapper_rejects_what_the_kernel_does_not_take(
+        fake_generator_kernels, monkeypatch, bad):
+    _patch_lib(fake_generator_kernels, monkeypatch, _FakeKernels(0))
+    ops = list(_attn_operands())
+    if bad == "dtype":
+        ops[1] = ops[1].float()
+    elif bad == "head_dim":
+        ops = list(_attn_operands(hd=64))
+    elif bad == "group":
+        ops = list(_attn_operands(g=3))
+    elif bad == "seq":
+        ops = list(_attn_operands(s=200))
+    elif bad == "shape":
+        ops[5] = torch.empty((2, 128), dtype=torch.bool, device="meta")
+    else:
+        ops[3] = torch.empty((2, 2, 128, 256), dtype=torch.int8, device="meta").transpose(2, 3)
+    with pytest.raises(ValueError):
+        fake_generator_kernels[1].decode_attention_int8(*ops)

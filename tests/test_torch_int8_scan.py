@@ -15,6 +15,15 @@ import torch
 import jax.numpy as jnp
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _unit(rng, n, d):
     x = rng.standard_normal((n, d)).astype(np.float32)
     return x / np.linalg.norm(x, axis=1, keepdims=True)

@@ -19,6 +19,15 @@ import jax.numpy as jnp
 from tests.test_residual_pq import hard_clustered_corpus
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

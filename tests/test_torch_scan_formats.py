@@ -25,6 +25,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 N, D, B, BS = 3000, 64, 10, 256
 ID_RTOL = 1e-5
 

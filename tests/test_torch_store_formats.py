@@ -18,6 +18,15 @@ import torch
 
 import jax.numpy as jnp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 N, D, NQ = 3000, 64, 12
 BASE = {"block_size": 256, "rescore_k": 32, "pq_subspaces": 8, "pq_clusters": 64,
         "pq_iters": 4, "pq_opq_iters": 1, "pq_coarse_clusters": 256}

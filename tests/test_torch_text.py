@@ -9,6 +9,17 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CORPUS = REPO / "results" / "selftrained" / "heldout_corpus.txt"
