@@ -6,7 +6,7 @@
 Phases, each printed as one JSON line (name, seconds, what was compared and
 the largest difference); any failure raises and exits non-zero:
 
-1. build              — compile the five CUDA sources (nvcc, sm_90a) and the
+1. build              — compile the six CUDA sources (nvcc, sm_90a) and the
                         native featurizer (g++), all at once, from the sources here;
 2. kernel             — the int8 scan kernel against its plain torch version:
                         (a) 1,048,576 × 384 random unit vectors, 328 queries, k = 64;
@@ -29,14 +29,20 @@ the largest difference); any failure raises and exits non-zero:
 6. kernel_decode_attn — the int8 decode-attention kernel against its plain
                         version at B ∈ {1, 8}, Hkv 8, G 2, hd 128, S ∈ {2176,
                         4096}, partial masks and an all-masked row (exact zeros);
-7. bench              — the bench.py slice on the held-out corpus: chunk, hashed
+7. kernel_fused_mlp   — the fused MLP kernel against its plain version at
+                        mistral-7b's MLP (H 4096, I 14336, chunk 1024), R ∈ {1,
+                        3, 8}, and a small multi-chunk case: xq / hq codes equal
+                        in ≥ 99.9 % of entries, the output within the flipped
+                        codes' effect; device ms, plain ms, the unfused int8
+                        route's ms, bound;
+8. bench              — the bench.py slice on the held-out corpus: chunk, hashed
                         encoder, int8 store, retrieve_batch_fused over 328 queries,
                         checked against the standard (host-rerank) retrieve;
-8. full               — a 1,048,576-row int8 store built through the port's
+9. full               — a 1,048,576-row int8 store built through the port's
                         encoder from synthetic texts; retrieve_batch_fused at batch
                         328 through the int8 kernel (launch count must rise), timed
                         with CUDA events, plus the kernel's own time and bound;
-9. formats            — the same 1M texts and embeddings in an fp32, a bf16, a
+10. formats          — the same 1M texts and embeddings in an fp32, a bf16, a
                         residual pq and a plain pq store (config.json's store
                         values): retrieve_batch at batch 328 without and with PRF
                         (each format's kernel must launch), a `where`-filtered
@@ -44,7 +50,7 @@ the largest difference); any failure raises and exits non-zero:
                         version, each pq store built twice from one seed (same
                         bits), set-up seconds, device bytes per vector and
                         recall@3 against the fp32 exact top-3;
-10. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
+11. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
                         random weights from the seed, through
                         create_model_interface: greedy generate_batch of 64
                         tokens at batch 1 and 8 on RAG-sized prompts, with 113
@@ -52,13 +58,24 @@ the largest difference); any failure raises and exits non-zero:
                         prefill and decode times, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
-11. rag               — RAGPipeline (hashed embedding, int8 store) over the
+12. rag               — RAGPipeline (hashed embedding, int8 store) over the
                         held-out corpus with the nf4 model: query() with
                         config.json's generation values (sampled), ms per query
                         split into retrieve and generate, chunks checked
-                        against the same pipeline on the CPU.
+                        against the same pipeline on the CPU;
+13. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
+                        from the seed, loaded once: unfused, fuse_projections
+                        and fused_mlp, greedy generate_batch of 32 tokens at
+                        batch 1 and 8 (kernel 11: 32 launches per decode step in
+                        the fused_mlp variant, none in the others); first-step
+                        logits identical with fuse_projections, within 5e-2 of
+                        unfused with fused_mlp; one kv_bits 8 batch-8 decode
+                        through kernels 10 and 11 against the plain versions;
+14. calibrated        — the gptq and awq types of the small config loaded on the
+                        card: load seconds, codes equal to the CPU load,
+                        reconstruction error against plain rounding, 16 tokens.
 
-Then the kernel table line (all seven kernels), the card's name and power
+Then the kernel table line (all eight kernels), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA
 it exits 1 and prints no result; ``--phases`` with a subset exits 2 after
 the phases, with no table and no result. It imports nothing of JAX or of
@@ -193,14 +210,15 @@ def plain_kernels():
     """Every kernel wrapper replaced by its plain torch version (the same
     code around it), to hold a whole route against its plain form."""
     from crs_tpu_torch.models import quantized, transformer
-    from crs_tpu_torch.ops import decode_attention, qgemm, scan
+    from crs_tpu_torch.ops import decode_attention, fused_mlp, qgemm, scan
 
     swaps = [(scan, n, getattr(scan, n + "_plain"))
              for n in ("block_topk_int8", "block_topk_float", "block_topk_adc")]
     swaps += [(quantized, "q4_matmul", qgemm.emulate_q4_matmul),
               (quantized, "nf4_matmul", qgemm.emulate_nf4_matmul),
               (transformer, "decode_attention_int8",
-               decode_attention.emulate_decode_attention_int8)]
+               decode_attention.emulate_decode_attention_int8),
+              (transformer, "fused_mlp_int8", fused_mlp.emulate_fused_mlp_int8)]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in swaps]
     for mod, n, fn in swaps:
         setattr(mod, n, fn)
@@ -851,6 +869,126 @@ def phase_kernel_decode_attn(ph: Phase, dev, seed: int) -> dict:
     return out
 
 
+MLP_SHAPES = ((4096, 14336, 1024, 1), (4096, 14336, 1024, 3), (4096, 14336, 1024, 8),
+              (512, 1024, 256, 5))  # (H, I, chunk, R): mistral-7b's MLP, and a small multi-chunk one
+MLP_MIN_AGREE = 0.999  # least share of equal xq / hq codes, kernel against plain
+MLP_RTOL = 1e-6  # f32 rounding of the sums, relative to Σ|terms|, beside the flipped codes' effect
+MLP_KERNELS = ("fused_mlp_",)  # the five launches' names in the profiler
+
+
+def mlp_case(g, dev, h: int, inter: int, chunk: int, r: int):
+    """Random int8 weights in the kernel's layout with scales that keep g, u
+    and y near 1, and rows x ~ N(0, 1)."""
+    import torch
+
+    from crs_tpu_torch.ops.fused_mlp import fused_mlp_layout
+
+    def codes(k, n):
+        return torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    def scales(n, scale):
+        return (torch.rand((n,), generator=g, device=dev) + 0.5) * scale
+
+    layout = fused_mlp_layout(codes(h, inter), scales(inter, 1.0 / (73 * h ** 0.5)),
+                              codes(h, inter), scales(inter, 1.0 / (73 * h ** 0.5)),
+                              codes(inter, h), scales(h, 2.0 / (73 * inter ** 0.5)), chunk)
+    x = torch.randn((r, h), generator=g, device=dev)
+    norm = 1.0 + 0.1 * torch.randn((h,), generator=g, device=dev)
+    return x, norm, layout
+
+
+def mlp_check(got, ref, kc, pc, down, s_down, x, chunk: int) -> dict:
+    """Kernel 11 against its plain version: xq and hq codes equal in at least
+    MLP_MIN_AGREE of entries and never more than one step apart; the output
+    within the flipped codes' effect, sd·Σ_c |hq_k·hs_k − hq_p·hs_p|·|down_c|,
+    plus MLP_RTOL of the terms' magnitude."""
+    import torch
+
+    out = {}
+    for name, k, p in (("xq", kc.xq, pc.xq), ("hq", kc.hq, pc.hq)):
+        d = (k.int() - p.int()).abs()
+        out[f"{name}_agreement"] = float((d == 0).float().mean())
+        if out[f"{name}_agreement"] < MLP_MIN_AGREE or int(d.max()) > 1:
+            raise AssertionError(f"fused MLP: {name} codes agree in {out[f'{name}_agreement']} "
+                                 f"(limit {MLP_MIN_AGREE}), differ by up to {int(d.max())}")
+    hs_k = kc.hs.double().repeat_interleave(chunk, 1)
+    hs_p = pc.hs.double().repeat_interleave(chunk, 1)
+    dabs = down.double().abs()
+    flip = ((kc.hq.double() * hs_k - pc.hq.double() * hs_p).abs() @ dabs) * s_down.double()
+    mag = ((pc.hq.double() * hs_p).abs() @ dabs) * s_down.double() + x.double().abs()
+    tol = flip + MLP_RTOL * mag
+    diff = (got.double() - ref.double()).abs()
+    out["max_abs_err"] = float(diff.max())
+    out["max_err_over_tol"] = float((diff / tol).max())
+    if not bool((diff <= tol).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"fused MLP: kernel differs from the plain version past the "
+                             f"tolerance ({out['max_err_over_tol']}× it)")
+    return out
+
+
+def phase_kernel_fused_mlp(ph: Phase, dev, seed: int) -> dict:
+    """Kernel 11 against its plain version at mistral-7b's MLP (H 4096,
+    I 14336, chunk 1024) for R ∈ {1, 3, 8} and one small multi-chunk case;
+    device ms per launch (torch.profiler, the five kernels of a call summed),
+    plain ms, the unfused int8 route's ms (the library composition), bound."""
+    import torch
+
+    from crs_tpu_torch.models.quantized import _int8_act_matmul
+    from crs_tpu_torch.ops import fused_mlp as fm
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 11)
+    per_shape = {}
+    for h, inter, chunk, r in MLP_SHAPES:
+        x, norm, lay = mlp_case(g, dev, h, inter, chunk, r)
+        gate_t, sg2, up_t, su2, down, sd = lay
+        got, kc = fm.fused_mlp_int8(x, norm, *lay, chunk=chunk, return_codes=True)
+        ref, pc = fm.emulate_fused_mlp_int8(x, norm, *lay, chunk=chunk, return_codes=True)
+        again = fm.fused_mlp_int8(x, norm, *lay, chunk=chunk)
+        if not torch.equal(got, again):
+            raise AssertionError("fused MLP: two launches on the same inputs differ")
+        info = mlp_check(got, ref, kc, pc, down, sd, x, chunk)
+        wall_ms = device_ms(dev, lambda: fm.fused_mlp_int8(x, norm, *lay, chunk=chunk), iters=20,
+                            warmup=3)
+        ms = kernel_device_ms(lambda: fm.fused_mlp_int8(x, norm, *lay, chunk=chunk), 20,
+                              MLP_KERNELS)
+        plain_ms = device_ms(dev, lambda: fm.emulate_fused_mlp_int8(x, norm, *lay, chunk=chunk),
+                             iters=3)
+        gate_c, up_c = gate_t.T.contiguous(), up_t.T.contiguous()
+        sg, su = sg2.reshape(-1), su2.reshape(-1)
+
+        def library():  # the unfused int8 route: RMSNorm, 3 × torch._int_mm, silu·up
+            xn = x * torch.rsqrt(torch.mean(x * x, dim=1, keepdim=True) + 1e-5) * norm
+            gg = _int8_act_matmul(xn, gate_c, sg)
+            uu = _int8_act_matmul(xn, up_c, su)
+            return x + _int8_act_matmul(torch.nn.functional.silu(gg) * uu, down, sd)
+
+        library_ms = device_ms(dev, library, iters=10, warmup=2)
+        del gate_c, up_c
+        nbytes = 3 * inter * h + 2 * inter * 4 + 2 * h * 4 + 2 * r * h * 4
+        b = bound(nbytes, 2.0 * r * 3 * inter * h, PEAK_INT8_OPS_PER_S)
+        per_shape[f"H={h} I={inter} chunk={chunk} R={r}"] = {
+            **info, "ms": wall_ms if ms is None else ms, "device_ms": ms,
+            "wall_ms_per_call": wall_ms, "plain_ms": plain_ms,
+            "library_composition_ms": library_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "down_splits": fm.down_splits(chunk)}
+        del lay, gate_t, up_t, down
+    main = per_shape["H=4096 I=14336 chunk=1024 R=8"]  # a batch-8 decode step's shape
+    out = {"max_abs_err": max(v["max_abs_err"] for v in per_shape.values()),
+           **{k: main[k] for k in ("ms", "plain_ms", "library_composition_ms", "bound_ms",
+                                   "bound_by")},
+           "shapes": per_shape,
+           "note": "kernel-table numbers at mistral-7b, R = 8 (ms: the five kernels' device time "
+                   "per call by torch.profiler); tolerance: xq / hq codes equal in at least "
+                   f"{MLP_MIN_AGREE} of entries, output within the flipped codes' effect plus "
+                   f"{MLP_RTOL}·Σ|terms|",
+           "library_composition": "RMSNorm + three torch._int_mm products + silu·up (the port's "
+                                  "unfused int8 route): not one call"}
+    ph.info.update(out)
+    return out
+
+
 def _questions():
     with open(QA) as f:
         qs = [x["question"] for x in json.load(f)]
@@ -1147,6 +1285,7 @@ GEN_LOGITS_RTOL = 5e-2  # ‖kernels − plain‖₂ / ‖plain‖₂ of the fir
 Q4_LAUNCHES_PER_STEP_1B = 16 * 7 + 1  # every linear layer and the lm_head
 ATTN_LAUNCHES_PER_STEP_1B = 16
 CONFIG_JSON = os.path.join(REPO, "config.json")
+RAG_QUESTIONS = 2  # rag queries: each samples up to 256 tokens, a retry included
 
 
 def rag_prompts(n: int):
@@ -1168,15 +1307,16 @@ def rag_prompts(n: int):
 
 
 def kernel_counts():
-    from crs_tpu_torch.ops import decode_attention, qgemm
+    from crs_tpu_torch.ops import decode_attention, fused_mlp, qgemm
 
-    return {**qgemm.STATS.by_kernel, **decode_attention.STATS.by_kernel}
+    return {**qgemm.STATS.by_kernel, **decode_attention.STATS.by_kernel,
+            **fused_mlp.STATS.by_kernel}
 
 
 def reset_counts() -> None:
-    from crs_tpu_torch.ops import decode_attention, qgemm, scan
+    from crs_tpu_torch.ops import decode_attention, fused_mlp, qgemm, scan
 
-    for stats in (scan.STATS, qgemm.STATS, decode_attention.STATS):
+    for stats in (scan.STATS, qgemm.STATS, decode_attention.STATS, fused_mlp.STATS):
         stats.reset()
 
 
@@ -1315,6 +1455,281 @@ def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
     return out
 
 
+GEN7_CONFIG = "mistral-7b"
+GEN7_NEW_TOKENS = 32
+GEN7_FUSED_LOGITS_RTOL = 5e-2  # fused MLP against unfused: per-chunk hidden scales differ
+GEN7_LAYERS = 32  # kernel 11 launches per decode step in the fused_mlp variant
+
+
+def variant_model(base, flag: str, seed: int, dev, kv_bits: int = 16):
+    """A create_model_interface model with ``flag`` set that serves the base
+    model's int8 weights, transformed by the function its load() applies:
+    the mistral-7b random init costs over a minute on the host, so the
+    variants share one set of quantized weights."""
+    import dataclasses
+
+    from crs_tpu_torch.models import create_model_interface
+    from crs_tpu_torch.models.transformer import fuse_mlp_params, fuse_qkv_params
+
+    conf = {"config": GEN7_CONFIG, "kv_bits": kv_bits, "seed": seed}
+    if flag:
+        conf[flag] = True
+    model = create_model_interface("int8", conf, device=dev)
+    model.cfg = dataclasses.replace(base.cfg, kv_bits=kv_bits)
+    model.tokenizer = base.tokenizer
+    model.params = {"": lambda p: p, "fuse_projections": fuse_qkv_params,
+                    "fused_mlp": fuse_mlp_params}[flag](base.params)
+    model.load_time_s, model.weights_source, model._loaded = 0.0, base.weights_source, True
+    return model
+
+
+def first_step_logits(model, cache, token):
+    """One decode step of ``token`` on a copy of the prefilled ``cache``: the
+    step's logits [B, V]."""
+    from crs_tpu_torch.models.transformer import decode_step
+
+    return decode_step(model.params, model.cfg, token, clone_cache(cache))[0]
+
+
+def rel_l2(got, ref) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+
+
+def phase_generate_7b(ph: Phase, dev, seed: int) -> dict:
+    """mistral-7b as int8 with a bf16 KV cache (config.json's model values at
+    the one preset whose I divides the fused MLP's chunk), random weights
+    from the seed, loaded once through create_model_interface; three
+    variants — unfused, fuse_projections, fused_mlp — each through greedy
+    generate_batch of 32 tokens at batch 1 and 8 on RAG-sized prompts.
+    Kernel 11 must launch 32 times per decode step in the fused_mlp variant
+    and never in the others; the first decode step's logits must equal the
+    unfused ones with fuse_projections and lie within 5e-2 relative L2 of them
+    with fused_mlp. Then one kv_bits 8 batch-8 decode through kernels 10 and
+    11 together, held against the plain versions."""
+    import torch
+
+    from crs_tpu_torch.models import create_model_interface, params_num_bytes
+    from crs_tpu_torch.models.transformer import decode_step, init_cache, prefill
+
+    prompts = rag_prompts(max(GEN_BATCHES))
+    base = create_model_interface("int8", {"config": GEN7_CONFIG, "kv_bits": 16, "seed": seed},
+                                  device=dev)
+    t0 = time.perf_counter()
+    base.load()
+    out = {"config": GEN7_CONFIG, "kv_bits": 16, "new_tokens": GEN7_NEW_TOKENS,
+           "load_s": time.perf_counter() - t0, "variants": {}}
+    steps = GEN7_NEW_TOKENS - 1  # decode steps: the last token needs none
+    launches = 0
+    ref_logits = {}
+    for flag in ("", "fuse_projections", "fused_mlp"):
+        model = base if not flag else variant_model(base, flag, seed, dev)
+        name = flag or "unfused"
+        info = {"weight_bytes": params_num_bytes(model.params),
+                "model_info": {k: model.get_model_info()[k]
+                               for k in ("fused_projections", "fused_mlp", "bits_per_param")}}
+        for b in GEN_BATCHES:
+            batch = prompts[:b]
+            model.generate_batch(batch, 2)  # warm-up
+            # the main path: counts to 0 just before, read just after
+            reset_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            texts = model.generate_batch(batch, GEN7_NEW_TOKENS)
+            sync(dev)
+            total_ms = (time.perf_counter() - t0) * 1e3
+            counts = kernel_counts()
+            want = GEN7_LAYERS * steps if flag == "fused_mlp" else 0
+            if counts.get("fused_mlp_int8", 0) != want:
+                raise AssertionError(f"{name} B={b}: fused_mlp_int8 launched "
+                                     f"{counts.get('fused_mlp_int8', 0)} times in {steps} decode "
+                                     f"steps, expected {want}")
+            launches += counts.get("fused_mlp_int8", 0)
+            if len(texts) != b or not all(isinstance(t, str) for t in texts):
+                raise AssertionError(f"{name} B={b}: generate_batch returned {texts!r}")
+            ids, mask = model.encode_batch(batch, GEN7_NEW_TOKENS)
+            cache = init_cache(model.cfg, b, ids.shape[1] + GEN7_NEW_TOKENS, device=dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = prefill(model.params, model.cfg, ids, cache, mask)
+            sync(dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            token = torch.argmax(logits[:, -1], dim=-1)
+            kv_bytes = sum(t.numel() * t.element_size() for t in (cache.k, cache.v, cache.mask))
+            start = cache  # the prefilled cache, for the first-step checks
+            state = {"cache": clone_cache(cache)}
+
+            def step():
+                state["logits"], state["cache"] = decode_step(model.params, model.cfg, token,
+                                                              state["cache"])
+
+            decode_ms = device_ms(dev, step, iters=16, warmup=2)
+            step_profile = device_profile(step, decode_ms, top=6)
+            del state
+            row = {"prompt_tokens": int(ids.shape[1]), "generate_ms": total_ms,
+                   "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+                   "tokens_per_s": b * 1000.0 / decode_ms, "decode_step_profile": step_profile,
+                   "kv_cache_bytes": kv_bytes, "main_path_launches": counts,
+                   "launches_per_decode_step": {k: v / steps for k, v in counts.items()},
+                   "sample": texts[0][:80]}
+            if not flag:  # the reference of the first decode step
+                ref_logits[b] = (token, first_step_logits(model, start, token))
+            else:
+                token, ref = ref_logits[b]
+                got = first_step_logits(model, start, token)
+                rel = rel_l2(got, ref)
+                row.update({"first_step_logits_rel_l2_vs_unfused": rel,
+                            "first_step_top1_agreement_vs_unfused":
+                                float((got.argmax(-1) == ref.argmax(-1)).float().mean())})
+                if flag == "fuse_projections" and not torch.equal(got, ref):
+                    raise AssertionError(f"fuse_projections B={b}: first-step logits differ from "
+                                         f"the unfused ones (relative L2 {rel})")
+                if flag == "fused_mlp" and (not rel <= GEN7_FUSED_LOGITS_RTOL
+                                            or not bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"fused_mlp B={b}: first-step logits {rel} from the "
+                                         f"unfused ones (relative L2, limit "
+                                         f"{GEN7_FUSED_LOGITS_RTOL})")
+            if flag == "fused_mlp":
+                with plain_kernels():
+                    plain = first_step_logits(model, start, token)
+                row["first_step_logits_rel_l2_vs_plain"] = rel_l2(got, plain)
+                if not row["first_step_logits_rel_l2_vs_plain"] <= GEN_LOGITS_RTOL:
+                    raise AssertionError(f"fused_mlp B={b}: first-step logits through kernel 11 "
+                                         f"differ from its plain version by "
+                                         f"{row['first_step_logits_rel_l2_vs_plain']}")
+            info[f"batch_{b}"] = row
+            del cache, start
+            torch.cuda.empty_cache()
+        out["variants"][name] = info
+        if flag == "fuse_projections":
+            del model
+            torch.cuda.empty_cache()
+    # kernels 10 and 11 together: kv_bits 8, batch 8
+    model = variant_model(base, "fused_mlp", seed, dev, kv_bits=8)
+    batch = prompts[:8]
+    model.generate_batch(batch, 2)
+    reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    model.generate_batch(batch, GEN7_NEW_TOKENS)
+    sync(dev)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernel_counts()
+    for kernel in ("fused_mlp_int8", "decode_attention_int8"):
+        if counts.get(kernel, 0) != GEN7_LAYERS * steps:
+            raise AssertionError(f"kv_bits 8: {kernel} launched {counts.get(kernel, 0)} times in "
+                                 f"{steps} decode steps")
+    launches += counts["fused_mlp_int8"]
+    ids, mask = model.encode_batch(batch, GEN7_NEW_TOKENS)
+    cache = init_cache(model.cfg, 8, ids.shape[1] + 2, device=dev)
+    _, cache = prefill(model.params, model.cfg, ids, cache, mask)
+    token = ref_logits[8][0]
+    got = first_step_logits(model, cache, token)
+    with plain_kernels():
+        plain = first_step_logits(model, cache, token)
+    rel = rel_l2(got, plain)
+    if not rel <= GEN_LOGITS_RTOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"kv_bits 8 fused_mlp: first-step logits {rel} from the plain "
+                             f"versions (limit {GEN_LOGITS_RTOL})")
+    out["kv8_fused_mlp_batch_8"] = {
+        "generate_ms": total_ms, "main_path_launches": counts,
+        "launches_per_decode_step": {k: v / steps for k, v in counts.items()},
+        "first_step_logits_rel_l2_vs_plain": rel,
+        "first_step_top1_agreement_vs_unfused_bf16_cache":
+            float((got.argmax(-1) == ref_logits[8][1].argmax(-1)).float().mean())}
+    out["main_path_launches"] = launches
+    out["note"] = ("decode_ms_per_token: CUDA events over 16 decode steps (host work included); "
+                   "prefill_ms: host clock around one prefill; generate_ms: one greedy "
+                   "generate_batch of 32 tokens, prefill included; kv_cache_bytes: the bf16 "
+                   "cache for prompt + 32 tokens")
+    del model, base
+    torch.cuda.empty_cache()
+    ph.info.update(out)
+    return out
+
+
+CALIB_CONFIG = "small"  # config.json's model config
+CALIB_NEW_TOKENS = 16
+
+
+def phase_calibrated(ph: Phase, dev, seed: int) -> dict:
+    """The calibrated gptq / awq types of the small config loaded on the card
+    through create_model_interface (statistics on the card, rounding loops
+    on the host): load seconds, the share of codes equal to the same load on
+    the CPU, each layer's reconstruction error against plain rounding on the
+    card's statistics, and 16 greedy tokens."""
+    import numpy as np
+
+    from crs_tpu_torch.models import create_model_interface
+    from crs_tpu_torch.models.quant_calib import (
+        _recon_error, _rtn_dequant, awq_search_scale, collect_calibration_stats,
+    )
+    from crs_tpu_torch.models.transformer import init_params
+
+    out = {"config": CALIB_CONFIG}
+    question = "What does product quantization trade for its smaller index?"
+    for kind in ("gptq", "awq"):
+        conf = {"config": CALIB_CONFIG, "seed": seed}
+        model = create_model_interface(kind, conf, device=dev)
+        t0 = time.perf_counter()
+        model.load()
+        load_s = time.perf_counter() - t0
+        cpu = create_model_interface(kind, conf, device="cpu")
+        t0 = time.perf_counter()
+        cpu.load()
+        cpu_load_s = time.perf_counter() - t0
+        same = total = 0
+        for lg, lc in zip(model.params["layers"], cpu.params["layers"]):
+            for grp in ("attn", "mlp"):
+                for name, qt in lg[grp].items():
+                    same += int((qt.codes.cpu() == lc[grp][name].codes).sum())
+                    total += qt.codes.numel()
+        # reconstruction error on the card's statistics, against plain rounding
+        full = init_params(seed, model.cfg, device=dev)
+        stats = collect_calibration_stats(full, model.cfg, model._calibration_batches())
+        ratios = []
+        sites = {"q": "attn_in", "k": "attn_in", "v": "attn_in", "o": "o_in",
+                 "gate": "mlp_in", "up": "mlp_in", "down": "down_in"}
+        err_total = rtn_total = 0.0
+        for li, layer in enumerate(full["layers"]):
+            for grp in ("attn", "mlp"):
+                for name, w in layer[grp].items():
+                    w = w.float().cpu().numpy()
+                    st = stats[li][sites[name]]
+                    rtn = _recon_error(w, _rtn_dequant(w, 4, model.group_size), st["gram"])
+                    if kind == "gptq":
+                        w_hat = model.params["layers"][li][grp][name].dequantize().cpu().numpy()
+                    else:
+                        s = awq_search_scale([w], st["mean_abs"], st["gram"], 4, model.group_size)
+                        w_hat = _rtn_dequant(w * s[:, None], 4, model.group_size) / s[:, None]
+                    err = _recon_error(w, w_hat, st["gram"])
+                    if kind == "awq" and err > rtn:
+                        raise AssertionError(f"awq layer {li} {name}: error {err} above plain "
+                                             f"rounding's {rtn}")
+                    ratios.append(err / rtn)
+                    err_total += err
+                    rtn_total += rtn
+        if not err_total < rtn_total:
+            raise AssertionError(f"{kind}: reconstruction error {err_total} not below plain "
+                                 f"rounding's {rtn_total}")
+        text = model.generate(question, max_new_tokens=CALIB_NEW_TOKENS)
+        if not isinstance(text, str):
+            raise AssertionError(f"{kind}: generate returned {text!r}")
+        out[kind] = {"load_s": load_s, "cpu_load_s": cpu_load_s,
+                     "codes_equal_to_cpu_load": same / total,
+                     "recon_error_over_rtn": {"total": err_total / rtn_total,
+                                              "max_layer": max(ratios),
+                                              "mean_layer": float(np.mean(ratios))},
+                     "sample": text[:80]}
+        del model, cpu, full
+    out["note"] = ("recon_error_over_rtn: tr(ΔᵀHΔ) against plain 4-bit rounding's on the card's "
+                   "calibration statistics (awq: each layer's searched scale, at most 1 by "
+                   "construction; gptq: the loaded weights)")
+    ph.info.update(out)
+    return out
+
+
 def phase_rag(ph: Phase, dev, seed: int, shared: dict) -> dict:
     """RAGPipeline (hashed embedding, int8 store, bench.py's retrieval and
     config.json's chunking and generation values) over the held-out corpus with the nf4 1b model of the
@@ -1337,7 +1752,7 @@ def phase_rag(ph: Phase, dev, seed: int, shared: dict) -> dict:
     ref = RAGPipeline(cfg, device="cpu").setup()
     ref.index_documents(CORPUS)
     with open(QA) as f:
-        questions = [x["question"] for x in json.load(f)][:4]
+        questions = [x["question"] for x in json.load(f)][:RAG_QUESTIONS]
     pipe.retrieve(questions[0])  # warm-up
     model.generate_batch([questions[0]], 2)
     rows = []
@@ -1414,11 +1829,19 @@ def kernel_table(res: dict) -> list:
         "replaces": "crs_tpu/ops/decode_attention.py:69",
         "launches": gen["main_path_launches"]["attn"], "max_abs_err": attn["max_abs_err"],
         **{k: attn[k] for k in keys}, "library_ms": None})
+    mlp = res["kernel_fused_mlp"]
+    rows.append({
+        "name": "fused_mlp_int8", "route": "cuda",
+        "source": "crs_tpu_torch/csrc/fused_mlp_int8.cu",
+        "replaces": "crs_tpu/ops/fused_mlp.py:74",
+        "launches": res["generate_7b"]["main_path_launches"], "max_abs_err": mlp["max_abs_err"],
+        **{k: mlp[k] for k in keys}, "library_ms": None})
     return rows
 
 
 ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_q4",
-              "kernel_decode_attn", "bench", "full", "formats", "generate", "rag")
+              "kernel_decode_attn", "kernel_fused_mlp", "bench", "full", "formats", "generate",
+              "rag", "generate_7b", "calibrated")
 
 
 def main(argv=None) -> int:
@@ -1457,12 +1880,15 @@ def main(argv=None) -> int:
         "kernel_adc": lambda ph: phase_kernel_adc(ph, dev, args.seed, FULL_ROWS),
         "kernel_q4": lambda ph: phase_kernel_q4(ph, dev, args.seed),
         "kernel_decode_attn": lambda ph: phase_kernel_decode_attn(ph, dev, args.seed),
+        "kernel_fused_mlp": lambda ph: phase_kernel_fused_mlp(ph, dev, args.seed),
         "bench": lambda ph: phase_bench(ph, dev),
         "full": lambda ph: phase_full(ph, dev, args.seed, FULL_ROWS, res.get("kernel", 0.0),
                                       shared),
         "formats": lambda ph: phase_formats(ph, dev, shared),
         "generate": lambda ph: phase_generate(ph, dev, args.seed, shared),
         "rag": lambda ph: phase_rag(ph, dev, args.seed, shared),
+        "generate_7b": lambda ph: phase_generate_7b(ph, dev, args.seed),
+        "calibrated": lambda ph: phase_calibrated(ph, dev, args.seed),
     }
     for name in ALL_PHASES:
         if name in phases:

@@ -3,15 +3,22 @@
 
 ``create_model_interface(model_type, config, device)`` maps a type string to
 a precision variant of one causal LM (:class:`TorchModel`): full precision
-(``bf16``), int8, int4, int3, int2 or nf4 weight-only quantization, with a
-bf16 or int8 (``kv_bits: 8``) KV cache. Weights come from a native
-checkpoint directory (``model_path`` holding ``model_meta.json``, as
-``save_pretrained`` writes it, in either package) or from ``crs_tpu``'s
-deterministic random init on a named config.
+(``bf16``), int8, int4, int3, int2 or nf4 weight-only quantization, or the
+calibrated ``gptq`` / ``awq`` 4-bit types (``quant_calib``), with a bf16 or
+int8 (``kv_bits: 8``) KV cache. Weights come from a native checkpoint
+directory (``model_path`` holding ``model_meta.json``, as
+``save_pretrained`` writes it, in either package), a local Hugging Face
+Llama/Mistral directory (``model_path`` holding ``config.json``), or
+``crs_tpu``'s deterministic random init on a named config. The serving
+flags ``fuse_projections`` (q|k|v and gate|up as one weight each) and
+``fused_mlp`` (int8 layers through the fused MLP kernel) exclude each other.
 
-Not ported yet, and raising: Hugging Face checkpoint directories, the
-calibrated ``gptq`` / ``awq`` types, log-likelihood scoring (the evaluation
-slice), ``fuse_projections`` and ``fused_mlp``.
+The calibration batches come from the PDF named by ``calibration_pdf`` when
+it exists, else from deterministic random tokens. (``crs_tpu`` reads a
+fixed corpus path outside the repository, absent wherever the repository's
+tests run, so both packages take the random tokens there.)
+
+Not ported yet, and raising: log-likelihood scoring (the evaluation slice).
 
 The model runs on the card unless ``device="cpu"`` is passed; without CUDA
 it raises.
@@ -34,7 +41,9 @@ from ..device import resolve_device
 from .bytes_tokenizer import ByteTokenizer
 from .quantized import params_num_bytes, quantize_params
 from .sampling import SamplingParams, generate_tokens
-from .transformer import CONFIGS, TransformerConfig, forward, init_params
+from .transformer import (
+    CONFIGS, TransformerConfig, forward, fuse_mlp_params, fuse_qkv_params, init_params,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -81,14 +90,16 @@ class TorchModel(ModelInterface):
         self.config_name = config.get("config", "tiny")
         self.model_path = config.get("model_path")
         self.quantization: Optional[str] = config.get("quantization")
-        if self.quantization and self.quantization.startswith(("awq", "gptq")):
-            raise NotImplementedError(f"calibrated quantization ({self.quantization}) is not "
-                                      f"ported to crs_tpu_torch yet {_NOT_PORTED}")
         self.kv_bits = int(config.get("kv_bits", 16))
-        for flag in ("fuse_projections", "fused_mlp"):
-            if config.get(flag, False):
-                raise NotImplementedError(f"{flag} is not ported to crs_tpu_torch yet "
-                                          f"{_NOT_PORTED}")
+        self.fuse_projections = bool(config.get("fuse_projections", False))
+        self.fused_mlp = bool(config.get("fused_mlp", False))
+        if self.fused_mlp and self.fuse_projections:
+            raise ValueError("fused_mlp and fuse_projections are mutually exclusive "
+                             "(gate|up fusion replaces the layout)")
+        # weight dtype of a Hugging Face checkpoint: bf16, or f32 for parity work
+        self.dtype = (torch.float32 if str(config.get("dtype", "bf16")) in ("float32", "fp32")
+                      else torch.bfloat16)
+        self.calibration_pdf: Optional[str] = config.get("calibration_pdf")
         self.group_size = int(config.get("group_size", 128))
         self.seed = int(config.get("seed", 0))
         self.max_seq_len = int(config.get("max_seq_len", 2048))
@@ -105,19 +116,26 @@ class TorchModel(ModelInterface):
             return
         t0 = time.perf_counter()
         already_quantized = False
-        if self.model_path:
-            meta_path = os.path.join(self.model_path, "model_meta.json")
-            if not os.path.exists(meta_path):
-                raise NotImplementedError(
-                    f"model_path={self.model_path!r} is not a native checkpoint directory "
-                    f"(no model_meta.json); Hugging Face checkpoints are not ported to "
-                    f"crs_tpu_torch yet {_NOT_PORTED}")
+        if self.model_path and os.path.exists(os.path.join(self.model_path, "model_meta.json")):
             requested = self.quantization
             self.load_pretrained(self.model_path)
-            with open(meta_path) as f:
+            with open(os.path.join(self.model_path, "model_meta.json")) as f:
                 already_quantized = bool(json.load(f).get("quantization"))
             if requested and not self.quantization:
                 self.quantization = requested
+            self.weights_source = "checkpoint"
+        elif self.model_path:
+            from .hf_loader import load_hf_causal_lm
+
+            loaded = load_hf_causal_lm(self.model_path, dtype=self.dtype, device=self.device)
+            if loaded is None:
+                # random weights under the checkpoint's name would be a wrong answer
+                raise RuntimeError(
+                    f"model_path={self.model_path!r} was set but no weights could be loaded "
+                    "(no model_meta.json or config.json, or missing / corrupt weights); unset "
+                    "model_path to run a random-init architecture")
+            self.cfg, self.params = loaded
+            self.tokenizer = _load_hf_tokenizer(self.model_path) or ByteTokenizer()
             self.weights_source = "checkpoint"
         else:
             if self.config_name not in CONFIGS:
@@ -135,12 +153,52 @@ class TorchModel(ModelInterface):
         elif q in ("int8", "int4", "int3", "int2", "nf4"):
             bits = "nf4" if q == "nf4" else int(q[3:])
             self.params = quantize_params(self.params, bits=bits, group_size=self.group_size)
+        elif q and q.startswith(("awq", "gptq")):
+            from .quant_calib import quantize_params_calibrated
+
+            method = "awq" if q.startswith("awq") else "gptq"
+            bits = int(q[len(method):] or 4)
+            self.params = quantize_params_calibrated(self.params, self.cfg, method,
+                                                     self._calibration_batches(), bits=bits,
+                                                     group_size=self.group_size)
         elif q not in (None, "", "none", "bf16", "fp16"):
             raise ValueError(f"unknown quantization: {q}")
+        if self.fuse_projections:
+            self.params = fuse_qkv_params(self.params)
+        if self.fused_mlp:
+            self.params = fuse_mlp_params(self.params)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.load_time_s = time.perf_counter() - t0
         self._loaded = True
+
+    def _calibration_batches(self, num_batches: int = 4, batch: int = 2, seq: int = 128):
+        """Fixed-shape calibration batches [(ids, mask)]: pages of more than
+        50 words from ``calibration_pdf`` (read by
+        ``DocumentProcessor.process_pdf``) when it exists, else deterministic
+        random tokens from the seed — ``crs_tpu``'s rule, with the corpus
+        path taken from the config."""
+        texts: List[str] = []
+        if self.calibration_pdf and os.path.exists(self.calibration_pdf):
+            from ..rag.document_processing import DocumentProcessor
+
+            pages = DocumentProcessor({}).process_pdf(self.calibration_pdf)
+            texts = [t for t, _ in pages if len(t.split()) > 50]
+        batches = []
+        rng = np.random.default_rng(self.seed)
+        for bi in range(num_batches):
+            ids = np.zeros((batch, seq), np.int64)
+            mask = np.zeros((batch, seq), np.bool_)
+            for row in range(batch):
+                if texts:
+                    enc = self.tokenizer.encode(texts[(bi * batch + row) % len(texts)],
+                                                max_length=seq)
+                else:
+                    enc = rng.integers(0, self.cfg.vocab_size, (seq,)).tolist()
+                ids[row, :len(enc)] = enc
+                mask[row, :len(enc)] = True
+            batches.append((ids, mask))
+        return batches
 
     def _ensure(self) -> None:
         if not self._loaded:
@@ -206,8 +264,8 @@ class TorchModel(ModelInterface):
             "load_time_s": self.load_time_s,
             "weights_source": self.weights_source,
             "kv_bits": self.kv_bits,
-            "fused_projections": False,
-            "fused_mlp": False,
+            "fused_projections": self.fuse_projections,
+            "fused_mlp": self.fused_mlp,
         }
 
     # -- native checkpoints ---------------------------------------------------
@@ -247,6 +305,30 @@ def _eos_id(tok) -> int:
     return getattr(tok, "eos_id", -1)
 
 
+def _load_hf_tokenizer(path: str):
+    """The checkpoint's tokenizer through ``transformers`` (local files
+    only), or None when ``transformers`` or the tokenizer files are absent."""
+    try:
+        from transformers import AutoTokenizer  # type: ignore
+
+        tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+    except Exception:  # no transformers, or no tokenizer in the directory
+        return None
+
+    class _Wrap:
+        pad_id = tok.pad_token_id or 0
+        eos_id = tok.eos_token_id if tok.eos_token_id is not None else -1
+
+        def encode(self, text, max_length=None):
+            ids = tok.encode(text)
+            return ids[:max_length] if max_length else ids
+
+        def decode(self, ids):
+            return tok.decode(ids, skip_special_tokens=True)
+
+    return _Wrap()
+
+
 def _count_params(cfg: TransformerConfig) -> int:
     d, hd = cfg.hidden_size, cfg.head_dim
     per_layer = (d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
@@ -266,8 +348,7 @@ _MODEL_TYPES = {
 
 def create_model_interface(model_type: str, config: Optional[Dict[str, Any]] = None,
                            device: Optional[Union[str, torch.device]] = None) -> ModelInterface:
-    """Type string → configured model variant (``crs_tpu``'s table; the
-    ``gptq`` and ``awq`` types raise when loaded)."""
+    """Type string → configured model variant (``crs_tpu``'s table)."""
     mt = (model_type or "jax").lower()
     if mt not in _MODEL_TYPES:
         raise ValueError(f"unknown model type: {model_type} (known: {sorted(_MODEL_TYPES)})")

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.qgemm import NF4_LEVELS, nf4_matmul, q4_matmul, q4_pallas_supported
+from ..ops.quant import int8_product as _int8_product
 
 __all__ = [
     "QuantizedTensor", "qmatmul", "quantize_tensor", "tensor_from_int_codes",
@@ -143,21 +144,6 @@ def tensor_from_int_codes(vals, scales, bits: int, group_size: int) -> Quantized
     if bits in (2, 3):
         return QuantizedTensor(vals, scales, bits, group_size, (kin, kout))
     raise ValueError(f"unsupported bits for int-code tensors: {bits}")
-
-
-def _int8_product(xq: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """Exact int8 × int8 → int32 [M, N]. On the card ``torch._int_mm``
-    (rows padded to its minimum, at least 17 and a multiple of 8); on the
-    CPU, and for widths ``_int_mm`` does not take, float64, which holds
-    every partial sum (127²·K < 2⁵³)."""
-    m, k = xq.shape
-    n = codes.shape[1]
-    if xq.is_cuda and k % 8 == 0 and n % 8 == 0:
-        mp = max(32, -(-m // 8) * 8)
-        if mp != m:
-            xq = torch.cat([xq, xq.new_zeros((mp - m, k))], 0)
-        return torch._int_mm(xq, codes)[:m]
-    return (xq.double() @ codes.double()).to(torch.int32)
 
 
 def _int8_act_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,11 @@ The params tree has ``crs_tpu``'s layout and paths, so one tree converts
 to the other (``convert.params_from_numpy``) and checkpoints load in both.
 Where ``crs_tpu`` returns a new cache, the port writes the new rows into the
 cache it was given (in place, to keep one cache in device memory) and
-returns it. Fused projections and the fused MLP (``fuse_qkv_params``,
-``fuse_mlp_params``) are not ported yet.
+returns it. ``fuse_qkv_params`` concatenates q|k|v and gate|up into one
+weight each; ``fuse_mlp_params`` attaches the fused MLP's layout to int8
+layers, and decode-sized rows then go through the CUDA kernel of
+``ops.fused_mlp`` (TPU kernel 11). ``forward_captured`` returns each
+layer's linear inputs for the calibrated quantizers (``quant_calib``).
 
 Arithmetic follows the JAX version as XLA compiles it: bf16 elementwise ops
 round one by one; a division by a constant is a product with the
@@ -38,13 +41,15 @@ from ..ops.decode_attention import (
     decode_attention_int8, decode_attention_supported, emulate_decode_attention_int8,
     quantize_kv_rows,
 )
-from .quantized import qmatmul
+from ..ops.fused_mlp import fused_mlp_int8, fused_mlp_layout, fused_mlp_supported
+from .quantized import QuantizedTensor, qmatmul
 
 Params = Dict[str, Any]
 
 __all__ = [
-    "TransformerConfig", "CONFIGS", "init_params", "rms_norm", "apply_rope", "forward",
-    "init_cache", "prefill", "decode_step", "KVCache", "QuantKVCache", "recip32",
+    "TransformerConfig", "CONFIGS", "init_params", "fuse_qkv_params", "fuse_mlp_params",
+    "rms_norm", "apply_rope", "forward", "forward_captured", "init_cache", "prefill",
+    "decode_step", "KVCache", "QuantKVCache", "recip32",
 ]
 
 
@@ -159,6 +164,63 @@ def init_params(seed: int, cfg: TransformerConfig,
     return params
 
 
+def _concat_out(ws):
+    """Weights concatenated along the output dim (shared input dim): plain
+    tensors, or QuantizedTensors of one width and group size, whose codes
+    and scales both concatenate on their output axis."""
+    if isinstance(ws[0], QuantizedTensor):
+        first = ws[0]
+        if not all(isinstance(w, QuantizedTensor) and w.bits == first.bits
+                   and w.group_size == first.group_size and w.shape[0] == first.shape[0]
+                   for w in ws):
+            raise ValueError("fusion requires the same input dim, bits and group size")
+        return QuantizedTensor(torch.cat([w.codes for w in ws], dim=1),
+                               torch.cat([w.scales for w in ws], dim=-1), first.bits,
+                               first.group_size, (first.shape[0], sum(w.shape[1] for w in ws)))
+    return torch.cat(ws, dim=1)
+
+
+def fuse_qkv_params(params: Params) -> Params:
+    """q|k|v → one ``qkv`` weight and gate|up → one ``gateup`` weight per
+    layer (7 → 4 weight streams). The same arithmetic: every output column
+    keeps its own dot and scale, and the int8 route's per-row activation
+    scale sees the same x, so int8 is exact. Apply after quantization."""
+    out = dict(params)
+    out["layers"] = []
+    for layer in params["layers"]:
+        attn, mlp = layer["attn"], layer["mlp"]
+        new_attn = {"qkv": _concat_out([attn["q"], attn["k"], attn["v"]]), "o": attn["o"]}
+        new_mlp = {"gateup": _concat_out([mlp["gate"], mlp["up"]]), "down": mlp["down"]}
+        out["layers"].append({**layer, "attn": new_attn, "mlp": new_mlp})
+    return out
+
+
+def fuse_mlp_params(params: Params, chunk: int = 1024) -> Params:
+    """Attach the fused MLP's layout (gate / up codes transposed to [I, H],
+    per-chunk scales; down as it is) to every int8 layer whose intermediate
+    width divides by ``chunk`` and whose hidden width by 128, so decode
+    routes through :func:`~crs_tpu_torch.ops.fused_mlp.fused_mlp_int8`.
+    Other layers are left as they are. gate / up carry a transposed copy;
+    the unfused weights stay for prefill. Exclusive with
+    :func:`fuse_qkv_params`. Apply after quantization."""
+    out = dict(params)
+    out["layers"] = []
+    for layer in params["layers"]:
+        mlp = layer["mlp"]
+        ok = all(isinstance(mlp.get(k), QuantizedTensor) and mlp[k].bits == 8
+                 for k in ("gate", "up", "down"))
+        if not ok or mlp["gate"].codes.shape[1] % chunk or mlp["gate"].codes.shape[0] % 128:
+            out["layers"].append(layer)
+            continue
+        gate_t, sg2, up_t, su2, down_c, sd = fused_mlp_layout(
+            mlp["gate"].codes, mlp["gate"].scales, mlp["up"].codes, mlp["up"].scales,
+            mlp["down"].codes, mlp["down"].scales, chunk)
+        fused = {"gate_t": gate_t, "s_gate2": sg2, "up_t": up_t, "s_up2": su2,
+                 "down_c": down_c, "down_s": sd}
+        out["layers"].append({**layer, "mlp": {**mlp, "fused": fused}})
+    return out
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return _norm(x.float(), x.dtype, scale, eps)
 
@@ -205,31 +267,39 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def _project_qkv(x: torch.Tensor, p: Params, cfg: TransformerConfig, positions: torch.Tensor,
                  unrounded=None):
-    """q [B, S, H, hd], k / v [B, S, Hkv, hd], rope on q and k."""
-    if "qkv" in p:
-        raise NotImplementedError("fused q|k|v projections (fuse_projections) are not ported to "
-                                  "crs_tpu_torch yet")
+    """q [B, S, H, hd], k / v [B, S, Hkv, hd], rope on q and k; one product
+    and a split with fused params (:func:`fuse_qkv_params`)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = qmatmul(x, p["q"], unrounded).reshape(b, s, h, hd)
-    k = qmatmul(x, p["k"], unrounded).reshape(b, s, hkv, hd)
-    v = qmatmul(x, p["v"], unrounded).reshape(b, s, hkv, hd)
+    if "qkv" in p:
+        qkv = qmatmul(x, p["qkv"], unrounded)
+        q = qkv[..., :h * hd].reshape(b, s, h, hd)
+        k = qkv[..., h * hd:(h + hkv) * hd].reshape(b, s, hkv, hd)
+        v = qkv[..., (h + hkv) * hd:].reshape(b, s, hkv, hd)
+    else:
+        q = qmatmul(x, p["q"], unrounded).reshape(b, s, h, hd)
+        k = qmatmul(x, p["k"], unrounded).reshape(b, s, hkv, hd)
+        v = qmatmul(x, p["v"], unrounded).reshape(b, s, hkv, hd)
     cos, sin = _rope_angles(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def _gate_up(hmlp: torch.Tensor, mlp: Params, unrounded=None):
+    """SwiGLU gate and up: one product and a split with fused params."""
     if "gateup" in mlp:
-        raise NotImplementedError("fused gate|up projections (fuse_projections) are not ported "
-                                  "to crs_tpu_torch yet")
+        gu = qmatmul(hmlp, mlp["gateup"], unrounded)
+        inter = gu.shape[-1] // 2
+        return gu[..., :inter], gu[..., inter:]
     return qmatmul(hmlp, mlp["gate"], unrounded), qmatmul(hmlp, mlp["up"], unrounded)
 
 
 def _attention(x, p, cfg: TransformerConfig, positions, cache_kv, cache_len: Optional[int],
-               key_valid: Optional[torch.Tensor] = None, unrounded=None):
+               key_valid: Optional[torch.Tensor] = None, unrounded=None,
+               capture: Optional[dict] = None):
     """Attention with an explicit product and softmax (no fused library
     attention). With ``cache_kv`` ([B, S_max, Hkv, hd] each) the new k / v
-    rows are written into it at ``cache_len``."""
+    rows are written into it at ``cache_len``. ``capture`` records the
+    o-projection's input (``o_in``)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(x, p, cfg, positions, unrounded)
@@ -259,6 +329,8 @@ def _attention(x, p, cfg: TransformerConfig, positions, cache_kv, cache_len: Opt
     ctx_dtype = torch.promote_types(probs.dtype, values.dtype)
     ctx = torch.einsum("bkgst,btkd->bskgd", probs.to(ctx_dtype), values.to(ctx_dtype))
     ctx = ctx.reshape(b, s, h * hd)
+    if capture is not None:
+        capture["o_in"] = ctx
     return qmatmul(ctx, p["o"])
 
 
@@ -269,24 +341,49 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp_block_res(x32: torch.Tensor, dtype: torch.dtype, layer: Params,
-                   cfg: TransformerConfig) -> torch.Tensor:
-    """x + MLP(rmsnorm(x)) on the f32 residual stream."""
-    if "fused" in layer["mlp"]:
-        raise NotImplementedError("the fused MLP (fused_mlp, TPU kernel 11) is not ported to "
-                                  "crs_tpu_torch yet")
+                   cfg: TransformerConfig, capture: Optional[dict] = None) -> torch.Tensor:
+    """x + MLP(rmsnorm(x)) on the f32 residual stream. Decode-sized rows go
+    through the fused MLP kernel when the layer carries its layout
+    (:func:`fuse_mlp_params`); the kernel reads the stream rounded to the
+    model dtype (XLA fuses no convert across the kernel's boundary) and its
+    output is rounded to the model dtype, as in ``crs_tpu``. ``capture``
+    records the MLP's linear inputs in f32 as the calibration statistics
+    read them under XLA: ``mlp_in`` before the norm-scale product's rounding
+    (fused into the statistics' convert), ``down_in`` rounded."""
+    fused = layer["mlp"].get("fused")
+    if fused is not None and capture is None:
+        h = x32.shape[-1]
+        rows = x32.numel() // h
+        chunk = fused["s_gate2"].shape[1]
+        if fused_mlp_supported(rows, h, fused["gate_t"].shape[0], chunk):
+            out = fused_mlp_int8(x32.to(dtype).float().reshape(rows, h),
+                                 layer["mlp_norm"]["scale"].float(),
+                                 fused["gate_t"], fused["s_gate2"], fused["up_t"],
+                                 fused["s_up2"], fused["down_c"], fused["down_s"],
+                                 chunk=chunk, eps=cfg.rms_eps)
+            return out.reshape(x32.shape).to(dtype).float()
     hmlp, hmlp_unrounded = _norm2(x32, dtype, layer["mlp_norm"]["scale"], cfg.rms_eps)
     gate_pre, up = _gate_up(hmlp, layer["mlp"], hmlp_unrounded)
     act = silu(gate_pre)
-    down = qmatmul(act * up, layer["mlp"]["down"], lambda: act.float() * up.float())
+    down_in = act * up
+    if capture is not None:
+        capture["mlp_in"] = hmlp_unrounded()
+        capture["down_in"] = down_in.float()
+    down = qmatmul(down_in, layer["mlp"]["down"], lambda: act.float() * up.float())
     return _residual(x32, dtype, down)
 
 
-def _block(x32, dtype, layer, cfg, positions, cache_kv, cache_len, key_valid=None):
-    """One block on the f32 residual stream ``x32`` (model dtype ``dtype``)."""
+def _block(x32, dtype, layer, cfg, positions, cache_kv, cache_len, key_valid=None,
+           capture: Optional[dict] = None):
+    """One block on the f32 residual stream ``x32`` (model dtype ``dtype``);
+    ``capture`` records each linear input (``attn_in`` before its last
+    rounding, as ``mlp_in``; ``o_in``; ``mlp_in``; ``down_in``)."""
     attn_in, attn_in_unrounded = _norm2(x32, dtype, layer["attn_norm"]["scale"], cfg.rms_eps)
+    if capture is not None:
+        capture["attn_in"] = attn_in_unrounded()
     a = _attention(attn_in, layer["attn"], cfg, positions, cache_kv, cache_len, key_valid,
-                   attn_in_unrounded)
-    return _mlp_block_res(_residual(x32, dtype, a), dtype, layer, cfg)
+                   attn_in_unrounded, capture)
+    return _mlp_block_res(_residual(x32, dtype, a), dtype, layer, cfg, capture)
 
 
 def _quant_store_rows(kc, ks, vc, vs, k_new, v_new, cache_len: int) -> None:
@@ -354,6 +451,23 @@ def forward(params: Params, cfg: TransformerConfig, ids: torch.Tensor,
     for layer in params["layers"]:
         x32 = _block(x32, dtype, layer, cfg, positions, None, None, attn_mask)
     return _logits(x32, dtype, params, cfg)
+
+
+def forward_captured(params: Params, cfg: TransformerConfig, ids: torch.Tensor,
+                     attn_mask: Optional[torch.Tensor] = None):
+    """:func:`forward` that also returns each layer's linear inputs, the
+    calibration tap of the calibrated quantizers (``quant_calib``): (logits,
+    [{"attn_in", "o_in", "mlp_in", "down_in"} per layer])."""
+    b, s = ids.shape
+    x = params["embed"][ids]
+    dtype, x32 = x.dtype, x.float()
+    positions = _positions(b, s, ids.device)
+    sites = []
+    for layer in params["layers"]:
+        cap: Dict[str, torch.Tensor] = {}
+        x32 = _block(x32, dtype, layer, cfg, positions, None, None, attn_mask, capture=cap)
+        sites.append(cap)
+    return _logits(x32, dtype, params, cfg), sites
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,

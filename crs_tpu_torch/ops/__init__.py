@@ -1,7 +1,8 @@
 """Kernels and primitives of the port: ``scan`` holds the CUDA scan
 kernels' wrappers (int8, fp32/bf16, PQ ADC), ``pq`` the product quantizer,
 ``qgemm`` the int4 / NF4 matmul wrappers, ``decode_attention`` the int8-KV
-decode-attention wrapper, ``launch`` what they share."""
+decode-attention wrapper, ``fused_mlp`` the fused int8 MLP wrapper,
+``launch`` what they share."""
 
 from .mmr import mmr_select, mmr_select_batch
 from .pq import (

@@ -1,5 +1,5 @@
 """Scalar (int8) vector quantization and the quantized top-k scan
-(port of ``crs_tpu.ops.quant``, the vector-store part).
+(port of ``crs_tpu.ops.quant``), and the weight quantizers beside them.
 
 Corpus vectors are stored as per-vector-scaled int8 codes; the candidate scan
 ranks by the fully quantized dot (int8 query × int8 codes, per-row scales),
@@ -14,12 +14,14 @@ from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .topk import NEG_INF, topk_stable
 
 __all__ = [
-    "scalar_quantize", "int8_dot", "int8_rowdot", "int8_topk",
+    "scalar_quantize", "scalar_dequantize", "int8_dot", "int8_rowdot", "int8_topk",
+    "int8_product", "quantize_int8_rowwise", "quantize_int4_grouped", "dequantize_int4_grouped",
     "SCAN_MIN_ROWS",
 ]
 
@@ -34,6 +36,8 @@ _INT8_DENSE_MAX_SCORE_BYTES = 1 << 30
 # of an int8 product is an integer that float32 holds exactly, in any order
 _MAX_EXACT_DIM = (1 << 24) // (127 * 127)
 
+_RECIP_7 = float(np.float32(1.0) / np.float32(7.0))  # XLA's x / 7 under jit
+
 
 def scalar_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8: (codes int8 [N, D], scales f32 [N]).
@@ -45,6 +49,25 @@ def scalar_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scales = torch.clamp_min(amax, 1e-12) * (1.0 / 127.0)
     codes = torch.clamp(torch.round(x / scales[:, None]), -127, 127).to(torch.int8)
     return codes, scales
+
+
+def scalar_dequantize(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    return codes.float() * scales[:, None]
+
+
+def int8_product(xq: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Exact int8 × int8 → int32 [M, N]. On the card ``torch._int_mm``
+    (rows padded to its minimum, at least 17 and a multiple of 8); on the
+    CPU, and for widths ``_int_mm`` does not take, float64, which holds
+    every partial sum (127²·K < 2⁵³)."""
+    m, k = xq.shape
+    n = codes.shape[1]
+    if xq.is_cuda and k % 8 == 0 and n % 8 == 0:
+        mp = max(32, -(-m // 8) * 8)
+        if mp != m:
+            xq = torch.cat([xq, xq.new_zeros((mp - m, k))], 0)
+        return torch._int_mm(xq, codes.contiguous())[:m]
+    return (xq.double() @ codes.double()).to(torch.int32)
 
 
 def _check_exact(d: int, t: torch.Tensor) -> None:
@@ -163,3 +186,35 @@ def int8_topk(
     if row_mask is not None:
         cand_ok = cand_ok & row_mask[cand_ids]
     return _rescore_candidates(codes, scales, queries, cand_ok, cand_ids, k)
+
+
+# -- weight-only quantization of model parameters ----------------------------------
+# The JAX versions are jitted, so their divisions by a constant are products
+# with its float32 reciprocal; their divisions by scales are true divisions.
+
+def quantize_int8_rowwise(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel int8 for a [in, out] weight: (codes, scales [out])."""
+    w = w.float()
+    scales = torch.clamp_min(w.abs().amax(dim=0), 1e-12) * (1.0 / 127.0)
+    codes = torch.clamp(torch.round(w / scales[None, :]), -127, 127).to(torch.int8)
+    return codes, scales
+
+
+def quantize_int4_grouped(w: torch.Tensor, group_size: int = 128
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Group-wise symmetric int4 along the input dim of a [in, out] weight:
+    unpacked int8 codes in [-7, 7] and scales [in / group_size, out]."""
+    kin, kout = w.shape
+    if kin % group_size:
+        raise ValueError("input dim must be divisible by group_size")
+    grouped = w.float().reshape(kin // group_size, group_size, kout)
+    scales = torch.clamp_min(grouped.abs().amax(dim=1), 1e-12) * _RECIP_7
+    codes = torch.clamp(torch.round(grouped / scales[:, None, :]), -7, 7).to(torch.int8)
+    return codes.reshape(kin, kout), scales
+
+
+def dequantize_int4_grouped(codes: torch.Tensor, scales: torch.Tensor,
+                            group_size: int = 128) -> torch.Tensor:
+    kin, kout = codes.shape
+    grouped = codes.reshape(kin // group_size, group_size, kout).float()
+    return (grouped * scales[:, None, :]).reshape(kin, kout)

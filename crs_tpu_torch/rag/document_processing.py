@@ -1,10 +1,11 @@
-"""Document ingestion: TXT / MD → cleaned text + sections.
+"""Document ingestion: PDF / TXT / MD → cleaned per-page text + sections.
 
-The port's own copy of ``crs_tpu.rag.document_processing``, for text input
-only: PDF extraction (``crs_tpu.utils.pdftext``) is not ported yet and
-``.pdf`` input raises ``NotImplementedError`` (ROADMAP, modules to port).
+The port's own copy of ``crs_tpu.rag.document_processing``, with its own
+copy of the PDF extractor (``utils/pdftext.py``).
 
 Capability parity with the reference's ``rag/document_processing.py``:
+- per-page PDF extraction (reference :60-90; here via our own extractor since
+  the image has no PDF library),
 - TXT/MD ingestion (reference :92-115),
 - text cleaning rules (reference ``_clean_text`` :129-167): whitespace
   normalization, page-number/header lines, bracketed citations ``[1]`` and
@@ -19,6 +20,8 @@ import logging
 import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
+
+from ..utils.pdftext import extract_pdf_pages
 
 logger = logging.getLogger(__name__)
 
@@ -94,10 +97,14 @@ class DocumentProcessor:
         raise ValueError(f"unsupported document type: {suffix}")
 
     def process_pdf(self, path: str) -> List[Tuple[str, int]]:
-        raise NotImplementedError(
-            "PDF extraction is not ported to crs_tpu_torch yet (ROADMAP: "
-            "modules to port, host text layer); pass a .txt or .md file"
-        )
+        pages = extract_pdf_pages(path)
+        out: List[Tuple[str, int]] = []
+        for i, page in enumerate(pages, start=1):
+            text = self._clean_text(page) if self.clean_text_enabled else page
+            if text.strip():
+                out.append((text, i))
+        logger.info("Processed PDF %s: %d non-empty pages", path, len(out))
+        return out
 
     def process_text_file(self, path: str) -> List[Tuple[str, int]]:
         with open(path, encoding="utf-8", errors="replace") as f:

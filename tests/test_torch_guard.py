@@ -70,6 +70,15 @@ def _entry_points():
         "TorchModel": lambda dev: TorchModel({"config": "tiny"}, device=dev),
         "create_model_interface": lambda dev: create_model_interface(
             "nf4", {"config": "tiny", "kv_bits": 8}, device=dev),
+        "create_model_interface_gptq": lambda dev: create_model_interface(
+            "gptq", {"config": "tiny"}, device=dev),
+        "create_model_interface_awq": lambda dev: create_model_interface(
+            "awq", {"config": "tiny"}, device=dev),
+        "TorchModel_fused_mlp": lambda dev: create_model_interface(
+            "int8", {"config": "tiny", "fused_mlp": True}, device=dev),
+        "TorchModel_fuse_projections": lambda dev: TorchModel(
+            {"config": "tiny", "fuse_projections": True}, device=dev),
+        "TorchModel_model_path": lambda dev: TorchModel({"model_path": "hf_dir"}, device=dev),
         "RAGPipeline": lambda dev: RAGPipeline(
             {"embedding": {"backend": "hashed", "embedding_dim": 16}}, device=dev).setup(),
     }
@@ -77,7 +86,9 @@ def _entry_points():
 
 ENTRY_POINTS = ["resolve_device", "EmbeddingModel", "HashedEncoder", "VectorStore",
                 "VectorStore_fp32", "VectorStore_bf16", "VectorStore_pq", "TorchModel",
-                "create_model_interface", "RAGPipeline"]
+                "create_model_interface", "RAGPipeline", "create_model_interface_gptq",
+                "create_model_interface_awq", "TorchModel_fused_mlp",
+                "TorchModel_fuse_projections", "TorchModel_model_path"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -105,8 +116,8 @@ def test_unported_options_raise():
         VectorStore({"format": "pq", "pq_sorted": True}, device="cpu")
     with pytest.raises(ValueError):
         VectorStore({"format": "int4"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DocumentProcessor().process_file("paper.pdf")
+    pdf = REPO / "report" / "paper" / "figures" / "pq_curve_4m.pdf"  # PDF input is ported
+    assert isinstance(DocumentProcessor().process_file(str(pdf)), list)
     for fmt in ("fp32", "bf16", "int8", "pq"):  # every format is ported; add is not
         store = VectorStore({"format": fmt}, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -116,17 +127,34 @@ def test_unported_options_raise():
 
 
 def test_unported_model_options_raise(tmp_path):
+    """What still raises — log-likelihoods, the lexical / minilm backends,
+    ``evaluate`` — and that the options ported since now load: the
+    calibrated types, the two serving flags (not together), and a Hugging
+    Face directory (one without weights refuses to fall back to random init)."""
+    import json
+
     from crs_tpu_torch.models import TorchModel, create_model_interface
     from crs_tpu_torch.rag.pipeline import RAGPipeline
 
     for kind in ("gptq", "awq"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_model_interface(kind, {"config": "tiny"}, device="cpu")
-    for flag in ("fuse_projections", "fused_mlp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchModel({"config": "tiny", flag: True}, device="cpu")
-    (tmp_path / "config.json").write_text("{}")  # a Hugging Face directory, not a native one
-    with pytest.raises(NotImplementedError, match="Hugging Face"):
+        model = create_model_interface(kind, {"config": "tiny"}, device="cpu")
+        model.load()
+        assert model.params["layers"][0]["attn"]["q"].bits == 4
+    model = create_model_interface("int8", {"config": "tiny", "fuse_projections": True},
+                                   device="cpu")
+    model.load()
+    assert model.get_model_info()["fused_projections"] and "qkv" in model.params["layers"][0]["attn"]
+    model = create_model_interface("int8", {"config": "tiny", "fused_mlp": True}, device="cpu")
+    model.load()
+    # tiny's intermediate width (256) does not divide by the chunk of 1024: as in
+    # crs_tpu, no layer takes the fused layout
+    assert model.get_model_info()["fused_mlp"] and "fused" not in model.params["layers"][0]["mlp"]
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        TorchModel({"config": "tiny", "fuse_projections": True, "fused_mlp": True}, device="cpu")
+    (tmp_path / "config.json").write_text(json.dumps({  # a Hugging Face directory, no weights
+        "vocab_size": 97, "hidden_size": 64, "num_hidden_layers": 1, "num_attention_heads": 4,
+        "intermediate_size": 128}))
+    with pytest.raises(RuntimeError, match="no weights could be loaded"):
         TorchModel({"model_path": str(tmp_path)}, device="cpu").load()
     model = TorchModel({"config": "tiny"}, device="cpu")
     with pytest.raises(NotImplementedError, match="evaluation"):
@@ -350,7 +378,7 @@ def test_build_lists_every_kernel_source():
 
     assert set(_build.CUDA_SOURCES) == {"int8_scan_topk.cu", "scan_topk_f32_bf16.cu",
                                         "pq_adc_scan_topk.cu", "q4_matmul.cu",
-                                        "decode_attention_int8.cu"}
+                                        "decode_attention_int8.cu", "fused_mlp_int8.cu"}
     on_disk = {p.name for p in (REPO / "crs_tpu_torch" / "csrc").glob("*.cu")}
     assert on_disk == set(_build.CUDA_SOURCES)
     cmd = _build.compile_command("x.cu", "libx.so")
@@ -500,3 +528,87 @@ def test_decode_attention_wrapper_rejects_what_the_kernel_does_not_take(
         ops[3] = torch.empty((2, 2, 128, 256), dtype=torch.int8, device="meta").transpose(2, 3)
     with pytest.raises(ValueError):
         fake_generator_kernels[1].decode_attention_int8(*ops)
+
+
+# -- kernel 11: the fused MLP -------------------------------------------------------
+
+def _mlp_operands(b=8, h=256, inter=512, chunk=128, device="meta"):
+    return (torch.empty((b, h), dtype=torch.float32, device=device),
+            torch.empty((h,), dtype=torch.float32, device=device),
+            torch.empty((inter, h), dtype=torch.int8, device=device),
+            torch.empty((inter // chunk, chunk), dtype=torch.float32, device=device),
+            torch.empty((inter, h), dtype=torch.int8, device=device),
+            torch.empty((inter // chunk, chunk), dtype=torch.float32, device=device),
+            torch.empty((inter, h), dtype=torch.int8, device=device),
+            torch.empty((h,), dtype=torch.float32, device=device))
+
+
+@pytest.fixture
+def fake_mlp_kernel(monkeypatch):
+    """Non-CPU tensors reach the kernel; the plain version must not run."""
+    from crs_tpu_torch.ops import fused_mlp
+
+    def plain_must_not_run(*args, **kwargs):
+        raise AssertionError("the wrapper fell back to the plain version")
+
+    monkeypatch.setattr(fused_mlp, "emulate_fused_mlp_int8", plain_must_not_run)
+    monkeypatch.setattr(fused_mlp, "stream_handle", lambda device: 0)
+    return fused_mlp
+
+
+@pytest.mark.parametrize("err", [1, 700])
+def test_fused_mlp_wrapper_raises_when_launch_fails(fake_mlp_kernel, monkeypatch, err):
+    lib = _FakeKernels(err)
+    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: lib)
+    before = dict(fake_mlp_kernel.STATS.by_kernel)
+    with pytest.raises(RuntimeError, match=f"CUDA error {err}"):
+        fake_mlp_kernel.fused_mlp_int8(*_mlp_operands(), chunk=128)
+    assert [c[0] for c in lib.calls] == ["fused_mlp_int8_launch"]
+    assert fake_mlp_kernel.STATS.by_kernel == before  # a failed launch is not counted
+
+
+def test_fused_mlp_wrapper_raises_without_a_card(fake_mlp_kernel, monkeypatch):
+    def no_nvcc(source, launchers):
+        raise RuntimeError(f"compiler for {source} not found")
+
+    monkeypatch.setattr(fake_mlp_kernel, "load_library", no_nvcc)
+    with pytest.raises(RuntimeError, match="not found"):
+        fake_mlp_kernel.fused_mlp_int8(*_mlp_operands(), chunk=128)
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_fused_mlp_wrapper_counts_a_launch(fake_mlp_kernel, monkeypatch, chunk):
+    lib = _FakeKernels(0)
+    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: lib)
+    fake_mlp_kernel.STATS.reset()
+    out, codes = fake_mlp_kernel.fused_mlp_int8(*_mlp_operands(b=3, chunk=chunk), chunk=chunk,
+                                                return_codes=True)
+    assert fake_mlp_kernel.STATS.by_kernel == {"fused_mlp_int8": 1}
+    assert out.shape == (3, 256) and out.dtype == torch.float32
+    assert codes.hq.shape == (3, 512) and codes.hs.shape == (3, 512 // chunk)
+    args = lib.calls[0][1]
+    r, h, inter, ck, ksplit = args[15:20]
+    assert (r, h, inter, ck) == (3, 256, 512, chunk)
+    assert ksplit == fake_mlp_kernel.down_splits(chunk) and chunk % ksplit == 0
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rows", "hidden", "chunk", "shape", "contiguous"])
+def test_fused_mlp_wrapper_rejects_what_the_kernel_does_not_take(fake_mlp_kernel, monkeypatch,
+                                                                 bad):
+    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: _FakeKernels(0))
+    ops = list(_mlp_operands())
+    chunk = 128
+    if bad == "dtype":
+        ops[2] = ops[2].view(torch.uint8)
+    elif bad == "rows":  # past the decode-sized rows
+        ops[0] = torch.empty((9, 256), dtype=torch.float32, device="meta")
+    elif bad == "hidden":  # H not a multiple of 128
+        ops = list(_mlp_operands(h=200))
+    elif bad == "chunk":  # I not a multiple of the chunk
+        chunk = 384
+    elif bad == "shape":
+        ops[7] = torch.empty((128,), dtype=torch.float32, device="meta")
+    else:
+        ops[6] = torch.empty((256, 512), dtype=torch.int8, device="meta").T
+    with pytest.raises(ValueError):
+        fake_mlp_kernel.fused_mlp_int8(*ops, chunk=chunk)
