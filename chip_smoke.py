@@ -6,7 +6,7 @@
 Phases, each printed as one JSON line (name, seconds, what was compared and
 the largest difference); any failure raises and exits non-zero:
 
-1. build              — compile the six CUDA sources (nvcc, sm_90a) and the
+1. build              — compile the seven CUDA sources (nvcc, sm_90a) and the
                         native featurizer (g++), all at once, from the sources here;
 2. kernel             — the int8 scan kernel against its plain torch version:
                         (a) 1,048,576 × 384 random unit vectors, 328 queries, k = 64;
@@ -22,35 +22,54 @@ the largest difference); any failure raises and exits non-zero:
 4. kernel_adc         — both PQ ADC kernels (residual and plain) against their
                         plain version at 1,048,576 rows, M = 48, C = 2048,
                         B = 328, bit for bit, and on the same cases;
-5. kernel_q4          — the int4 and NF4 matmul kernels against their plain
+5. kernel_sorted_adc  — the sorted residual ADC kernel (kernel 4) against its
+                        plain version, bit for bit, at 1,048,576 rows sorted by
+                        coarse id (M = 48, C = 2048, B = 328, the plan's group),
+                        against kernel 3 on the same rows (scores bit for bit),
+                        both kernels' device ms in turns, and the scan's repair,
+                        fallback, layout-budget, padding-tile, mask, hand-built-plan
+                        and tie (1,200 equal rows across blocks and tiles) cases;
+6. kernel_segmax      — the segment-max kernels (6: fp32 and bf16; 7: int8) at
+                        1,048,576 × 384, B = 328, k = 10, block 2048 on a shuffled
+                        clustered corpus: against their plain versions (int8 bit
+                        for bit), through scan_topk_segmax / _int8 (counted), and
+                        recall@10 against the exact f32 top-10;
+7. kernel_q4          — the int4 and NF4 matmul kernels against their plain
                         versions at the 1b widths and mistral-7b's MLP, R ∈ {1, 8,
                         64} (|kernel − plain| ≤ 1e-5·Σ|x·w|); device ms per
                         launch (torch.profiler), plain and library ms, bound;
-6. kernel_decode_attn — the int8 decode-attention kernel against its plain
+8. kernel_decode_attn — the int8 decode-attention kernel against its plain
                         version at B ∈ {1, 8}, Hkv 8, G 2, hd 128, S ∈ {2176,
                         4096}, partial masks and an all-masked row (exact zeros);
-7. kernel_fused_mlp   — the fused MLP kernel against its plain version at
+9. kernel_fused_mlp   — the fused MLP kernel against its plain version at
                         mistral-7b's MLP (H 4096, I 14336, chunk 1024), R ∈ {1,
                         3, 8}, and a small multi-chunk case: xq / hq codes equal
                         in ≥ 99.9 % of entries, the output within the flipped
                         codes' effect; device ms, plain ms, the unfused int8
                         route's ms, bound;
-8. bench              — the bench.py slice on the held-out corpus: chunk, hashed
+10. bench             — the bench.py slice on the held-out corpus: chunk, hashed
                         encoder, int8 store, retrieve_batch_fused over 328 queries,
                         checked against the standard (host-rerank) retrieve;
-9. full               — a 1,048,576-row int8 store built through the port's
+11. full              — a 1,048,576-row int8 store built through the port's
                         encoder from synthetic texts; retrieve_batch_fused at batch
                         328 through the int8 kernel (launch count must rise), timed
                         with CUDA events, plus the kernel's own time and bound;
-10. formats          — the same 1M texts and embeddings in an fp32, a bf16, a
+12. formats           — the same 1M texts and embeddings in an fp32, a bf16, a
                         residual pq and a plain pq store (config.json's store
                         values): retrieve_batch at batch 328 without and with PRF
                         (each format's kernel must launch), a `where`-filtered
                         search, the whole scan route held against its plain
                         version, each pq store built twice from one seed (same
                         bits), set-up seconds, device bytes per vector and
-                        recall@3 against the fp32 exact top-3;
-11. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
+                        recall@3 against the fp32 exact top-3; a pq_sorted store
+                        over the residual store's state must launch kernel 4
+                        (not 3), never take the exact fallback, and return the
+                        unsorted store's results;
+13. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
+                        residual pq stores: ms per add, capacity, the int8 store
+                        identical to create_index over the same rows, the pq
+                        codes against a CPU encode, a `where` search;
+14. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
                         random weights from the seed, through
                         create_model_interface: greedy generate_batch of 64
                         tokens at batch 1 and 8 on RAG-sized prompts, with 113
@@ -58,12 +77,12 @@ the largest difference); any failure raises and exits non-zero:
                         prefill and decode times, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
-12. rag               — RAGPipeline (hashed embedding, int8 store) over the
+15. rag               — RAGPipeline (hashed embedding, int8 store) over the
                         held-out corpus with the nf4 model: query() with
                         config.json's generation values (sampled), ms per query
                         split into retrieve and generate, chunks checked
                         against the same pipeline on the CPU;
-13. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
+16. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
                         from the seed, loaded once: unfused, fuse_projections
                         and fused_mlp, greedy generate_batch of 32 tokens at
                         batch 1 and 8 (kernel 11: 32 launches per decode step in
@@ -71,11 +90,11 @@ the largest difference); any failure raises and exits non-zero:
                         logits identical with fuse_projections, within 5e-2 of
                         unfused with fused_mlp; one kv_bits 8 batch-8 decode
                         through kernels 10 and 11 against the plain versions;
-14. calibrated        — the gptq and awq types of the small config loaded on the
+17. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
                         reconstruction error against plain rounding, 16 tokens.
 
-Then the kernel table line (all eight kernels), the card's name and power
+Then the kernel table line (all eleven kernels), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA
 it exits 1 and prints no result; ``--phases`` with a subset exits 2 after
 the phases, with no table and no result. It imports nothing of JAX or of
@@ -114,10 +133,12 @@ FORMAT_STORES = {
     "fp32": {"format": "fp32"},
     "bf16": {"format": "bf16"},
     "pq": {"format": "pq"},
+    "pq_sorted": {"format": "pq", "pq_sorted": True},  # the residual store's state, sorted route
     "pq_plain": {"format": "pq", "pq_residual": False},
 }
 FORMAT_KERNEL = {"fp32": "scan_topk_f32", "bf16": "scan_topk_bf16",
-                 "pq": "adc_scan_topk_residual", "pq_plain": "adc_scan_topk_plain"}
+                 "pq": "adc_scan_topk_residual", "pq_sorted": "adc_scan_topk_sorted",
+                 "pq_plain": "adc_scan_topk_plain"}
 SCAN_BLOCK = 1024  # config.json's block_size: the kernels' main-path block
 SCAN_KB = 3  # kb of the pq stores' 64-candidate scan at 1M rows, B = 328
 PQ_M, PQ_C, PQ_K = 48, 2048, 256
@@ -213,7 +234,8 @@ def plain_kernels():
     from crs_tpu_torch.ops import decode_attention, fused_mlp, qgemm, scan
 
     swaps = [(scan, n, getattr(scan, n + "_plain"))
-             for n in ("block_topk_int8", "block_topk_float", "block_topk_adc")]
+             for n in ("block_topk_int8", "block_topk_float", "block_topk_adc",
+                       "block_topk_adc_sorted", "block_topk_segmax", "block_topk_segmax_int8")]
     swaps += [(quantized, "q4_matmul", qgemm.emulate_q4_matmul),
               (quantized, "nf4_matmul", qgemm.emulate_nf4_matmul),
               (transformer, "decode_attention_int8",
@@ -597,25 +619,7 @@ def phase_kernel_adc(ph: Phase, dev, seed: int, rows: int) -> dict:
                        iters=10, warmup=2)
         plain_ms = device_ms(dev, lambda: block_topk_adc_plain(lut_bf, cd, bias, SCAN_KB,
                                                                SCAN_BLOCK, *extra), iters=2)
-        # the nearest library composition: a gather of every (row, subspace)
-        # LUT entry, a sum, and torch.topk per block, 16,384 rows at a time
-        lut_flat = lut_bf[:BATCH].float().reshape(BATCH, PQ_M * PQ_K)
-        off = 2 if resid else 0
-        flat_idx = (torch.arange(PQ_M, device=dev) * PQ_K + cd[:, off:].long()).reshape(-1)
-        cid_l = cid.long()
-        coarse_f = (hi[:BATCH].float() + lo[:BATCH].float()) if resid else None
-        step = 16384
-
-        def library():
-            for r0 in range(0, rows, step):
-                s = lut_flat.index_select(1, flat_idx[r0 * PQ_M:(r0 + step) * PQ_M])
-                s = s.view(BATCH, step, PQ_M).sum(-1)
-                if resid:
-                    s = s + coarse_f.index_select(1, cid_l[r0:r0 + step])
-                torch.topk(s.view(BATCH, step // SCAN_BLOCK, SCAN_BLOCK), SCAN_KB, dim=-1)
-
-        library_ms = device_ms(dev, library, iters=3)
-        del flat_idx
+        library_ms = device_ms(dev, adc_library(lut_bf, hi, lo, cd, cid, resid, rows), iters=3)
         b = bound(cd.numel() + rows * 4 + lut_bf.numel() * 2 + (hi.numel() * 4 if resid else 0)
                   + nq * nblocks * SCAN_KB * ADC_QUERY_TILE * 8,
                   float(BATCH) * rows * (PQ_M + (2 if resid else 1)), PEAK_F32_OPS_PER_S)
@@ -653,6 +657,429 @@ def phase_kernel_adc(ph: Phase, dev, seed: int, rows: int) -> dict:
         if counts[f"{name}/repair"]["repairs"] < 1 or counts[f"{name}/fallback"]["fallbacks"] < 1:
             raise AssertionError(f"{name}: the repair/fallback paths did not run: {counts}")
     out["cases"] = counts
+    ph.info.update(out)
+    return out
+
+
+def ties_agree(scores, ids_a, ids_b) -> None:
+    """Per row: the ids of each group of exactly tied scores agree as sets."""
+    import numpy as np
+
+    for r, (row_s, row_a, row_b) in enumerate(zip(scores.tolist(), ids_a.tolist(),
+                                                  ids_b.tolist())):
+        row_s = np.asarray(row_s)
+        for v in np.unique(row_s):
+            tied = row_s == v
+            if set(np.asarray(row_a)[tied]) != set(np.asarray(row_b)[tied]):
+                raise AssertionError(f"row {r}: ids differ beyond exact ties at score {v}")
+
+
+def plan_spread(sorted_cid, tile_rows: int, wbase) -> dict:
+    """Coarse ids each tile of the sorted layout spans (rows ascend by id,
+    so a tile's first and last rows bound them) and, for an accepted plan,
+    how far into its 512-id window the tile's last id reaches."""
+    import numpy as np
+
+    sorted_cid = np.asarray(sorted_cid)
+    starts = np.arange(0, sorted_cid.size, tile_rows)
+    ends = np.minimum(starts + tile_rows, sorted_cid.size) - 1
+    span = sorted_cid[ends] - sorted_cid[starts] + 1
+    out = {"tiles": int(starts.size), "tile_rows": tile_rows,
+           "ids_per_tile": {"min": int(span.min()), "median": float(np.median(span)),
+                            "max": int(span.max())}, "window": 512, "refused": wbase is None}
+    if wbase is not None:
+        wb = np.asarray(wbase.cpu() if hasattr(wbase, "cpu") else wbase)[: starts.size]
+        out["window_reach_max"] = int((sorted_cid[ends] - 256 * wb.astype(np.int64) + 1).max())
+    return out
+
+
+def adc_library(lut_bf, hi, lo, codes, cid, resid: bool, rows: int):
+    """The nearest library composition of an ADC scan: a gather of every
+    (row, subspace) LUT entry, a sum, and torch.topk per block, 16,384
+    rows at a time."""
+    import torch
+
+    dev = codes.device
+    lut_flat = lut_bf[:BATCH].float().reshape(BATCH, PQ_M * PQ_K)
+    off = 2 if resid else 0
+    flat_idx = (torch.arange(PQ_M, device=dev) * PQ_K + codes[:, off:].long()).reshape(-1)
+    cid_l = cid.long()
+    coarse_f = (hi[:BATCH].float() + lo[:BATCH].float()) if resid else None
+    step = 16384
+
+    def library():
+        for r0 in range(0, rows, step):
+            s = lut_flat.index_select(1, flat_idx[r0 * PQ_M:(r0 + step) * PQ_M])
+            s = s.view(BATCH, step, PQ_M).sum(-1)
+            if resid:
+                s = s + coarse_f.index_select(1, cid_l[r0:r0 + step])
+            torch.topk(s.view(BATCH, step // SCAN_BLOCK, SCAN_BLOCK), SCAN_KB, dim=-1)
+
+    return library
+
+
+def phase_kernel_sorted_adc(ph: Phase, dev, seed: int, rows: int) -> dict:
+    """Kernel 4 against its plain version, bit for bit, at the main shape
+    (adc_case's data sorted by coarse id, the plan's group) and on the
+    repair / fallback / padding tile / mask / tie / hand-built plan cases;
+    kernel 4 against kernel 3 on the same rows; both kernels' device ms."""
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.ops.pq import sort_codes_by_coarse
+    from crs_tpu_torch.ops.scan import (
+        ADC_QUERY_TILE, STATS, _finalize, _pad_rows, adc_auto_group, adc_tables, block_topk_adc,
+        block_topk_adc_sorted, block_topk_adc_sorted_plain, plan_sorted_coarse_windows,
+        scan_topk_residual_pq_adc_sorted_luts,
+    )
+
+    rng = np.random.default_rng(seed + 6)
+    cl, lut, ext, _, _ = adc_case(rng, rows, DIM, BATCH, PQ_M, PQ_C)
+    ext = ext.numpy()
+    sorted_ext, perm, counts = sort_codes_by_coarse(ext, PQ_C)
+    group = adc_auto_group(rows, BATCH, SCAN_BLOCK, PQ_M + 2)
+    plan = plan_sorted_coarse_windows(counts, rows, SCAN_BLOCK, group)
+    spread = plan_spread(sorted_ext[:, 0].astype(np.int64) * 256 + sorted_ext[:, 1],
+                         group * SCAN_BLOCK, plan)
+    if plan is None:
+        raise AssertionError(f"the window planner refused the main shape: {spread}")
+    ext_u = _pad_rows(torch.from_numpy(ext).to(dev), group * SCAN_BLOCK).contiguous()
+    ext_s = _pad_rows(torch.from_numpy(sorted_ext).to(dev), group * SCAN_BLOCK).contiguous()
+    n_pad = ext_u.shape[0]
+    perm_t = torch.from_numpy(perm).long().to(dev)
+    bias_u = torch.zeros(n_pad, device=dev)
+    bias_u[rows - 1000:] = -1e30  # padding rows at the tail
+    bias_u[:rows - 1000:7] = -1e30  # a `where` mask: every 7th row dropped
+    bias_s = bias_u.clone()
+    bias_s[:rows] = bias_u[:rows][perm_t]  # the same rows, in sorted order
+    table = torch.nn.functional.pad(_pad_rows(cl.to(dev), ADC_QUERY_TILE), (0, 256))
+    lut_bf, hi, lo = adc_tables(_pad_rows(lut.to(dev), ADC_QUERY_TILE), table)
+    wbase = torch.from_numpy(plan).to(dev)
+    args_s = (lut_bf, ext_s, bias_s, SCAN_KB, SCAN_BLOCK, hi, lo, wbase, group)
+    args_u = (lut_bf, ext_u, bias_u, SCAN_KB, SCAN_BLOCK, hi[:, :PQ_C].contiguous(),
+              lo[:, :PQ_C].contiguous())
+    err = check_bits(block_topk_adc_sorted(*args_s), block_topk_adc_sorted_plain(*args_s),
+                     "sorted ADC partials")
+    # kernel 4 against kernel 3: with kb = k every block emits its own top-k,
+    # so the merged top-k is exact under the kernels' scores in both layouts
+    su, iu = _finalize(*block_topk_adc(*args_u), BATCH, SCAN_KB)
+    ss, is_ = _finalize(*block_topk_adc_sorted(*args_s), BATCH, SCAN_KB)
+    if not torch.equal(ss, su):
+        raise AssertionError("kernel 4's top-k scores differ from kernel 3's on the same rows")
+    ties_agree(su.cpu(), iu.cpu(), perm_t[is_.clamp_min(0)].cpu())
+    ms = {"sorted": [], "unsorted": []}
+    for which in ("sorted", "unsorted", "unsorted", "sorted"):  # in turns, one card
+        fn = block_topk_adc_sorted if which == "sorted" else block_topk_adc
+        a = args_s if which == "sorted" else args_u
+        ms[which].append(device_ms(dev, lambda: fn(*a), iters=10, warmup=2))
+    plain_ms = device_ms(dev, lambda: block_topk_adc_sorted_plain(*args_s), iters=2)
+    cid_s = ext_s[:, 0].long() * 256 + ext_s[:, 1].long()
+    library_ms = device_ms(dev, adc_library(lut_bf, hi, lo, ext_s, cid_s, True, n_pad),
+                           iters=3)
+    nq = lut_bf.shape[0] // ADC_QUERY_TILE
+    nblocks = n_pad // SCAN_BLOCK
+    b = bound(ext_s.numel() + n_pad * 4 + lut_bf.numel() * 2 + hi.numel() * 4
+              + wbase.numel() * 4 + nq * nblocks * SCAN_KB * ADC_QUERY_TILE * 8,
+              float(BATCH) * rows * (PQ_M + 2), PEAK_F32_OPS_PER_S)
+    out = {"max_abs_err": err, "ms": sum(ms["sorted"]) / 2, "unsorted_ms": sum(ms["unsorted"]) / 2,
+           "ab_ms": ms, "plain_ms": plain_ms, "library_composition_ms": library_ms, **b,
+           "plan": spread,
+           "shape": {"rows": rows, "m": PQ_M, "coarse": PQ_C, "clusters": PQ_K,
+                     "batch": BATCH, "block_size": SCAN_BLOCK, "kb": SCAN_KB, "group": group},
+           "compared": "partials == plain (bits); merged top-3 == kernel 3's (scores bit for "
+                       "bit, ids through perm up to exact ties)"}
+    del ext_u, ext_s, bias_u, bias_s, lut_bf, hi, lo
+
+    # the host side around the kernel on small cases, card against CPU
+    n, d, bq, k = 4000, 64, 16, 40  # 4,000 rows: the last tile is part padding
+    cl_c, lut_c, ext_c, _, _ = adc_case(np.random.default_rng(seed + 7), 4096, d, bq, 8, 512)
+    ext_c = ext_c[:n].numpy()
+    # ties: 1,200 rows with query 0's best coarse id and best residual codes
+    # score alike, top for it, and span blocks and tiles of the sorted layout
+    ext_t = ext_c.copy()
+    best_c = int(cl_c[0].argmax())
+    ext_t[:1200, 0], ext_t[:1200, 1] = best_c // 256, best_c % 256
+    ext_t[:1200, 2:] = lut_c[0].argmax(dim=1).numpy()
+    g_c = adc_auto_group(n, bq, 256, 10)
+    layouts = {}
+    for name, e in (("random", ext_c), ("ties", ext_t)):
+        srt, perm_c, counts_c = sort_codes_by_coarse(e, 512)
+        plan_c = plan_sorted_coarse_windows(counts_c, n, 256, g_c)
+        if plan_c is None:
+            raise AssertionError(f"the window planner refused the small {name} case")
+        layouts[name] = (torch.from_numpy(srt), plan_c)
+    plan_c = layouts["random"][1]
+    mask = np.random.default_rng(seed + 8).random(n) < 0.6
+    cases = {  # name: (layout, plan, repair, mask in sorted order, valid_n, layout budget)
+        "repair": ("random", plan_c, 256, None, n, False),
+        "fallback": ("random", plan_c, 2, None, n, False),
+        "layout_budget": ("random", plan_c, 2, None, n, True),
+        "masked_padded": ("random", plan_c, 256, mask, n - 37, False),
+        "hand_plan_outside_window": ("random", np.ones_like(plan_c), 256, None, n, False),
+        "ties_across_blocks": ("ties", layouts["ties"][1], 256, None, n, True)}
+    counts = {}
+    for case, (layout, wb, repair, m, valid, lb) in cases.items():
+        srt = layouts[layout][0]
+        m_t = None if m is None else torch.from_numpy(m)
+        args = dict(k=k, valid_n=valid, block_size=256, repair=repair, group=g_c,
+                    layout_budget=lb)
+        STATS.reset()
+        got = scan_topk_residual_pq_adc_sorted_luts(
+            cl_c.to(dev), lut_c.to(dev), srt.to(dev), torch.from_numpy(wb).to(dev),
+            row_mask=None if m_t is None else m_t.to(dev), **args)
+        counts[case] = {"launches": STATS.by_kernel.get("adc_scan_topk_sorted", 0),
+                        "repairs": STATS.repairs, "fallbacks": STATS.fallbacks}
+        check_bits(got, scan_topk_residual_pq_adc_sorted_luts(cl_c, lut_c, srt, wb, row_mask=m_t,
+                                                               **args), case)
+        if case == "ties_across_blocks":
+            tied = int((got[0][0] == got[0][0, 0]).sum())
+            if tied < k:
+                raise AssertionError(f"ties: only {tied} of query 0's top {k} scores are tied")
+    want = {"repair": ("repairs", 1), "fallback": ("fallbacks", 1),
+            "layout_budget": ("repairs", 1), "ties_across_blocks": ("repairs", 1)}
+    if any(counts[c][key] < least for c, (key, least) in want.items()) \
+            or counts["layout_budget"]["fallbacks"] \
+            or (dev.type == "cuda" and min(c["launches"] for c in counts.values()) < 1):
+        raise AssertionError(f"the sorted scan's repair / fallback / kernel did not run: {counts}")
+    out["cases"] = counts
+    ph.info.update(out)
+    return out
+
+
+SEGMAX_K = 10  # k of the segment-max phase; kseg = min(k, block / 128) = 10
+SEGMAX_BLOCK = 2048  # the Python functions' default block
+SEGMAX_CLUSTERS = 4096
+
+
+def check_ranked_by_exact(got, ref, rtol: float, exact) -> float:
+    """A segment-max ranking against its plain version: scores within
+    rtol·(1 + |s|); ids equal, or, where they differ, both rows' exact f64
+    scores for that query within ID_RTOL·(1 + |s|) of each other (a near
+    tie inside a segment or between segments, broken by another f32 sum
+    order); ids equal at every -1e30 rank. ``exact(flat index, ids)``
+    gives the f64 scores. Returns the largest score difference."""
+    import torch
+
+    (gs, gi), (rs, ri) = got, ref
+    gs, rs = gs.double(), rs.double()
+    diff = (gs - rs).abs()
+    if bool((diff > rtol * (1 + rs.abs())).any()):
+        raise AssertionError(f"segment-max scores differ by up to {float(diff.max())}")
+    bad = (gi != ri).reshape(-1).nonzero()[:, 0]
+    if bad.numel():
+        if bool((rs.reshape(-1)[bad] <= -1e29).any()):
+            raise AssertionError("segment-max ids differ at a -1e30 rank")
+        eg = exact(bad, gi.reshape(-1)[bad].long())
+        er = exact(bad, ri.reshape(-1)[bad].long())
+        if bool(((eg - er).abs() > ID_RTOL * (1 + er.abs())).any()):
+            raise AssertionError(f"segment-max ids differ at {bad.numel()} ranks, beyond near ties")
+    real = rs > -1e29
+    return float(diff[real].max()) if bool(real.any()) else 0.0
+
+
+def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int) -> dict:
+    """Kernels 6 (fp32, bf16) and 7 at 1,048,576 × 384, B = 328, k = 10,
+    block 2048 (kseg = 10) on a clustered corpus shuffled row-wise: each
+    kernel against its plain version (kernel 7 bit for bit), the scans
+    through their ops entry points (the main path, counted), recall@10
+    against the exact f32 top-10; device ms, bound, plain and library ms."""
+    import torch
+
+    from crs_tpu_torch.ops import scalar_quantize, scan_topk_segmax, scan_topk_segmax_int8
+    from crs_tpu_torch.ops.scan import (
+        SEGMAX_QUERY_TILE, STATS, _finalize, _pad_rows, block_topk_segmax,
+        block_topk_segmax_int8, block_topk_segmax_int8_plain, block_topk_segmax_plain,
+    )
+    from crs_tpu_torch.ops.topk import exact_topk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 9)
+    centers = torch.randn((SEGMAX_CLUSTERS, DIM), generator=g, device=dev)
+    assign = torch.sort(torch.randint(0, SEGMAX_CLUSTERS, (rows,), generator=g,
+                                      device=dev)).values  # rows grouped by cluster…
+    x = centers[assign] + 0.5 * torch.randn((rows, DIM), generator=g, device=dev)
+    x = x[torch.randperm(rows, generator=g, device=dev)]  # …then shuffled, as segment max asks
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    del centers, assign
+    q = x[torch.randint(0, rows, (BATCH,), generator=g, device=dev)]
+    q = q + 0.1 * torch.randn(q.shape, generator=g, device=dev)
+    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    kseg = min(SEGMAX_K, SEGMAX_BLOCK // 128)
+    nblocks = rows // SEGMAX_BLOCK
+    nq = -(-BATCH // SEGMAX_QUERY_TILE)
+    out_bytes = nq * nblocks * kseg * SEGMAX_QUERY_TILE * 8
+    exact_ids = exact_topk(x, q, SEGMAX_K, rows)[1].cpu().tolist()
+
+    def recall(ids) -> float:
+        return sum(len(set(a) & set(e)) for a, e in zip(ids.cpu().tolist(), exact_ids)) / (
+            SEGMAX_K * BATCH)
+
+    codes, scales = scalar_quantize(x)
+    qc, qs = scalar_quantize(q)
+    qc, qs = _pad_rows(qc, SEGMAX_QUERY_TILE).contiguous(), _pad_rows(qs, SEGMAX_QUERY_TILE)
+    out = {}
+    for name, dtype, rate in (("fp32", torch.float32, PEAK_F32_OPS_PER_S),
+                              ("bf16", torch.bfloat16, PEAK_BF16_OPS_PER_S),
+                              ("int8", torch.int8, PEAK_INT8_OPS_PER_S)):
+        if dtype == torch.int8:
+            args = (qc, qs, codes, scales, rows, kseg, SEGMAX_BLOCK)
+            kernel, plain = block_topk_segmax_int8, block_topk_segmax_int8_plain
+            err = check_bits(kernel(*args), plain(*args), "int8 segment-max partials")
+            got_final = _finalize(*kernel(*args), BATCH, SEGMAX_K)
+            check_bits(got_final, _finalize(*plain(*args), BATCH, SEGMAX_K), "int8 segmax top-k")
+
+            def library():  # dequantize, torch.matmul, segment max, torch.topk: four calls
+                s = torch.matmul(q, (codes.float() * scales[:, None]).T)
+                m = s.view(BATCH, rows // 128, 128).max(dim=-1)
+                return torch.topk(m.values.view(BATCH, nblocks, -1), kseg, dim=-1)
+
+            nbytes = codes.numel() + rows * 4 + qc.numel() + qs.numel() * 4 + out_bytes
+        else:
+            v = x.to(dtype)
+            qq = _pad_rows(q.to(dtype), SEGMAX_QUERY_TILE).contiguous()
+            args = (qq, v, rows, kseg, SEGMAX_BLOCK)
+            kernel, plain = block_topk_segmax, block_topk_segmax_plain
+
+            def exact(flat, ids, qq=qq, v=v):
+                qrow = (flat // SEGMAX_QUERY_TILE // kseg // nblocks) * SEGMAX_QUERY_TILE \
+                    + flat % SEGMAX_QUERY_TILE
+                return (qq[qrow].double() * v[ids].double()).sum(-1)
+
+            err = check_ranked_by_exact(kernel(*args), plain(*args), FLOAT_RTOL[name], exact)
+            got_final = _finalize(*kernel(*args), BATCH, SEGMAX_K)
+            ref_final = _finalize(*plain(*args), BATCH, SEGMAX_K)
+            check_ranked_by_exact(
+                got_final, ref_final, FLOAT_RTOL[name],
+                lambda flat, ids, qq=qq, v=v: (qq[flat // SEGMAX_K].double()
+                                               * v[ids].double()).sum(-1))
+            q_real = q.to(dtype)
+
+            def library(v=v, q_real=q_real):  # torch.matmul (TF32 off), segment max, topk
+                s = torch.matmul(q_real, v.T)
+                m = s.view(BATCH, rows // 128, 128).max(dim=-1)
+                return torch.topk(m.values.view(BATCH, nblocks, -1), kseg, dim=-1)
+
+            nbytes = v.numel() * v.element_size() + qq.numel() * qq.element_size() + out_bytes
+        ms = device_ms(dev, lambda: kernel(*args), iters=10, warmup=2)
+        plain_ms = device_ms(dev, lambda: plain(*args), iters=2)
+        library_ms = device_ms(dev, library, iters=3)
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_composition_ms": library_ms,
+                     **bound(nbytes, 2.0 * BATCH * rows * DIM, rate)}
+
+    # the main path: the ops entry points, counts to 0 just before, read just after
+    xb = x.to(torch.bfloat16)
+    STATS.reset()
+    scans = {"fp32": lambda: scan_topk_segmax(x, q, SEGMAX_K, rows, SEGMAX_BLOCK),
+             "bf16": lambda: scan_topk_segmax(xb, q, SEGMAX_K, rows, SEGMAX_BLOCK),
+             "int8": lambda: scan_topk_segmax_int8(codes, scales, q, SEGMAX_K, rows,
+                                                   SEGMAX_BLOCK)}
+    for name, fn in scans.items():
+        res = fn()
+        out[name]["scan_ms"] = device_ms(dev, fn, iters=3)
+        out[name]["recall_at_10_vs_f32_exact"] = recall(res[1])
+        if not bool(torch.isfinite(res[0]).all()) or res[1].shape != (BATCH, SEGMAX_K):
+            raise AssertionError(f"segmax {name}: bad result {res[0].shape}")
+    launches = dict(STATS.by_kernel)
+    for kname in ("segmax_scan_topk_f32", "segmax_scan_topk_bf16", "segmax_scan_topk_int8"):
+        if dev.type == "cuda" and not launches.get(kname):
+            raise AssertionError(f"{kname} never launched on its main path: {launches}")
+    out["main_path_launches"] = launches
+    out["shape"] = {"rows": rows, "dim": DIM, "batch": BATCH, "k": SEGMAX_K, "kseg": kseg,
+                    "block_size": SEGMAX_BLOCK, "clusters": SEGMAX_CLUSTERS}
+    out["library_composition"] = ("[dequantize +] torch.matmul (TF32 off) + max over 128-row "
+                                  "segments + torch.topk per block: three or four calls")
+    out["compared"] = ("int8 partials and top-10 == plain (bits); fp32 / bf16 scores within "
+                       "rtol 1e-5 / 1e-2, ids equal or f64 near ties within 1e-5")
+    ph.info.update(out)
+    return out
+
+
+ADD_ROWS = 65536
+ADD_CALL = 4096
+
+
+def phase_add(ph: Phase, dev, seed: int, shared: dict) -> dict:
+    """VectorStore.add on the card: 65,536 new rows in 4,096-row calls into
+    the full phase's 1M int8 store and the formats phase's residual pq store
+    (short of the retrain); the int8 store against create_index over the same
+    rows; the pq store's new codes against a CPU-side encode with the same
+    codebooks; a `where`-filtered search on each grown store."""
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.ops.pq import PQCodebook, ResidualPQ, residual_pq_encode
+    from crs_tpu_torch.rag import VectorStore
+
+    em, texts, emb, queries = (shared[k] for k in ("em", "texts", "emb", "queries"))
+    stores = {"int8": shared.pop("int8_store"), "pq": shared.pop("pq_store")}
+    new_texts, _ = synthetic_corpus(np.random.default_rng(seed + 10), ADD_ROWS)
+    new_emb = em.embed_chunks(new_texts)
+    n0 = stores["int8"].n
+    out = {"rows_added": ADD_ROWS, "rows_per_call": ADD_CALL, "rows_before": n0}
+    for name, store in stores.items():
+        trained = store._pq_trained_n
+        cap0 = store._padded_rows()
+        times = []
+        for r0 in range(0, ADD_ROWS, ADD_CALL):
+            sync(dev)
+            t0 = time.perf_counter()
+            store.add(new_texts[r0:r0 + ADD_CALL], new_emb[r0:r0 + ADD_CALL])
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if store.n != n0 + ADD_ROWS:
+            raise AssertionError(f"add {name}: n = {store.n}, expected {n0 + ADD_ROWS}")
+        if store._pq_trained_n != trained:
+            raise AssertionError(f"add {name}: the PQ retrain fired")
+        out[name] = {"ms_per_add": sum(times) / len(times), "ms_first_add": times[0],
+                     "ms_max_add": max(times), "capacity_before": cap0,
+                     "capacity_after": store._padded_rows()}
+    q_emb = torch.cat([em.embed(queries), new_emb[:64]])
+
+    # int8: the grown store against a build over the same rows
+    scratch = VectorStore(BENCH_STORE, device=dev)
+    scratch.create_index(texts + new_texts, torch.cat([emb, new_emb]))
+    got, ref = stores["int8"].search_batch(q_emb, top_k=10), scratch.search_batch(q_emb, top_k=10)
+    n = stores["int8"].n
+    if not (torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+            and torch.equal(stores["int8"]._codes[:n], scratch._codes[:n])):
+        raise AssertionError("add int8: search or codes differ from create_index over the rows")
+    self_hits = float((got[1][BATCH:, 0].cpu() == torch.arange(n0, n0 + 64)).float().mean())
+    out["int8"].update({"vs_create_index": "codes, ids and scores identical",
+                        "new_rows_self_hit_at_1": self_hits})
+    del scratch
+
+    # pq: the new codes against the same codebooks' encode on the CPU
+    pq = stores["pq"]
+    rpq = ResidualPQ(rotation=pq._rpq.rotation.cpu(), coarse=pq._rpq.coarse.cpu(),
+                     codebook=PQCodebook(pq._rpq.codebook.centroids.cpu()))
+    cid_cpu, codes_cpu = residual_pq_encode(rpq, new_emb.cpu(), pq._aniso_eta())
+    cid_dev = pq._pq_coarse_ids[n0:n0 + ADD_ROWS].cpu()
+    codes_dev = pq._pq_codes[n0:n0 + ADD_ROWS].cpu()
+    same_cid = cid_dev == cid_cpu.to(cid_dev.dtype)
+    cid_agree = float(same_cid.float().mean())
+    code_agree = float((codes_dev[same_cid] == codes_cpu[same_cid].to(codes_dev.dtype))
+                       .float().mean())
+    # near-equidistant centroids flip when the card sums the distances in
+    # another order: at least 99.9 % of the assignments must agree
+    if cid_agree < 0.999 or code_agree < 0.999:
+        raise AssertionError(f"add pq: coarse ids agree {cid_agree}, codes {code_agree}")
+    out["pq"].update({"coarse_ids_equal_to_cpu_encode": cid_agree,
+                      "codes_equal_to_cpu_encode": code_agree,
+                      "coarse_id_flips": int((~same_cid).sum())})
+
+    # a `where`-filtered search on each grown store: a new row with shard 1
+    j = (1 - n0) % 4
+    for name, store in stores.items():
+        store.metadatas = [{"shard": i % 4} for i in range(store.n)]
+        res = store.search(new_emb[j], top_k=5, where={"shard": 1})
+        if len(res["ids"][0]) != 5 or any(md["shard"] != 1 for md in res["metadatas"][0]) \
+                or store.ids[n0 + j] not in res["ids"][0]:
+            raise AssertionError(f"add {name}: the where-filtered search returned {res['ids']}")
+        out[name]["where_search_top1_is_the_new_row"] = res["ids"][0][0] == store.ids[n0 + j]
+    del stores
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     ph.info.update(out)
     return out
 
@@ -1145,7 +1572,7 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dic
     int8_ops = 2 * BATCH * store.n * DIM
     bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     ops_ms = int8_ops / PEAK_INT8_OPS_PER_S * 1e3
-    shared.update(texts=texts, queries=queries, emb=emb, em=em)
+    shared.update(texts=texts, queries=queries, emb=emb, em=em, int8_store=store)
     ph.info.update({
         "rows": store.n, "dim": DIM, "batch": BATCH,
         "host_setup_s": {"texts": round(t_texts, 3), "featurize_embed_index": round(t_index, 3),
@@ -1169,6 +1596,22 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dic
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "library_composition_ms": library_ms,
     }
+
+
+def sorted_store_from(store, cfg: dict, dev):
+    """A ``pq_sorted`` store over a residual store's trained state, carried
+    across as numpy (``convert.pq_store_from_numpy``): no second training."""
+    from crs_tpu_torch.convert import pq_store_from_numpy
+
+    def host(t):
+        return t.cpu().numpy()
+
+    return pq_store_from_numpy(
+        store.n, store.dim, store.ids, store.documents, store.metadatas,
+        centroids=host(store._pq_codebook.centroids), pq_codes=host(store._pq_codes),
+        rotation=host(store._rpq.rotation), coarse=host(store._rpq.coarse),
+        coarse_ids=host(store._pq_coarse_ids), codes=host(store._codes),
+        scales=host(store._scales), config=cfg, device=dev)
 
 
 def pq_rebuild_identical(store, cfg: dict, texts, emb, dev) -> str:
@@ -1210,20 +1653,26 @@ def phase_formats(ph: Phase, dev, shared: dict) -> dict:
     mds = [{"shard": i % 4} for i in range(n)]
     launches = {}
     doc_tokens = []
+    residual = None
     for name, cfg in FORMAT_STORES.items():
         sync(dev)
         t0 = time.perf_counter()
-        store = VectorStore(dict(CONFIG_STORE, **cfg), device=dev)
-        store.create_index(texts, emb)
+        if name == "pq_sorted":  # no second PQ training: the residual store's state
+            store = sorted_store_from(residual, dict(CONFIG_STORE, **cfg), dev)
+        else:
+            store = VectorStore(dict(CONFIG_STORE, **cfg), device=dev)
+            store.create_index(texts, emb)
         sync(dev)
         setup_s = time.perf_counter() - t0
         store.metadatas = mds
-        if store.format == "pq":  # PQ training must give the same bits from one seed
+        if store.format == "pq" and name != "pq_sorted":  # the same bits from one seed
             info_det = pq_rebuild_identical(store, dict(CONFIG_STORE, **cfg), texts, emb, dev)
         train_s = store.build_seconds.get("pq_train", 0.0)
         info = {"setup_s": setup_s, "pq_train_s": train_s, "setup_without_pq_train_s":
                 setup_s - train_s, "device_bytes_per_vector": store.memory_bytes() / n}
-        if store.format == "pq":
+        if name == "pq_sorted":
+            info["built_from"] = "the residual store's state (convert.pq_store_from_numpy)"
+        elif store.format == "pq":
             info["rebuild_from_same_seed"] = info_det
         kernel = FORMAT_KERNEL[name]
         retr = ContextRetriever(store, em, BENCH_RETRIEVER)
@@ -1243,13 +1692,19 @@ def phase_formats(ph: Phase, dev, shared: dict) -> dict:
             count = STATS.by_kernel.get(kernel, 0)
             if count == 0:
                 raise AssertionError(f"{name}: {kernel} never launched on its main path")
+            if name == "pq_sorted" and STATS.by_kernel.get(FORMAT_KERNEL["pq"], 0):
+                raise AssertionError(f"pq_sorted: the unsorted kernel ran: {STATS.by_kernel}")
+            if name == "pq_sorted" and STATS.fallbacks:  # the answer must be kernel 4's
+                raise AssertionError(f"pq_sorted prf={prf}: {STATS.fallbacks} exact fallbacks "
+                                     f"in {warmup + iters} batches ({STATS.repairs} repairs)")
             empty = sum(1 for r in out["results"] if not r)
             if empty:
                 raise AssertionError(f"{name} prf={prf}: {empty} queries returned no context")
             info[f"prf_beta_{prf}"] = {
                 "ms_per_batch": batch_ms, "ms_per_query": batch_ms / BATCH,
                 "launches_per_batch": count / (warmup + iters),
-                "repairs": STATS.repairs, "fallbacks": STATS.fallbacks}
+                "repairs": STATS.repairs, "repaired_pairs": STATS.repaired_pairs,
+                "fallbacks": STATS.fallbacks}
             if prf == 0.0:
                 launches[name] = count
         if not doc_tokens:
@@ -1269,7 +1724,28 @@ def phase_formats(ph: Phase, dev, shared: dict) -> dict:
             info["route_vs_plain_max_abs"] = check_float_ranked(got, ref, FLOAT_RTOL[name], 1)
         if name == "fp32":  # the exact format: its top-3 is the exact top-3
             info["vs_exact_max_abs"] = check_float_ranked(got, exact, FLOAT_RTOL[name], 1)
+        if name == "pq_sorted":
+            from crs_tpu_torch.ops.scan import adc_auto_group
+
+            ext_s = store._pq_sorted_cache[0]
+            group = adc_auto_group(n, BATCH, store.block_size, PQ_M + 2)
+            wbase = store._pq_wbase[group]
+            info["plan"] = plan_spread((ext_s[:, 0].long() * 256 + ext_s[:, 1].long()).cpu(),
+                                       group * store.block_size, wbase)
+            info["plan"]["group"] = group
+            if wbase is None:
+                raise AssertionError(f"pq_sorted: the window planner refused: {info['plan']}")
+            unsorted = residual.search_batch_dev(q_emb, 3)
+            if not torch.equal(got[0], unsorted[0]):
+                raise AssertionError("pq_sorted: scores differ from the unsorted store's")
+            ties_agree(got[0].cpu(), got[1].cpu(), unsorted[1].cpu())
+            info["vs_unsorted_store"] = "scores identical, ids up to exact ties"
         ph.info[name] = info
+        if name == "pq":
+            residual = store
+        elif name == "pq_sorted":
+            shared["pq_store"] = residual  # the add phase grows it
+            residual = None
         del store, retr
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -1808,13 +2284,35 @@ def kernel_table(res: dict) -> list:
         "by_dtype": {dt: {"launches": launches[dt], **{k: flt[dt][k] for k in keys}}
                      for dt in ("fp32", "bf16")},
     }]
-    for name, fmt, line in (("residual", "pq", 674), ("plain", "pq_plain", 521)):
+    srt, seg = res["kernel_sorted_adc"], res["kernel_segmax"]
+    for name, fmt, line in (("residual", "pq", 674), ("sorted", "pq_sorted", 608),
+                            ("plain", "pq_plain", 521)):
+        row = adc if name != "sorted" else {"sorted": srt}
         rows.append({
             "name": f"adc_scan_topk_{name}", "route": "cuda",
             "source": "crs_tpu_torch/csrc/pq_adc_scan_topk.cu",
             "replaces": f"crs_tpu/ops/pallas_scan.py:{line}", "launches": launches[fmt],
-            "max_abs_err": adc[name]["max_abs_err"], **{k: adc[name][k] for k in keys},
+            "max_abs_err": row[name]["max_abs_err"], **{k: row[name][k] for k in keys},
             "library_ms": None})
+    rows[-2]["unsorted_kernel_ms_same_rows"] = srt["unsorted_ms"]
+    seg_launches = seg["main_path_launches"]
+    rows.append({
+        "name": "segmax_scan_topk_f32_bf16", "route": "cuda",
+        "source": "crs_tpu_torch/csrc/segmax_scan_topk.cu",
+        "replaces": "crs_tpu/ops/pallas_scan.py:453",
+        "launches": seg_launches["segmax_scan_topk_f32"] + seg_launches["segmax_scan_topk_bf16"],
+        "max_abs_err": max(seg["fp32"]["max_abs_err"], seg["bf16"]["max_abs_err"]),
+        **{k: seg["fp32"][k] for k in keys}, "library_ms": None,
+        "by_dtype": {dt: {"launches": seg_launches[kname], **{k: seg[dt][k] for k in keys}}
+                     for dt, kname in (("fp32", "segmax_scan_topk_f32"),
+                                       ("bf16", "segmax_scan_topk_bf16"))},
+    })
+    rows.append({
+        "name": "segmax_scan_topk_int8", "route": "cuda",
+        "source": "crs_tpu_torch/csrc/segmax_scan_topk.cu",
+        "replaces": "crs_tpu/ops/pallas_scan.py:489",
+        "launches": seg_launches["segmax_scan_topk_int8"], "max_abs_err": seg["int8"]["max_abs_err"],
+        **{k: seg["int8"][k] for k in keys}, "library_ms": None})
     gen, q4, attn = res["generate"], res["kernel_q4"], res["kernel_decode_attn"]
     for name, kind, line in (("q4_matmul", "int4", 105), ("nf4_matmul", "nf4", 161)):
         rows.append({
@@ -1839,9 +2337,9 @@ def kernel_table(res: dict) -> list:
     return rows
 
 
-ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_q4",
-              "kernel_decode_attn", "kernel_fused_mlp", "bench", "full", "formats", "generate",
-              "rag", "generate_7b", "calibrated")
+ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted_adc",
+              "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "bench",
+              "full", "formats", "add", "generate", "rag", "generate_7b", "calibrated")
 
 
 def main(argv=None) -> int:
@@ -1878,6 +2376,8 @@ def main(argv=None) -> int:
         "kernel": lambda ph: phase_kernel(ph, dev, args.seed, FULL_ROWS),
         "kernel_f32_bf16": lambda ph: phase_kernel_f32_bf16(ph, dev, args.seed, FULL_ROWS),
         "kernel_adc": lambda ph: phase_kernel_adc(ph, dev, args.seed, FULL_ROWS),
+        "kernel_sorted_adc": lambda ph: phase_kernel_sorted_adc(ph, dev, args.seed, FULL_ROWS),
+        "kernel_segmax": lambda ph: phase_kernel_segmax(ph, dev, args.seed, FULL_ROWS),
         "kernel_q4": lambda ph: phase_kernel_q4(ph, dev, args.seed),
         "kernel_decode_attn": lambda ph: phase_kernel_decode_attn(ph, dev, args.seed),
         "kernel_fused_mlp": lambda ph: phase_kernel_fused_mlp(ph, dev, args.seed),
@@ -1885,6 +2385,7 @@ def main(argv=None) -> int:
         "full": lambda ph: phase_full(ph, dev, args.seed, FULL_ROWS, res.get("kernel", 0.0),
                                       shared),
         "formats": lambda ph: phase_formats(ph, dev, shared),
+        "add": lambda ph: phase_add(ph, dev, args.seed, shared),
         "generate": lambda ph: phase_generate(ph, dev, args.seed, shared),
         "rag": lambda ph: phase_rag(ph, dev, args.seed, shared),
         "generate_7b": lambda ph: phase_generate_7b(ph, dev, args.seed),

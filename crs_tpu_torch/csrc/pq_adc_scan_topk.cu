@@ -1,10 +1,12 @@
 // PQ ADC scans with per-block top-kb, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of crs_tpu/ops/pallas_scan.py:
-//   RESIDUAL = true:  pallas_topk_residual_pq_adc / _scan_kernel_residual_pq_adc
-//   RESIDUAL = false: pallas_topk_pq_adc / _scan_kernel_pq_adc
+// Replaces three TPU kernels of crs_tpu/ops/pallas_scan.py:
+//   MODE = RESIDUAL: pallas_topk_residual_pq_adc / _scan_kernel_residual_pq_adc
+//   MODE = SORTED:   pallas_topk_residual_pq_adc_sorted /
+//                    _scan_kernel_residual_pq_adc_sorted
+//   MODE = PLAIN:    pallas_topk_pq_adc / _scan_kernel_pq_adc
 // For each query tile and each corpus block of block_size rows:
-//   s = ((0 + hi[cid]) + lo[cid])      (RESIDUAL only; s = 0 otherwise)
+//   s = ((0 + hi[cid]) + lo[cid])      (RESIDUAL and SORTED; s = 0 in PLAIN)
 //   s = s + lut[m][code_m]  for m = 0 .. M-1, in order
 //   s = s + bias            (0, or -1e30 for padding and `where`-masked rows)
 // then the per-block top-kb of block_topk.cuh. The tables arrive rounded as
@@ -13,6 +15,22 @@
 // half). The Pallas kernels add the same values as one-hot matrix products,
 // in which every other product is an exact zero, in this order; every add
 // here is an explicit __fadd_rn, so the scores are theirs to the bit.
+//
+// SORTED: the rows are sorted by coarse id, and block b belongs to the tile
+// b / group whose ids the host planner put in the 512-id window
+// [256·w, 256·w + 512), w = wbase[b / group]. The Pallas kernel's one-hot
+// covers only that window, so a row whose id lies outside it (a padding row
+// of the last tile, a hand-built plan) gets a coarse term of exactly 0; the
+// kernel keeps that rule. The table has 256 zero columns after the C real
+// ones (c = C + 256 here), so the window never leaves it. Inside the window
+// the term is kernel 3's, and so are the scores. What the layout buys on
+// this card is locality: a tile's coarse reads fall in one 16 KB window of
+// the table (512 ids × 8 queries × 4 bytes), which stays in L2. The window
+// is read through L2 like the whole table in RESIDUAL: kept in shared
+// memory it would add 8·512·4 = 16 KB to the 217,600 bytes the LUTs, row
+// staging and scores take at M = 48, K = 256, past the 232,448 a CUDA block
+// may have. On the TPU the layout cut the coarse one-hot products from C/256
+// windows to 2; here the lookup's cost never depended on C.
 //
 // What bounds it on an H100: the corpus is M+2 bytes a row (52 MB at
 // N = 1,048,576, M = 48) ≈ 0.016 ms at 3.35 TB/s, so bytes do not bound
@@ -54,6 +72,7 @@ constexpr int QUERY_TILE = 8;   // queries per CUDA block (= warps)
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_LANE = CHUNK / 32;
 constexpr int MAX_KB = 32;
+enum Mode { PLAIN = 0, RESIDUAL = 1, SORTED = 2 };
 
 __host__ __device__ inline size_t round16(size_t x) { return (x + 15) / 16 * 16; }
 
@@ -68,18 +87,20 @@ __device__ __forceinline__ void unpack8(const uint4 v, float (&f)[QUERY_TILE]) {
     f[6] = bf16_lo(v.w); f[7] = bf16_hi(v.w);
 }
 
-template <bool RESIDUAL>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUERY_TILE]
-                     const uint32_t* __restrict__ hilo,      // [nq, c, QUERY_TILE] (RESIDUAL)
+                     const uint32_t* __restrict__ hilo,      // [nq, c, QUERY_TILE] (not PLAIN)
                      const uint8_t* __restrict__ codes,      // [nblocks·block_size, cols]
                      const float* __restrict__ bias,         // [nblocks·block_size]
                      float* __restrict__ out_s,              // [nq, nblocks, kb, QUERY_TILE]
                      int* __restrict__ out_i,
+                     const int* __restrict__ wbase,          // [nblocks / group] (SORTED)
                      int nblocks, int block_size, int blocks_per_cta, int m, int kc, int c,
-                     int kb) {
+                     int kb, int group) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const int cols = m + (RESIDUAL ? 2 : 0);
+    constexpr bool COARSE = MODE != PLAIN;
+    const int cols = m + (COARSE ? 2 : 0);
     const size_t lut_bytes = (size_t)QUERY_TILE * m * kc * 2;  // a multiple of 16
     const size_t code_bytes = (size_t)CHUNK * cols;            // a multiple of 16
     const uint4* lut_s = reinterpret_cast<const uint4*>(smem);  // [m·kc] entries of 8 queries
@@ -97,12 +118,13 @@ adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUER
         for (int idx = tid; idx < (int)(lut_bytes / 16); idx += THREADS) dst[idx] = src[idx];
     }
     const uint4* hilo_q =
-        RESIDUAL ? reinterpret_cast<const uint4*>(hilo + (long long)iq * c * QUERY_TILE) : nullptr;
-    const int off = RESIDUAL ? 2 : 0;
+        COARSE ? reinterpret_cast<const uint4*>(hilo + (long long)iq * c * QUERY_TILE) : nullptr;
+    const int off = COARSE ? 2 : 0;
 
     const int blk_begin = blockIdx.x * blocks_per_cta;
     const int blk_end = min(nblocks, blk_begin + blocks_per_cta);
     for (int blk = blk_begin; blk < blk_end; ++blk) {
+        const int win = MODE == SORTED ? 256 * wbase[blk / group] : 0;  // first id of the window
         float ls = block_topk::NEG_INF;
         int li = 0;
         for (int c0 = 0; c0 < block_size; c0 += CHUNK) {
@@ -117,9 +139,11 @@ adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUER
 
             const unsigned char* my = codes_s + tid * cols;
             float s[QUERY_TILE];
-            if (RESIDUAL) {
+            const int cid = COARSE ? ((int)my[0] << 8) | (int)my[1] : 0;
+            // SORTED: an id outside the tile's window has no coarse term
+            const bool in_window = MODE != SORTED || ((unsigned)(cid - win) < 512u && cid < c);
+            if (COARSE && in_window) {
                 // word q of the row's 32-byte entry: hi in the low half, lo in the high half
-                const int cid = ((int)my[0] << 8) | (int)my[1];
                 const uint4 a = __ldg(hilo_q + 2 * cid), b = __ldg(hilo_q + 2 * cid + 1);
                 const uint32_t w[QUERY_TILE] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
@@ -153,23 +177,23 @@ adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUER
     }
 }
 
-template <bool RESIDUAL>
+template <int MODE>
 int launch(const void* lut, const void* hilo, const void* codes, const void* bias, void* out_s,
-           void* out_i, int nq, int nblocks, int block_size, int grid_x, int m, int kc, int c,
-           int kb, void* stream) {
-    const int cols = m + (RESIDUAL ? 2 : 0);
+           void* out_i, const void* wbase, int nq, int nblocks, int block_size, int grid_x,
+           int m, int kc, int c, int kb, int group, void* stream) {
+    const int cols = m + (MODE != PLAIN ? 2 : 0);
     const size_t smem = (size_t)QUERY_TILE * m * kc * 2 + round16((size_t)CHUNK * cols) +
                         (size_t)QUERY_TILE * CHUNK * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(adc_scan_topk_kernel<RESIDUAL>,
+    cudaError_t err = cudaFuncSetAttribute(adc_scan_topk_kernel<MODE>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int per_cta = (nblocks + grid_x - 1) / grid_x;
     const dim3 grid((unsigned)((nblocks + per_cta - 1) / per_cta), (unsigned)nq);
-    adc_scan_topk_kernel<RESIDUAL><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+    adc_scan_topk_kernel<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         static_cast<const __nv_bfloat16*>(lut), static_cast<const uint32_t*>(hilo),
         static_cast<const uint8_t*>(codes), static_cast<const float*>(bias),
-        static_cast<float*>(out_s), static_cast<int*>(out_i), nblocks, block_size, per_cta, m,
-        kc, c, kb);
+        static_cast<float*>(out_s), static_cast<int*>(out_i), static_cast<const int*>(wbase),
+        nblocks, block_size, per_cta, m, kc, c, kb, group);
     return (int)cudaGetLastError();
 }
 
@@ -190,16 +214,27 @@ int adc_scan_topk_residual_launch(const void* lut, const void* hilo, const void*
                                   const void* bias, void* out_s, void* out_i, int nq, int nblocks,
                                   int block_size, int grid_x, int m, int kc, int c, int kb,
                                   void* stream) {
-    return launch<true>(lut, hilo, codes, bias, out_s, out_i, nq, nblocks, block_size, grid_x, m,
-                        kc, c, kb, stream);
+    return launch<RESIDUAL>(lut, hilo, codes, bias, out_s, out_i, nullptr, nq, nblocks,
+                            block_size, grid_x, m, kc, c, kb, 1, stream);
 }
 
 int adc_scan_topk_plain_launch(const void* lut, const void* hilo, const void* codes,
                                const void* bias, void* out_s, void* out_i, int nq, int nblocks,
                                int block_size, int grid_x, int m, int kc, int c, int kb,
                                void* stream) {
-    return launch<false>(lut, hilo, codes, bias, out_s, out_i, nq, nblocks, block_size, grid_x, m,
-                         kc, c, kb, stream);
+    return launch<PLAIN>(lut, hilo, codes, bias, out_s, out_i, nullptr, nq, nblocks, block_size,
+                         grid_x, m, kc, c, kb, 1, stream);
+}
+
+// The sorted layout: c = C + 256 columns of hi/lo (the last 256 zero),
+// wbase = one window base (in units of 256 ids) per tile of `group` blocks,
+// nblocks % group == 0.
+int adc_scan_topk_sorted_launch(const void* lut, const void* hilo, const void* codes,
+                                const void* bias, void* out_s, void* out_i, const void* wbase,
+                                int nq, int nblocks, int block_size, int grid_x, int m, int kc,
+                                int c, int kb, int group, void* stream) {
+    return launch<SORTED>(lut, hilo, codes, bias, out_s, out_i, wbase, nq, nblocks, block_size,
+                          grid_x, m, kc, c, kb, group, stream);
 }
 
 }  // extern "C"

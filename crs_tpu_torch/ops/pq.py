@@ -34,7 +34,7 @@ from .topk import NEG_INF, topk_stable
 __all__ = [
     "PQCodebook", "kmeans", "aniso_eta_from_threshold", "train_pq", "pq_encode",
     "ResidualPQ", "train_opq", "train_residual_pq", "residual_pq_encode",
-    "residual_codes_ext", "adc_lut", "residual_adc_luts", "residual_pq_adc_topk",
+    "residual_codes_ext", "sort_codes_by_coarse", "adc_lut", "residual_adc_luts", "residual_pq_adc_topk",
     "pq_adc_topk",
 ]
 
@@ -357,6 +357,24 @@ def residual_codes_ext(coarse_ids: torch.Tensor, codes: torch.Tensor) -> torch.T
     hi = (cid // 256).to(torch.uint8)
     lo = (cid % 256).to(torch.uint8)
     return torch.cat([hi[:, None], lo[:, None], codes.to(torch.uint8)], dim=1)
+
+
+def sort_codes_by_coarse(codes_ext, num_coarse: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The sorted residual-ADC scan's layout (host numpy, a one-time build
+    cost): the [N, M+2] rows stable-sorted by coarse id. Returns
+    ``(sorted_ext, perm int32, counts int64)`` with ``sorted_ext[r] ==
+    codes_ext[perm[r]]`` (scan ids map back through ``perm``) and
+    ``counts[c]`` the rows of coarse id c, the input of
+    :func:`crs_tpu_torch.ops.scan.plan_sorted_coarse_windows`. Raises when
+    a coarse id is ≥ ``num_coarse``."""
+    ext = codes_ext.cpu().numpy() if isinstance(codes_ext, torch.Tensor) else np.asarray(codes_ext)
+    cid = ext[:, 0].astype(np.int64) * 256 + ext[:, 1].astype(np.int64)
+    perm = np.argsort(cid, kind="stable")
+    counts = np.bincount(cid, minlength=num_coarse)
+    if counts.shape[0] > num_coarse:
+        raise ValueError(
+            f"sort_codes_by_coarse: coarse id {int(cid.max())} >= num_coarse {num_coarse}")
+    return ext[perm], perm.astype(np.int32), counts.astype(np.int64)
 
 
 # -- ADC ---------------------------------------------------------------------

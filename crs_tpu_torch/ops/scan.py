@@ -9,7 +9,16 @@ share that contract and the host side around it:
 - :func:`scan_topk` (fp32/bf16) — ``pallas_topk`` → ``csrc/scan_topk_f32_bf16.cu``;
 - :func:`scan_topk_residual_pq_adc` — ``pallas_topk_residual_pq_adc`` →
   ``csrc/pq_adc_scan_topk.cu`` with the coarse term;
+- :func:`scan_topk_residual_pq_adc_sorted` — ``pallas_topk_residual_pq_adc_sorted``
+  → the same source, over rows sorted by coarse id, each tile of ``group``
+  blocks reading a 512-id coarse window (:func:`plan_sorted_coarse_windows`);
 - :func:`scan_topk_pq_adc` — ``pallas_topk_pq_adc`` → the same source without it.
+
+Two approximate scans share the partials' layout and :func:`_finalize`, and
+nothing else (no ceilings, repair or fallback): :func:`scan_topk_segmax` and
+:func:`scan_topk_segmax_int8` (``pallas_topk_segmax`` / ``_int8`` →
+``csrc/segmax_scan_topk.cu``) keep one (max, argmax) per 128-row segment and
+emit each block's top-kseg segments.
 
 Everything around the kernels is plain torch and mirrors the JAX host side
 step for step (:func:`_scan_driver`):
@@ -37,6 +46,7 @@ import ctypes
 import math
 from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .launch import KernelStats, check_operands, launch, stream_handle
@@ -47,8 +57,13 @@ __all__ = [
     "BLOCK_ROWS", "QUERY_TILE", "FLOAT_QUERY_TILE", "ADC_QUERY_TILE", "CHUNK_ROWS", "STATS",
     "scan_topk_int8", "scan_topk", "scan_topk_residual_pq_adc", "scan_topk_pq_adc",
     "scan_topk_residual_pq_adc_luts", "scan_topk_pq_adc_luts",
+    "scan_topk_residual_pq_adc_sorted", "scan_topk_residual_pq_adc_sorted_luts",
+    "scan_topk_segmax", "scan_topk_segmax_int8", "SEGMAX_QUERY_TILE", "SEGMENT_ROWS",
     "block_topk_int8", "block_topk_int8_plain", "block_topk_float", "block_topk_float_plain",
-    "block_topk_adc", "block_topk_adc_plain", "adc_tables", "build_kernels",
+    "block_topk_adc", "block_topk_adc_plain", "block_topk_adc_sorted",
+    "block_topk_adc_sorted_plain", "block_topk_segmax", "block_topk_segmax_plain",
+    "block_topk_segmax_int8", "block_topk_segmax_int8_plain", "adc_tables",
+    "adc_auto_group", "plan_sorted_coarse_windows", "build_kernels",
 ]
 
 # Kernel 1's tile: BLOCK_ROWS corpus rows × QUERY_TILE queries per CUDA
@@ -62,6 +77,11 @@ CHUNK_ROWS = 256
 MAX_KB = 32
 FLOAT_QUERY_TILE = 64
 ADC_QUERY_TILE = 8
+# Kernels 6 and 7 (segment max): 64 queries per CUDA block, CHUNK_ROWS rows
+# a step, at most MAX_SEGMENTS 128-row segments per block (one per lane).
+SEGMAX_QUERY_TILE = 64
+SEGMENT_ROWS = 128
+MAX_SEGMENTS = 32
 _SMEM_LIMIT = 232448  # bytes of shared memory one CUDA block may use (H100)
 _INT_BIG = 2**31 - 1
 
@@ -70,11 +90,12 @@ KernelOut = Tuple[torch.Tensor, torch.Tensor]
 
 class ScanStats(KernelStats):
     """Per-process counts: kernel launches (in all and by kernel), targeted
-    repairs, exact fallbacks."""
+    repairs and the (query, block) pairs they rescanned, exact fallbacks."""
 
     def reset(self) -> None:
         super().reset()
         self.repairs = 0
+        self.repaired_pairs = 0
         self.fallbacks = 0
 
 
@@ -88,6 +109,10 @@ _KERNELS = {
     "scan_topk_bf16": ("scan_topk_f32_bf16.cu", [_P] * 5 + [_I] * 5 + [_P]),
     "adc_scan_topk_residual": ("pq_adc_scan_topk.cu", [_P] * 6 + [_I] * 8 + [_P]),
     "adc_scan_topk_plain": ("pq_adc_scan_topk.cu", [_P] * 6 + [_I] * 8 + [_P]),
+    "adc_scan_topk_sorted": ("pq_adc_scan_topk.cu", [_P] * 7 + [_I] * 9 + [_P]),
+    "segmax_scan_topk_f32": ("segmax_scan_topk.cu", [_P] * 6 + [_I] * 6 + [_P]),
+    "segmax_scan_topk_bf16": ("segmax_scan_topk.cu", [_P] * 6 + [_I] * 6 + [_P]),
+    "segmax_scan_topk_int8": ("segmax_scan_topk.cu", [_P] * 6 + [_I] * 6 + [_P]),
 }
 # each source's tile constants, checked against this module's at load
 _TILES = {
@@ -99,6 +124,10 @@ _TILES = {
     "pq_adc_scan_topk.cu": (("adc_scan_topk_chunk_rows", CHUNK_ROWS),
                             ("adc_scan_topk_query_tile", ADC_QUERY_TILE),
                             ("adc_scan_topk_max_kb", MAX_KB)),
+    "segmax_scan_topk.cu": (("segmax_scan_topk_chunk_rows", CHUNK_ROWS),
+                            ("segmax_scan_topk_query_tile", SEGMAX_QUERY_TILE),
+                            ("segmax_scan_topk_segment_rows", SEGMENT_ROWS),
+                            ("segmax_scan_topk_max_segments", MAX_SEGMENTS)),
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -361,6 +390,43 @@ def _adc_grid_x(nblocks: int, nq: int, dev) -> int:
     return max(1, min(nblocks, -(-8 * sms // max(nq, 1))))
 
 
+def _adc_kernel_operands(lut_bf, codes, bias, kb: int, block_size: int, coarse_hi, coarse_lo,
+                         max_coarse: int = 65536):
+    """Check what the ADC kernels take and lay out their tables: returns
+    (LUT [tile, m, code, query of the tile] — the tile's 8 values of one
+    (subspace, code) one 16-byte entry —, the coarse hi/lo words [tile,
+    coarse id, query of the tile] — hi in the low half — or ``codes`` as a
+    pointer that is never read, query tiles, corpus blocks)."""
+    residual = coarse_hi is not None
+    _check_operands(codes.device, ("lut", lut_bf, torch.bfloat16), ("codes", codes, torch.uint8),
+                    ("bias", bias, torch.float32))
+    bp, m_sub, k_clusters = lut_bf.shape
+    cols = m_sub + (2 if residual else 0)
+    if bp % ADC_QUERY_TILE or codes.dim() != 2 or codes.shape[1] != cols:
+        raise ValueError(f"lut must be [m·{ADC_QUERY_TILE}, M, K] and codes [N, {cols}]")
+    if not 1 <= k_clusters <= 256:
+        raise ValueError(f"the ADC kernels take K ≤ 256 clusters, got {k_clusters}")
+    _check_block_shape(codes.shape[0], bias, block_size, kb)
+    smem = (ADC_QUERY_TILE * m_sub * k_clusters * 2 + ((CHUNK_ROWS * cols + 15) // 16) * 16
+            + ADC_QUERY_TILE * CHUNK_ROWS * 4)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"M·K = {m_sub}·{k_clusters} needs {smem} bytes of shared memory "
+                         f"per CUDA block, more than {_SMEM_LIMIT}")
+    hilo = codes
+    if residual:
+        width = coarse_hi.shape[1]
+        if coarse_hi.shape != (bp, width) or coarse_lo.shape != (bp, width) \
+                or coarse_hi.dtype != torch.bfloat16 or coarse_lo.dtype != torch.bfloat16:
+            raise ValueError("coarse hi/lo must be [B, C] bf16, one row per LUT row")
+        if width > max_coarse:
+            raise ValueError(f"coarse ids must fit two bytes, got a table of {width} ids")
+        hilo = torch.stack([coarse_hi, coarse_lo], -1).contiguous().view(torch.int32)
+        hilo = hilo.reshape(-1, ADC_QUERY_TILE, width).transpose(1, 2).contiguous()
+    nq = bp // ADC_QUERY_TILE
+    lut_k = lut_bf.view(nq, ADC_QUERY_TILE, m_sub, k_clusters).permute(0, 2, 3, 1).contiguous()
+    return lut_k, hilo, nq, codes.shape[0] // block_size
+
+
 def block_topk_adc(
     lut_bf: torch.Tensor,
     codes: torch.Tensor,
@@ -377,47 +443,246 @@ def block_topk_adc(
     if codes.device.type == "cpu":
         return block_topk_adc_plain(lut_bf, codes, bias, kb, block_size, coarse_hi, coarse_lo)
     dev = codes.device
-    residual = coarse_hi is not None
-    _check_operands(dev, ("lut", lut_bf, torch.bfloat16), ("codes", codes, torch.uint8),
-                    ("bias", bias, torch.float32))
-    bp, m_sub, k_clusters = lut_bf.shape
-    cols = m_sub + (2 if residual else 0)
-    n_rows = codes.shape[0]
-    if bp % ADC_QUERY_TILE or codes.dim() != 2 or codes.shape[1] != cols:
-        raise ValueError(f"lut must be [m·{ADC_QUERY_TILE}, M, K] and codes [N, {cols}]")
-    if not 1 <= k_clusters <= 256:
-        raise ValueError(f"the ADC kernels take K ≤ 256 clusters, got {k_clusters}")
-    _check_block_shape(n_rows, bias, block_size, kb)
-    smem = (ADC_QUERY_TILE * m_sub * k_clusters * 2 + ((CHUNK_ROWS * cols + 15) // 16) * 16
-            + ADC_QUERY_TILE * CHUNK_ROWS * 4)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"M·K = {m_sub}·{k_clusters} needs {smem} bytes of shared memory "
-                         f"per CUDA block, more than {_SMEM_LIMIT}")
-    num_coarse = 0
-    hilo = codes  # any valid pointer when there is no coarse term
-    if residual:
-        num_coarse = coarse_hi.shape[1]
-        if coarse_hi.shape != (bp, num_coarse) or coarse_lo.shape != (bp, num_coarse) \
-                or coarse_hi.dtype != torch.bfloat16 or coarse_lo.dtype != torch.bfloat16:
-            raise ValueError("coarse hi/lo must be [B, C] bf16, one row per LUT row")
-        if num_coarse > 65536:
-            raise ValueError(f"coarse ids must fit two bytes, got C = {num_coarse}")
-        # one 32-bit word per (query, coarse id), hi in the low half and lo in
-        # the high half, laid out [tile, coarse id, query of the tile]
-        hilo = torch.stack([coarse_hi, coarse_lo], -1).contiguous().view(torch.int32)
-        hilo = hilo.reshape(-1, ADC_QUERY_TILE, num_coarse).transpose(1, 2).contiguous()
-    nq = bp // ADC_QUERY_TILE
-    # the kernel's LUT layout [tile, m, code, query of the tile]: the tile's 8
-    # values of one (subspace, code) are one 16-byte entry
-    lut_k = lut_bf.view(nq, ADC_QUERY_TILE, m_sub, k_clusters).permute(0, 2, 3, 1).contiguous()
-    nblocks = n_rows // block_size
+    lut_k, hilo, nq, nblocks = _adc_kernel_operands(lut_bf, codes, bias, kb, block_size,
+                                                    coarse_hi, coarse_lo)
+    _, m_sub, k_clusters = lut_bf.shape
+    num_coarse = 0 if coarse_hi is None else coarse_hi.shape[1]
     out_s, out_i = _partials(nq, nblocks, kb, ADC_QUERY_TILE, dev)
-    kernel = "adc_scan_topk_residual" if residual else "adc_scan_topk_plain"
+    kernel = "adc_scan_topk_plain" if coarse_hi is None else "adc_scan_topk_residual"
     _launch(kernel, "pq_adc_scan_topk.cu", lut_k.data_ptr(), hilo.data_ptr(), codes.data_ptr(),
             bias.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), nq, nblocks, block_size,
             _adc_grid_x(nblocks, nq, dev), m_sub, k_clusters, num_coarse, kb,
             _stream_handle(dev))
     return out_s, out_i
+
+
+# -- kernel 4: PQ ADC over coarse-sorted rows (csrc/pq_adc_scan_topk.cu) -----
+
+def block_topk_adc_sorted_plain(
+    lut_bf: torch.Tensor,  # [nq·ADC_QUERY_TILE, M, K] bf16
+    codes: torch.Tensor,  # [nblocks·block_size, M+2] uint8, rows sorted by coarse id
+    bias: torch.Tensor,  # [nblocks·block_size] f32
+    kb: int,
+    block_size: int,
+    coarse_hi: torch.Tensor,  # [nq·ADC_QUERY_TILE, C + 256] bf16, 256 zero columns last
+    coarse_lo: torch.Tensor,
+    wbase: torch.Tensor,  # [nblocks / group] int32: each tile's window base, 256-id units
+    group: int,
+) -> KernelOut:
+    """:func:`block_topk_adc_plain` with ``_scan_kernel_residual_pq_adc_sorted``'s
+    window rule: block b's tile reads ids ``[256·w, 256·w + 512)``, w =
+    ``wbase[b // group]``; a row whose id lies outside (a padding row, a
+    hand-built plan) gets a coarse term of exactly 0 (its one-hot row is
+    zero), one inside ((0 + hi) + lo) as kernel 3. Then + lut[m, code_m] in
+    order, + bias, and the extraction."""
+    bp, m_sub = lut_bf.shape[0], lut_bf.shape[1]
+    width = coarse_hi.shape[1]
+    lut_f = lut_bf.float()
+    hi_f, lo_f = coarse_hi.float(), coarse_lo.float()
+    wb = wbase.long()
+
+    def scores(r0, r1):
+        cb = codes[r0:r1].long()
+        cid = cb[:, 0] * 256 + cb[:, 1]
+        rel = cid - 256 * wb[torch.arange(r0, r1, device=codes.device) // (group * block_size)]
+        inside = (rel >= 0) & (rel < 512) & (cid < width)
+        cid = torch.where(inside, cid, 0)
+        s = torch.zeros((bp, r1 - r0), dtype=torch.float32, device=codes.device)
+        s = s + torch.where(inside, hi_f[:, cid], 0.0)
+        s = s + torch.where(inside, lo_f[:, cid], 0.0)
+        for mi in range(m_sub):
+            s = s + lut_f[:, mi, :][:, cb[:, 2 + mi]]
+        return s + bias[None, r0:r1]
+
+    return _block_topk_plain(scores, bp, codes.shape[0], kb, block_size, ADC_QUERY_TILE,
+                             codes.device)
+
+
+def block_topk_adc_sorted(
+    lut_bf: torch.Tensor,
+    codes: torch.Tensor,
+    bias: torch.Tensor,
+    kb: int,
+    block_size: int,
+    coarse_hi: torch.Tensor,
+    coarse_lo: torch.Tensor,
+    wbase: torch.Tensor,
+    group: int,
+) -> KernelOut:
+    """The kernel's wrapper: same signature and result as
+    :func:`block_topk_adc_sorted_plain`. CPU tensors take the plain version;
+    CUDA tensors launch ``adc_scan_topk_sorted`` or raise."""
+    if codes.device.type == "cpu":
+        return block_topk_adc_sorted_plain(lut_bf, codes, bias, kb, block_size, coarse_hi,
+                                           coarse_lo, wbase, group)
+    dev = codes.device
+    _check_operands(dev, ("wbase", wbase, torch.int32))
+    width = coarse_hi.shape[1]
+    if width % 256 or width < 512:
+        raise ValueError(f"the coarse table must be C + 256 ids wide (C % 256 == 0), got {width}")
+    lut_k, hilo, nq, nblocks = _adc_kernel_operands(lut_bf, codes, bias, kb, block_size,
+                                                    coarse_hi, coarse_lo, 65536 + 256)
+    if group < 1 or nblocks % group or wbase.shape != (nblocks // group,):
+        raise ValueError(f"group must be ≥ 1 and divide the {nblocks} blocks, with one "
+                         f"window base per tile of group blocks; got group {group}, "
+                         f"wbase {tuple(wbase.shape)}")
+    _, m_sub, k_clusters = lut_bf.shape
+    out_s, out_i = _partials(nq, nblocks, kb, ADC_QUERY_TILE, dev)
+    _launch("adc_scan_topk_sorted", "pq_adc_scan_topk.cu", lut_k.data_ptr(), hilo.data_ptr(),
+            codes.data_ptr(), bias.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            wbase.data_ptr(), nq, nblocks, block_size, _adc_grid_x(nblocks, nq, dev), m_sub,
+            k_clusters, width, kb, group, _stream_handle(dev))
+    return out_s, out_i
+
+
+# -- kernels 6 and 7: segment max (csrc/segmax_scan_topk.cu) -----------------
+
+def _segmax_plain(score_fn: Callable[[int, int], torch.Tensor], bp: int, n_rows: int,
+                  valid_n, kseg: int, block_size: int, dev) -> KernelOut:
+    """``_scan_kernel_segmax``'s selection, literally: rows at or past
+    ``valid_n`` score -1e30; per 128-row segment (max, lowest lane reaching
+    it); kseg passes of (largest segment max, lowest segment among equal
+    maxima, emit its max and argmax id, set its max to -1e30 and keep its
+    id). Partials [nq, nblocks, kseg, SEGMAX_QUERY_TILE]."""
+    tile = SEGMAX_QUERY_TILE
+    nq = bp // tile
+    nblocks = n_rows // block_size
+    nseg = block_size // SEGMENT_ROWS
+    out_s, out_i = _partials(nq, nblocks, kseg, tile, dev)
+    step = max(1, (1 << 24) // max(bp * block_size, 1))
+    seg_col = torch.arange(nseg, device=dev)
+    lane = torch.arange(SEGMENT_ROWS, device=dev)
+    for b0 in range(0, nblocks, step):
+        b1 = min(b0 + step, nblocks)
+        nb = b1 - b0
+        r0, r1 = b0 * block_size, b1 * block_size
+        col = torch.arange(r0, r1, device=dev)
+        s = torch.where(col[None, :] < valid_n, score_fn(r0, r1), NEG_INF)
+        s3 = s.view(bp, nb, nseg, SEGMENT_ROWS)
+        segmax = s3.amax(dim=-1)  # [bp, nb, nseg]
+        arg_lane = torch.where(s3 >= segmax[..., None], lane, _INT_BIG).amin(dim=-1)
+        arg_id = (r0 + torch.arange(nb, device=dev)[:, None] * block_size
+                  + seg_col[None, :] * SEGMENT_ROWS) + arg_lane
+        for j in range(kseg):
+            m = segmax.amax(dim=-1)  # [bp, nb]
+            sel = torch.where(segmax >= m[..., None], seg_col, _INT_BIG).amin(dim=-1)
+            chosen = torch.gather(arg_id, 2, sel[..., None])[..., 0]
+            out_s[:, b0:b1, j, :] = m.view(nq, tile, nb).permute(0, 2, 1)
+            out_i[:, b0:b1, j, :] = chosen.view(nq, tile, nb).permute(0, 2, 1).int()
+            segmax = torch.where(seg_col == sel[..., None], NEG_INF, segmax)
+    return out_s, out_i
+
+
+def block_topk_segmax_plain(
+    q: torch.Tensor,  # [nq·SEGMAX_QUERY_TILE, D], the corpus dtype
+    vecs: torch.Tensor,  # [nblocks·block_size, D] f32 or bf16
+    valid_n: Union[int, torch.Tensor],
+    kseg: int,
+    block_size: int,
+) -> KernelOut:
+    """Per (query, row): s = q·v in f32 (bf16 products are exact in f32),
+    -1e30 at rows ≥ valid_n; then the segment-max selection."""
+
+    def scores(r0, r1):
+        _check_no_tf32(vecs)
+        return q.float() @ vecs[r0:r1].float().T
+
+    return _segmax_plain(scores, q.shape[0], vecs.shape[0], valid_n, kseg, block_size,
+                         vecs.device)
+
+
+def block_topk_segmax_int8_plain(
+    q_codes: torch.Tensor,  # [nq·SEGMAX_QUERY_TILE, D] int8
+    q_scale: torch.Tensor,  # [nq·SEGMAX_QUERY_TILE] f32
+    codes: torch.Tensor,  # [nblocks·block_size, D] int8
+    row_scale: torch.Tensor,  # [nblocks·block_size] f32
+    valid_n: Union[int, torch.Tensor],
+    kseg: int,
+    block_size: int,
+) -> KernelOut:
+    """Per (query, row): s = (f32(q·c) · q_scale) · row_scale, the int32 dot
+    exact; -1e30 at rows ≥ valid_n; then the segment-max selection."""
+
+    def scores(r0, r1):
+        return int8_dot(q_codes, codes[r0:r1]) * q_scale[:, None] * row_scale[None, r0:r1]
+
+    return _segmax_plain(scores, q_codes.shape[0], codes.shape[0], valid_n, kseg, block_size,
+                         codes.device)
+
+
+def _check_segmax_shape(q, vecs, kseg: int, block_size: int, dim_multiple: int) -> None:
+    n_rows, d = vecs.shape
+    if q.dim() != 2 or q.shape[1] != d or q.shape[0] % SEGMAX_QUERY_TILE:
+        raise ValueError(f"queries must be [m·{SEGMAX_QUERY_TILE}, {d}], got {tuple(q.shape)}")
+    if d % dim_multiple or not dim_multiple <= d <= 4096:
+        raise ValueError(f"D must be a multiple of {dim_multiple} in [{dim_multiple}, 4096], "
+                         f"got {d}")
+    if block_size % CHUNK_ROWS or not 0 < block_size <= MAX_SEGMENTS * SEGMENT_ROWS:
+        raise ValueError(f"the segment-max kernels take blocks of a multiple of {CHUNK_ROWS} "
+                         f"rows up to {MAX_SEGMENTS * SEGMENT_ROWS}, got {block_size}")
+    if n_rows % block_size or n_rows >= _INT_BIG:
+        raise ValueError("corpus rows must be a multiple of block_size")
+    if not 1 <= kseg <= block_size // SEGMENT_ROWS:
+        raise ValueError(f"kseg must be in [1, {block_size // SEGMENT_ROWS}], got {kseg}")
+
+
+def block_topk_segmax(
+    q: torch.Tensor,
+    vecs: torch.Tensor,
+    valid_n: Union[int, torch.Tensor],
+    kseg: int,
+    block_size: int,
+) -> KernelOut:
+    """Kernel 6's wrapper: same signature and result as
+    :func:`block_topk_segmax_plain`. CPU tensors take the plain version;
+    CUDA tensors launch ``segmax_scan_topk_f32`` / ``_bf16`` or raise."""
+    if vecs.device.type == "cpu":
+        return block_topk_segmax_plain(q, vecs, valid_n, kseg, block_size)
+    dev = vecs.device
+    if vecs.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the segment-max scan takes f32 or bf16 vectors, got {vecs.dtype}")
+    _check_operands(dev, ("q", q, vecs.dtype), ("vectors", vecs, vecs.dtype))
+    _check_segmax_shape(q, vecs, kseg, block_size, 32)
+    nq = q.shape[0] // SEGMAX_QUERY_TILE
+    nblocks = vecs.shape[0] // block_size
+    out_s, out_i = _partials(nq, nblocks, kseg, SEGMAX_QUERY_TILE, dev)
+    kernel = "segmax_scan_topk_f32" if vecs.dtype == torch.float32 else "segmax_scan_topk_bf16"
+    _launch(kernel, "segmax_scan_topk.cu", q.data_ptr(), vecs.data_ptr(), q.data_ptr(),
+            vecs.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), nq, nblocks, block_size,
+            vecs.shape[1], kseg, int(valid_n), _stream_handle(dev))
+    return out_s, out_i
+
+
+def block_topk_segmax_int8(
+    q_codes: torch.Tensor,
+    q_scale: torch.Tensor,
+    codes: torch.Tensor,
+    row_scale: torch.Tensor,
+    valid_n: Union[int, torch.Tensor],
+    kseg: int,
+    block_size: int,
+) -> KernelOut:
+    """Kernel 7's wrapper: same signature and result as
+    :func:`block_topk_segmax_int8_plain`. CPU tensors take the plain
+    version; CUDA tensors launch ``segmax_scan_topk_int8`` or raise."""
+    if codes.device.type == "cpu":
+        return block_topk_segmax_int8_plain(q_codes, q_scale, codes, row_scale, valid_n, kseg,
+                                            block_size)
+    dev = codes.device
+    _check_operands(dev, ("q_codes", q_codes, torch.int8), ("q_scale", q_scale, torch.float32),
+                    ("codes", codes, torch.int8), ("row_scale", row_scale, torch.float32))
+    _check_segmax_shape(q_codes, codes, kseg, block_size, 16)
+    if q_scale.shape != (q_codes.shape[0],) or row_scale.shape != (codes.shape[0],):
+        raise ValueError("one scale per query and per corpus row")
+    nq = q_codes.shape[0] // SEGMAX_QUERY_TILE
+    nblocks = codes.shape[0] // block_size
+    out_s, out_i = _partials(nq, nblocks, kseg, SEGMAX_QUERY_TILE, dev)
+    _launch("segmax_scan_topk_int8", "segmax_scan_topk.cu", q_codes.data_ptr(),
+            codes.data_ptr(), q_scale.data_ptr(), row_scale.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), nq, nblocks, block_size, codes.shape[1], kseg, int(valid_n),
+            _stream_handle(dev))
+    return out_s, out_i
+
 
 
 # -- host side (plain torch, mirrors crs_tpu.ops.pallas_scan) -----------------
@@ -451,6 +716,44 @@ def _auto_group_adc(nblocks: int, block_size: int, qb: int, code_cols: int) -> i
         if g * block_bytes <= 16 * 2**20 and nblocks >= 8 * g:
             return g
     return 1
+
+
+def adc_auto_group(n: int, batch: int, block_size: int, code_cols: int,
+                   query_block: int = 128) -> int:
+    """The group ``crs_tpu``'s ADC wrappers pick for this geometry (its
+    query block ``min(query_block, round_up(batch, 8))``): the sorted scan's
+    window plan is made for it."""
+    qb = min(query_block, _round_up(batch, 8))
+    return _auto_group_adc(-(-n // block_size), block_size, qb, code_cols)
+
+
+def plan_sorted_coarse_windows(counts, n: int, block_size: int,
+                               group: int) -> Optional[np.ndarray]:
+    """Per-tile coarse-window base of the sorted residual-ADC scan (host
+    numpy, ``crs_tpu``'s planner). ``counts`` = rows per coarse id of a
+    corpus sorted by coarse id (:func:`crs_tpu_torch.ops.pq.sort_codes_by_coarse`).
+    Each tile of ``group·block_size`` rows gets the 512-id window
+    ``[256·base, 256·base + 512)`` around its ids. Returns the int32
+    [ntiles] bases, or None when a tile spans more ids than the window
+    covers: the caller then takes the unsorted scan."""
+    counts = np.asarray(counts)
+    rows = group * block_size
+    n_pad = _round_up(max(n, 1), rows)
+    ntiles = n_pad // rows
+    cum = np.cumsum(counts)
+    if cum.size == 0 or int(cum[-1]) != n:
+        raise ValueError("plan_sorted_coarse_windows: counts must sum to n")
+    starts = np.arange(ntiles, dtype=np.int64) * rows
+    ends = np.minimum(starts + rows, n) - 1
+    min_id = np.searchsorted(cum, starts, side="right")  # id of sorted row r: first cum > r
+    max_id = np.searchsorted(cum, np.maximum(ends, starts), side="right")
+    pad_tiles = starts >= n  # all-padding tail tiles: any base will do
+    min_id = np.where(pad_tiles, 0, min_id)
+    max_id = np.where(pad_tiles, 0, max_id)
+    base = (min_id // 256).astype(np.int32)
+    if np.any(max_id >= base.astype(np.int64) * 256 + 512):
+        return None
+    return base
 
 
 def _bias_row(np_rows: int, valid_n, row_mask, dev) -> torch.Tensor:
@@ -503,6 +806,9 @@ def _exact_or_fallback(ceilings, top_s, top_i, fallback):
     return top_s, top_i
 
 
+_REPAIR_CHUNK = 1024  # flagged pairs scored per call (≈ 0.8 GB at block 1024, M = 48)
+
+
 def _default_kb(k: int, nblocks: int) -> int:
     """Winners per block without repair (``crs_tpu``'s ``_default_kb``)."""
     lam = k / max(nblocks, 1)
@@ -523,34 +829,56 @@ def _targeted_repair(pool_s, pool_i, top_s, top_i, ceilings, score_blocks_fn, k,
                      block_size, nblocks, kb, b_real, max_repairs, fallback):
     """Rescan only the flagged (query, block) pairs exactly, drop their
     superseded emissions from the merge pool and re-merge; past
-    ``max_repairs`` flagged pairs, the exact fallback."""
+    ``max_repairs`` flagged pairs, the exact fallback.
+
+    ``crs_tpu`` rescans a fixed ``max_repairs`` pairs (the flagged ones by
+    margin, then masked padding) and offers every query every pair's slot.
+    Here only the flagged pairs are scored, ``_REPAIR_CHUNK`` at a time, and
+    each query's repaired entries follow its pool in the same margin order.
+    The top-k is the same: an entry above -1e30 keeps its place relative to
+    every other, and a -1e30 fill comes from the pool's own dropped entries
+    while ``nblocks·kb ≥ k``. Below that every pair is flagged and the
+    shared layout is kept, so even the fill ids are ``crs_tpu``'s."""
     kth = top_s[:, -1]
     susp = ceilings >= kth[:, None]  # [B, nblocks]
     n_susp = int(susp.sum())
     if n_susp == 0:
         return top_s, top_i
-    max_repairs = min(max_repairs, b_real * nblocks)
-    if n_susp > max_repairs:
+    if n_susp > min(max_repairs, b_real * nblocks):
         STATS.fallbacks += 1
         return fallback()
     STATS.repairs += 1
+    STATS.repaired_pairs += n_susp
     dev = pool_s.device
     margin = torch.where(susp, ceilings - kth[:, None], -math.inf)
-    _, pos = topk_stable(margin.reshape(-1), max_repairs)
+    _, pos = topk_stable(margin.reshape(-1), n_susp)  # the flagged pairs, largest margin first
     qidx = pos // nblocks
     bid = pos % nblocks
-    pair_ok = susp.reshape(-1)[pos]
-    scores_r = score_blocks_fn(qidx, bid)  # [R, BS], kernel semantics
-    scores_r = torch.where(pair_ok[:, None], scores_r, NEG_INF)
     kk = min(k, block_size)
-    rep_s, rep_loc = topk_stable(scores_r, kk)
-    rep_i = bid[:, None] * block_size + rep_loc
+    rep_s, rep_loc = [], []
+    for c0 in range(0, n_susp, _REPAIR_CHUNK):
+        s, loc = topk_stable(score_blocks_fn(qidx[c0:c0 + _REPAIR_CHUNK],
+                                             bid[c0:c0 + _REPAIR_CHUNK]), kk)
+        rep_s.append(s)
+        rep_loc.append(loc)
+    rep_s = torch.cat(rep_s)
+    rep_i = bid[:, None] * block_size + torch.cat(rep_loc)
     entry_block = torch.arange(nblocks * kb, device=dev) // kb
-    drop = susp[:, entry_block]
-    flat_s = torch.where(drop, NEG_INF, pool_s)
-    qmask = qidx[None, :] == torch.arange(b_real, device=dev)[:, None]  # [B, R]
-    add_s = torch.where(qmask[:, :, None], rep_s[None], NEG_INF)
-    add_i = rep_i[None].expand(b_real, max_repairs, kk)
+    flat_s = torch.where(susp[:, entry_block], NEG_INF, pool_s)
+    if nblocks * kb >= k:  # each query's pairs in its own rows, in margin order
+        order = torch.argsort(qidx, stable=True)
+        q_sorted = qidx[order]
+        per_q = torch.bincount(qidx, minlength=b_real)
+        slot = torch.arange(n_susp, device=dev) - (torch.cumsum(per_q, 0) - per_q)[q_sorted]
+        width = int(per_q.max())
+        add_s = torch.full((b_real, width, kk), NEG_INF, device=dev)
+        add_i = torch.zeros((b_real, width, kk), dtype=torch.int64, device=dev)
+        add_s[q_sorted, slot] = rep_s[order]
+        add_i[q_sorted, slot] = rep_i[order]
+    else:  # crs_tpu's layout: every query sees every pair's slot
+        qmask = qidx[None, :] == torch.arange(b_real, device=dev)[:, None]  # [B, R]
+        add_s = torch.where(qmask[:, :, None], rep_s[None], NEG_INF)
+        add_i = rep_i[None].expand(b_real, n_susp, kk)
     all_s = torch.cat([flat_s, add_s.reshape(b_real, -1)], 1)
     all_i = torch.cat([pool_i, add_i.reshape(b_real, -1)], 1)
     ts, sel = topk_stable(all_s, k)
@@ -687,8 +1015,6 @@ def scan_topk_residual_pq_adc_luts(
 ) -> KernelOut:
     """:func:`scan_topk_residual_pq_adc` from its LUTs (the part after the
     query-side products)."""
-    from .pq import _residual_adc_topk_luts
-
     n = codes_ext.shape[0]
     m_sub = codes_ext.shape[1] - 2
     b_real = lut.shape[0]
@@ -700,30 +1026,50 @@ def scan_topk_residual_pq_adc_luts(
     nblocks = np_rows // block_size
     kb = _pick_kb(k, nblocks, b_real, repair)
     bias = _bias_row(np_rows, valid_n, row_mask, dev)
-    lut_p = _pad_rows(lut, ADC_QUERY_TILE)
     coarse_p = _pad_rows(coarse_lut, ADC_QUERY_TILE)
-    lut_bf, hi, lo = adc_tables(lut_p, coarse_p)
+    lut_bf, hi, lo = adc_tables(_pad_rows(lut, ADC_QUERY_TILE), coarse_p)
+    return _scan_driver(lambda: block_topk_adc(lut_bf, codes_p, bias, kb, block_size, hi, lo),
+                        _residual_score_blocks(codes_p, coarse_p, lut_bf, bias, block_size),
+                        _residual_fallback(coarse_lut, lut, codes_ext, k, valid_n, row_mask),
+                        b_real=b_real, k=k, kb=kb, block_size=block_size, nblocks=nblocks,
+                        repair=repair)
+
+
+def _residual_fallback(coarse_lut, lut, codes_ext, k, valid_n, row_mask):
+    """The residual ADC scans' exact route: the all-f32 ADC top-k."""
+    from .pq import _residual_adc_topk_luts
 
     def fallback():
         cid = codes_ext[:, 0].long() * 256 + codes_ext[:, 1].long()
         return _residual_adc_topk_luts(coarse_lut, lut, cid, codes_ext[:, 2:], k, valid_n,
                                        row_mask=row_mask)
 
+    return fallback
+
+
+def _residual_score_blocks(codes_p, coarse_p, lut_bf, bias, block_size: int):
+    """The residual ADC scans' repair scores of flagged blocks (the gather
+    does not care about the layout): the coarse term in full f32 (as the
+    JAX repair scores it, not hi+lo), residual terms in bf16."""
+
+    m_sub, kc = lut_bf.shape[1], lut_bf.shape[2]
+    offsets = torch.arange(m_sub, device=codes_p.device) * kc
+
     def score_blocks(qidx, bid):
-        """ADC scores of flagged blocks: the coarse term in full f32 (as
-        the JAX repair scores it, not hi+lo), residual terms in bf16."""
         rows = _block_rows(bid, block_size)
-        cb = codes_p[rows].long()  # [R, BS, M+2]
-        cid = cb[:, :, 0] * 256 + cb[:, :, 1]
+        cb = codes_p[rows]  # [R, BS, M+2] uint8
+        r, bs = rows.shape
+        cid = cb[:, :, 0].long() * 256 + cb[:, :, 1].long()
         s = torch.gather(coarse_p[qidx], 1, cid)
-        lut_sel = lut_bf[qidx]  # [R, M, K] bf16
+        # every subspace's looked-up term in one gather, then summed in order
+        idx = (cb[:, :, 2:].long() + offsets).reshape(r, bs * m_sub)
+        terms = torch.gather(lut_bf[qidx].reshape(r, m_sub * kc), 1, idx)
+        terms = terms.reshape(r, bs, m_sub).float()
         for mi in range(m_sub):
-            s = s + torch.gather(lut_sel[:, mi, :], 1, cb[:, :, mi + 2]).float()
+            s = s + terms[:, :, mi]
         return s + bias[rows]
 
-    return _scan_driver(lambda: block_topk_adc(lut_bf, codes_p, bias, kb, block_size, hi, lo),
-                        score_blocks, fallback, b_real=b_real, k=k, kb=kb,
-                        block_size=block_size, nblocks=nblocks, repair=repair)
+    return score_blocks
 
 
 def scan_topk_residual_pq_adc(
@@ -807,3 +1153,134 @@ def scan_topk_pq_adc(
 
     return scan_topk_pq_adc_luts(adc_lut(centroids, queries), codes, k, valid_n, block_size,
                                  row_mask, repair)
+
+
+def scan_topk_residual_pq_adc_sorted_luts(
+    coarse_lut: torch.Tensor,  # [B, C] f32: (qR)·coarse
+    lut: torch.Tensor,  # [B, M, K] f32
+    codes_ext: torch.Tensor,  # [N, M+2] uint8, rows SORTED by coarse id
+    wbase,  # [ntiles] int32 from plan_sorted_coarse_windows
+    k: int,
+    valid_n: Union[int, torch.Tensor],
+    block_size: int = 2048,
+    row_mask: Optional[torch.Tensor] = None,  # [N] bool, in sorted row order
+    repair: int = 256,
+    group: int = 1,
+    layout_budget: bool = False,
+) -> KernelOut:
+    """:func:`scan_topk_residual_pq_adc_sorted` from its LUTs."""
+    if group < 1:
+        raise ValueError("the sorted scan needs the plan's explicit group (≥ 1)")
+    b_real = lut.shape[0]
+    dev = codes_ext.device
+    codes_p = _pad_rows(codes_ext, group * block_size).contiguous()
+    np_rows = codes_p.shape[0]
+    nblocks = np_rows // block_size
+    ntiles = nblocks // group
+    wbase = (wbase if isinstance(wbase, torch.Tensor)
+             else torch.from_numpy(np.asarray(wbase))).to(device=dev, dtype=torch.int32)
+    if wbase.shape != (ntiles,):
+        raise ValueError(f"wbase plan has {wbase.shape[0]} tiles, the geometry needs {ntiles}: "
+                         "recompute plan_sorted_coarse_windows with this block_size and group")
+    kb = _pick_kb(k, nblocks, b_real, repair)
+    budget = b_real * max(1, k // kb) if layout_budget and repair else repair
+    bias = _bias_row(np_rows, valid_n, row_mask, dev)
+    lut_p = _pad_rows(lut, ADC_QUERY_TILE)
+    coarse_p = _pad_rows(coarse_lut, ADC_QUERY_TILE)
+    # 256 zero id columns: the window [256·w, 256·w + 512) never leaves the table
+    coarse_w = torch.nn.functional.pad(coarse_p, (0, 256))
+    lut_bf, hi, lo = adc_tables(lut_p, coarse_w)
+    return _scan_driver(
+        lambda: block_topk_adc_sorted(lut_bf, codes_p, bias, kb, block_size, hi, lo, wbase,
+                                      group),
+        _residual_score_blocks(codes_p, coarse_p, lut_bf, bias, block_size),
+        _residual_fallback(coarse_lut, lut, codes_ext, k, valid_n, row_mask),
+        b_real=b_real, k=k, kb=kb, block_size=block_size, nblocks=nblocks, repair=budget)
+
+
+def scan_topk_residual_pq_adc_sorted(
+    rotation: torch.Tensor,  # [D, D] f32 (OPQ)
+    coarse: torch.Tensor,  # [C, D] f32 coarse centroids (rotated space)
+    centroids: torch.Tensor,  # [M, K, Dsub] f32 residual codebooks
+    codes_ext: torch.Tensor,  # [N, M+2] uint8, rows SORTED by coarse id
+    wbase,  # [ntiles] int32 from plan_sorted_coarse_windows
+    queries: torch.Tensor,  # [B, D] f32
+    k: int,
+    valid_n: Union[int, torch.Tensor],
+    block_size: int = 2048,
+    row_mask: Optional[torch.Tensor] = None,
+    repair: int = 256,
+    group: int = 1,
+    layout_budget: bool = False,
+) -> KernelOut:
+    """Fused residual-PQ ADC scan over a coarse-id-sorted corpus
+    (``pallas_topk_residual_pq_adc_sorted``): the scores of
+    :func:`scan_topk_residual_pq_adc`, exact through the same ceilings,
+    repair and fallback. Ids are positions in the SORTED rows: map them back
+    through ``perm`` of :func:`crs_tpu_torch.ops.pq.sort_codes_by_coarse`.
+    Callers take ``group = adc_auto_group(n, B, block_size, M+2)`` and
+    ``wbase = plan_sorted_coarse_windows(counts, n, block_size, group)``; a
+    None plan means: use the unsorted scan.
+
+    ``repair`` sets ``kb`` and, by default, the repair budget, as in
+    ``crs_tpu``. That budget assumes a query's top-k spread over the blocks
+    as in insertion order. Sorting puts a query's neighbours, which share
+    coarse ids, into a few consecutive blocks, so many of its pairs emit kb
+    winners and flag; past 256 pairs the exact fallback rescores the whole
+    corpus. ``layout_budget`` sizes the budget to the layout's worst case
+    instead: a flagged block holds kb of the query's top k, so a query flags
+    at most ``k // kb`` blocks and ``B·(k // kb)`` pairs cover the batch.
+    The fallback then runs only on ties at the k-th score or fewer than k
+    live rows. Both routes return the exact top-k of their scores (repaired
+    blocks score the coarse term in f32, the fallback every term)."""
+    from .pq import residual_adc_luts
+
+    if coarse.shape[0] % 256:
+        raise ValueError("the coarse cluster count must be a multiple of 256")
+    coarse_lut, lut = residual_adc_luts(rotation, coarse, centroids, queries)
+    return scan_topk_residual_pq_adc_sorted_luts(coarse_lut, lut, codes_ext, wbase, k, valid_n,
+                                                 block_size, row_mask, repair, group,
+                                                 layout_budget)
+
+
+def scan_topk_segmax(
+    vectors: torch.Tensor,  # [N, D] f32 or bf16
+    queries: torch.Tensor,  # [B, D]
+    k: int,
+    valid_n: Union[int, torch.Tensor],
+    block_size: int = 2048,
+) -> KernelOut:
+    """Approximate fused scan (``pallas_topk_segmax``): queries cast to the
+    corpus dtype, one winner per 128-row segment and the top min(k,
+    block_size/128) segments per block, merged by :func:`_finalize`. Scores
+    are exact element scores; a row is missed when it shares its segment
+    with a better one (shuffle the rows to make that rare). No ceilings,
+    repair or fallback. Returns (scores [B, k] f32, ids [B, k] int64)."""
+    b_real = queries.shape[0]
+    kseg = min(k, block_size // SEGMENT_ROWS)
+    q = _pad_rows(queries.to(vectors.dtype), SEGMAX_QUERY_TILE).contiguous()
+    vecs = _pad_rows(vectors, block_size).contiguous()
+    out_s, out_i = block_topk_segmax(q, vecs, valid_n, kseg, block_size)
+    return _finalize(out_s, out_i, b_real, k)
+
+
+def scan_topk_segmax_int8(
+    codes: torch.Tensor,  # [N, D] int8
+    scales: torch.Tensor,  # [N] f32
+    queries: torch.Tensor,  # [B, D] f32 (quantized here)
+    k: int,
+    valid_n: Union[int, torch.Tensor],
+    block_size: int = 2048,
+) -> KernelOut:
+    """Segment-max variant of the int8 scan (``pallas_topk_segmax_int8``):
+    s = (f32(q·c) · q_scale) · row_scale with ``scalar_quantize``'s query
+    codes, then the segment-max selection and :func:`_finalize`."""
+    b_real = queries.shape[0]
+    kseg = min(k, block_size // SEGMENT_ROWS)
+    q_codes, q_scales = scalar_quantize(queries)
+    q_codes = _pad_rows(q_codes, SEGMAX_QUERY_TILE).contiguous()
+    qs = _pad_rows(q_scales.float(), SEGMAX_QUERY_TILE).contiguous()
+    vecs = _pad_rows(codes, block_size).contiguous()
+    vs = _pad_rows(scales.float(), block_size).contiguous()
+    out_s, out_i = block_topk_segmax_int8(q_codes, qs, vecs, vs, valid_n, kseg, block_size)
+    return _finalize(out_s, out_i, b_real, k)

@@ -8,9 +8,16 @@ in one of four formats:
 - ``int8`` — per-row scalar quantization, int8 scan + fp32 rescore;
 - ``pq`` — residual (default) or plain product quantization, an ADC scan
   for candidates (``scan_topk_residual_pq_adc`` / ``scan_topk_pq_adc`` on
-  the card) and the ``pq_rescore`` mode's rescore: ``int8`` (an int8 mirror
-  on the device), ``host`` (the mirror in host RAM, optionally a memmap
-  under ``pq_host_mmap``) or ``none`` (the ADC ranking).
+  the card; with ``pq_sorted``, ``scan_topk_residual_pq_adc_sorted`` over a
+  cached copy of the rows sorted by coarse id, whose ids map back through
+  the sort permutation) and the ``pq_rescore`` mode's rescore: ``int8`` (an
+  int8 mirror on the device), ``host`` (the mirror in host RAM, optionally a
+  memmap under ``pq_host_mmap``) or ``none`` (the ADC ranking).
+
+``add`` writes new rows into the padding in place, growing the arrays when
+full (``crs_tpu``'s capacities, so the scans see the same geometry); PQ
+stores encode them with the existing codebooks and retrain once the corpus
+has doubled since the last training.
 
 Off the card, or below the threshold, search takes the route ``crs_tpu``
 takes off the TPU (``exact_topk`` / ``blockwise_topk`` / the XLA-style ADC),
@@ -18,8 +25,7 @@ so the two packages agree on one state. Persistence uses the JAX package's
 on-disk format (``index_meta.json`` + ``index_arrays.npz``), so an index
 either package saved loads in the other.
 
-Not ported: ``pq_sorted`` (the sorted residual-ADC kernel) and ``add``;
-both raise ``NotImplementedError``.
+Not ported: the ``mesh`` argument (a store sharded over devices).
 """
 
 from __future__ import annotations
@@ -36,10 +42,14 @@ import torch
 from ..device import resolve_device
 from ..ops.pq import (
     PQCodebook, ResidualPQ, _pq_reconstruct, aniso_eta_from_threshold, pq_adc_topk, pq_encode,
-    residual_codes_ext, residual_pq_adc_topk, residual_pq_encode, train_pq, train_residual_pq,
+    residual_codes_ext, residual_pq_adc_topk, residual_pq_encode, sort_codes_by_coarse, train_pq,
+    train_residual_pq,
 )
 from ..ops.quant import int8_topk, scalar_quantize
-from ..ops.scan import scan_topk, scan_topk_int8, scan_topk_pq_adc, scan_topk_residual_pq_adc
+from ..ops.scan import (
+    adc_auto_group, plan_sorted_coarse_windows, scan_topk, scan_topk_int8, scan_topk_pq_adc,
+    scan_topk_residual_pq_adc, scan_topk_residual_pq_adc_sorted,
+)
 from ..ops.topk import NEG_INF, blockwise_topk, exact_topk, topk_stable
 
 logger = logging.getLogger(__name__)
@@ -102,11 +112,9 @@ class VectorStore:
         if self.pq_rescore not in ("int8", "host", "none"):
             raise ValueError(f"unknown pq_rescore mode: {self.pq_rescore}")
         self.pq_host_mmap = config.get("pq_host_mmap") or None
-        if config.get("pq_sorted", False):
-            raise NotImplementedError(
-                "pq_sorted (the sorted residual-ADC scan, crs_tpu's "
-                "pallas_topk_residual_pq_adc_sorted — kernel 4 of the TPU kernel table) "
-                "is not ported to crs_tpu_torch yet (ROADMAP: TPU kernels still to port)")
+        # the residual ADC scan over rows sorted by coarse id (a derived cache;
+        # saved state keeps insertion order)
+        self.pq_sorted = bool(config.get("pq_sorted", False))
         self.seed = int(config.get("seed", 0))
         self.build_seconds: Dict[str, float] = {}
         self._clear()
@@ -129,26 +137,64 @@ class VectorStore:
         self._rpq: Optional[ResidualPQ] = None
         self._pq_coarse_ids: Optional[torch.Tensor] = None  # [padded] int32
         self._pq_codes_ext: Optional[torch.Tensor] = None  # scan layout cache
+        # pq_sorted: (sorted rows, perm, counts per coarse id) and one window
+        # plan per group; both caches are cleared at every mutation
+        self._pq_sorted_cache: Optional[Tuple[torch.Tensor, torch.Tensor, np.ndarray]] = None
+        self._pq_wbase: Dict[int, Optional[torch.Tensor]] = {}
+        self._pq_trained_n: Optional[int] = None  # rows at the last PQ training
         self._codes_host: Optional[np.ndarray] = None  # pq_rescore="host" mirror
         self._scales_host: Optional[np.ndarray] = None
         self._md_cols: Dict[str, Tuple[np.ndarray, np.ndarray, int]] = {}
 
     # -- host rescore mirror (RAM or disk-backed) ---------------------------
-    def _mirror_set(self, codes: np.ndarray, scales: np.ndarray) -> None:
-        """Install the pq_rescore="host" mirror: RAM, or raw np.memmap files
+    def _mirror_alloc(self, rows: int, cols: int) -> Tuple[np.ndarray, np.ndarray]:
+        """A zeroed pq_rescore="host" mirror: RAM, or raw np.memmap files
         under ``pq_host_mmap``."""
-        rows, cols = codes.shape
         if self.pq_host_mmap:
             os.makedirs(self.pq_host_mmap, exist_ok=True)
             c = np.memmap(os.path.join(self.pq_host_mmap, self._MMAP_CODES), np.int8,
                           mode="w+", shape=(rows, cols))
             s = np.memmap(os.path.join(self.pq_host_mmap, self._MMAP_SCALES), np.float32,
                           mode="w+", shape=(rows,))
-        else:
-            c, s = np.zeros((rows, cols), np.int8), np.zeros((rows,), np.float32)
-        c[:] = codes
-        s[:] = scales
-        self._codes_host, self._scales_host = c, s
+            return c, s
+        return np.zeros((rows, cols), np.int8), np.zeros((rows,), np.float32)
+
+    def _mirror_set(self, codes: np.ndarray, scales: np.ndarray) -> None:
+        """Install a freshly computed mirror."""
+        self._codes_host, self._scales_host = self._mirror_alloc(*codes.shape)
+        self._codes_host[:] = codes
+        self._scales_host[:] = scales
+
+    def _mirror_grow(self, new_rows: int) -> None:
+        """Grow the mirror to ``new_rows`` rows (zeros in the tail). RAM:
+        concatenate. memmap: copy into new files a million rows at a time,
+        then replace the old ones (a memmap cannot resize in place)."""
+        old_c, old_s = self._codes_host, self._scales_host
+        if old_c.shape[0] >= new_rows:
+            return
+        cols = old_c.shape[1]
+        if not self.pq_host_mmap:
+            pad = new_rows - old_c.shape[0]
+            self._codes_host = np.concatenate([old_c, np.zeros((pad, cols), np.int8)])
+            self._scales_host = np.concatenate([old_s, np.zeros((pad,), np.float32)])
+            return
+        cpath = os.path.join(self.pq_host_mmap, self._MMAP_CODES)
+        spath = os.path.join(self.pq_host_mmap, self._MMAP_SCALES)
+        nc = np.memmap(cpath + ".grow", np.int8, mode="w+", shape=(new_rows, cols))
+        ns = np.memmap(spath + ".grow", np.float32, mode="w+", shape=(new_rows,))
+        step = 1 << 20
+        for lo in range(0, old_c.shape[0], step):
+            hi = min(lo + step, old_c.shape[0])
+            nc[lo:hi] = old_c[lo:hi]
+            ns[lo:hi] = old_s[lo:hi]
+        nc.flush()
+        ns.flush()
+        del old_c, old_s, nc, ns  # release the mappings before replacing the files
+        self._codes_host = self._scales_host = None
+        os.replace(cpath + ".grow", cpath)
+        os.replace(spath + ".grow", spath)
+        self._codes_host = np.memmap(cpath, np.int8, mode="r+", shape=(new_rows, cols))
+        self._scales_host = np.memmap(spath, np.float32, mode="r+", shape=(new_rows,))
 
     def _aniso_eta(self) -> Optional[float]:
         """pq_aniso_eta config → η for ops/pq.py (None = isotropic)."""
@@ -214,29 +260,27 @@ class VectorStore:
                 coarse = min(2048, max(16, self.n // 8))
             self._rpq = train_residual_pq(gen, valid, m, self.pq_clusters, int(coarse),
                                           self.pq_iters, self.pq_opq_iters, aniso_eta=eta)
-            _sync(self.device)
-            self.build_seconds["pq_train"] = time.perf_counter() - t0
-            self._pq_coarse_ids, self._pq_codes = residual_pq_encode(self._rpq, padded, eta)
             self._pq_codebook = self._rpq.codebook
         else:
-            dirs = all_dirs = None
-            if eta is not None:
-                dirs = valid / torch.clamp_min(
-                    torch.linalg.vector_norm(valid, dim=1, keepdim=True), 1e-12)
-                all_dirs = padded / torch.clamp_min(
-                    torch.linalg.vector_norm(padded, dim=1, keepdim=True), 1e-12)
+            dirs = None if eta is None else _directions(valid)
             self._pq_codebook = train_pq(gen, valid, m, self.pq_clusters, self.pq_iters,
                                          dirs=dirs, aniso_eta=eta)
-            _sync(self.device)
-            self.build_seconds["pq_train"] = time.perf_counter() - t0
-            self._pq_codes = pq_encode(self._pq_codebook, padded, all_dirs, eta)
+        _sync(self.device)
+        self.build_seconds["pq_train"] = time.perf_counter() - t0
+        self._pq_coarse_ids, self._pq_codes = self._encode_pq(padded)
         if self.pq_rescore == "int8":
             self._codes, self._scales = scalar_quantize(padded)
-        elif self.pq_rescore == "host":  # numpy, as crs_tpu builds it (a true division)
-            arr = padded.cpu().numpy()
-            s_np = np.maximum(np.max(np.abs(arr), axis=-1), 1e-12) / 127.0
-            self._mirror_set(np.clip(np.round(arr / s_np[:, None]), -127, 127).astype(np.int8),
-                             s_np.astype(np.float32))
+        elif self.pq_rescore == "host":
+            self._mirror_set(*_host_quantize(padded.cpu().numpy()))
+        self._pq_trained_n = self.n  # the drift baseline of add
+
+    def _encode_pq(self, rows: torch.Tensor) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """(coarse ids or None, codes) of ``rows`` under the existing codebooks."""
+        eta = self._aniso_eta()
+        if self._rpq is not None:
+            return residual_pq_encode(self._rpq, rows, eta)
+        return None, pq_encode(self._pq_codebook, rows, None if eta is None else _directions(rows),
+                               eta)
 
     def _padded_rows(self) -> int:
         for arr in (self._vectors, self._codes, self._pq_codes):
@@ -244,10 +288,127 @@ class VectorStore:
                 return arr.shape[0]
         return 0
 
-    def add(self, chunks: Sequence[Any], embeddings: Any) -> None:
-        raise NotImplementedError(
-            "VectorStore.add / _grow are not ported to crs_tpu_torch yet "
-            "(ROADMAP: modules to port, rag/index.py); rebuild with create_index")
+    def add(self, chunks: Sequence[Any], embeddings: Union[np.ndarray, torch.Tensor]) -> None:
+        """Incremental add (``crs_tpu``'s): the new rows, padded to a multiple
+        of min(block_size, 128), are written in place at row ``n`` (growing
+        the arrays to max(2·capacity, n + block) rows, rounded up to
+        ``block_size``, when they do not fit); only the new rows are
+        quantized or encoded. A PQ store retrains its codebooks (a rebuild
+        from the dense rows) once the corpus has doubled since the last
+        training. An empty store delegates to :meth:`create_index`."""
+        if self.n == 0:
+            self.create_index(chunks, embeddings)
+            return
+        emb = _as_f32(embeddings).cpu()
+        if emb.ndim != 2 or emb.shape[1] != self.dim:
+            raise ValueError(f"embeddings must be [M, {self.dim}]")
+        for c in chunks:
+            if hasattr(c, "text"):
+                self.ids.append(c.chunk_id)
+                self.documents.append(c.text)
+                self.metadatas.append(c.to_metadata())
+            else:
+                self.ids.append(f"chunk_{len(self.ids)}")
+                self.documents.append(str(c))
+                self.metadatas.append({})
+        new_n = self.n + emb.shape[0]
+        trained = self._pq_trained_n if self._pq_trained_n is not None else self.n
+        if self.format == "pq" and new_n >= 2 * trained:
+            self._rebuild_from_dense(torch.cat([self._dense_vectors()[: self.n],
+                                                emb.to(self.device)]))
+        else:
+            self._append_rows(_pad_rows(emb, min(self.block_size, 128)))
+            self.n = new_n
+            logger.info("Index grown to %d vectors (in-place append)", self.n)
+        if self.persist_directory:
+            self.save(self.persist_directory)
+
+    def _append_rows(self, block: torch.Tensor) -> None:
+        """Write ``block`` (host f32 rows, zero padding included) at row
+        ``n`` of every array, in the store's format."""
+        start, end = self.n, self.n + block.shape[0]
+        if end > self._padded_rows():
+            self._grow(max(2 * self._padded_rows(), end))
+        blk = block.to(self.device)
+        if self.format in _FLOAT_DTYPES:
+            self._vectors[start:end] = blk.to(self._vectors.dtype)
+            return
+        if self.format == "int8":
+            self._codes[start:end], self._scales[start:end] = scalar_quantize(blk)
+            return
+        cids, codes = self._encode_pq(blk)
+        if cids is not None:
+            self._pq_coarse_ids[start:end] = cids
+        self._pq_codes[start:end] = codes
+        self._pq_codes_ext = None  # the scan layouts are stale
+        self._pq_sorted_cache = None
+        self._pq_wbase = {}
+        if self.pq_rescore == "int8":
+            self._codes[start:end], self._scales[start:end] = scalar_quantize(blk)
+        elif self.pq_rescore == "host":
+            # the mirror is sized on its own: it may be shorter than the arrays
+            codes_np, scales_np = _host_quantize(block.numpy())
+            self._mirror_grow(end)
+            self._codes_host[start:end] = codes_np
+            self._scales_host[start:end] = scales_np
+
+    def _rebuild_from_dense(self, all_emb: torch.Tensor) -> None:
+        n = all_emb.shape[0]
+        ids, docs, mds = self.ids, self.documents, self.metadatas
+        self._clear()
+        self.n, self.dim = n, int(all_emb.shape[1])
+        self.ids, self.documents, self.metadatas = ids, docs, mds
+        self._build_device_arrays(_pad_rows(all_emb, self.block_size))
+        logger.info("Index rebuilt at %d vectors", self.n)
+
+    def _grow(self, new_capacity: int) -> None:
+        """Grow every padded array to ``new_capacity`` rows, rounded up to
+        ``block_size`` (zeros in the new tail), the host mirror included."""
+        cap = -(-new_capacity // self.block_size) * self.block_size
+        old = self._padded_rows()
+        if cap <= old:
+            return
+        for name in ("_vectors", "_codes", "_scales", "_pq_codes", "_pq_coarse_ids"):
+            arr = getattr(self, name)
+            if arr is not None:
+                pad = torch.zeros((cap - old,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                                  device=arr.device)
+                setattr(self, name, torch.cat([arr, pad], 0))
+        if self._codes_host is not None:
+            self._mirror_grow(cap)
+
+    def _dense_vectors(self) -> torch.Tensor:
+        """Every padded row as f32 on the device (dequantized or decoded)."""
+        if self._vectors is not None:
+            return self._vectors.float()
+        if self._codes is not None:
+            return self._codes.float() * self._scales[:, None]
+        if self._codes_host is not None:
+            return torch.from_numpy(self._codes_host.astype(np.float32)
+                                    * self._scales_host[:, None]).to(self.device)
+        return self._pq_reconstruct_rows(torch.arange(self._padded_rows(), device=self.device))
+
+    def get_vectors(self, row_ids: Any) -> np.ndarray:
+        """Dense f32 embeddings of ``row_ids`` (dequantized or decoded)."""
+        rows_np = np.asarray(row_ids, np.int64)
+        if self._codes_host is not None and self._vectors is None:
+            return self._codes_host[rows_np].astype(np.float32) * \
+                self._scales_host[rows_np][..., None]
+        rows = torch.from_numpy(rows_np).to(self.device)
+        if self._vectors is not None:
+            out = self._vectors[rows].float()
+        elif self._codes is not None:
+            out = self._codes[rows].float() * self._scales[rows][..., None]
+        else:
+            out = self._pq_reconstruct_rows(rows)
+        return out.cpu().numpy()
+
+    # -- management -----------------------------------------------------------
+    def delete_collection(self) -> None:
+        self._clear()
+
+    def reset(self) -> None:
+        self._clear()
 
     # -- query -------------------------------------------------------------
     def _scan_here(self, rows: int) -> bool:
@@ -308,6 +469,10 @@ class VectorStore:
         if self._rpq is not None:
             num_coarse = self._rpq.coarse.shape[0]
             if self._scan_here(rows) and num_coarse % 256 == 0 and num_coarse <= 65536:
+                if self.pq_sorted:
+                    res = self._sorted_adc_candidates(q, cand_k, row_mask)
+                    if res is not None:
+                        return res  # None: the planner refused, take the unsorted scan
                 return scan_topk_residual_pq_adc(
                     self._rpq.rotation, self._rpq.coarse, self._rpq.codebook.centroids,
                     self._residual_ext(), q, cand_k, self.n, self.block_size, row_mask=row_mask)
@@ -318,6 +483,38 @@ class VectorStore:
                                     self.n, self.block_size, row_mask=row_mask)
         return pq_adc_topk(self._pq_codebook, self._pq_codes, q, cand_k, self.n,
                            row_mask=row_mask)
+
+    def _sorted_adc_candidates(self, q: torch.Tensor, cand_k: int,
+                               row_mask: Optional[torch.Tensor]):
+        """pq_sorted: the residual ADC scan over the rows sorted by coarse id
+        (kernel 4), ids mapped back to insertion order; None when the window
+        planner refuses this corpus and geometry. The geometry is
+        ``crs_tpu``'s: the group from ``n`` and its query block, the sorted
+        scan padding the n sorted rows itself. The repair budget is the
+        layout's (``layout_budget``), where ``crs_tpu`` keeps 256 pairs and
+        falls back to the dense f32 ADC: the candidates then differ only
+        where scores lie within the bf16 LUT's rounding, and the rescored
+        search is the same."""
+        if self._pq_sorted_cache is None:
+            ext = self._residual_ext()[: self.n]
+            sorted_ext, perm, counts = sort_codes_by_coarse(ext, int(self._rpq.coarse.shape[0]))
+            self._pq_sorted_cache = (torch.from_numpy(sorted_ext).to(self.device),
+                                     torch.from_numpy(perm).long().to(self.device), counts)
+            self._pq_wbase = {}
+        ext_s, perm, counts = self._pq_sorted_cache
+        group = adc_auto_group(self.n, q.shape[0], self.block_size, ext_s.shape[1])
+        if group not in self._pq_wbase:
+            plan = plan_sorted_coarse_windows(counts, self.n, self.block_size, group)
+            self._pq_wbase[group] = None if plan is None else torch.from_numpy(plan).to(
+                self.device)
+        wbase = self._pq_wbase[group]
+        if wbase is None:
+            return None
+        mask_s = None if row_mask is None else row_mask[: self.n][perm]
+        s, i = scan_topk_residual_pq_adc_sorted(
+            self._rpq.rotation, self._rpq.coarse, self._rpq.codebook.centroids, ext_s, wbase,
+            q, cand_k, self.n, self.block_size, row_mask=mask_s, group=group, layout_budget=True)
+        return s, torch.where(i >= 0, perm[i.clamp_min(0)], -1)
 
     def _residual_ext(self) -> torch.Tensor:
         """Cached [padded, M+2] uint8 rows of the residual ADC scan (coarse
@@ -574,7 +771,22 @@ class VectorStore:
                                        coarse=tensor(arrays["pq_coarse"], torch.float32),
                                        codebook=self._pq_codebook)
                 self._pq_coarse_ids = tensor(arrays["pq_coarse_ids"], torch.int32)
+            self._pq_trained_n = self.n
         logger.info("Loaded index (%d vectors, %s) from %s", self.n, self.format, directory)
+
+
+def _directions(x: torch.Tensor) -> torch.Tensor:
+    """Rows scaled to unit norm (the anisotropic loss's directions)."""
+    return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=1, keepdim=True), 1e-12)
+
+
+def _host_quantize(arr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The pq_rescore="host" mirror's int8 rows, in numpy as ``crs_tpu``
+    builds them (a true division by 127, not the reciprocal product)."""
+    arr = arr.astype(np.float32)
+    s_np = np.maximum(np.max(np.abs(arr), axis=-1), 1e-12) / 127.0
+    codes = np.clip(np.round(arr / s_np[:, None]), -127, 127).astype(np.int8)
+    return codes, s_np.astype(np.float32)
 
 
 def _rescore(codes, scales, queries, cand_ids, k, valid_n):

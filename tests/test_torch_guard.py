@@ -67,6 +67,8 @@ def _entry_points():
         "VectorStore_fp32": lambda dev: VectorStore({"format": "fp32"}, device=dev),
         "VectorStore_bf16": lambda dev: VectorStore({"format": "bf16"}, device=dev),
         "VectorStore_pq": lambda dev: VectorStore({"format": "pq"}, device=dev),
+        "VectorStore_pq_sorted": lambda dev: VectorStore({"format": "pq", "pq_sorted": True},
+                                                         device=dev),
         "TorchModel": lambda dev: TorchModel({"config": "tiny"}, device=dev),
         "create_model_interface": lambda dev: create_model_interface(
             "nf4", {"config": "tiny", "kv_bits": 8}, device=dev),
@@ -85,7 +87,8 @@ def _entry_points():
 
 
 ENTRY_POINTS = ["resolve_device", "EmbeddingModel", "HashedEncoder", "VectorStore",
-                "VectorStore_fp32", "VectorStore_bf16", "VectorStore_pq", "TorchModel",
+                "VectorStore_fp32", "VectorStore_bf16", "VectorStore_pq", "VectorStore_pq_sorted",
+                "TorchModel",
                 "create_model_interface", "RAGPipeline", "create_model_interface_gptq",
                 "create_model_interface_awq", "TorchModel_fused_mlp",
                 "TorchModel_fuse_projections", "TorchModel_model_path"]
@@ -112,16 +115,20 @@ def test_unported_options_raise():
     for backend in ("lexical", "minilm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EmbeddingModel({"backend": backend}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VectorStore({"format": "pq", "pq_sorted": True}, device="cpu")
+    sorted_store = VectorStore({"format": "pq", "pq_sorted": True}, device="cpu")  # ported
+    assert sorted_store.pq_sorted
     with pytest.raises(ValueError):
         VectorStore({"format": "int4"}, device="cpu")
     pdf = REPO / "report" / "paper" / "figures" / "pq_curve_4m.pdf"  # PDF input is ported
     assert isinstance(DocumentProcessor().process_file(str(pdf)), list)
-    for fmt in ("fp32", "bf16", "int8", "pq"):  # every format is ported; add is not
-        store = VectorStore({"format": fmt}, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            store.add(["a"], [[0.0] * 16])
+    rng = torch.Generator().manual_seed(0)
+    emb = torch.nn.functional.normalize(torch.randn((40, 16), generator=rng), dim=1)
+    for fmt in ("fp32", "bf16", "int8"):  # every format is ported, and so is add
+        store = VectorStore({"format": fmt, "block_size": 32}, device="cpu")
+        store.add(["a", "b"], emb[:2])  # an empty store builds
+        store.add([f"c{i}" for i in range(38)], emb[2:])  # then grows
+        assert store.n == 40 and store._padded_rows() == 96  # 2 + 64 padded rows, rounded up
+        assert store.search_batch(emb[30:32], top_k=1)[1][:, 0].tolist() == [30, 31]
     em = EmbeddingModel({"backend": "hashed", "embedding_dim": 16}, device="cpu")
     assert ContextRetriever(store, em, {"prf_beta": 0.5}).prf_beta == 0.5  # PRF is ported
 
@@ -294,22 +301,50 @@ def fake_kernels(monkeypatch):
     def plain_must_not_run(*args, **kwargs):
         raise AssertionError("the wrapper fell back to the plain version")
 
-    for name in ("block_topk_float_plain", "block_topk_adc_plain"):
+    for name in ("block_topk_float_plain", "block_topk_adc_plain", "block_topk_adc_sorted_plain",
+                 "block_topk_segmax_plain", "block_topk_segmax_int8_plain"):
         monkeypatch.setattr(scan, name, plain_must_not_run)
     monkeypatch.setattr(scan, "_stream_handle", lambda device: 0)
     monkeypatch.setattr(scan, "_adc_grid_x", lambda nblocks, nq, dev: 4)
     return scan
 
 
+def _sorted_operands(kb=2, m=8, rows=1024, queries=8, c=512, group=2, tiles=1):
+    lut, codes, bias, kb, bs, hi, lo = _adc_operands(kb=kb, m=m, rows=rows, queries=queries,
+                                                     c=c + 256)
+    return (lut, codes, bias, kb, bs, hi, lo,
+            torch.empty((tiles,), dtype=torch.int32, device="meta"), group)
+
+
+def _segmax_operands(dtype=torch.float32, kseg=2, d=64, rows=1024, queries=64):
+    q = torch.empty((queries, d), dtype=dtype, device="meta")
+    vecs = torch.empty((rows, d), dtype=dtype, device="meta")
+    if dtype != torch.int8:
+        return q, vecs, 1000, kseg, 512
+    scale = torch.empty((queries,), dtype=torch.float32, device="meta")
+    rs = torch.empty((rows,), dtype=torch.float32, device="meta")
+    return q, scale, vecs, rs, 1000, kseg, 512
+
+
 def _call(scan, which, **kw):
     if which.startswith("float"):
         dtype = torch.float32 if which == "float_f32" else torch.bfloat16
         return scan.block_topk_float(*_float_operands(dtype=dtype, **kw))
+    if which == "adc_sorted":
+        return scan.block_topk_adc_sorted(*_sorted_operands(**kw))
+    if which.startswith("segmax"):
+        dtype = {"segmax_f32": torch.float32, "segmax_bf16": torch.bfloat16,
+                 "segmax_int8": torch.int8}[which]
+        kw = {"kseg" if k == "kb" else k: v for k, v in kw.items()}
+        fn = scan.block_topk_segmax_int8 if dtype == torch.int8 else scan.block_topk_segmax
+        return fn(*_segmax_operands(dtype=dtype, **kw))
     return scan.block_topk_adc(*_adc_operands(residual=which == "adc_residual", **kw))
 
 
 KERNEL_CALLS = {"float_f32": "scan_topk_f32", "float_bf16": "scan_topk_bf16",
-                "adc_residual": "adc_scan_topk_residual", "adc_plain": "adc_scan_topk_plain"}
+                "adc_residual": "adc_scan_topk_residual", "adc_plain": "adc_scan_topk_plain",
+                "adc_sorted": "adc_scan_topk_sorted", "segmax_f32": "segmax_scan_topk_f32",
+                "segmax_bf16": "segmax_scan_topk_bf16", "segmax_int8": "segmax_scan_topk_int8"}
 
 
 @pytest.mark.parametrize("which", sorted(KERNEL_CALLS))
@@ -342,7 +377,7 @@ def test_new_wrappers_count_a_launch(fake_kernels, monkeypatch, which):
     fake_kernels.STATS.reset()
     out_s, out_i = _call(fake_kernels, which, kb=3)
     assert fake_kernels.STATS.by_kernel == {KERNEL_CALLS[which]: 1}
-    tile = 64 if which.startswith("float") else 8
+    tile = 8 if which.startswith("adc") else 64
     assert out_s.shape == (1, 2, 3, tile) and out_i.dtype == torch.int32
 
 
@@ -373,12 +408,89 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monkeypa
         fn(*args)
 
 
+@pytest.mark.parametrize("bad", ["group", "wbase", "width", "rows", "kb", "dtype"])
+def test_sorted_wrapper_rejects_what_the_kernel_does_not_take(fake_kernels, monkeypatch, bad):
+    monkeypatch.setattr(fake_kernels, "_load_kernel_lib", lambda source: _FakeKernels(0))
+    args = list(_sorted_operands())
+    if bad == "group":  # two blocks do not split into tiles of 3
+        args[8] = 3
+    elif bad == "wbase":  # one base per tile of 2 blocks: 1, not 2
+        args[7] = torch.empty((2,), dtype=torch.int32, device="meta")
+    elif bad == "width":  # the table lacks its 256 zero columns' multiple
+        args[5] = args[6] = torch.empty((8, 700), dtype=torch.bfloat16, device="meta")
+    elif bad == "rows":
+        args[1], args[2] = args[1][:700], args[2][:700]
+    elif bad == "kb":
+        args[3] = 0
+    else:
+        args[7] = torch.empty((1,), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        fake_kernels.block_topk_adc_sorted(*args)
+
+
+@pytest.mark.parametrize("bad", ["kseg", "block_size", "big_block", "dim", "queries", "dtype"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_segmax_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monkeypatch, dtype,
+                                                             bad):
+    monkeypatch.setattr(fake_kernels, "_load_kernel_lib", lambda source: _FakeKernels(0))
+    args = list(_segmax_operands(dtype=dtype))
+    iv, ik, ib = (2, 5, 6) if dtype == torch.int8 else (1, 3, 4)
+    if bad == "kseg":  # more picks than a block of 512 has segments
+        args[ik] = 5
+    elif bad == "block_size":
+        args[ib] = 384
+    elif bad == "big_block":  # more than 32 segments (one per lane)
+        args[ib] = 8192
+        args[iv] = torch.empty((8192, 64), dtype=dtype, device="meta")
+        if dtype == torch.int8:
+            args[3] = torch.empty((8192,), device="meta")
+    elif bad == "dim":
+        args[0] = torch.empty((64, 40), dtype=dtype, device="meta")
+        args[iv] = torch.empty((1024, 40), dtype=dtype, device="meta")
+    elif bad == "queries":
+        args[0] = torch.empty((65, 64), dtype=dtype, device="meta")
+    else:
+        args[iv] = args[iv].to(torch.float16)
+    fn = fake_kernels.block_topk_segmax_int8 if dtype == torch.int8 else \
+        fake_kernels.block_topk_segmax
+    with pytest.raises(ValueError):
+        fn(*args)
+
+
+def _c_launchers(source: str) -> dict:
+    """{launcher: its parameters as "P" (pointer), "I" (int), "F" (float)}
+    from the ``extern "C"`` launchers of a CUDA source."""
+    import re
+
+    text = (REPO / "crs_tpu_torch" / "csrc" / source).read_text()
+    text = text[text.index('extern "C"'):]
+    kinds = {}
+    for name, params in re.findall(r"int\s+(\w+_launch)\s*\(([^)]*)\)", text):
+        kinds[name] = ["P" if "*" in p else "F" if "float" in p else "I"
+                       for p in params.split(",")]
+    return kinds
+
+
+def test_scan_launcher_types_match_the_c_signatures():
+    """A launcher typed with a wrong argument list reads the stream from the
+    wrong slot and crashes on the card; hold every scan kernel's ctypes
+    types against its C signature."""
+    import ctypes
+
+    from crs_tpu_torch.ops import scan
+
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+    for kernel, (source, argtypes) in scan._KERNELS.items():
+        assert [kind[t] for t in argtypes] == _c_launchers(source)[f"{kernel}_launch"], kernel
+
+
 def test_build_lists_every_kernel_source():
     from crs_tpu_torch import _build
 
     assert set(_build.CUDA_SOURCES) == {"int8_scan_topk.cu", "scan_topk_f32_bf16.cu",
-                                        "pq_adc_scan_topk.cu", "q4_matmul.cu",
-                                        "decode_attention_int8.cu", "fused_mlp_int8.cu"}
+                                        "pq_adc_scan_topk.cu", "segmax_scan_topk.cu",
+                                        "q4_matmul.cu", "decode_attention_int8.cu",
+                                        "fused_mlp_int8.cu"}
     on_disk = {p.name for p in (REPO / "crs_tpu_torch" / "csrc").glob("*.cu")}
     assert on_disk == set(_build.CUDA_SOURCES)
     cmd = _build.compile_command("x.cu", "libx.so")

@@ -250,11 +250,21 @@ def test_port_builds_and_retrieves(fmt):
             assert store._residual_ext().shape == (store._padded_rows(), BASE["pq_subspaces"] + 2)
 
 
-def test_pq_sorted_and_add_raise():
+def test_pq_sorted_and_add_raise(stores):
+    """Once raised; now ported: a ``pq_sorted`` store loads ``crs_tpu``'s
+    residual state and serves the same search, and ``add`` grows a store
+    as ``crs_tpu``'s grows."""
     from crs_tpu_torch.rag.index import VectorStore
 
-    with pytest.raises(NotImplementedError, match="kernel 4"):
-        VectorStore({"format": "pq", "pq_sorted": True}, device="cpu")
-    store = VectorStore({"format": "fp32"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        store.add(["a"], np.zeros((1, 4), np.float32))
+    x, q, _, _, _ = _data()
+    jstore, path = stores["pq_int8"]
+    pstore = _port_load(path, dict(FORMATS["pq_int8"], pq_sorted=True))
+    assert pstore.pq_sorted
+    js, ji = jstore.search_batch(q, top_k=6)
+    ps, pi = pstore.search_batch(q, top_k=6)
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    store = VectorStore(dict(BASE, format="fp32"), device="cpu")
+    store.create_index([f"d{i}" for i in range(200)], x[:200])
+    store.add([f"d{i}" for i in range(200, 300)], x[200:300])
+    assert store.n == 300 and store._padded_rows() == 512  # max(2·256, 200 + 128)
+    assert store.search_batch(x[250:253], top_k=1)[1][:, 0].tolist() == [250, 251, 252]
