@@ -32,8 +32,13 @@ the largest difference); any failure raises and exits non-zero:
 6. kernel_segmax      — the segment-max kernels (6: fp32 and bf16; 7: int8) at
                         1,048,576 × 384, B = 328, k = 10, block 2048 on a shuffled
                         clustered corpus: against their plain versions (int8 bit
-                        for bit), through scan_topk_segmax / _int8 (counted), and
-                        recall@10 against the exact f32 top-10;
+                        for bit), the tiling's edge cases at small sizes (valid_n
+                        inside a segment, blocks past it, odd query tiles, D = 32,
+                        160, 512, 4096, blocks of 256 and 4096, exact ties), each
+                        kernel and its library composition timed in turns,
+                        through scan_topk_segmax / _int8 (counted), and recall@10
+                        against the exact f32 top-10; first a line with each
+                        instantiation's registers, spills and shared memory;
 7. kernel_q4          — the int4 and NF4 matmul kernels against their plain
                         versions at the 1b widths and mistral-7b's MLP, R ∈ {1, 8,
                         64} (|kernel − plain| ≤ 1e-5·Σ|x·w|); device ms per
@@ -345,7 +350,7 @@ def device_profile(fn, batch_ms: float, top: int = 8) -> dict:
 
 # -- phases --------------------------------------------------------------------
 
-def phase_build(ph: Phase) -> None:
+def phase_build(ph: Phase) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     from crs_tpu_torch.ops.scan import build_kernels
@@ -360,6 +365,7 @@ def phase_build(ph: Phase) -> None:
         "ptxas": {src: [ln.strip() for ln in r.log.splitlines()
                         if "registers" in ln or "spill" in ln] for src, r in kernels.items()},
     })
+    return {src: r.log for src, r in kernels.items()}
 
 
 def phase_kernel(ph: Phase, dev, seed: int, rows: int) -> float:
@@ -877,20 +883,166 @@ def check_ranked_by_exact(got, ref, rtol: float, exact) -> float:
     return float(diff[real].max()) if bool(real.any()) else 0.0
 
 
-def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int) -> dict:
+# (value, tie rule) cases the kernels' tiling touches: name → (rows, dim,
+# queries, block_size, kseg, valid_n); run on the card for every dtype
+SEGMAX_EDGE_CASES = {
+    "valid_n_inside_a_segment_and_chunk": (3072, 64, 5, 512, 4, 1337),
+    "blocks_past_valid_n": (3072, 64, 70, 512, 4, 1100),
+    "odd_query_tiles": (2048, 64, 130, 1024, 8, 2048),
+    "d32": (2048, 32, 64, 512, 4, 2000),
+    "d_ragged_160": (2048, 160, 64, 512, 4, 2048),
+    "block_256": (2048, 64, 64, 256, 2, 1999),
+    "block_4096": (8192, 64, 64, 4096, 32, 8000),
+    "d4096_streamed": (4096, 4096, 64, 2048, 16, 4096),
+    "d512_streamed": (4096, 512, 130, 2048, 10, 4000),
+}
+# rows holding one vector per case of the tie test: block 0's segments 0
+# and 3 (equal maxima across segments; lanes / quads apart inside each) and
+# block 1's segment 1; query 0 must pick rows 9, then 424, and 1153
+SEGMAX_TIE_ROWS = (9, 70, 384 + 40, 384 + 100, 1024 + 128 + 127, 1024 + 128 + 1)
+
+
+def segmax_build_report(log: str, lib, d: int, block_size: int) -> dict:
+    """Per instantiation of csrc/segmax_scan_topk.cu: registers, spills and
+    static shared memory from ptxas -v, and the dynamic shared memory of one
+    CTA at (d, block_size); ptxas's wgmma remarks verbatim."""
+    import re
+
+    funcs, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur in funcs:
+            funcs[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur in funcs:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            funcs[cur].update(registers=int(m.group(1)), static_smem=int(sm.group(1)) if sm else 0)
+    names = {"segmax_f32_kernel": ("f32", 0), "segmax_bf16_kernelILb1E": ("bf16_resident", 1),
+             "segmax_bf16_kernelILb0E": ("bf16_streamed", 1), "segmax_i8_kernel": ("int8", 2)}
+    out = {}
+    for mangled, info in funcs.items():
+        for key, (name, mode) in names.items():
+            if key in mangled:
+                out[name] = dict(info, dynamic_smem_at_main_shape=lib.segmax_scan_topk_smem_bytes(
+                    mode, d, block_size))
+    out["bf16_queries_resident_at_main_shape"] = bool(
+        lib.segmax_scan_topk_bf16_queries_resident(d, block_size))
+    out["wgmma_remarks"] = [ln.strip() for ln in log.splitlines() if "wgmma" in ln.lower()]
+    return out
+
+
+def segmax_operands(dtype, g, dev, rows, d, queries, tie: bool = False):
+    """Unit rows and queries, padded to the query tile, in the kernel's
+    operand form; ``tie`` copies query 0's direction into SEGMAX_TIE_ROWS."""
+    import torch
+
+    from crs_tpu_torch.ops import scalar_quantize
+    from crs_tpu_torch.ops.scan import SEGMAX_QUERY_TILE, _pad_rows
+
+    x = torch.randn((rows, d), generator=g, device=dev)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    q = torch.randn((queries, d), generator=g, device=dev)
+    if tie:
+        x[list(SEGMAX_TIE_ROWS)] = q[0] / torch.linalg.vector_norm(q[0])
+    if dtype == torch.int8:
+        codes, scales = scalar_quantize(x)
+        qc, qs = scalar_quantize(q)
+        return (_pad_rows(qc, SEGMAX_QUERY_TILE).contiguous(),
+                _pad_rows(qs, SEGMAX_QUERY_TILE).contiguous(), codes, scales)
+    return _pad_rows(q.to(dtype), SEGMAX_QUERY_TILE).contiguous(), x.to(dtype).contiguous()
+
+
+def segmax_exact(qq, v, nblocks: int, kseg: int):
+    """f64 score of (the partials' flat index → its query, a row id)."""
+    from crs_tpu_torch.ops.scan import SEGMAX_QUERY_TILE
+
+    def exact(flat, ids):
+        qrow = (flat // SEGMAX_QUERY_TILE // kseg // nblocks) * SEGMAX_QUERY_TILE \
+            + flat % SEGMAX_QUERY_TILE
+        return (qq[qrow].double() * v[ids].double()).sum(-1)
+
+    return exact
+
+
+def segmax_check(name: str, dtype, ops, block_size: int, kseg: int, valid_n: int):
+    """One kernel call against its plain version on the same operands."""
+    import torch
+
+    from crs_tpu_torch.ops.scan import (
+        block_topk_segmax, block_topk_segmax_int8, block_topk_segmax_int8_plain,
+        block_topk_segmax_plain,
+    )
+
+    if dtype == torch.int8:
+        args = (*ops, valid_n, kseg, block_size)
+        got = block_topk_segmax_int8(*args)
+        return got, check_bits(got, block_topk_segmax_int8_plain(*args), f"int8 {name}")
+    args = (*ops, valid_n, kseg, block_size)
+    got = block_topk_segmax(*args)
+    nblocks = ops[1].shape[0] // block_size
+    return got, check_ranked_by_exact(got, block_topk_segmax_plain(*args),
+                                      FLOAT_RTOL["fp32" if dtype == torch.float32 else "bf16"],
+                                      segmax_exact(ops[0], ops[1], nblocks, kseg))
+
+
+def segmax_edge_cases(dev, seed: int) -> dict:
+    """SEGMAX_EDGE_CASES and the tie test on the card, each dtype's kernel
+    against its plain version (int8 bit for bit)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 19)
+    out = {}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+        for case, (rows, d, queries, bs, kseg, valid) in SEGMAX_EDGE_CASES.items():
+            if dtype == torch.int8 and d > 1040:  # the plain int8 dot is exact to D = 1040
+                continue
+            _, err = segmax_check(case, dtype, segmax_operands(dtype, g, dev, rows, d, queries),
+                                  bs, kseg, valid)
+            out[f"{dname}.{case}"] = err
+        (s, i), err = segmax_check("ties", dtype,
+                                   segmax_operands(dtype, g, dev, 2048, 64, 64, tie=True),
+                                   1024, 4, 2048)
+        picks = [int(i[0, 0, 0, 0]), int(i[0, 0, 1, 0]), int(i[0, 1, 0, 0])]
+        if picks != [9, 424, 1153] or float(s[0, 0, 0, 0]) != float(s[0, 0, 1, 0]):
+            raise AssertionError(f"{dname} segment-max ties: picks {picks}, want [9, 424, 1153] "
+                                 f"at equal maxima")
+        out[f"{dname}.ties"] = err
+    sync(dev)
+    return out
+
+
+def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int, build_logs: dict) -> dict:
     """Kernels 6 (fp32, bf16) and 7 at 1,048,576 × 384, B = 328, k = 10,
     block 2048 (kseg = 10) on a clustered corpus shuffled row-wise: each
-    kernel against its plain version (kernel 7 bit for bit), the scans
-    through their ops entry points (the main path, counted), recall@10
-    against the exact f32 top-10; device ms, bound, plain and library ms."""
+    kernel against its plain version (kernel 7 bit for bit), the edge cases
+    of SEGMAX_EDGE_CASES and the tie rule at small sizes, the scans through
+    their ops entry points (the main path, counted), recall@10 against the
+    exact f32 top-10; device ms of each kernel and its library composition
+    in turns (kernel, composition, composition, kernel), bound, plain ms;
+    each instantiation's registers, spills and shared memory."""
     import torch
 
     from crs_tpu_torch.ops import scalar_quantize, scan_topk_segmax, scan_topk_segmax_int8
     from crs_tpu_torch.ops.scan import (
-        SEGMAX_QUERY_TILE, STATS, _finalize, _pad_rows, block_topk_segmax,
+        SEGMAX_QUERY_TILE, STATS, _finalize, _load_kernel_lib, _pad_rows, block_topk_segmax,
         block_topk_segmax_int8, block_topk_segmax_int8_plain, block_topk_segmax_plain,
     )
     from crs_tpu_torch.ops.topk import exact_topk
+
+    lib = _load_kernel_lib("segmax_scan_topk.cu")
+    build = segmax_build_report(build_logs.get("segmax_scan_topk.cu", ""), lib, DIM, SEGMAX_BLOCK)
+    emit({"segmax_build": build})
+    edge = segmax_edge_cases(dev, seed)
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 9)
@@ -917,7 +1069,7 @@ def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int) -> dict:
     codes, scales = scalar_quantize(x)
     qc, qs = scalar_quantize(q)
     qc, qs = _pad_rows(qc, SEGMAX_QUERY_TILE).contiguous(), _pad_rows(qs, SEGMAX_QUERY_TILE)
-    out = {}
+    out = {"build": build, "edge_cases_max_abs_err": edge}
     for name, dtype, rate in (("fp32", torch.float32, PEAK_F32_OPS_PER_S),
                               ("bf16", torch.bfloat16, PEAK_BF16_OPS_PER_S),
                               ("int8", torch.int8, PEAK_INT8_OPS_PER_S)):
@@ -934,18 +1086,14 @@ def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int) -> dict:
                 return torch.topk(m.values.view(BATCH, nblocks, -1), kseg, dim=-1)
 
             nbytes = codes.numel() + rows * 4 + qc.numel() + qs.numel() * 4 + out_bytes
+            corpus_bytes = codes.numel() + rows * 4
         else:
             v = x.to(dtype)
             qq = _pad_rows(q.to(dtype), SEGMAX_QUERY_TILE).contiguous()
             args = (qq, v, rows, kseg, SEGMAX_BLOCK)
             kernel, plain = block_topk_segmax, block_topk_segmax_plain
-
-            def exact(flat, ids, qq=qq, v=v):
-                qrow = (flat // SEGMAX_QUERY_TILE // kseg // nblocks) * SEGMAX_QUERY_TILE \
-                    + flat % SEGMAX_QUERY_TILE
-                return (qq[qrow].double() * v[ids].double()).sum(-1)
-
-            err = check_ranked_by_exact(kernel(*args), plain(*args), FLOAT_RTOL[name], exact)
+            err = check_ranked_by_exact(kernel(*args), plain(*args), FLOAT_RTOL[name],
+                                        segmax_exact(qq, v, nblocks, kseg))
             got_final = _finalize(*kernel(*args), BATCH, SEGMAX_K)
             ref_final = _finalize(*plain(*args), BATCH, SEGMAX_K)
             check_ranked_by_exact(
@@ -960,11 +1108,17 @@ def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int) -> dict:
                 return torch.topk(m.values.view(BATCH, nblocks, -1), kseg, dim=-1)
 
             nbytes = v.numel() * v.element_size() + qq.numel() * qq.element_size() + out_bytes
-        ms = device_ms(dev, lambda: kernel(*args), iters=10, warmup=2)
+            corpus_bytes = v.numel() * v.element_size()
+        turns = [device_ms(dev, lambda: kernel(*args), iters=10, warmup=2),
+                 device_ms(dev, library, iters=3), device_ms(dev, library, iters=3),
+                 device_ms(dev, lambda: kernel(*args), iters=10, warmup=1)]
+        ms = (turns[0] + turns[3]) / 2
         plain_ms = device_ms(dev, lambda: plain(*args), iters=2)
-        library_ms = device_ms(dev, library, iters=3)
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "library_composition_ms": library_ms,
+                     "library_composition_ms": (turns[1] + turns[2]) / 2,
+                     "turns_kernel_library_library_kernel_ms": turns,
+                     # device bytes the run can have moved, in corpus reads: ms · 3.35 TB/s
+                     "corpus_reads_at_most": ms * 1e-3 * PEAK_BYTES_PER_S / corpus_bytes,
                      **bound(nbytes, 2.0 * BATCH * rows * DIM, rate)}
 
     # the main path: the ops entry points, counts to 0 just before, read just after
@@ -990,7 +1144,8 @@ def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int) -> dict:
     out["library_composition"] = ("[dequantize +] torch.matmul (TF32 off) + max over 128-row "
                                   "segments + torch.topk per block: three or four calls")
     out["compared"] = ("int8 partials and top-10 == plain (bits); fp32 / bf16 scores within "
-                       "rtol 1e-5 / 1e-2, ids equal or f64 near ties within 1e-5")
+                       "rtol 1e-5 / 1e-2, ids equal or f64 near ties within 1e-5; the same on "
+                       "SEGMAX_EDGE_CASES, and query 0's tie picks [9, 424, 1153]")
     ph.info.update(out)
     return out
 
@@ -2377,7 +2532,8 @@ def main(argv=None) -> int:
         "kernel_f32_bf16": lambda ph: phase_kernel_f32_bf16(ph, dev, args.seed, FULL_ROWS),
         "kernel_adc": lambda ph: phase_kernel_adc(ph, dev, args.seed, FULL_ROWS),
         "kernel_sorted_adc": lambda ph: phase_kernel_sorted_adc(ph, dev, args.seed, FULL_ROWS),
-        "kernel_segmax": lambda ph: phase_kernel_segmax(ph, dev, args.seed, FULL_ROWS),
+        "kernel_segmax": lambda ph: phase_kernel_segmax(ph, dev, args.seed, FULL_ROWS,
+                                                        res.get("build") or {}),
         "kernel_q4": lambda ph: phase_kernel_q4(ph, dev, args.seed),
         "kernel_decode_attn": lambda ph: phase_kernel_decode_attn(ph, dev, args.seed),
         "kernel_fused_mlp": lambda ph: phase_kernel_fused_mlp(ph, dev, args.seed),

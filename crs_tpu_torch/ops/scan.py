@@ -77,8 +77,9 @@ CHUNK_ROWS = 256
 MAX_KB = 32
 FLOAT_QUERY_TILE = 64
 ADC_QUERY_TILE = 8
-# Kernels 6 and 7 (segment max): 64 queries per CUDA block, CHUNK_ROWS rows
-# a step, at most MAX_SEGMENTS 128-row segments per block (one per lane).
+# Kernels 6 and 7 (segment max): partials in tiles of 64 queries (a kernel 6
+# CUDA block scores two tiles, a kernel 7 block one), CHUNK_ROWS rows a
+# step, at most MAX_SEGMENTS 128-row segments per corpus block.
 SEGMAX_QUERY_TILE = 64
 SEGMENT_ROWS = 128
 MAX_SEGMENTS = 32

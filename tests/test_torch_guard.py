@@ -316,7 +316,10 @@ def _sorted_operands(kb=2, m=8, rows=1024, queries=8, c=512, group=2, tiles=1):
             torch.empty((tiles,), dtype=torch.int32, device="meta"), group)
 
 
-def _segmax_operands(dtype=torch.float32, kseg=2, d=64, rows=1024, queries=64):
+def _segmax_operands(dtype=torch.float32, kseg=2, d=64, rows=1024, queries=None):
+    from crs_tpu_torch.ops.scan import SEGMAX_QUERY_TILE
+
+    queries = queries or SEGMAX_QUERY_TILE
     q = torch.empty((queries, d), dtype=dtype, device="meta")
     vecs = torch.empty((rows, d), dtype=dtype, device="meta")
     if dtype != torch.int8:
@@ -377,7 +380,8 @@ def test_new_wrappers_count_a_launch(fake_kernels, monkeypatch, which):
     fake_kernels.STATS.reset()
     out_s, out_i = _call(fake_kernels, which, kb=3)
     assert fake_kernels.STATS.by_kernel == {KERNEL_CALLS[which]: 1}
-    tile = 8 if which.startswith("adc") else 64
+    tile = (8 if which.startswith("adc") else
+            fake_kernels.SEGMAX_QUERY_TILE if which.startswith("segmax") else 64)
     assert out_s.shape == (1, 2, 3, tile) and out_i.dtype == torch.int32
 
 
@@ -439,16 +443,17 @@ def test_segmax_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monke
         args[ik] = 5
     elif bad == "block_size":
         args[ib] = 384
-    elif bad == "big_block":  # more than 32 segments (one per lane)
+    elif bad == "big_block":  # more than MAX_SEGMENTS = 32 segments
         args[ib] = 8192
         args[iv] = torch.empty((8192, 64), dtype=dtype, device="meta")
         if dtype == torch.int8:
             args[3] = torch.empty((8192,), device="meta")
     elif bad == "dim":
-        args[0] = torch.empty((64, 40), dtype=dtype, device="meta")
+        args[0] = torch.empty((fake_kernels.SEGMAX_QUERY_TILE, 40), dtype=dtype, device="meta")
         args[iv] = torch.empty((1024, 40), dtype=dtype, device="meta")
     elif bad == "queries":
-        args[0] = torch.empty((65, 64), dtype=dtype, device="meta")
+        args[0] = torch.empty((fake_kernels.SEGMAX_QUERY_TILE + 1, 64), dtype=dtype,
+                              device="meta")
     else:
         args[iv] = args[iv].to(torch.float16)
     fn = fake_kernels.block_topk_segmax_int8 if dtype == torch.int8 else \

@@ -2,7 +2,10 @@
 
 ``pallas_topk_segmax`` / ``pallas_topk_segmax_int8`` run in Pallas interpret
 mode; the port runs ``scan_topk_segmax`` / ``scan_topk_segmax_int8`` on the
-kernels' plain torch versions, at 3,000 × 64, block 512, 5 queries.
+kernels' plain torch versions, at 3,000 × 64, block 512, 5 queries, and on
+the edges of the kernels' tiling (EDGE_CASES: valid_n inside a segment,
+whole blocks past it, query counts off the tile, D = 32 and 96, blocks of
+256 and 4096) and on exact ties across lanes, quads and segments.
 
 Tolerances:
 - int8 (kernel 7): scores and ids bit for bit. The int32 dot is exact, and
@@ -167,3 +170,109 @@ def test_segmax_block_size_default_and_kseg():
         ref = pallas_topk_segmax(jnp.asarray(v), jnp.asarray(q), k, 5000)
         got = scan_topk_segmax(_t(v), _t(q), k, 5000)
         _assert_close(got, ref, 1e-5)
+
+
+# The kernels' tiling edges (kernel 6: 128 queries and 256-row chunks per
+# CUDA block, 64-dimension bf16 slices; kernel 7: 64 queries): name → (rows,
+# dim, queries, block_size, k, valid_n). The port runs its plain versions
+# here and its kernels on the card (chip_smoke.py's kernel_segmax phase).
+EDGE_CASES = {
+    "valid_n_inside_a_segment_and_chunk": (3000, 64, 5, 512, 8, 1337),
+    "blocks_past_valid_n": (3000, 64, 5, 512, 8, 1100),  # blocks 3..5: no live row
+    "queries_not_a_tile": (1500, 64, 70, 512, 8, 1500),  # 2 tiles, the second ragged
+    "queries_odd_tiles": (1024, 32, 130, 512, 4, 1024),  # 3 tiles: a pair and a single
+    "d32": (2000, 32, 5, 512, 8, 2000),
+    "d_ragged_96": (2000, 96, 5, 512, 8, 2000),  # not a multiple of the 64-dim slice
+    "block_256": (2000, 64, 5, 256, 4, 1999),  # kseg = 2
+    "block_4096": (5000, 64, 3, 4096, 40, 4500),  # kseg = 32, the most segments
+}
+
+
+def _edge_inputs(case, seed):
+    rows, d, b, _, _, _ = EDGE_CASES[case]
+    rng = np.random.default_rng(seed)
+    return _unit(rng, rows, d), rng.standard_normal((b, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_segmax_edge_cases_match_pallas(dtype, case):
+    from crs_tpu.ops.pallas_scan import pallas_topk_segmax
+    from crs_tpu_torch.ops import scan_topk_segmax
+
+    _, _, b, bs, k, valid = EDGE_CASES[case]
+    v, q = _edge_inputs(case, 11)
+    jdt, tdt, rtol = ((jnp.float32, torch.float32, 1e-5) if dtype == "fp32"
+                      else (jnp.bfloat16, torch.bfloat16, 1e-2))
+    ref = pallas_topk_segmax(jnp.asarray(v, jdt), jnp.asarray(q), k, valid, block_size=bs)
+    got = scan_topk_segmax(_t(v).to(tdt), _t(q), k, valid, block_size=bs)
+    assert got[0].shape == (b, k)
+    _assert_close(got, ref, rtol)
+    assert (got[1].numpy()[got[0].numpy() > -1e29] < valid).all()
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_segmax_int8_edge_cases_match_pallas_bit_for_bit(case):
+    from crs_tpu.ops.pallas_scan import pallas_topk_segmax_int8
+    from crs_tpu.ops.quant import scalar_quantize as jax_quantize
+    from crs_tpu_torch.ops import scalar_quantize, scan_topk_segmax_int8
+
+    _, _, _, bs, k, valid = EDGE_CASES[case]
+    v, q = _edge_inputs(case, 12)
+    codes, scales = jax_quantize(jnp.asarray(v))
+    ref_s, ref_i = pallas_topk_segmax_int8(codes, scales, jnp.asarray(q), k, valid,
+                                           block_size=bs)
+    pc, ps = scalar_quantize(_t(v))
+    got_s, got_i = scan_topk_segmax_int8(pc, ps, _t(q), k, valid, block_size=bs)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    assert np.array_equal(got_s.numpy(), np.asarray(ref_s))
+
+
+# one vector at rows 9 and 70 (segment 0: lanes 2 / 17 of the f32 kernel,
+# quads 0 / 3 of the bf16 one), 424 and 484 (segment 3) and 1153 and 1279
+# (block 1, segment 1): exact ties inside a segment and equal maxima across
+# segments, for query 0
+TIE_ROWS = (9, 70, 424, 484, 1153, 1279)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_segmax_exact_ties_pick_the_lowest_row_and_segment(dtype):
+    """Query 0 scores its direction highest at six rows: each segment keeps
+    its lowest such row, equal segment maxima are picked lowest segment
+    first, and the final top-3 are rows 9, 424, 1153 — in the plain
+    version's partials and in both packages' results."""
+    from crs_tpu.ops.pallas_scan import pallas_topk_segmax, pallas_topk_segmax_int8
+    from crs_tpu.ops.quant import scalar_quantize as jax_quantize
+    from crs_tpu_torch.ops import scalar_quantize, scan_topk_segmax, scan_topk_segmax_int8
+    from crs_tpu_torch.ops.scan import (
+        SEGMAX_QUERY_TILE, _pad_rows, block_topk_segmax_int8_plain, block_topk_segmax_plain,
+    )
+
+    rng = np.random.default_rng(13)
+    v, q = _unit(rng, 2048, D), rng.standard_normal((B, D)).astype(np.float32)
+    v[list(TIE_ROWS)] = q[0] / np.linalg.norm(q[0])
+    bs, k = 1024, 4
+    if dtype == "int8":
+        codes, scales = jax_quantize(jnp.asarray(v))
+        ref = pallas_topk_segmax_int8(codes, scales, jnp.asarray(q), k, 2048, block_size=bs)
+        pc, ps = scalar_quantize(_t(v))
+        got = scan_topk_segmax_int8(pc, ps, _t(q), k, 2048, block_size=bs)
+        qc, qs = scalar_quantize(_t(q))
+        out_s, out_i = block_topk_segmax_int8_plain(
+            _pad_rows(qc, SEGMAX_QUERY_TILE), _pad_rows(qs, SEGMAX_QUERY_TILE), pc, ps, 2048, k,
+            bs)
+    else:
+        jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16,
+                                                                          torch.bfloat16)
+        ref = pallas_topk_segmax(jnp.asarray(v, jdt), jnp.asarray(q), k, 2048, block_size=bs)
+        got = scan_topk_segmax(_t(v).to(tdt), _t(q), k, 2048, block_size=bs)
+        out_s, out_i = block_topk_segmax_plain(_pad_rows(_t(q).to(tdt), SEGMAX_QUERY_TILE),
+                                               _t(v).to(tdt), 2048, k, bs)
+    assert out_i[0, 0, :2, 0].tolist() == [9, 424] and int(out_i[0, 1, 0, 0]) == 1153
+    assert out_s[0, 0, 0, 0] == out_s[0, 0, 1, 0] == out_s[0, 1, 0, 0]
+    assert got[1][0, :3].tolist() == [9, 424, 1153]
+    np.testing.assert_array_equal(np.asarray(ref[1])[0, :3], [9, 424, 1153])
+    if dtype == "int8":
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    else:
+        _assert_close(got, ref, 1e-5 if dtype == "fp32" else 1e-2)
