@@ -39,13 +39,20 @@ the largest difference); any failure raises and exits non-zero:
                         through scan_topk_segmax / _int8 (counted), and recall@10
                         against the exact f32 top-10; first a line with each
                         instantiation's registers, spills and shared memory;
-7. kernel_q4          — the int4 and NF4 matmul kernels against their plain
-                        versions at the 1b widths and mistral-7b's MLP, R ∈ {1, 8,
-                        64} (|kernel − plain| ≤ 1e-5·Σ|x·w|); device ms per
-                        launch (torch.profiler), plain and library ms, bound;
-8. kernel_decode_attn — the int8 decode-attention kernel against its plain
-                        version at B ∈ {1, 8}, Hkv 8, G 2, hd 128, S ∈ {2176,
-                        4096}, partial masks and an all-masked row (exact zeros);
+7. kernel_q4          — the int4 and NF4 matmul kernels (8, 9) against their
+                        plain versions at the 1b widths, mistral-7b's MLP and
+                        N ∈ {128, 1024}, R ∈ {1, 3, 8, 17, 64} (|kernel − plain|
+                        ≤ 1e-5·Σ|x·w|); device ms per launch (torch.profiler,
+                        every launch of each design), kernels 8 and 9 timed in
+                        turns (8, 9, 9, 8) on the same codes; plain and library
+                        ms, bound, kernel 9's plan;
+8. kernel_decode_attn — the int8 decode-attention kernel (two launches over
+                        chunks of S) against its plain version at B ∈ {1, 8},
+                        Hkv 8, G 2, hd 128, S ∈ {2176, 4096}, partial masks and
+                        an all-masked row (exact zeros), ms at each; and at G ∈
+                        {1, 4, 8} × S ∈ {128, 2176, 4096}: a row masked but for
+                        a window (whole chunks masked), an all-masked row, a
+                        full row;
 9. kernel_fused_mlp   — the fused MLP kernel against its plain version at
                         mistral-7b's MLP (H 4096, I 14336, chunk 1024), R ∈ {1,
                         3, 8}, and a small multi-chunk case: xq / hq codes equal
@@ -79,7 +86,8 @@ the largest difference); any failure raises and exits non-zero:
                         create_model_interface: greedy generate_batch of 64
                         tokens at batch 1 and 8 on RAG-sized prompts, with 113
                         q4/NF4 and 16 attention launches per decode step;
-                        prefill and decode times, weight and cache bytes, the
+                        prefill and decode times, the step's device ms by
+                        kernel, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
 15. rag               — RAGPipeline (hashed embedding, int8 store) over the
@@ -324,11 +332,12 @@ def device_ms(dev, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_profile(fn, batch_ms: float, top: int = 8) -> dict:
+def device_profile(fn, batch_ms: float, top: int = 8, kernels=None) -> dict:
     """One call under torch.profiler: device time by kernel (the CUDA-side
-    events only, so no op's time counts twice) and the device's busy share
-    of ``batch_ms``. Returns {"not measured": reason} when the profiler
-    records no device time."""
+    events only, so no op's time counts twice), the device's busy share of
+    ``batch_ms`` and, for each {label: name filters} of ``kernels``, the ms
+    covered by the kernels whose names hold one of them. Returns {"not
+    measured": reason} when the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -336,6 +345,7 @@ def device_profile(fn, batch_ms: float, top: int = 8) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    kernel_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     times = {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
@@ -344,8 +354,11 @@ def device_profile(fn, batch_ms: float, top: int = 8) -> dict:
         return {"not measured": "the profiler recorded no device time"}
     busy = sum(times.values())
     ranked = sorted(times.items(), key=lambda kv: -kv[1])[:top]
+    by_label = {label: device_union_ms([e for e in kernel_events
+                                        if any(n in e.name for n in names)])
+                for label, names in (kernels or {}).items()}
     return {"device_busy_ms": busy, "device_busy_share": busy / batch_ms,
-            "top_ms": {k[:80]: v for k, v in ranked}}
+            "top_ms": {k[:80]: v for k, v in ranked}, "kernels_ms": by_label}
 
 
 # -- phases --------------------------------------------------------------------
@@ -1239,17 +1252,24 @@ def phase_add(ph: Phase, dev, seed: int, shared: dict) -> dict:
     return out
 
 
-# kernel_q4: the 1b linear layers (in → out) and mistral-7b's MLP, at R rows
+# kernel_q4: the 1b linear layers (in → out) and mistral-7b's MLP, at R rows;
+# "edge" adds N = 128 (one column slab) and a deep K into N = 1024
 Q4_SHAPES = {"1b": ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048), (2048, 32000)),
              "mistral-7b": ((4096, 14336), (14336, 4096))}
+Q4_EDGE_SHAPES = {"edge": ((2048, 128), (5632, 1024))}
 Q4_ROWS = (1, 8, 64)
+Q4_EXTRA_ROWS = (3, 17)  # a partial n-tile, and the 4-tile design
 Q4_GROUP = 128
 # one 1b decode step's linear layers: q, k, v, o, gate, up, down per layer; lm_head
 Q4_STEP_1B = ((2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048), (2048, 5632),
               (2048, 5632), (5632, 2048))
 Q4_RTOL = 1e-5  # |kernel − plain| ≤ Q4_RTOL · Σ_k |x_k·w_k,n|: only the f32 sum order differs
+# each design's launches in the profiler: kernel 8 and its split sum; kernel 9
+Q4_KERNELS = {"int4": ("q4_matmul_kernel", "q4_split_sum_kernel"), "nf4": ("nf4_mma_kernel",)}
 ATTN_SHAPES = ((1, 2176), (1, 4096), (8, 2176), (8, 4096))  # (B, S); Hkv 8, G 2, hd 128
+ATTN_EXTRA = tuple((grp, s) for grp in (1, 4, 8) for s in (128, 2176, 4096))  # (G, S), B 3
 ATTN_TOL = 2.0 ** -7  # |kernel − plain| ≤ ATTN_TOL · Σ_s |p_s·v_s,d|: one bf16 step of p
+ATTN_KERNELS = ("decode_attention_int8_",)  # the scores and the p·v launches
 L2_BYTES = 50e6
 
 
@@ -1259,123 +1279,246 @@ def cold_copies(nbytes: float) -> int:
     return max(1, math.ceil(3 * L2_BYTES / max(nbytes, 1)))
 
 
-def kernel_device_ms(fn, iters: int, names) -> float:
+def device_union_ms(events) -> float:
+    """ms covered by the union of the events' device intervals: a launch
+    that overlaps another (a programmatic dependent launch) counts once."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
+def kernel_device_ms(fn, iters: int, names, tries: int = 3) -> float:
     """Mean device time per call of the kernels whose names contain one of
-    ``names``, from torch.profiler over ``iters`` calls; None when the
-    profiler records no device time for them. A decode-sized launch is
-    shorter than the host's work around it, so CUDA events around a loop
-    would time the host."""
+    ``names`` (the union of their intervals, so overlapping launches count
+    once), from torch.profiler over ``iters`` calls; None when the profiler
+    records no device time for them. A decode-sized launch is shorter than
+    the host's work around it, so CUDA events around a loop would time the
+    host. A session that recorded fewer launches of a kernel than there were
+    calls (the profiler drops events now and then) is repeated, up to
+    ``tries`` sessions."""
+    from collections import Counter
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and any(n in ev.key for n in names))
-    return total / 1e3 / iters if total > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+        counts = Counter(e.name for e in evs)
+        if evs and min(counts.values()) >= iters:
+            return device_union_ms(evs) / iters
+    return None
+
+
+def nf4_plan_sweep(dev, g) -> dict:
+    """Kernel 9's device ms over the plans it could take (width × K slices)
+    at each 1b decode-step shape, R = 8, weights cold: the measurement that
+    sets the planner's target grid (ops/qgemm.py NF4_BLOCKS_PER_SM)."""
+    import torch
+
+    from crs_tpu_torch.ops import qgemm
+    from crs_tpu_torch.ops.launch import sm_count
+
+    out = {}
+    for k, n in sorted(set(Q4_STEP_1B)) + [(2048, 32000)]:
+        k2, gs2 = k // 2, Q4_GROUP // 2
+        codes = torch.randint(0, 256, (k2, n), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.uint8)
+        scales = torch.rand((k // Q4_GROUP, n), generator=g, device=dev) * 0.02 + 1e-3
+        x = torch.randn((8, k), generator=g, device=dev).to(torch.bfloat16)
+        copies = [(codes.clone(), scales.clone()) for _ in range(cold_copies(codes.numel()) - 1)]
+        copies.append((codes, scales))
+        chosen = qgemm.nf4_plan(8, k2, n, gs2, sm_count(dev))
+        row = {"chosen": f"w{chosen.width} k{chosen.ksplit}"}
+        groups = k2 // gs2
+        for width in (16, 8):
+            for want in (1, 2, 3, 4, 6, 8):
+                per = -(-groups // want)
+                plan = qgemm.Nf4Plan(1, width, -(-groups // per), per * gs2)
+                key = f"w{width} k{plan.ksplit}"
+                if key in row:
+                    continue
+                it = iter(range(1 << 30))
+
+                def run(plan=plan, it=it):
+                    c, sc = copies[next(it) % len(copies)]
+                    qgemm._nf4_forward(x, c, sc, plan=plan)
+
+                row[key] = {"blocks": plan.blocks(n),
+                            "ms": kernel_device_ms(run, 30, Q4_KERNELS["nf4"])}
+        out[f"{k}->{n}"] = row
+        del copies
+    return out
 
 
 def phase_kernel_q4(ph: Phase, dev, seed: int) -> dict:
     """Kernels 8 and 9 against their plain versions at the 1b and mistral-7b
-    widths, R ∈ Q4_ROWS, random codes and scales; ms per launch (weights
-    cold), plain and library-composition ms, bound. Returns each kernel's
-    kernel-table numbers, the mean over one 1b decode step's 113 launches at
-    R = 8."""
+    widths and the edge shapes, R ∈ Q4_ROWS + Q4_EXTRA_ROWS, random codes
+    (the same bytes for both) and scales; ms per launch (weights cold) of
+    the two timed in turns 8, 9, 9, 8; plain and library-composition ms,
+    bound. Returns each kernel's kernel-table numbers, the mean over one 1b
+    decode step's 113 launches at R = 8."""
     import torch
 
     from crs_tpu_torch.ops import qgemm
+    from crs_tpu_torch.ops.launch import sm_count
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 6)
-    out = {}
-    for kind, nf4 in (("int4", False), ("nf4", True)):
-        kernel = qgemm.nf4_matmul if nf4 else qgemm.q4_matmul
-        plain = qgemm.emulate_nf4_matmul if nf4 else qgemm.emulate_q4_matmul
-        unpack = qgemm._unpack_nf4 if nf4 else qgemm._unpack_int4
-        per_shape = {}
-        worst = 0.0
-        for model, shapes in Q4_SHAPES.items():
-            for k, n in shapes:
-                codes = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
-                                      dtype=torch.int32).to(torch.int8)
-                if nf4:
-                    codes = codes.view(torch.uint8)
-                scales = torch.rand((k // Q4_GROUP, n), generator=g, device=dev) * 0.02 + 1e-3
-                w = (unpack(codes).to(torch.bfloat16)
-                     * torch.repeat_interleave(scales, Q4_GROUP, 0).to(torch.bfloat16)).float()
-                nbytes = codes.numel() + scales.numel() * 4
-                copies = [(codes.clone(), scales.clone()) for _ in range(cold_copies(nbytes) - 1)]
-                copies.append((codes, scales))
-                for r in Q4_ROWS:
-                    x = torch.randn((r, k), generator=g, device=dev).to(torch.bfloat16)
+    kinds = {"int4": (qgemm.q4_matmul, qgemm.emulate_q4_matmul, qgemm._unpack_int4),
+             "nf4": (qgemm.nf4_matmul, qgemm.emulate_nf4_matmul, qgemm._unpack_nf4)}
+    per_shape = {kind: {} for kind in kinds}
+    worst = {kind: 0.0 for kind in kinds}
+    faster = {}
+    for model, shapes in {**Q4_SHAPES, **Q4_EDGE_SHAPES}.items():
+        for k, n in shapes:
+            raw = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+            scales = torch.rand((k // Q4_GROUP, n), generator=g, device=dev) * 0.02 + 1e-3
+            nbytes = raw.numel() + scales.numel() * 4
+            copies = [(raw.clone(), scales.clone()) for _ in range(cold_copies(nbytes) - 1)]
+            copies.append((raw, scales))
+            for r in Q4_ROWS + Q4_EXTRA_ROWS:
+                x = torch.randn((r, k), generator=g, device=dev).to(torch.bfloat16)
+                timed = {}
+                for kind, (kernel, plain, unpack) in kinds.items():
+                    codes = raw.view(torch.uint8) if kind == "nf4" else raw
+                    w = (unpack(codes).to(torch.bfloat16)
+                         * torch.repeat_interleave(scales, Q4_GROUP, 0).to(torch.bfloat16)).float()
                     got, ref = kernel(x, codes, scales), plain(x, codes, scales)
                     absref = x.float().abs() @ w.abs()
+                    del w
                     ratio = float(((got - ref).abs() / (absref + 1e-30)).max())
                     if not ratio <= Q4_RTOL or not bool(torch.isfinite(got).all()):
                         raise AssertionError(f"{kind} {k}→{n} R={r}: kernel differs from the plain "
                                              f"version by {ratio}·Σ|x·w| (limit {Q4_RTOL})")
-                    worst = max(worst, float((got - ref).abs().max()))
+                    worst[kind] = max(worst[kind], float((got - ref).abs().max()))
                     it = iter(range(1 << 30))
 
-                    def run():
-                        c, s = copies[next(it) % len(copies)]
-                        kernel(x, c, s)
+                    def run(kernel=kernel, kind=kind, it=it):
+                        c, sc = copies[next(it) % len(copies)]
+                        kernel(x, c.view(torch.uint8) if kind == "nf4" else c, sc)
 
-                    wall_ms = device_ms(dev, run, iters=max(20, len(copies)), warmup=3)
-                    ms = kernel_device_ms(run, max(20, len(copies)), ("q4_matmul_kernel",
-                                                                     "q4_split_sum_kernel"))
-                    plain_ms = device_ms(dev, lambda: plain(x, codes, scales), iters=3)
-                    gs = Q4_GROUP
+                    timed[kind] = run
+                    row = {"max_abs_err": float((got - ref).abs().max()), "err_over_abs_sum": ratio}
+                    if r in Q4_ROWS:
+                        row["wall_ms_per_call"] = device_ms(dev, run, iters=max(20, len(copies)),
+                                                            warmup=3)
+                        row["plain_ms"] = device_ms(dev, lambda: plain(x, codes, scales), iters=3)
 
-                    def library():  # dequantize, then torch.matmul in bf16
-                        wd = (unpack(codes).float().view(k // gs, gs, n)
-                              * scales[:, None, :]).view(k, n).to(torch.bfloat16)
-                        return torch.matmul(x, wd)
+                        def library(codes=codes, unpack=unpack):  # dequantize, then matmul in bf16
+                            wd = (unpack(codes).float().view(k // Q4_GROUP, Q4_GROUP, n)
+                                  * scales[:, None, :]).view(k, n).to(torch.bfloat16)
+                            return torch.matmul(x, wd)
 
-                    library_ms = device_ms(dev, library, iters=5)
-                    b = bound(nbytes + x.numel() * 2 + r * n * 4, 2.0 * r * k * n,
-                              PEAK_BF16_OPS_PER_S)
-                    per_shape[f"{model} {k}->{n} R={r}"] = {
-                        "ms": wall_ms if ms is None else ms, "device_ms": ms,
-                        "wall_ms_per_call": wall_ms, "plain_ms": plain_ms, "library_composition_ms": library_ms,
-                        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                        "max_abs_err": float((got - ref).abs().max()), "err_over_abs_sum": ratio,
-                        "ksplit": qgemm.q4_split_k(k // 2, n, r, Q4_GROUP // 2,
-                                                   qgemm._sm_count(dev))}
-                del copies, w
-        step = list(Q4_STEP_1B) * 16 + [(2048, 32000)]  # 113 launches per 1b decode step
+                        row["library_composition_ms"] = device_ms(dev, library, iters=5)
+                    per_shape[kind][f"{model} {k}->{n} R={r}"] = row
+                # in turns on the same codes: kernel 8, 9, 9, 8
+                iters = max(20, len(copies))
+                turns = {kind: [] for kind in kinds}
+                for kind in ("int4", "nf4", "nf4", "int4"):
+                    turns[kind].append(kernel_device_ms(timed[kind], iters, Q4_KERNELS[kind]))
+                b = bound(nbytes + x.numel() * 2 + r * n * 4, 2.0 * r * k * n, PEAK_BF16_OPS_PER_S)
+                key = f"{model} {k}->{n} R={r}"
+                for kind in kinds:
+                    got_turns = [t for t in turns[kind] if t is not None]
+                    ms = sum(got_turns) / len(got_turns) if got_turns else None
+                    row = per_shape[kind][key]
+                    if ms is None and "wall_ms_per_call" not in row:
+                        row["wall_ms_per_call"] = device_ms(dev, timed[kind], iters=iters, warmup=3)
+                    row.update({"ms": ms if ms is not None else row["wall_ms_per_call"],
+                                "device_ms": ms, "turns_ms": turns[kind],
+                                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
+                plan = qgemm.nf4_plan(r, k // 2, n, Q4_GROUP // 2, sm_count(dev))
+                per_shape["nf4"][key]["plan"] = {**plan._asdict(), "blocks": plan.blocks(n)}
+                per_shape["int4"][key]["ksplit"] = qgemm.q4_split_k(k // 2, n, r, Q4_GROUP // 2,
+                                                                   sm_count(dev))
+                if model != "edge" and r in Q4_ROWS:
+                    faster[key] = per_shape["nf4"][key]["ms"] < per_shape["int4"][key]["ms"]
+            del copies
+    step = list(Q4_STEP_1B) * 16 + [(2048, 32000)]  # 113 launches per 1b decode step
+    out = {"plan_sweep": nf4_plan_sweep(dev, g)}
+    for kind in kinds:
+        def step_sum(key, kind=kind):
+            return sum(per_shape[kind][f"1b {k}->{n} R=8"][key] for k, n in step)
 
-        def step_sum(key):
-            return sum(per_shape[f"1b {k}->{n} R=8"][key] for k, n in step)
-
-        out[kind] = {"max_abs_err": worst, "ms": step_sum("ms") / len(step),
+        out[kind] = {"max_abs_err": worst[kind], "ms": step_sum("ms") / len(step),
                      "plain_ms": step_sum("plain_ms") / len(step),
                      "library_composition_ms": step_sum("library_composition_ms") / len(step),
                      "bound_ms": step_sum("bound_ms") / len(step), "bound_by": "bytes",
                      "step_ms_at_r8": step_sum("ms"), "step_bound_ms_at_r8": step_sum("bound_ms"),
-                     "shapes": per_shape}
+                     "shapes": per_shape[kind]}
+    out["nf4_faster_than_int4"] = faster
     out["note"] = ("ms / plain_ms / bound_ms: mean per launch over one 1b decode step's 113 "
-                   "launches at R = 8; ms is the kernels' device time (torch.profiler; "
-                   "wall_ms_per_call is the host-bound call time by CUDA events); weights "
-                   "cycled through copies past the L2; tolerance "
+                   "launches at R = 8; ms is the kernels' device time (torch.profiler, every "
+                   "launch of the design; the mean of two turns, 8, 9, 9, 8, on the same code "
+                   "bytes; wall_ms_per_call is the host-bound call time by CUDA events); "
+                   "weights cycled through copies past the L2; tolerance "
                    f"|kernel − plain| ≤ {Q4_RTOL}·Σ|x·w|")
     out["library_composition"] = "dequantize to bf16 + torch.matmul: two steps, not one call"
     ph.info.update(out)
     return out
 
 
-def phase_kernel_decode_attn(ph: Phase, dev, seed: int) -> dict:
-    """Kernel 10 against its plain version at B ∈ {1, 8}, Hkv 8, G 2,
-    hd 128, S ∈ {2176, 4096}: left-padded partial masks, and one all-masked
-    row at B = 8 (exact zeros); ms (cache cold), plain and library ms, bound."""
+def attn_case(g, dev, b: int, hkv: int, grp: int, s: int, hd: int = 128):
+    """Random q, int8 cache and scales for decode attention."""
+    import torch
+
+    q = torch.randn((b, hkv, grp, hd), generator=g, device=dev)
+    kc = torch.randint(-127, 128, (b, hkv, s, hd), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    vc = torch.randint(-127, 128, (b, hkv, s, hd), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.int8)
+    ks = torch.rand((b, hkv, s), generator=g, device=dev) * 0.05 + 1e-3
+    vs = torch.rand((b, hkv, s), generator=g, device=dev) * 0.05 + 1e-3
+    return q, kc, ks, vc, vs
+
+
+def attn_check(ops, what: str, zero_rows=()) -> float:
+    """Kernel 10 against its plain version within ATTN_TOL·Σ|p·v|, exact
+    zeros on ``zero_rows``; returns the largest difference."""
     import torch
 
     from crs_tpu_torch.ops import decode_attention as da
+
+    q, kc, ks, vc, vs, valid = ops
+    hd = q.shape[-1]
+    got, ref = da.decode_attention_int8(*ops), da.emulate_decode_attention_int8(*ops)
+    scores = torch.einsum("bhgd,bhsd->bhgs", q.to(torch.bfloat16).float(), kc.float())
+    scores = torch.where(valid[:, None, None, :], scores * (ks[:, :, None, :] / hd ** 0.5), -1e30)
+    p = torch.softmax(scores, -1) * vs[:, :, None, :]
+    abs_sum = torch.einsum("bhgs,bhsd->bhgd", p.abs(), vc.float().abs())
+    excess = float(((got - ref).abs() - ATTN_TOL * abs_sum).max())
+    if excess > 0 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"decode attention {what}: kernel differs from the plain "
+                             f"version past {ATTN_TOL}·Σ|p·v| (by {excess})")
+    for r in zero_rows:
+        if bool(got[r].any()):
+            raise AssertionError(f"decode attention {what}: the all-masked row is not exact zeros")
+    return float((got - ref).abs().max())
+
+
+def phase_kernel_decode_attn(ph: Phase, dev, seed: int) -> dict:
+    """Kernel 10 against its plain version at B ∈ {1, 8}, Hkv 8, G 2,
+    hd 128, S ∈ {2176, 4096}: left-padded partial masks, and one all-masked
+    row at B = 8 (exact zeros); ms (cache cold; both launches), plain and
+    library ms, bound. Then G ∈ {1, 4, 8} × S ∈ {128, 2176, 4096} at B = 3:
+    a row valid only in a window that leaves whole chunks masked, an
+    all-masked row and a full row."""
+    import torch
+
+    from crs_tpu_torch.ops import decode_attention as da
+    from crs_tpu_torch.ops.launch import sm_count
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 7)
@@ -1383,13 +1526,7 @@ def phase_kernel_decode_attn(ph: Phase, dev, seed: int) -> dict:
     per_shape = {}
     worst = 0.0
     for b, s in ATTN_SHAPES:
-        q = torch.randn((b, hkv, grp, hd), generator=g, device=dev)
-        kc = torch.randint(-127, 128, (b, hkv, s, hd), generator=g, device=dev,
-                           dtype=torch.int32).to(torch.int8)
-        vc = torch.randint(-127, 128, (b, hkv, s, hd), generator=g, device=dev,
-                           dtype=torch.int32).to(torch.int8)
-        ks = torch.rand((b, hkv, s), generator=g, device=dev) * 0.05 + 1e-3
-        vs = torch.rand((b, hkv, s), generator=g, device=dev) * 0.05 + 1e-3
+        q, kc, ks, vc, vs = attn_case(g, dev, b, hkv, grp, s, hd)
         start = torch.randint(0, s // 2, (b,), generator=g, device=dev)
         length = torch.randint(s // 4, s // 2, (b,), generator=g, device=dev)
         pos = torch.arange(s, device=dev)[None, :]
@@ -1397,19 +1534,8 @@ def phase_kernel_decode_attn(ph: Phase, dev, seed: int) -> dict:
         if b > 1:
             valid[b // 2] = False  # a batch row with no valid slot
         ops = (q, kc, ks, vc, vs, valid)
-        got, ref = da.decode_attention_int8(*ops), da.emulate_decode_attention_int8(*ops)
-        scores = torch.einsum("bhgd,bhsd->bhgs", q.to(torch.bfloat16).float(), kc.float())
-        scores = torch.where(valid[:, None, None, :], scores * (ks[:, :, None, :] / hd ** 0.5),
-                             -1e30)
-        p = torch.softmax(scores, -1) * vs[:, :, None, :]
-        abs_sum = torch.einsum("bhgs,bhsd->bhgd", p.abs(), vc.float().abs())
-        excess = float(((got - ref).abs() - ATTN_TOL * abs_sum).max())
-        if excess > 0 or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"decode attention B={b} S={s}: kernel differs from the plain "
-                                 f"version past {ATTN_TOL}·Σ|p·v| (by {excess})")
-        if b > 1 and bool(got[b // 2].any()):
-            raise AssertionError("decode attention: the all-masked row is not exact zeros")
-        worst = max(worst, float((got - ref).abs().max()))
+        err = attn_check(ops, f"B={b} S={s}", zero_rows=(b // 2,) if b > 1 else ())
+        worst = max(worst, err)
         nbytes = 2 * (kc.numel() + ks.numel() * 4) + b * s * 4 + q.numel() * 4
         copies = [tuple(t.clone() for t in (kc, ks, vc, vs)) for _ in range(cold_copies(nbytes) - 1)]
         copies.append((kc, ks, vc, vs))
@@ -1420,7 +1546,9 @@ def phase_kernel_decode_attn(ph: Phase, dev, seed: int) -> dict:
             da.decode_attention_int8(q, c[0], c[1], c[2], c[3], valid)
 
         wall_ms = device_ms(dev, run, iters=max(20, len(copies)), warmup=3)
-        ms = kernel_device_ms(run, max(20, len(copies)), ("decode_attention_int8_kernel",))
+        ms = kernel_device_ms(run, max(20, len(copies)), ATTN_KERNELS)
+        launch_ms = {name: kernel_device_ms(run, max(20, len(copies)), (name,))
+                     for name in ("int8_scores_kernel", "int8_pv_kernel")}
         plain_ms = device_ms(dev, lambda: da.emulate_decode_attention_int8(*ops), iters=3)
         bias = torch.where(valid, 0.0, -1e30)[:, None, None, :]
 
@@ -1432,19 +1560,35 @@ def phase_kernel_decode_attn(ph: Phase, dev, seed: int) -> dict:
             return torch.einsum("bhgs,bhsd->bhgd", pr, vd)
 
         library_ms = device_ms(dev, library, iters=5)
-        bd = bound(nbytes + got.numel() * 4, 4.0 * b * hkv * grp * s * hd, PEAK_BF16_OPS_PER_S)
+        bd = bound(nbytes + q.numel() * 4, 4.0 * b * hkv * grp * s * hd, PEAK_BF16_OPS_PER_S)
+        rows, nchunk = da.split_plan(b * hkv, s, sm_count(dev))
         per_shape[f"B={b} S={s}"] = {"ms": wall_ms if ms is None else ms, "device_ms": ms,
                                      "wall_ms_per_call": wall_ms, "plain_ms": plain_ms,
                                      "library_composition_ms": library_ms,
                                      "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-                                     "max_abs_err": float((got - ref).abs().max())}
+                                     "max_abs_err": err, "chunk_rows": rows, "nchunk": nchunk,
+                                     "blocks": b * hkv * nchunk, "launch_ms": launch_ms}
         del copies
+    extra = {}
+    for grp_x, s in ATTN_EXTRA:
+        b = 3
+        q, kc, ks, vc, vs = attn_case(g, dev, b, hkv, grp_x, s, hd)
+        rows, nchunk = da.split_plan(b * hkv, s, sm_count(dev))
+        valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+        valid[1] = False  # no valid slot: exact zeros
+        valid[0] = False  # a window inside one chunk: every other chunk fully masked
+        lo = (nchunk // 2) * rows
+        valid[0, lo + 3:min(s, lo + rows) - 5] = True
+        err = attn_check((q, kc, ks, vc, vs, valid), f"G={grp_x} S={s}", zero_rows=(1,))
+        worst = max(worst, err)
+        extra[f"G={grp_x} S={s}"] = {"max_abs_err": err, "chunk_rows": rows, "nchunk": nchunk}
     main = per_shape["B=8 S=2176"]  # the generate phase's batch-8 shape
     out = {"max_abs_err": worst, **{k: main[k] for k in ("ms", "plain_ms", "library_composition_ms",
                                                            "bound_ms", "bound_by")},
-           "shapes": per_shape, "hkv": hkv, "group": grp, "head_dim": hd,
-           "note": f"kernel-table numbers at B=8, S=2176 (ms: the kernel's device time by "
-                   f"torch.profiler); tolerance |kernel − plain| ≤ "
+           "shapes": per_shape, "other_groups_b3": extra, "hkv": hkv, "group": grp,
+           "head_dim": hd,
+           "note": f"kernel-table numbers at B=8, S=2176 (ms: the device time of both "
+                   f"launches by torch.profiler); tolerance |kernel − plain| ≤ "
                    f"{ATTN_TOL}·Σ_s|p·v|; cache cycled through copies past the L2",
            "library_composition": "dequantize + einsum + softmax + einsum: not one call"}
     ph.info.update(out)
@@ -2040,7 +2184,8 @@ def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
                 state["logits"], state["cache"] = decode_step(params, cfg, token, state["cache"])
 
             decode_ms = device_ms(dev, step, iters=16, warmup=2)
-            step_profile = device_profile(step, decode_ms, top=6)
+            step_profile = device_profile(step, decode_ms, top=6, kernels={
+                kernel: Q4_KERNELS[kind], "decode_attention_int8": ATTN_KERNELS})
             # the first decode step: kernels against plain versions, same cache
             got, _ = decode_step(params, cfg, token, clone_cache(start))
             with plain_kernels():
@@ -2080,6 +2225,8 @@ def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
         torch.cuda.empty_cache()
     out["main_path_launches"] = launches
     out["note"] = ("decode_ms_per_token: CUDA events over 16 decode steps (host work included); "
+                   "decode_step_profile: one decode step under torch.profiler, kernels_ms its "
+                   "device ms by kernel; "
                    "prefill_ms: host clock around one prefill; generate_ms: one greedy "
                    "generate_batch of 64 tokens, prefill included")
     ph.info.update(out)

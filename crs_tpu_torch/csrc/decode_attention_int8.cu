@@ -4,29 +4,44 @@
 // decode_attention_int8 / _decode_attn_kernel. Per (batch row b, kv-head h),
 // with G query heads on that kv-head and head dim HD = 128:
 //   scores[g, s] = (Σ_d bf16(q[g, d]) · k[s, d]) · (k_scale[s] · scale) + bias[s]
-//   m = max_s scores, e = exp(scores − m), l = Σ_s e      (one pass, no rescaling)
+//   m = max_s scores, e = exp(scores − m), l = Σ_s e      (one global m and l)
 //   p[g, s] = bf16((e / max(l, 1e-30)) · v_scale[s])
 //   ctx[g, d] = Σ_s p[g, s] · v[s, d]                       (f32 sums)
 // k, v are the int8 codes [S, HD] (exact in bf16), bias is 0 for a valid slot
 // and -1e30 otherwise (additive, as the TPU kernel has it). The wrapper zeroes
 // the rows of a batch with no valid slot. Every product is exact in f32, so
 // the kernel differs from the plain version (ops/decode_attention.py
-// emulate_decode_attention_int8) in the order of the f32 sums, in exp's last
-// bit, and where either flips a bf16 rounding of p.
+// emulate_decode_attention_int8) in the order of the f32 sums (l included),
+// in exp's last bit, and where either flips a bf16 rounding of p.
 //
 // What bounds it on an H100: every step reads the whole cache once, so it is
 // bound by bytes: 2·B·Hkv·S·(HD + 4) cache bytes at 3.35 TB/s (B = 8, Hkv = 8,
-// S = 4096: 68 MB ≈ 20 µs).
+// S = 2176: 36.8 MB ≈ 11 µs).
 //
-// Design (simple and right first): one CUDA block of 256 threads per
-// (b, h), three passes over S with the [G, S] score rows in shared memory
-// (G = 2, S = 4096: 32 KB). Lanes 8r..8r+7 of a warp read one cached row as
-// 8 × 16 bytes, so a warp reads 4 whole rows per load and the 8 warps 32 rows.
-// Pass 1 forms the scores (dot over the 8 lanes by shuffles); pass 2 takes
-// max and sum per g by block reductions in a fixed order and overwrites the
-// scores with p; pass 3 accumulates p · v per lane, reduces over the 4 rows
-// of a warp by shuffles and over the 8 warps in warp order. One block per
-// (b, h) fills at most B·Hkv SMs: splitting S over blocks is later work.
+// Design (flash-decode, split over S): the wrapper cuts S into `nchunk`
+// chunks of `chunk_rows` rows (ops/decode_attention.py split_plan: at least
+// two blocks per SM at B = 1 as at B = 8), and two launches of one block of
+// 256 threads per (chunk, b·h) walk them:
+//   1. decode_attention_int8_scores_kernel — the chunk's scores [G, rows]
+//      (into shared memory and the `scores` scratch) and its statistics
+//      m_c = max, l_c = Σ exp(s − m_c) per query head. Lanes 8r..8r+7 of a
+//      warp read one cached row as 8 × 16 bytes, so a warp reads 4 rows per
+//      load and the 8 warps 32; each thread keeps 4 such loads in flight
+//      (2 for G = 8). More in flight held more registers and cost blocks
+//      per SM: 8 loads, or the whole chunk staged in shared memory with
+//      cp.async so load and compute no longer overlapped, both ran slower.
+//   2. decode_attention_int8_pv_kernel — first the chunk's V loads go out;
+//      then warp g forms m = max_c m_c and l = Σ_c l_c·exp(m_c − m) in chunk
+//      order (the same in every block), p exactly as above (normalised by
+//      the global l before its bf16 rounding: an online-softmax rescale
+//      would round un-normalised p, another function), and the chunk's
+//      partial ctx = Σ p·v, reduced over a warp's 4 rows by shuffles and
+//      over the 8 warps in warp order. The last block of a (b, h) — a
+//      self-resetting counter — adds the partials in chunk order. No float
+//      atomics: the result has the same bits on every run.
+// A chunk whose slots are all masked has m_c = -1e30 and l_c = its row
+// count; exp(m_c − m) is 0 against any valid chunk, so it drops out. The
+// whole cache is read, masked slots included.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +56,8 @@ constexpr int SEG = 16;                      // int8 values per lane per row (16
 constexpr int LANES_PER_ROW = HD / SEG;      // 8
 constexpr int ROWS_PER_WARP = 32 / LANES_PER_ROW;  // 4
 constexpr int ROWS_PER_STEP = WARPS * ROWS_PER_WARP;  // 32
+constexpr int MAX_CHUNK_ROWS = 1024;
+constexpr int MAX_CHUNKS = 128;              // 4 chunks' statistics per lane
 
 __device__ __forceinline__ float bf16_round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
@@ -54,109 +71,204 @@ __device__ __forceinline__ void unpack16(const int4 v, float (&out)[SEG]) {
         for (int t = 0; t < 4; ++t) out[4 * i + t] = (float)(int8_t)((uint32_t)w[i] >> (8 * t));
 }
 
-// reduce `v` over the block (max or sum) in a fixed order; every thread gets it
-template <bool MAX>
-__device__ float block_reduce(float v, float* scratch) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const float o = __shfl_xor_sync(0xffffffffu, v, off);
-        v = MAX ? fmaxf(v, o) : v + o;
-    }
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    __syncthreads();  // scratch may still be read from the previous reduction
-    if (lane == 0) scratch[warp] = v;
-    __syncthreads();
-    float r = scratch[0];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) r = MAX ? fmaxf(r, scratch[w]) : r + scratch[w];
-    return r;
-}
+// 16-byte loads in flight per thread: fewer for G = 8, whose sums take 128
+// registers
+template <int G>
+constexpr int LOADS_IN_FLIGHT = G >= 8 ? 2 : 4;
 
 template <int G>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_int8_kernel(const float* __restrict__ q,        // [B·Hkv, G, HD]
-                             const int8_t* __restrict__ k_codes, // [B·Hkv, S, HD]
-                             const float* __restrict__ k_scales, // [B·Hkv, S]
-                             const int8_t* __restrict__ v_codes,
-                             const float* __restrict__ v_scales,
-                             const float* __restrict__ bias,     // [B, S]
-                             float* __restrict__ out,            // [B·Hkv, G, HD]
-                             int hkv, int S, float scale) {
-    extern __shared__ __align__(16) float smem[];
-    float* sc = smem;                        // [G][S]: scores, then p
-    float* red = sc + G * S;                 // [WARPS][G][HD]
-    float* scratch = red + WARPS * G * HD;   // [WARPS]
-    const int bh = blockIdx.x;
+decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·Hkv, G, HD]
+                                    const int8_t* __restrict__ k_codes, // [B·Hkv, S, HD]
+                                    const float* __restrict__ k_scales, // [B·Hkv, S]
+                                    const float* __restrict__ bias,     // [B, S]
+                                    float* __restrict__ scores,         // [B·Hkv, G, S]
+                                    float* __restrict__ stats,          // [B·Hkv, nchunk, G, 2]
+                                    int hkv, int S, int chunk_rows, float scale) {
+    constexpr int U = LOADS_IN_FLIGHT<G>;
+    extern __shared__ __align__(16) float sc[];  // [G][chunk_rows]
+    const int c = blockIdx.x, nchunk = gridDim.x, bh = blockIdx.y;
     const int b = bh / hkv;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int rr = lane / LANES_PER_ROW, seg = lane % LANES_PER_ROW;
-    const size_t kv_base = (size_t)bh * S * HD;
-    const size_t s_base = (size_t)bh * S;
+    const int s0 = c * chunk_rows;
+    const int n = min(chunk_rows, S - s0);  // a multiple of 32
+    const int8_t* kb = k_codes + ((size_t)bh * S + s0) * HD + seg * SEG;
+    const float* ksb = k_scales + (size_t)bh * S + s0;
+    const float* bb = bias + (size_t)b * S + s0;
 
     float qr[G][SEG];
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int j = 0; j < SEG; ++j) qr[g][j] = bf16_round(q[((size_t)bh * G + g) * HD + seg * SEG + j]);
-
-    // pass 1: scores
-#pragma unroll 2
-    for (int s0 = 0; s0 < S; s0 += ROWS_PER_STEP) {
-        const int s = s0 + warp * ROWS_PER_WARP + rr;
-        float kv[SEG];
-        unpack16(__ldg(reinterpret_cast<const int4*>(k_codes + kv_base + (size_t)s * HD + seg * SEG)), kv);
-        float dot[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-            dot[g] = 0.f;
-#pragma unroll
-            for (int j = 0; j < SEG; ++j) dot[g] = fmaf(qr[g][j], kv[j], dot[g]);
-#pragma unroll
-            for (int off = LANES_PER_ROW / 2; off > 0; off >>= 1)
-                dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
+        for (int j = 0; j < SEG; j += 4) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(q + ((size_t)bh * G + g) * HD + seg * SEG + j));
+            qr[g][j] = bf16_round(v.x), qr[g][j + 1] = bf16_round(v.y);
+            qr[g][j + 2] = bf16_round(v.z), qr[g][j + 3] = bf16_round(v.w);
         }
-        if (seg == 0) {
-            const float ks = __fmul_rn(k_scales[s_base + s], scale);
-            const float bs = bias[(size_t)b * S + s];
+
+    for (int t0 = 0; t0 < n; t0 += U * ROWS_PER_STEP) {
+        int4 kv[U];
+        float ks[U], bs[U];
 #pragma unroll
-            for (int g = 0; g < G; ++g) sc[g * S + s] = __fadd_rn(__fmul_rn(dot[g], ks), bs);
+        for (int u = 0; u < U; ++u) {
+            const int row = t0 + u * ROWS_PER_STEP + warp * ROWS_PER_WARP + rr;
+            if (t0 + u * ROWS_PER_STEP < n) {
+                kv[u] = __ldg(reinterpret_cast<const int4*>(kb + (size_t)row * HD));
+                if (seg == 0) {
+                    ks[u] = __ldg(ksb + row);
+                    bs[u] = __ldg(bb + row);
+                }
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            if (t0 + u * ROWS_PER_STEP < n) {  // the same for every thread of the block
+                const int row = t0 + u * ROWS_PER_STEP + warp * ROWS_PER_WARP + rr;
+                float kf[SEG];
+                unpack16(kv[u], kf);
+                float dot[G];
+#pragma unroll
+                for (int g = 0; g < G; ++g) {
+                    dot[g] = 0.f;
+#pragma unroll
+                    for (int j = 0; j < SEG; ++j) dot[g] = fmaf(qr[g][j], kf[j], dot[g]);
+#pragma unroll
+                    for (int off = LANES_PER_ROW / 2; off > 0; off >>= 1)
+                        dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
+                }
+                if (seg == 0) {
+                    const float kss = __fmul_rn(ks[u], scale);
+#pragma unroll
+                    for (int g = 0; g < G; ++g)
+                        sc[g * chunk_rows + row] = __fadd_rn(__fmul_rn(dot[g], kss), bs[u]);
+                }
+            }
         }
     }
     __syncthreads();
 
-    // pass 2: softmax per query head; p overwrites the scores
-#pragma unroll 1
-    for (int g = 0; g < G; ++g) {
+    for (int i = tid; i < G * n; i += THREADS) {
+        const int g = i / n, j = i - g * n;
+        scores[((size_t)bh * G + g) * S + s0 + j] = sc[g * chunk_rows + j];
+    }
+    if (warp < G) {  // warp g: the chunk's max and sum of query head g
+        const float* row = sc + warp * chunk_rows;
         float m = __int_as_float(0xff800000);  // -inf
-        for (int s = tid; s < S; s += THREADS) m = fmaxf(m, sc[g * S + s]);
-        m = block_reduce<true>(m, scratch);
+        for (int i = lane; i < n; i += 32) m = fmaxf(m, row[i]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
         float l = 0.f;
-        for (int s = tid; s < S; s += THREADS) l += expf(__fsub_rn(sc[g * S + s], m));
-        l = block_reduce<false>(l, scratch);
-        const float den = fmaxf(l, 1e-30f);
-        for (int s = tid; s < S; s += THREADS) {
-            const float e = expf(__fsub_rn(sc[g * S + s], m));
-            sc[g * S + s] = bf16_round(__fmul_rn(__fdiv_rn(e, den), v_scales[s_base + s]));
+        for (int i = lane; i < n; i += 32) l += expf(__fsub_rn(row[i], m));
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+        if (lane == 0) {
+            float* st = stats + (((size_t)bh * nchunk + c) * G + warp) * 2;
+            st[0] = m;
+            st[1] = l;
+        }
+    }
+}
+
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, G, S]
+                                const float* __restrict__ stats,    // [B·Hkv, nchunk, G, 2]
+                                const int8_t* __restrict__ v_codes, // [B·Hkv, S, HD]
+                                const float* __restrict__ v_scales, // [B·Hkv, S]
+                                float* __restrict__ partials,       // [B·Hkv, nchunk, G, HD]
+                                int* __restrict__ counters,         // [B·Hkv], zero between launches
+                                float* __restrict__ out,            // [B·Hkv, G, HD]
+                                int S, int chunk_rows) {
+    constexpr int U = LOADS_IN_FLIGHT<G>;
+    extern __shared__ __align__(16) float smem[];
+    float* p = smem;                     // [G][chunk_rows]
+    float* red = p + G * chunk_rows;     // [WARPS][G][HD]
+    __shared__ float m_s[G], den_s[G];
+    __shared__ int last_block;
+    const int c = blockIdx.x, nchunk = gridDim.x, bh = blockIdx.y;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int rr = lane / LANES_PER_ROW, seg = lane % LANES_PER_ROW;
+    const int s0 = c * chunk_rows;
+    const int n = min(chunk_rows, S - s0);
+    const int8_t* vb = v_codes + ((size_t)bh * S + s0) * HD + seg * SEG;
+    const int lrow = warp * ROWS_PER_WARP + rr;
+
+    // the first V loads go out before the softmax work
+    int4 vv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+        if (u * ROWS_PER_STEP < n)
+            vv[u] = __ldg(reinterpret_cast<const int4*>(vb + (size_t)(u * ROWS_PER_STEP + lrow) * HD));
+
+    if (warp < G) {  // warp g: the global m and l of query head g
+        float mc[MAX_CHUNKS / 32], t[MAX_CHUNKS / 32];
+        float m = __int_as_float(0xff800000);
+#pragma unroll
+        for (int j = 0; j < MAX_CHUNKS / 32; ++j) {
+            const int cc = lane + 32 * j;
+            mc[j] = m;
+            t[j] = 0.f;
+            if (cc < nchunk) {
+                const float* st = stats + (((size_t)bh * nchunk + cc) * G + warp) * 2;
+                mc[j] = st[0];
+                t[j] = st[1];
+                m = fmaxf(m, mc[j]);
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+#pragma unroll
+        for (int j = 0; j < MAX_CHUNKS / 32; ++j)
+            if (lane + 32 * j < nchunk) t[j] = __fmul_rn(t[j], expf(__fsub_rn(mc[j], m)));
+        float l = 0.f;  // Σ_c l_c·exp(m_c − m), in chunk order
+#pragma unroll
+        for (int j = 0; j < MAX_CHUNKS / 32; ++j) {
+            if (32 * j >= nchunk) break;
+            for (int i = 0; i < 32 && 32 * j + i < nchunk; ++i)
+                l = __fadd_rn(l, __shfl_sync(0xffffffffu, t[j], i));
+        }
+        if (lane == 0) {
+            m_s[warp] = m;
+            den_s[warp] = fmaxf(l, 1e-30f);
         }
     }
     __syncthreads();
+#pragma unroll 4
+    for (int i = tid; i < G * n; i += THREADS) {
+        const int g = i / n, j = i - g * n;
+        const float e = expf(__fsub_rn(scores[((size_t)bh * G + g) * S + s0 + j], m_s[g]));
+        p[g * chunk_rows + j] =
+            bf16_round(__fmul_rn(__fdiv_rn(e, den_s[g]), __ldg(v_scales + (size_t)bh * S + s0 + j)));
+    }
+    __syncthreads();
 
-    // pass 3: ctx = p · v
     float acc[G][SEG];
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int j = 0; j < SEG; ++j) acc[g][j] = 0.f;
-#pragma unroll 2
-    for (int s0 = 0; s0 < S; s0 += ROWS_PER_STEP) {
-        const int s = s0 + warp * ROWS_PER_WARP + rr;
-        float vv[SEG];
-        unpack16(__ldg(reinterpret_cast<const int4*>(v_codes + kv_base + (size_t)s * HD + seg * SEG)), vv);
+    for (int t0 = 0; t0 < n; t0 += U * ROWS_PER_STEP) {
+        if (t0 > 0) {
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-            const float p = sc[g * S + s];
+            for (int u = 0; u < U; ++u)
+                if (t0 + u * ROWS_PER_STEP < n)
+                    vv[u] = __ldg(reinterpret_cast<const int4*>(
+                        vb + (size_t)(t0 + u * ROWS_PER_STEP + lrow) * HD));
+        }
 #pragma unroll
-            for (int j = 0; j < SEG; ++j) acc[g][j] = fmaf(p, vv[j], acc[g][j]);
+        for (int u = 0; u < U; ++u) {
+            if (t0 + u * ROWS_PER_STEP < n) {
+                const int row = t0 + u * ROWS_PER_STEP + lrow;
+                float vf[SEG];
+                unpack16(vv[u], vf);
+#pragma unroll
+                for (int g = 0; g < G; ++g) {
+                    const float pg = p[g * chunk_rows + row];
+#pragma unroll
+                    for (int j = 0; j < SEG; ++j) acc[g][j] = fmaf(pg, vf[j], acc[g][j]);
+                }
+            }
         }
     }
 #pragma unroll
@@ -173,28 +285,57 @@ decode_attention_int8_kernel(const float* __restrict__ q,        // [B·Hkv, G, 
             for (int j = 0; j < SEG; ++j) red[(warp * G + g) * HD + seg * SEG + j] = acc[g][j];
     }
     __syncthreads();
-    for (int idx = tid; idx < G * HD; idx += THREADS) {
-        const int g = idx / HD, d = idx - g * HD;
+    float* dst = nchunk == 1 ? out + (size_t)bh * G * HD
+                             : partials + ((size_t)bh * nchunk + c) * G * HD;
+    for (int i = tid; i < G * HD; i += THREADS) {
         float s = 0.f;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += red[(w * G + g) * HD + d];
-        out[((size_t)bh * G + g) * HD + d] = s;
+        for (int w = 0; w < WARPS; ++w) s += red[w * G * HD + i];
+        dst[i] = s;
     }
+    if (nchunk == 1) return;
+
+    // the last block of this (b, h) adds the chunks' partials in chunk order
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_block = atomicAdd(counters + bh, 1) == nchunk - 1;
+    __syncthreads();
+    if (!last_block) return;
+    __threadfence();
+    const float* part = partials + (size_t)bh * nchunk * G * HD;
+    for (int i = tid; i < G * HD; i += THREADS) {
+        float s = 0.f;
+#pragma unroll 8
+        for (int cc = 0; cc < nchunk; ++cc) s += __ldcg(part + (size_t)cc * G * HD + i);
+        out[(size_t)bh * G * HD + i] = s;
+    }
+    if (tid == 0) counters[bh] = 0;
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int G>
-int launch_g(int blocks, int hkv, int S, float scale, cudaStream_t stream, const float* q,
-             const int8_t* kc, const float* ks, const int8_t* vc, const float* vs,
-             const float* bias, float* out) {
-    const size_t smem = sizeof(float) * ((size_t)G * S + (size_t)WARPS * G * HD + WARPS);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(decode_attention_int8_kernel<G>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    decode_attention_int8_kernel<G><<<blocks, THREADS, smem, stream>>>(
-        q, kc, ks, vc, vs, bias, out, hkv, S, scale);
+int launch_g(int bh, int nchunk, int hkv, int S, int chunk_rows, float scale,
+             cudaStream_t stream, const float* q, const int8_t* kc, const float* ks,
+             const int8_t* vc, const float* vs, const float* bias, float* scores, float* stats,
+             float* partials, int* counters, float* out) {
+    const dim3 grid(nchunk, bh);
+    const size_t smem_scores = sizeof(float) * G * chunk_rows;
+    const size_t smem_pv = sizeof(float) * ((size_t)G * chunk_rows + (size_t)WARPS * G * HD);
+    int e = allow_smem(decode_attention_int8_scores_kernel<G>, smem_scores);
+    if (e) return e;
+    e = allow_smem(decode_attention_int8_pv_kernel<G>, smem_pv);
+    if (e) return e;
+    decode_attention_int8_scores_kernel<G><<<grid, THREADS, smem_scores, stream>>>(
+        q, kc, ks, bias, scores, stats, hkv, S, chunk_rows, scale);
+    e = (int)cudaGetLastError();
+    if (e) return e;
+    decode_attention_int8_pv_kernel<G><<<grid, THREADS, smem_pv, stream>>>(
+        scores, stats, vc, vs, partials, counters, out, S, chunk_rows);
     return (int)cudaGetLastError();
 }
 
@@ -203,14 +344,21 @@ int launch_g(int blocks, int hkv, int S, float scale, cudaStream_t stream, const
 extern "C" int decode_attention_int8_head_dim() { return HD; }
 
 // q [B·Hkv, G, 128] f32; k/v codes [B·Hkv, S, 128] int8; k/v scales
-// [B·Hkv, S] f32; bias [B, S] f32; out [B·Hkv, G, 128] f32. S a multiple of
-// 32 (the wrapper asks 128). Returns the CUDA error of the launch.
+// [B·Hkv, S] f32; bias [B, S] f32; scratch: scores [B·Hkv, G, S] f32, stats
+// [B·Hkv, nchunk, G, 2] f32, partials [B·Hkv, nchunk, G, 128] f32, counters
+// [B·Hkv] int32 (zero; left zero); out [B·Hkv, G, 128] f32. S and
+// chunk_rows multiples of 32, chunk_rows ≤ 1024, nchunk = ⌈S / chunk_rows⌉
+// ≤ 128. Returns the CUDA error of the launches.
 extern "C" int decode_attention_int8_launch(const void* q, const void* k_codes,
                                             const void* k_scales, const void* v_codes,
-                                            const void* v_scales, const void* bias, void* out,
-                                            int blocks, int hkv, int G, int S, float scale,
+                                            const void* v_scales, const void* bias,
+                                            void* scores, void* stats, void* partials,
+                                            void* counters, void* out, int bh, int hkv, int G,
+                                            int S, int chunk_rows, int nchunk, float scale,
                                             void* stream) {
-    if (blocks < 1 || hkv < 1 || blocks % hkv || S < ROWS_PER_STEP || S % ROWS_PER_STEP)
+    if (bh < 1 || hkv < 1 || bh % hkv || S < ROWS_PER_STEP || S % ROWS_PER_STEP ||
+        chunk_rows < ROWS_PER_STEP || chunk_rows % ROWS_PER_STEP || chunk_rows > MAX_CHUNK_ROWS ||
+        nchunk < 1 || nchunk > MAX_CHUNKS || nchunk != (S + chunk_rows - 1) / chunk_rows)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const auto* qf = static_cast<const float*>(q);
@@ -219,12 +367,16 @@ extern "C" int decode_attention_int8_launch(const void* q, const void* k_codes,
     const auto* vc = static_cast<const int8_t*>(v_codes);
     const auto* vs = static_cast<const float*>(v_scales);
     const auto* bs = static_cast<const float*>(bias);
+    auto* sc = static_cast<float*>(scores);
+    auto* sa = static_cast<float*>(stats);
+    auto* pp = static_cast<float*>(partials);
+    auto* ct = static_cast<int*>(counters);
     auto* o = static_cast<float*>(out);
     switch (G) {
-        case 1: return launch_g<1>(blocks, hkv, S, scale, st, qf, kc, ks, vc, vs, bs, o);
-        case 2: return launch_g<2>(blocks, hkv, S, scale, st, qf, kc, ks, vc, vs, bs, o);
-        case 4: return launch_g<4>(blocks, hkv, S, scale, st, qf, kc, ks, vc, vs, bs, o);
-        case 8: return launch_g<8>(blocks, hkv, S, scale, st, qf, kc, ks, vc, vs, bs, o);
+        case 1: return launch_g<1>(bh, nchunk, hkv, S, chunk_rows, scale, st, qf, kc, ks, vc, vs, bs, sc, sa, pp, ct, o);
+        case 2: return launch_g<2>(bh, nchunk, hkv, S, chunk_rows, scale, st, qf, kc, ks, vc, vs, bs, sc, sa, pp, ct, o);
+        case 4: return launch_g<4>(bh, nchunk, hkv, S, chunk_rows, scale, st, qf, kc, ks, vc, vs, bs, sc, sa, pp, ct, o);
+        case 8: return launch_g<8>(bh, nchunk, hkv, S, chunk_rows, scale, st, qf, kc, ks, vc, vs, bs, sc, sa, pp, ct, o);
         default: return (int)cudaErrorInvalidValue;
     }
 }

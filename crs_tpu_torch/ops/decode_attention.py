@@ -12,15 +12,18 @@ with ``bias`` 0 for a valid slot and -1e30 for any other, a one-pass
 softmax, f32 sums, and exact zeros for a batch row with no valid slot.
 
 :func:`decode_attention_int8` is the wrapper of the CUDA kernel in
-``csrc/decode_attention_int8.cu``. On a CUDA tensor it launches the kernel
-or raises; on a CPU tensor it runs :func:`emulate_decode_attention_int8`,
-the plain torch version beside it (a literal mirror of ``crs_tpu``'s
+``csrc/decode_attention_int8.cu``: two launches over S cut into chunks by
+:func:`split_plan` (``decode_attention_int8_scores_kernel``, then
+``decode_attention_int8_pv_kernel``). On a CUDA tensor it launches them or
+raises; on a CPU tensor it runs :func:`emulate_decode_attention_int8`, the
+plain torch version beside it (a literal mirror of ``crs_tpu``'s
 emulation). There is no ``mesh`` argument: multi-device serving is not
 ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -28,11 +31,12 @@ import numpy as np
 import torch
 
 from .launch import ARG_FLOAT, ARG_INT, ARG_PTR, KernelStats, check_operands, launch, \
-    load_library, stream_handle
+    load_library, scratch, sm_count, stream_handle
 
 __all__ = [
     "STATS", "quantize_kv_rows", "decode_attention_supported", "decode_attention_int8",
-    "emulate_decode_attention_int8", "KERNEL_HEAD_DIM", "KERNEL_GROUPS",
+    "emulate_decode_attention_int8", "split_plan", "KERNEL_HEAD_DIM", "KERNEL_GROUPS",
+    "ROWS_PER_STEP", "MAX_CHUNK_ROWS", "MAX_CHUNKS",
 ]
 
 NEG_INF = -1e30
@@ -42,8 +46,13 @@ _SOURCE = "decode_attention_int8.cu"
 _LAUNCHER = "decode_attention_int8_launch"
 KERNEL_HEAD_DIM = 128  # the CUDA kernel's head dim
 KERNEL_GROUPS = (1, 2, 4, 8)  # query heads per kv-head the kernel is built for
-_SMEM_LIMIT = 232448  # bytes of shared memory one CUDA block may use (H100)
-_WARPS = 8
+# the chunks of S (csrc/decode_attention_int8.cu): a multiple of the 32 rows
+# a block reads per step, at most 1,024 rows (the scores and p of a chunk sit
+# in shared memory) and at most 128 chunks (a warp holds their statistics)
+ROWS_PER_STEP = 32
+MAX_CHUNK_ROWS = 1024
+MAX_CHUNKS = 128
+_BLOCKS_PER_SM = 2
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))  # XLA's x / 127 under jit
 
 
@@ -81,8 +90,24 @@ def emulate_decode_attention_int8(q, k_codes, k_scales, v_codes, v_scales, valid
     return torch.einsum("bhgs,bhsd->bhgd", pv, v_codes.float())
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(bh: int, s: int, sm_count: int) -> Tuple[int, int]:
+    """(chunk_rows, nchunk): S cut into chunks so the grid of B·Hkv × nchunk
+    blocks gives every SM ``_BLOCKS_PER_SM`` blocks where S allows it, the
+    chunks as even as multiples of 32 rows make them."""
+    want = -(-_BLOCKS_PER_SM * sm_count // bh)
+    rows = max(ROWS_PER_STEP, s // want // ROWS_PER_STEP * ROWS_PER_STEP)
+    rows = min(max(rows, _round_up(-(-s // MAX_CHUNKS), ROWS_PER_STEP)), MAX_CHUNK_ROWS)
+    rows = _round_up(-(-s // -(-s // rows)), ROWS_PER_STEP)  # even out the last chunk
+    return rows, -(-s // rows)
+
+
 def _load():
-    return load_library(_SOURCE, {_LAUNCHER: [ARG_PTR] * 7 + [ARG_INT] * 4 + [ARG_FLOAT]
+    return load_library(_SOURCE, {_LAUNCHER: [ARG_PTR] * 11 + [ARG_INT] * 6 + [ARG_FLOAT]
                                   + [ARG_PTR]})
 
 
@@ -111,9 +136,8 @@ def decode_attention_int8(
         raise ValueError(f"the kernel takes {KERNEL_GROUPS} query heads per kv-head, got {g}")
     if s % 128 or s < 128:
         raise ValueError(f"the cache length must be a positive multiple of 128, got {s}")
-    smem = 4 * (g * s + _WARPS * g * hd + _WARPS)  # scores, warp sums, scratch
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S = {s} needs {smem} bytes of shared memory, past {_SMEM_LIMIT}")
+    if s > MAX_CHUNKS * MAX_CHUNK_ROWS:
+        raise ValueError(f"the kernel takes S ≤ {MAX_CHUNKS * MAX_CHUNK_ROWS}, got {s}")
     for name, t, shape in (("k_codes", k_codes, (b, hkv, s, hd)), ("v_codes", v_codes, (b, hkv, s, hd)),
                            ("k_scales", k_scales, (b, hkv, s)), ("v_scales", v_scales, (b, hkv, s)),
                            ("valid", valid, (b, s))):
@@ -124,11 +148,19 @@ def decode_attention_int8(
     check_operands(dev, ("q", qf, torch.float32), ("k_codes", k_codes, torch.int8),
                    ("k_scales", k_scales, torch.float32), ("v_codes", v_codes, torch.int8),
                    ("v_scales", v_scales, torch.float32), ("bias", bias, torch.float32))
+    bh = b * hkv
+    rows, nchunk = split_plan(bh, s, sm_count(dev))
+    stream = stream_handle(dev)
+    scores = scratch(dev, stream, "attn_scores", bh * g * s, torch.float32)
+    stats = scratch(dev, stream, "attn_stats", bh * nchunk * g * 2, torch.float32)
+    partials = scratch(dev, stream, "attn_partials", bh * nchunk * g * hd, torch.float32)
+    counters = scratch(dev, stream, "attn_counters", bh, torch.int32, zero=True)
     out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=dev)
     launch(STATS, "decode_attention_int8", getattr(_load(), _LAUNCHER),
            qf.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(), v_codes.data_ptr(),
-           v_scales.data_ptr(), bias.data_ptr(), out.data_ptr(), b * hkv, hkv, g, s,
-           float(np.float32(1.0 / math.sqrt(hd))), stream_handle(dev))
+           v_scales.data_ptr(), bias.data_ptr(), scores.data_ptr(), stats.data_ptr(),
+           partials.data_ptr(), counters.data_ptr(), out.data_ptr(), bh, hkv, g, s, rows,
+           nchunk, float(np.float32(1.0 / math.sqrt(hd))), stream)
     # a row with no valid slot softmaxes the bias into garbage: exact zeros
     any_valid = (valid != 0).any(dim=1).to(out.dtype)
     return out * any_valid[:, None, None, None]

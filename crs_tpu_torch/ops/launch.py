@@ -4,7 +4,9 @@ Each source in ``csrc/`` is one shared library with a plain C interface: a
 ``<kernel>_launch`` function per kernel that enqueues it on the given stream
 and returns the CUDA error code. The library is built at first use
 (``_build.build_cuda``) and bound with ``ctypes``. A wrapper counts a launch
-only after its launcher returned 0.
+only after its launcher returned 0. Scratch that a kernel keeps between its
+blocks (partial sums, self-resetting counters) is allocated once per device
+and stream and grown when a call needs more (:func:`scratch`).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Callable, Dict, Sequence
 import torch
 
 __all__ = ["KernelStats", "load_library", "stream_handle", "check_operands", "launch",
-           "ARG_INT", "ARG_PTR", "ARG_FLOAT"]
+           "scratch", "sm_count", "ARG_INT", "ARG_PTR", "ARG_FLOAT"]
 
 ARG_INT, ARG_PTR, ARG_FLOAT = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 
@@ -55,6 +57,35 @@ def load_library(source: str, launchers: Dict[str, Sequence]) -> ctypes.CDLL:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's number of streaming multiprocessors."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+_scratch: Dict[tuple, torch.Tensor] = {}
+
+
+def scratch(dev: torch.device, stream: int, name: str, numel: int, dtype: torch.dtype,
+            zero: bool = False) -> torch.Tensor:
+    """A flat buffer of at least ``numel`` elements kept for (device, stream,
+    name) and reused by every later call: no allocation or memset on the hot
+    path. ``zero`` buffers (the kernels' counters) are zeroed when they are
+    allocated, and the kernels leave them zero. Work on one stream is
+    ordered, so reuse there is safe; another stream gets its own buffer."""
+    key = (dev, stream, name)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < numel or buf.dtype != dtype:
+        make = torch.zeros if zero else torch.empty
+        buf = _scratch[key] = make((max(numel, 1),), dtype=dtype, device=dev)
+    return buf
 
 
 def check_operands(dev: torch.device, *specs) -> None:

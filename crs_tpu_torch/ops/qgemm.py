@@ -14,8 +14,10 @@ every product of two bf16 values is exact in f32, so kernel and plain
 version differ only in the order of the f32 sums.
 
 :func:`q4_matmul` and :func:`nf4_matmul` are the wrappers of the CUDA
-kernels in ``csrc/q4_matmul.cu``. On a CUDA tensor they launch the kernel or
-raise; on a CPU tensor they run :func:`emulate_q4_matmul` /
+kernels in ``csrc/q4_matmul.cu`` (``q4_matmul_kernel``, and the tensor-core
+``nf4_mma_kernel`` with its planner :func:`nf4_plan` and dequant table
+:func:`nf4_byte_table`). On a CUDA tensor they launch the kernel or raise;
+on a CPU tensor they run :func:`emulate_q4_matmul` /
 :func:`emulate_nf4_matmul`, the plain torch versions beside them (literal
 mirrors of ``crs_tpu``'s emulations). ``qmatmul`` takes them when
 :func:`q4_pallas_supported` says so, exactly where ``crs_tpu`` takes its
@@ -24,17 +26,19 @@ Pallas kernels.
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
 from .launch import ARG_INT, ARG_PTR, KernelStats, check_operands, launch, load_library, \
-    stream_handle
+    sm_count, stream_handle
 
 __all__ = [
     "NF4_LEVELS", "STATS", "q4_pallas_supported", "q4_matmul", "nf4_matmul",
-    "emulate_q4_matmul", "emulate_nf4_matmul", "q4_split_k",
+    "emulate_q4_matmul", "emulate_nf4_matmul", "q4_split_k", "Nf4Plan", "nf4_plan",
+    "nf4_byte_table", "NF4_MAX_SPLIT", "NF4_BLOCKS_PER_SM", "NF4_WIDE_N",
 ]
 
 # bitsandbytes' NF4 codebook: the 16 quantile-optimal levels of a standard
@@ -51,11 +55,23 @@ STATS = KernelStats()
 
 _SOURCE = "q4_matmul.cu"
 _LAUNCHER = "q4_matmul_launch"
+_NF4_LAUNCHER = "nf4_matmul_launch"
 TILE_N = 128  # output columns per CUDA block (csrc/q4_matmul.cu)
 MAX_ROWS = 64  # decode-sized row counts: qmatmul's gate
 _TARGET_BLOCKS_PER_SM = 2
-_sm_counts: Dict[int, int] = {}
-_levels: Dict[torch.device, torch.Tensor] = {}
+# nf4_mma_kernel: packed rows per k16 step, and the most K slices (one
+# thread-block cluster of the portable size adds them)
+NF4_STEP_ROWS = 8
+NF4_MAX_SPLIT = 8
+# the grid the planner aims at: a sweep of widths and K splits over the 1b
+# decode step's shapes at R = 8 on the H100 (chip_smoke.py kernel_q4,
+# "plan_sweep") ran fastest near 3/4 of a block per SM, one wave with room
+NF4_BLOCKS_PER_SM = 0.75
+# from this N up, R > 32 puts the block's warps side by side along N (at
+# R = 64 on the H100: lm_head 2048 → 32000 and 4096 → 14336 ran faster so,
+# 2048 → 5632 and 14336 → 4096 slower; chip_smoke.py kernel_q4)
+NF4_WIDE_N = 8192
+_tables: Dict[torch.device, torch.Tensor] = {}
 
 
 def _tile_config(k2: int, n: int, g: int):
@@ -125,9 +141,9 @@ def emulate_nf4_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tens
 # -- the kernels' wrappers ----------------------------------------------------------
 
 def q4_split_k(k2: int, n: int, rows: int, gs2: int, sm_count: int) -> int:
-    """Split the K loop over this many CUDA blocks (each sums a K slice into
-    its own partial, a second pass adds them in order) so a decode-sized
-    product still fills the card: the smallest power of two that gives
+    """Kernel 8's K split: each CUDA block sums a K slice into its own
+    partial and a second pass adds them in order, so a decode-sized product
+    still fills the card: the smallest power of two that gives
     ``_TARGET_BLOCKS_PER_SM`` blocks per SM, while each slice keeps at least
     one group of packed rows and divides K/2 evenly."""
     rt = 8 if rows > 4 else max(1, 1 << (rows - 1).bit_length())
@@ -139,26 +155,81 @@ def q4_split_k(k2: int, n: int, rows: int, gs2: int, sm_count: int) -> int:
     return split
 
 
-def _sm_count(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sm_counts[idx]
+class Nf4Plan(NamedTuple):
+    """How ``nf4_mma_kernel`` covers an [R, K] × [K/2, N] product: ``n_tiles``
+    tiles of 8 rows of x, ``width`` bytes of a packed row per thread (so
+    8·width columns per warp), ``warps_n`` of a block's 8 warps side by side
+    along N (the others along K), and K cut into ``ksplit`` slices of
+    ``slice_rows`` packed rows (whole groups; the last may be shorter), the
+    blocks of a column slab's slices forming one cluster."""
+    n_tiles: int
+    width: int
+    ksplit: int
+    slice_rows: int
+    warps_n: int = 1
+
+    @property
+    def block_cols(self) -> int:
+        return 8 * self.width * self.warps_n
+
+    def blocks(self, n: int) -> int:
+        return n // self.block_cols * self.ksplit
 
 
-def _nf4_levels(dev: torch.device) -> torch.Tensor:
-    if dev not in _levels:
-        _levels[dev] = torch.from_numpy(NF4_LEVELS).to(dev)
-    return _levels[dev]
+@functools.lru_cache(maxsize=None)
+def nf4_plan(rows: int, k2: int, n: int, gs2: int, sm_count: int) -> Nf4Plan:
+    """The grid of ``nf4_mma_kernel``: 8·n_tiles ≥ R rows in one weight pass
+    (the launcher derives n_tiles from R the same way), width 16 or 8 bytes
+    for n_tiles ≤ 2 and 8 / 4 beyond, so the f32 sums stay in 64 registers;
+    for 8 n-tiles at N ≥ :data:`NF4_WIDE_N` the block's 8 warps lie along N,
+    so they share x's 64 rows and the table (each of the N/32 narrow blocks
+    would read all of x from L2); then whole-group K slices (at most
+    :data:`NF4_MAX_SPLIT`) so the grid comes as near as it can to
+    :data:`NF4_BLOCKS_PER_SM` blocks per SM. The width that comes nearer
+    wins, the wider on a tie."""
+    n_tiles = 1 << max(0, (-(-rows // 8) - 1).bit_length())
+    groups = k2 // gs2
+    target = NF4_BLOCKS_PER_SM * sm_count
+    best = None
+    for width in ((16, 8) if n_tiles <= 2 else (32 // n_tiles,)):
+        warps_n = 8 if n_tiles == 8 and n >= NF4_WIDE_N and n % (64 * width) == 0 else 1
+        slabs = n // (8 * width * warps_n)
+        if slabs == 0:
+            continue
+        ksplit = max(1, min(round(target / slabs), NF4_MAX_SPLIT, groups))
+        per = -(-groups // ksplit)  # groups per slice
+        plan = Nf4Plan(n_tiles, width, -(-groups // per), per * gs2, warps_n)
+        if best is None or abs(plan.blocks(n) - target) < abs(best.blocks(n) - target):
+            best = plan
+    return best
+
+
+def nf4_byte_table() -> np.ndarray:
+    """The dequant table of ``nf4_mma_kernel``: for each byte value, the
+    bf16 pair (level of the low nibble, level of the high nibble) as one
+    uint32 word (low nibble in the low half: weight rows 2i, 2i+1)."""
+    bits = torch.from_numpy(NF4_LEVELS).to(torch.bfloat16).view(torch.int16).numpy()
+    half = bits.astype(np.uint16).astype(np.uint32)
+    byte = np.arange(256)
+    return (half[byte & 15] | (half[byte >> 4] << 16)).astype(np.uint32)
+
+
+def _nf4_table(dev: torch.device) -> torch.Tensor:
+    """:func:`nf4_byte_table` with each entry repeated for the 32 lanes, as
+    the kernel copies it into shared memory (entry e, lane l at 32·e + l)."""
+    if dev not in _tables:
+        _tables[dev] = torch.from_numpy(np.repeat(nf4_byte_table(), 32).view(np.int32)).to(dev)
+    return _tables[dev]
 
 
 def _load():
-    return load_library(_SOURCE, {_LAUNCHER: [ARG_PTR] * 6 + [ARG_INT] * 6 + [ARG_PTR]})
+    return load_library(_SOURCE, {
+        _LAUNCHER: [ARG_PTR] * 5 + [ARG_INT] * 5 + [ARG_PTR],
+        _NF4_LAUNCHER: [ARG_PTR] * 5 + [ARG_INT] * 8 + [ARG_PTR]})
 
 
-def _q4_forward(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, nf4: bool,
-                kernel: str) -> torch.Tensor:
-    dev = codes.device
+def _check_shapes(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor):
+    """(R, K/2, N, packed rows per group) of a product the kernels take."""
     if x2.dim() != 2 or codes.dim() != 2 or scales.dim() != 2:
         raise ValueError("x2 [R, K], codes [K/2, N] and scales [G, N] must be 2-D")
     r, k = x2.shape
@@ -171,22 +242,44 @@ def _q4_forward(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, nf4
         raise ValueError(f"the kernel takes 1..{MAX_ROWS} rows, got {r}")
     if n % TILE_N:
         raise ValueError(f"N must be a multiple of {TILE_N}, got {n}")
-    gs2 = k2 // g
     if k2 % 8:
         raise ValueError(f"K/2 must be a multiple of 8, got {k2}")
+    return r, k2, n, k2 // g
+
+
+def _q4_forward(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    dev = codes.device
+    r, k2, n, gs2 = _check_shapes(x2, codes, scales)
     xb = x2.to(torch.bfloat16)
-    check_operands(dev, ("x2", xb, torch.bfloat16),
-                   ("codes", codes, torch.uint8 if nf4 else torch.int8),
+    check_operands(dev, ("x2", xb, torch.bfloat16), ("codes", codes, torch.int8),
                    ("scales", scales, torch.float32))
-    split = q4_split_k(k2, n, r, gs2, _sm_count(dev))
+    split = q4_split_k(k2, n, r, gs2, sm_count(dev))
     out = torch.empty((r, n), dtype=torch.float32, device=dev)
     partials = (torch.empty((split, r, n), dtype=torch.float32, device=dev)
                 if split > 1 else out)
-    levels = _nf4_levels(dev) if nf4 else out
-    launch(STATS, kernel, getattr(_load(), _LAUNCHER),
-           xb.data_ptr(), codes.data_ptr(), scales.data_ptr(), levels.data_ptr(),
-           partials.data_ptr(), out.data_ptr(), r, k2, n, gs2, split, int(nf4),
-           stream_handle(dev))
+    launch(STATS, "q4_matmul", getattr(_load(), _LAUNCHER),
+           xb.data_ptr(), codes.data_ptr(), scales.data_ptr(), partials.data_ptr(),
+           out.data_ptr(), r, k2, n, gs2, split, stream_handle(dev))
+    return out
+
+
+def _nf4_forward(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                 plan: Nf4Plan = None) -> torch.Tensor:
+    dev = codes.device
+    r, k2, n, gs2 = _check_shapes(x2, codes, scales)
+    if gs2 % NF4_STEP_ROWS:
+        raise ValueError(f"the kernel takes groups of a multiple of {2 * NF4_STEP_ROWS} rows, "
+                         f"got {2 * gs2}")
+    xb = x2.to(torch.bfloat16)
+    check_operands(dev, ("x2", xb, torch.bfloat16), ("codes", codes, torch.uint8),
+                   ("scales", scales, torch.float32))
+    if plan is None:
+        plan = nf4_plan(r, k2, n, gs2, sm_count(dev))
+    out = torch.empty((r, n), dtype=torch.float32, device=dev)
+    launch(STATS, "nf4_matmul", getattr(_load(), _NF4_LAUNCHER),
+           xb.data_ptr(), codes.data_ptr(), scales.data_ptr(), _nf4_table(dev).data_ptr(),
+           out.data_ptr(), r, k2, n, gs2, plan.ksplit, plan.slice_rows, plan.width,
+           plan.warps_n, stream_handle(dev))
     return out
 
 
@@ -196,7 +289,7 @@ def q4_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> to
     :func:`emulate_q4_matmul`; CUDA tensors launch ``q4_matmul`` or raise."""
     if codes.device.type == "cpu":
         return emulate_q4_matmul(x2, codes, scales)
-    return _q4_forward(x2, codes, scales, nf4=False, kernel="q4_matmul")
+    return _q4_forward(x2, codes, scales)
 
 
 def nf4_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -205,4 +298,4 @@ def nf4_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> t
     :func:`emulate_nf4_matmul`; CUDA tensors launch ``nf4_matmul`` or raise."""
     if codes.device.type == "cpu":
         return emulate_nf4_matmul(x2, codes, scales)
-    return _q4_forward(x2, codes, scales, nf4=True, kernel="nf4_matmul")
+    return _nf4_forward(x2, codes, scales)

@@ -471,7 +471,7 @@ def _c_launchers(source: str) -> dict:
     text = text[text.index('extern "C"'):]
     kinds = {}
     for name, params in re.findall(r"int\s+(\w+_launch)\s*\(([^)]*)\)", text):
-        kinds[name] = ["P" if "*" in p else "F" if "float" in p else "I"
+        kinds[name] = ["P" if "*" in p or "cudaStream_t" in p else "F" if "float" in p else "I"
                        for p in params.split(",")]
     return kinds
 
@@ -535,12 +535,32 @@ def fake_generator_kernels(monkeypatch):
         monkeypatch.setattr(mod, name, plain_must_not_run)
     for mod in (qgemm, decode_attention):
         monkeypatch.setattr(mod, "stream_handle", lambda device: 0)
-    monkeypatch.setattr(qgemm, "_sm_count", lambda dev: 132)
+        monkeypatch.setattr(mod, "sm_count", lambda dev: 132)
     return qgemm, decode_attention, launch
 
 
-GEN_CALLS = {"q4_matmul": "q4_matmul_launch", "nf4_matmul": "q4_matmul_launch",
+GEN_CALLS = {"q4_matmul": "q4_matmul_launch", "nf4_matmul": "nf4_matmul_launch",
              "decode_attention_int8": "decode_attention_int8_launch"}
+
+
+def test_generator_launcher_types_match_the_c_signatures(monkeypatch):
+    """The generator kernels' ctypes types against their C signatures."""
+    import ctypes
+
+    from crs_tpu_torch.ops import decode_attention, fused_mlp, qgemm
+
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+    seen = {}
+    for mod in (qgemm, decode_attention, fused_mlp):
+        monkeypatch.setattr(mod, "load_library",
+                            lambda source, launchers: seen.setdefault(source, launchers))
+        mod._load()
+    assert set(seen) == {"q4_matmul.cu", "decode_attention_int8.cu", "fused_mlp_int8.cu"}
+    for source, launchers in seen.items():
+        c_side = _c_launchers(source)
+        assert set(launchers) <= set(c_side), source
+        for name, argtypes in launchers.items():
+            assert [kind[t] for t in argtypes] == c_side[name], name
 
 
 def _gen_call(mods, which, **kw):
@@ -597,11 +617,20 @@ def test_generator_wrappers_count_a_launch(fake_generator_kernels, monkeypatch, 
     args = lib.calls[0][1]
     if which == "decode_attention_int8":
         assert out.shape == (2, 2, 2, 128)
-        assert args[7:11] == (4, 2, 2, 256)  # blocks, hkv, G, S
+        bh, hkv, g, s, rows, nchunk = args[11:17]
+        assert (bh, hkv, g, s) == (4, 2, 2, 256)
+        assert (rows, nchunk) == attn.split_plan(4, 256, 132) and rows * nchunk >= s
+    elif which == "nf4_matmul":
+        assert out.shape == (8, 256)
+        r, k2, n, gs2, split, slice_rows, width, warps_n = args[5:13]
+        assert (r, k2, n, gs2) == (8, 256, 256, 64)
+        plan = qgemm.nf4_plan(8, 256, 256, 64, 132)
+        assert (split, slice_rows, width, warps_n) == (plan.ksplit, plan.slice_rows, plan.width,
+                                                       plan.warps_n)
     else:
         assert out.shape == (8, 256)
-        r, k2, n, gs2, split, nf4 = args[6:12]
-        assert (r, k2, n, gs2, nf4) == (8, 256, 256, 64, int(which == "nf4_matmul"))
+        r, k2, n, gs2, split = args[5:10]
+        assert (r, k2, n, gs2) == (8, 256, 256, 64)
         assert split >= 1 and k2 % split == 0
 
 
@@ -624,6 +653,20 @@ def test_q4_wrappers_reject_what_the_kernel_does_not_take(fake_generator_kernels
         codes = torch.empty((256, 256), dtype=codes.dtype, device="meta").T
     with pytest.raises(ValueError):
         getattr(fake_generator_kernels[0], which)(x, codes, scales)
+
+
+def test_nf4_wrapper_rejects_groups_off_the_kernels_step(fake_generator_kernels, monkeypatch):
+    """The NF4 kernel's 16-row k steps lie inside one scale group: a group of
+    8 rows (4 packed rows) is refused, one of 16 taken."""
+    lib = _FakeKernels(0)
+    _patch_lib(fake_generator_kernels, monkeypatch, lib)
+    x, codes, _ = _q4_operands(nf4=True)
+    with pytest.raises(ValueError, match="groups"):
+        fake_generator_kernels[0].nf4_matmul(
+            x, codes, torch.empty((512 // 8, 256), dtype=torch.float32, device="meta"))
+    fake_generator_kernels[0].nf4_matmul(
+        x, codes, torch.empty((512 // 16, 256), dtype=torch.float32, device="meta"))
+    assert [c[0] for c in lib.calls] == ["nf4_matmul_launch"]
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "group", "seq", "shape", "contiguous"])

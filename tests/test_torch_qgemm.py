@@ -11,7 +11,9 @@ Tolerances:
 - the products: |port − crs_tpu| ≤ 1e-5 · Σ_k |x_k·w_k,n| + 1e-6. Every
   bf16 × bf16 product is exact in f32, so only the order of the f32 sums
   differs;
-- the int8 route of ``qmatmul``: bit for bit (an exact int32 product).
+- the int8 route of ``qmatmul``: bit for bit (an exact int32 product);
+- the NF4 kernel's whole-byte dequant table: bit for bit against the plain
+  version's bf16 weights.
 """
 
 import numpy as np
@@ -163,3 +165,76 @@ def test_params_num_bytes_counts_packed_width():
     assert params_num_bytes(quantize_tensor(w, bits=4)) == 128 * 128 + 2 * 128 * 4
     assert params_num_bytes({"a": [w.bfloat16()], "b": quantize_tensor(w, bits=8)}) == \
         256 * 128 * 2 + 256 * 128 + 128 * 4
+
+
+# the chip smoke's shapes of kernel 9: 1b's linear layers, mistral-7b's MLP,
+# and the edge shapes (N = 128, a deep K into N = 1024)
+NF4_SHAPES = ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048), (2048, 32000),
+              (4096, 14336), (14336, 4096), (2048, 128), (5632, 1024))
+
+
+@pytest.mark.parametrize("k,n", NF4_SHAPES)
+def test_nf4_plan_covers_the_weight_once(k, n):
+    """For R = 1..64: every row of x in one pass over the weight (no row
+    tiles), the f32 sums within 64 registers, whole column slabs, K cut into
+    non-empty group-aligned slices, at most one cluster's worth of them (the
+    slices meet in distributed shared memory: no partial reaches device
+    memory), and a grid within a factor 2 of the planner's target unless a
+    cap (the cluster, the group count, one slice) stops it."""
+    from crs_tpu_torch.ops import qgemm as tq
+
+    k2, gs2, sms = k // 2, 64, 132
+    groups = k2 // gs2
+    target = tq.NF4_BLOCKS_PER_SM * sms
+    for r in range(1, 65):
+        plan = tq.nf4_plan(r, k2, n, gs2, sms)
+        assert 8 * plan.n_tiles >= r > 8 * plan.n_tiles // 2 or plan.n_tiles == 1
+        assert plan.width in (16, 8, 4) and 2 * plan.width * plan.n_tiles <= 64
+        assert plan.warps_n == (8 if plan.n_tiles == 8 and n >= tq.NF4_WIDE_N else 1)
+        assert n % plan.block_cols == 0
+        assert plan.slice_rows % gs2 == 0 and plan.slice_rows > 0
+        assert (plan.ksplit - 1) * plan.slice_rows < k2 <= plan.ksplit * plan.slice_rows
+        assert 1 <= plan.ksplit <= tq.NF4_MAX_SPLIT
+        blocks = plan.blocks(n)
+        assert blocks >= target / 2 or plan.ksplit in (groups, tq.NF4_MAX_SPLIT)
+        assert blocks <= 2 * target or plan.ksplit == 1
+
+
+def test_nf4_plan_main_shapes():
+    """The 1b decode step at R = 8 on 132 SMs: (n-tiles, width, K slices)."""
+    from crs_tpu_torch.ops import qgemm as tq
+
+    plans = {(k, n): tq.nf4_plan(8, k // 2, n, 64, 132) for k, n in NF4_SHAPES[:5]}
+    assert {kn: (p.n_tiles, p.width, p.ksplit) for kn, p in plans.items()} == {
+        (2048, 2048): (1, 16, 6), (2048, 1024): (1, 8, 6), (2048, 5632): (1, 16, 2),
+        (5632, 2048): (1, 16, 6), (2048, 32000): (1, 16, 1)}
+
+
+def test_nf4_byte_table_reproduces_the_plain_weights():
+    """The kernel dequantises a whole byte: the table's bf16 pair (low
+    nibble, high nibble) times bf16(scale), the exact product rounded once
+    (bf16x2 multiply), equals ``emulate_nf4_matmul``'s bf16 weights bit for
+    bit for all 256 bytes over a spread of scales."""
+    from crs_tpu_torch.ops import qgemm as tq
+
+    table = tq.nf4_byte_table()
+    assert table.dtype == np.uint32 and table.shape == (256,)
+    # the kernel's copy: each entry once per lane, entry e of lane l at 32·e + l
+    lanes = tq._nf4_table(torch.device("cpu")).numpy().view(np.uint32).reshape(256, 32)
+    assert np.array_equal(lanes, np.repeat(table[:, None], 32, axis=1))
+    rng = np.random.default_rng(0)
+    spread = np.concatenate([10.0 ** np.arange(-12, 4), rng.random(48) * 0.05,
+                             rng.standard_normal(16) * 3]).astype(np.float32)
+    codes = torch.from_numpy(np.tile(np.arange(256, dtype=np.uint8), (64, len(spread))))
+    scales = torch.from_numpy(np.repeat(spread, 256)[None, :].copy())  # one group
+    vals = tq._unpack_nf4(codes)  # the plain version's weights, as _emulate forms them
+    w = vals.to(torch.bfloat16) * torch.repeat_interleave(scales, 128, 0).to(torch.bfloat16)
+    words = torch.from_numpy(table.view(np.int32)).long() & 0xFFFFFFFF
+    lo = (words & 0xFFFF).to(torch.int16).view(torch.bfloat16)
+    hi = (words >> 16).to(torch.int16).view(torch.bfloat16)
+    s = scales[0].to(torch.bfloat16).double()
+    byte = codes[0].long()
+    got_lo = (lo[byte].double() * s).to(torch.bfloat16)  # the exact product, one rounding
+    got_hi = (hi[byte].double() * s).to(torch.bfloat16)
+    assert torch.equal(got_lo.view(torch.int16), w[0].view(torch.int16))
+    assert torch.equal(got_hi.view(torch.int16), w[1].view(torch.int16))
