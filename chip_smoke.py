@@ -16,9 +16,14 @@ the largest difference); any failure raises and exits non-zero:
 3. kernel_f32_bf16    — the float scan kernel (fp32 and bf16) against its plain
                         version at 1,048,576 × 384, B = 328 (scores within
                         rtol·(1+|s|), rtol 1e-5 fp32 / 1e-2 bf16; ids equal where
-                        neighbouring scores are 1e-5·(1+|s|) apart), and through
-                        scan_topk on the repair, fallback, padding, mask and tie
-                        cases; ms per launch, bound, plain and library ms;
+                        neighbouring scores are 1e-5·(1+|s|) apart), on the
+                        edge cases of FLOAT_EDGE_CASES (ragged D, D = 4096,
+                        odd query tiles, kb = 32, blocks of 256 and 4096,
+                        masked blocks, ties) and through scan_topk on the
+                        repair, fallback, padding, mask, tie and D = 100 cases;
+                        the kernel and its composition in turns, bound, plain
+                        ms; first a line with each instantiation's registers,
+                        spills and shared memory;
 4. kernel_adc         — both PQ ADC kernels (residual and plain) against their
                         plain version at 1,048,576 rows, M = 48, C = 2048,
                         B = 328, bit for bit, and on the same cases;
@@ -39,13 +44,14 @@ the largest difference); any failure raises and exits non-zero:
                         through scan_topk_segmax / _int8 (counted), and recall@10
                         against the exact f32 top-10; first a line with each
                         instantiation's registers, spills and shared memory;
-7. kernel_q4          — the int4 and NF4 matmul kernels (8, 9) against their
-                        plain versions at the 1b widths, mistral-7b's MLP and
-                        N ∈ {128, 1024}, R ∈ {1, 3, 8, 17, 64} (|kernel − plain|
-                        ≤ 1e-5·Σ|x·w|); device ms per launch (torch.profiler,
-                        every launch of each design), kernels 8 and 9 timed in
-                        turns (8, 9, 9, 8) on the same codes; plain and library
-                        ms, bound, kernel 9's plan;
+7. kernel_q4          — int4 and NF4 (kernels 8, 9: one tensor-core kernel, a
+                        table each) against their plain versions at the 1b
+                        widths, mistral-7b's MLP and N ∈ {128, 1024}, R ∈ {1, 3,
+                        8, 17, 64}, and at groups of 2, 8 and 24 rows
+                        (|kernel − plain| ≤ 1e-5·Σ|x·w|); device ms per launch
+                        (torch.profiler), the two kinds timed in turns (int4,
+                        NF4, NF4, int4) on the same codes and plan; plain and
+                        library ms, bound, the plan and a sweep of plans;
 8. kernel_decode_attn — the int8 decode-attention kernel (two launches over
                         chunks of S) against its plain version at B ∈ {1, 8},
                         Hkv 8, G 2, hd 128, S ∈ {2176, 4096}, partial masks and
@@ -59,14 +65,24 @@ the largest difference); any failure raises and exits non-zero:
                         in ≥ 99.9 % of entries, the output within the flipped
                         codes' effect; device ms, plain ms, the unfused int8
                         route's ms, bound;
-10. bench             — the bench.py slice on the held-out corpus: chunk, hashed
+10. faults            — ROADMAP §3's repairs at 8,192 rows: hashed stores at D =
+                        100 and 3072 in fp32, bf16 and int8, residual pq and
+                        pq_sorted stores at M = 64, each on its kernel (launch
+                        counts) against the same store on the CPU; the ADC
+                        kernels at M 64–320 bit for bit; the 1b model as int4
+                        and nf4 at group_size 8 (113 kernel launches a decode
+                        step, logits against the plain versions); int8-KV
+                        decode steps at G 3, G 12 and hd 256 against the CPU,
+                        kernel 10 at hd 384 / 512, G 16, S 139,264; the cost
+                        of a ragged D at 1M rows;
+11. bench             — the bench.py slice on the held-out corpus: chunk, hashed
                         encoder, int8 store, retrieve_batch_fused over 328 queries,
                         checked against the standard (host-rerank) retrieve;
-11. full              — a 1,048,576-row int8 store built through the port's
+12. full              — a 1,048,576-row int8 store built through the port's
                         encoder from synthetic texts; retrieve_batch_fused at batch
                         328 through the int8 kernel (launch count must rise), timed
                         with CUDA events, plus the kernel's own time and bound;
-12. formats           — the same 1M texts and embeddings in an fp32, a bf16, a
+13. formats           — the same 1M texts and embeddings in an fp32, a bf16, a
                         residual pq and a plain pq store (config.json's store
                         values): retrieve_batch at batch 328 without and with PRF
                         (each format's kernel must launch), a `where`-filtered
@@ -77,11 +93,11 @@ the largest difference); any failure raises and exits non-zero:
                         over the residual store's state must launch kernel 4
                         (not 3), never take the exact fallback, and return the
                         unsorted store's results;
-13. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
+14. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
                         residual pq stores: ms per add, capacity, the int8 store
                         identical to create_index over the same rows, the pq
                         codes against a CPU encode, a `where` search;
-14. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
+15. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
                         random weights from the seed, through
                         create_model_interface: greedy generate_batch of 64
                         tokens at batch 1 and 8 on RAG-sized prompts, with 113
@@ -90,12 +106,12 @@ the largest difference); any failure raises and exits non-zero:
                         kernel, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
-15. rag               — RAGPipeline (hashed embedding, int8 store) over the
+16. rag               — RAGPipeline (hashed embedding, int8 store) over the
                         held-out corpus with the nf4 model: query() with
                         config.json's generation values (sampled), ms per query
                         split into retrieve and generate, chunks checked
                         against the same pipeline on the CPU;
-16. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
+17. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
                         from the seed, loaded once: unfused, fuse_projections
                         and fused_mlp, greedy generate_batch of 32 tokens at
                         batch 1 and 8 (kernel 11: 32 launches per decode step in
@@ -103,7 +119,7 @@ the largest difference); any failure raises and exits non-zero:
                         logits identical with fuse_projections, within 5e-2 of
                         unfused with fused_mlp; one kv_bits 8 batch-8 decode
                         through kernels 10 and 11 against the plain versions;
-17. calibrated        — the gptq and awq types of the small config loaded on the
+18. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
                         reconstruction error against plain rounding, 16 tokens.
 
@@ -205,21 +221,27 @@ def check_float_ranked(got, ref, rtol: float, dim: int) -> float:
     """Kernel 2's tolerance rule on ranked lists along ``dim`` (a block's kb
     partials, or a final top-k): scores within rtol·(1 + |s|); ids equal at
     every rank whose score is more than ID_RTOL·(1 + |s|) from both
-    neighbours' (the f32 sum-order bound) and at every -1e30 rank. Returns
-    the largest score difference over the non-sentinel entries."""
+    neighbours' (the f32 sum-order bound) and at every -1e30 rank. ``ref``
+    may hold one rank more than ``got`` (the plain version asked for kb + 1
+    or k + 1): its score is the last rank's next neighbour, which a list cut
+    at kb does not show. Returns the largest score difference over the
+    non-sentinel entries."""
     import torch
 
-    (gs, gi), (rs, ri) = got, ref
-    gs, rs = gs.double().cpu(), rs.double().cpu()
-    gi, ri = gi.cpu().long(), ri.cpu().long()
+    (gs, gi), (rs_all, ri) = got, ref
+    n = gs.shape[dim]
+    gs, rs_all = gs.double().cpu(), rs_all.double().cpu()
+    rs = rs_all.narrow(dim, 0, n)
+    gi, ri = gi.cpu().long(), ri.cpu().long().narrow(dim, 0, n)
     diff = (gs - rs).abs()
     if bool((diff > rtol * (1 + rs.abs())).any()):
         raise AssertionError(f"float scan scores differ by up to {float(diff.max())}")
     tol = ID_RTOL * (1 + rs.abs())
-    step = rs.narrow(dim, 0, rs.shape[dim] - 1) - rs.narrow(dim, 1, rs.shape[dim] - 1)
+    m = rs_all.shape[dim]
+    step = rs_all.narrow(dim, 0, m - 1) - rs_all.narrow(dim, 1, m - 1)
     inf = torch.full_like(rs.narrow(dim, 0, 1), float("inf"))
-    gap_prev = torch.cat([inf, step], dim)
-    gap_next = torch.cat([step, inf], dim)
+    gap_prev = torch.cat([inf, step], dim).narrow(dim, 0, n)
+    gap_next = torch.cat([step, inf], dim).narrow(dim, 0, n)
     need = ((gap_prev > tol) & (gap_next > tol)) | (rs <= -1e29)
     bad = int(((gi != ri) & need).sum())
     if bad:
@@ -476,22 +498,148 @@ def phase_kernel(ph: Phase, dev, seed: int, rows: int) -> float:
     ties = int(sum(len(set(r) & set(range(10000, 10100))) for r in i_ref.tolist()))
     ph.info["c"] = {"rows": n, "valid_n": valid_n, "masked_out": int((~m).sum()), "k": k,
                     "tied_duplicates_in_topk": ties, "max_abs": err}
+
+    # (d) widths: a D off the kernel's 16-byte words (zero-filled inside the
+    # kernel) and D past one 512-byte query slice, aligned and not
+    edge = {}
+    for name, (n, d, b, kb) in INT8_EDGE_CASES.items():
+        x = torch.randn((n, d), generator=g, device=dev)
+        x[40:60] = x[0:20]  # exact ties inside a block
+        qd = torch.randn((b, d), generator=g, device=dev)
+        codes_e, scales_e = scalar_quantize(x)
+        ops_e = partial_inputs(codes_e, scales_e, qd, n - 100)
+        err = compare_partials(block_topk_int8(*ops_e, kb), block_topk_int8_plain(*ops_e, kb))
+        edge[name] = {"rows": n, "dim": d, "batch": b, "kb": kb, "max_abs": err}
+        max_err = max(max_err, err)
+    ph.info["d"] = edge
     ph.info["max_abs_err"] = max_err
     return max_err
 
 
-def phase_kernel_f32_bf16(ph: Phase, dev, seed: int, rows: int) -> dict:
-    """Kernel 2 against its plain version at the main shape and on the
-    repair / fallback / padding / mask / tie cases; its times and bound."""
+# kernel 1's widths, (rows, D, queries, kb): ragged D inside one query slice,
+# ragged D over five slices, an aligned D over six
+INT8_EDGE_CASES = {
+    "d_ragged_100": (4096, 100, 130, 4),
+    "d_ragged_2049": (2048, 2049, 64, 3),
+    "d3072_sliced": (2048, 3072, 130, 3),
+}
+
+
+# kernel 2's edge cases at small sizes, (rows, D, queries, block_size, kb,
+# masked blocks): ragged D (fp32 any D; bf16 a multiple of 8), D = 4096 (the
+# bf16 queries streamed) and wider, to 20,000, an odd query tile count, kb = 32 (the lists' room),
+# blocks of 256 and 4096, whole blocks and a block's tail masked (-1e30
+# re-emissions)
+FLOAT_EDGE_CASES = {
+    "d_ragged_104": (4096, 104, 64, 1024, 3, ()),
+    "d_ragged_200": (2048, 200, 130, 512, 4, ()),
+    "d4096_streamed": (4096, 4096, 128, 1024, 3, ()),
+    "d8200_ragged": (2048, 8200, 64, 1024, 3, ()),
+    "d16384_streamed": (2048, 16384, 130, 1024, 3, ()),
+    "d20000_ragged": (2048, 20000, 64, 1024, 4, ()),
+    "odd_query_tiles": (2048, 64, 130, 1024, 8, ()),
+    "kb32": (2048, 64, 64, 1024, 32, ()),
+    "kb32_d384": (2048, 384, 64, 1024, 32, ()),
+    "block_256": (2048, 64, 64, 256, 2, ()),
+    "block_4096": (8192, 64, 64, 4096, 8, ()),
+    "masked_blocks": (4096, 64, 64, 512, 6, (1, 3)),
+}
+
+
+def float_edge_operands(g, dev, dtype, rows, d, queries, block_size, masked):
+    """Unit rows and queries (the query rows padded to the tile), a bias that
+    masks the blocks in ``masked`` whole and block 2 but for 3 rows, and
+    duplicated rows (exact ties) in block 0."""
+    import torch
+
+    from crs_tpu_torch.ops.scan import FLOAT_QUERY_TILE, _pad_rows
+
+    x = torch.randn((rows, d), generator=g, device=dev)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    x[40:60] = x[0:20]  # exact ties inside a block
+    q = torch.randn((queries, d), generator=g, device=dev)
+    q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    bias = torch.zeros(rows, device=dev)
+    for b in masked:
+        bias[b * block_size:(b + 1) * block_size] = -1e30
+        bias[2 * block_size + 3:3 * block_size] = -1e30
+    return _pad_rows(q.to(dtype), FLOAT_QUERY_TILE).contiguous(), x.to(dtype).contiguous(), bias
+
+
+def ptxas_report(log: str, names: dict) -> dict:
+    """Registers, spills and static shared memory per kernel instantiation
+    from ``nvcc -Xptxas -v`` output; ``names`` maps a fragment of the
+    mangled name to the report's name."""
+    import re
+
+    funcs, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur in funcs:
+            funcs[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur in funcs:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            funcs[cur].update(registers=int(m.group(1)), static_smem=int(sm.group(1)) if sm else 0)
+    return {name: info for mangled, info in funcs.items()
+            for key, name in names.items() if key in mangled}
+
+
+def phase_kernel_f32_bf16(ph: Phase, dev, seed: int, rows: int, build_logs: dict) -> dict:
+    """Kernel 2 against its plain version at the main shape (1M × 384, B =
+    328, block 1024, kb 3), on FLOAT_EDGE_CASES and, through scan_topk, on
+    the repair / fallback / padding / mask / tie / ragged-D cases; each
+    dtype's kernel and its composition timed in turns (kernel, composition,
+    composition, kernel); bound, plain ms; a line with each instantiation's
+    registers, spills and shared memory."""
     import numpy as np
     import torch
 
     from crs_tpu_torch.ops.scan import (
-        FLOAT_QUERY_TILE, STATS, _pad_rows, block_topk_float, block_topk_float_plain, scan_topk,
+        FLOAT_QUERY_TILE, STATS, _load_kernel_lib, _pad_rows, block_topk_float,
+        block_topk_float_plain, scan_topk,
     )
+
+    lib = _load_kernel_lib("scan_topk_f32_bf16.cu")  # ctypes calls return int by default
+    build = ptxas_report(build_logs.get("scan_topk_f32_bf16.cu", ""),
+                         {"scan_topk_f32_kernelILb0E": "f32",
+                          "scan_topk_f32_kernelILb1E": "f32_ragged",
+                          "scan_topk_bf16_kernelILb1E": "bf16_resident",
+                          "scan_topk_bf16_kernelILb0E": "bf16_streamed"})
+    build["dynamic_smem_at_main_shape"] = {"f32": lib.scan_topk_float_smem_bytes(0, DIM, SCAN_KB),
+                                           "bf16": lib.scan_topk_float_smem_bytes(1, DIM, SCAN_KB)}
+    build["bf16_queries_resident_at_main_shape"] = bool(
+        lib.scan_topk_float_bf16_queries_resident(DIM, SCAN_KB))
+    build["wgmma_remarks"] = [ln.strip() for ln in build_logs.get("scan_topk_f32_bf16.cu", "")
+                              .splitlines() if "wgmma" in ln.lower()]
+    emit({"float_scan_build": build})
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 2)
+    edge = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for case, (n_rows, d, queries, bs, kb, masked) in FLOAT_EDGE_CASES.items():
+            qq, v, bias_e = float_edge_operands(g, dev, dtype, n_rows, d, queries, bs, masked)
+            got = block_topk_float(qq, v, bias_e, kb, bs)
+            edge[f"{name}.{case}"] = check_float_ranked(
+                got, block_topk_float_plain(qq, v, bias_e, kb + 1, bs), FLOAT_RTOL[name], dim=2)
+            if masked:  # a whole masked block re-emits its first row at -1e30
+                b0 = masked[0]
+                if not (bool((got[0][:, b0] == -1e30).all())
+                        and bool((got[1][:, b0] == b0 * bs).all())):
+                    raise AssertionError(f"{name}.{case}: a masked block's emissions are not "
+                                         f"(-1e30, its first row)")
+    sync(dev)
+
     x = torch.randn((rows, DIM), generator=g, device=dev)
     x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
     q = torch.randn((BATCH, DIM), generator=g, device=dev)
@@ -499,31 +647,37 @@ def phase_kernel_f32_bf16(ph: Phase, dev, seed: int, rows: int) -> dict:
     bias = torch.zeros(rows, device=dev)
     bias[rows - 1000:] = -1e30  # padding rows at the tail
     nblocks = rows // SCAN_BLOCK
-    out = {}
+    out = {"edge_cases": edge}
     for name, dtype, ops_rate in (("fp32", torch.float32, PEAK_F32_OPS_PER_S),
                                   ("bf16", torch.bfloat16, PEAK_BF16_OPS_PER_S)):
         v = x.to(dtype)
         qq = _pad_rows(q.to(dtype), FLOAT_QUERY_TILE)
         err = check_float_ranked(block_topk_float(qq, v, bias, SCAN_KB, SCAN_BLOCK),
-                                 block_topk_float_plain(qq, v, bias, SCAN_KB, SCAN_BLOCK),
+                                 block_topk_float_plain(qq, v, bias, SCAN_KB + 1, SCAN_BLOCK),
                                  FLOAT_RTOL[name], dim=2)
-        ms = device_ms(dev, lambda: block_topk_float(qq, v, bias, SCAN_KB, SCAN_BLOCK), iters=10,
-                       warmup=2)
         plain_ms = device_ms(dev, lambda: block_topk_float_plain(qq, v, bias, SCAN_KB,
                                                                  SCAN_BLOCK), iters=2)
         q_real = q.to(dtype)
+
+        def kernel():
+            return block_topk_float(qq, v, bias, SCAN_KB, SCAN_BLOCK)
 
         def library():  # two calls: torch.matmul (no TF32) and torch.topk per block
             s = torch.matmul(q_real, v.T)
             return torch.topk(s.view(BATCH, nblocks, SCAN_BLOCK), SCAN_KB, dim=-1)
 
-        library_ms = device_ms(dev, library, iters=5)
+        turns = {"kernel": [], "library": []}
+        for who, fn in (("kernel", kernel), ("library", library), ("library", library),
+                        ("kernel", kernel)):
+            turns[who].append(device_ms(dev, fn, iters=10 if who == "kernel" else 5, warmup=2))
         nq = qq.shape[0] // FLOAT_QUERY_TILE
         b = bound(v.numel() * v.element_size() + qq.numel() * qq.element_size() + rows * 4
                   + nq * nblocks * SCAN_KB * FLOAT_QUERY_TILE * 8,
                   2.0 * BATCH * rows * DIM, ops_rate)
-        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "library_composition_ms": library_ms, **b}
+        out[name] = {"max_abs_err": max([err] + [e for k_, e in edge.items()
+                                                 if k_.startswith(name + ".")]),
+                     "ms": sum(turns["kernel"]) / 2, "plain_ms": plain_ms,
+                     "library_composition_ms": sum(turns["library"]) / 2, "turns_ms": turns, **b}
         del v, qq
     del x
     out["shape"] = {"rows": rows, "dim": DIM, "batch": BATCH, "block_size": SCAN_BLOCK,
@@ -541,7 +695,10 @@ def phase_kernel_f32_bf16(ph: Phase, dev, seed: int, rows: int) -> dict:
     sparse = np.zeros(n, bool)
     sparse[rng.choice(n, 4, replace=False)] = True
     sparse[:b] = sparse[3000:3000 + b] = True  # fewer allowed rows than k: -1e30 ranks
+    ragged = rng.standard_normal((n, 100)).astype(np.float32)
+    ragged /= np.linalg.norm(ragged, axis=1, keepdims=True)
     cases = {  # name: (vectors, queries, kb, repair, mask, valid_n)
+        "ragged_d100": (ragged, ragged[:b] + 0.1, 2, 256, None, n - 5),
         "repair": (base, qc, 2, 256, None, n),
         "fallback": (base, qc, 2, 4, None, n),
         "repair_masked": (base, qc, 2, 256, mask, n - 37),
@@ -558,9 +715,10 @@ def phase_kernel_f32_bf16(ph: Phase, dev, seed: int, rows: int) -> dict:
             counts[f"{name}/{case}"] = {"launches": STATS.launches, "repairs": STATS.repairs,
                                         "fallbacks": STATS.fallbacks}
             ref = scan_topk(torch.from_numpy(v).to(dtype), torch.from_numpy(qv), row_mask=m_t,
-                            **args)
+                            **{**args, "k": k + 1})  # the k-th rank's next neighbour too
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                            check_float_ranked(got, ref, FLOAT_RTOL[name], dim=1))
+            ref = (ref[0][:, :k], ref[1][:, :k])
             if m is not None and bool((ref[0] > -1e29).any()):
                 ok = ref[1][ref[0] > -1e29]
                 if not bool(m_t[ok].all()) or int(ok.max()) >= valid:
@@ -919,34 +1077,12 @@ def segmax_build_report(log: str, lib, d: int, block_size: int) -> dict:
     """Per instantiation of csrc/segmax_scan_topk.cu: registers, spills and
     static shared memory from ptxas -v, and the dynamic shared memory of one
     CTA at (d, block_size); ptxas's wgmma remarks verbatim."""
-    import re
-
-    funcs, cur = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            cur = m.group(1)
-            funcs[cur] = {}
-            continue
-        m = re.search(r"Function properties for (\S+)", ln)
-        if m:
-            cur = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and cur in funcs:
-            funcs[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and cur in funcs:
-            sm = re.search(r"(\d+) bytes smem", ln)
-            funcs[cur].update(registers=int(m.group(1)), static_smem=int(sm.group(1)) if sm else 0)
     names = {"segmax_f32_kernel": ("f32", 0), "segmax_bf16_kernelILb1E": ("bf16_resident", 1),
              "segmax_bf16_kernelILb0E": ("bf16_streamed", 1), "segmax_i8_kernel": ("int8", 2)}
-    out = {}
-    for mangled, info in funcs.items():
-        for key, (name, mode) in names.items():
-            if key in mangled:
-                out[name] = dict(info, dynamic_smem_at_main_shape=lib.segmax_scan_topk_smem_bytes(
-                    mode, d, block_size))
+    found = ptxas_report(log, {key: name for key, (name, _) in names.items()})
+    out = {name: dict(found.get(name, {}),
+                      dynamic_smem_at_main_shape=lib.segmax_scan_topk_smem_bytes(mode, d, block_size))
+           for name, mode in names.values()}
     out["bf16_queries_resident_at_main_shape"] = bool(
         lib.segmax_scan_topk_bf16_queries_resident(d, block_size))
     out["wgmma_remarks"] = [ln.strip() for ln in log.splitlines() if "wgmma" in ln.lower()]
@@ -1264,8 +1400,11 @@ Q4_GROUP = 128
 Q4_STEP_1B = ((2048, 2048), (2048, 1024), (2048, 1024), (2048, 2048), (2048, 5632),
               (2048, 5632), (5632, 2048))
 Q4_RTOL = 1e-5  # |kernel − plain| ≤ Q4_RTOL · Σ_k |x_k·w_k,n|: only the f32 sum order differs
-# each design's launches in the profiler: kernel 8 and its split sum; kernel 9
-Q4_KERNELS = {"int4": ("q4_matmul_kernel", "q4_split_sum_kernel"), "nf4": ("nf4_mma_kernel",)}
+# each kind's launches in the profiler: one tensor-core kernel for both
+Q4_KERNELS = {"int4": ("q4_mma_kernel",), "nf4": ("q4_mma_kernel",)}
+# groups off the kernel's 16-row k step, (K, N, group_size): a step's two
+# packed rows in two groups (8: gs2 4; 2: gs2 1), a group across steps (24)
+Q4_GROUP_CASES = ((2048, 2048, 8), (3072, 2048, 24), (2048, 1024, 2))
 ATTN_SHAPES = ((1, 2176), (1, 4096), (8, 2176), (8, 4096))  # (B, S); Hkv 8, G 2, hd 128
 ATTN_EXTRA = tuple((grp, s) for grp in (1, 4, 8) for s in (128, 2176, 4096))  # (G, S), B 3
 ATTN_TOL = 2.0 ** -7  # |kernel − plain| ≤ ATTN_TOL · Σ_s |p_s·v_s,d|: one bf16 step of p
@@ -1352,12 +1491,319 @@ def nf4_plan_sweep(dev, g) -> dict:
 
                 def run(plan=plan, it=it):
                     c, sc = copies[next(it) % len(copies)]
-                    qgemm._nf4_forward(x, c, sc, plan=plan)
+                    qgemm._forward("nf4", x, c, sc, plan=plan)
 
                 row[key] = {"blocks": plan.blocks(n),
                             "ms": kernel_device_ms(run, 30, Q4_KERNELS["nf4"])}
         out[f"{k}->{n}"] = row
         del copies
+    return out
+
+
+# faults: shapes crs_tpu serves that the port's kernels once refused on the
+# card (8,192 rows = 8 blocks of config.json's 1,024, past the 4-block kernel
+# threshold); each must launch its kernel
+FAULT_ROWS = 8192
+FAULT_BLOCK = 1024
+FAULT_DIMS = (100, 3072)  # off kernel 1's 16-byte words; past one query slice and old limits
+FAULT_QUERIES = 64
+FAULT_K = 10
+FAULT_PQ = {"format": "pq", "block_size": FAULT_BLOCK, "pq_subspaces": 64, "pq_iters": 8,
+            "pq_coarse_clusters": 256, "pq_opq_iters": 1, "rescore_k": 64}  # a tile's LUTs past smem
+FAULT_GROUP = 8  # q4 / NF4 groups of 8 rows: a k step's packed rows in two groups
+# int8-KV models whose decode step the kernel once refused: G = 3 (padded to
+# 4), G = 12 (padded to 16, two slices of 8) and head_dim 256
+FAULT_ATTN_MODELS = {
+    "g3": {"vocab_size": 2048, "hidden_size": 768, "num_layers": 2, "num_heads": 6,
+           "num_kv_heads": 2, "intermediate_size": 2048, "max_seq_len": 1024},
+    "g12": {"vocab_size": 2048, "hidden_size": 1536, "num_layers": 2, "num_heads": 12,
+            "num_kv_heads": 1, "intermediate_size": 2048, "max_seq_len": 1024},
+    "hd256": {"vocab_size": 2048, "hidden_size": 1024, "num_layers": 2, "num_heads": 4,
+              "num_kv_heads": 2, "intermediate_size": 2048, "max_seq_len": 1024},
+}
+# the ADC kernels past one tile's LUTs, (M, residual): 4, 2 and 1 queries a
+# CUDA block (M 64, 128, 256 at K = 256), and the LUTs staged in slices (M 320)
+FAULT_ADC_WIDE = tuple((m, r) for m in (64, 128, 256, 320) for r in (True, False))
+RAGGED_COST_ROWS = 1 << 20  # the main path's corpus rows, for the cost of a D off the multiple
+
+
+def fault_search(name: str, card, cpu, q, rtol: float, kernel: str) -> dict:
+    """One search on the card store (its launches counted: ``kernel`` must
+    run) against the CPU store holding the same state."""
+    from crs_tpu_torch.ops import scan
+
+    reset_counts()
+    got = card.search_batch(q, top_k=FAULT_K)
+    sync(q.device)
+    launches = dict(scan.STATS.by_kernel)
+    if launches.get(kernel, 0) < 1:
+        raise AssertionError(f"faults {name}: {kernel} did not launch ({launches})")
+    ref = cpu.search_batch(q.cpu(), top_k=FAULT_K + 1)
+    err = check_float_ranked(got, ref, rtol, dim=1)
+    return {"kernel": kernel, "launches": launches, "max_abs_err": err}
+
+
+def fault_adc_wide(dev, seed: int) -> dict:
+    """The ADC kernels at FAULT_ADC_WIDE against their plain version, bit for
+    bit, 16 queries (two tiles) over 8,192 rows with a masked tail, and the
+    kernel's plan for each (queries per CUDA block, subspaces staged)."""
+    import torch
+
+    from crs_tpu_torch.ops.scan import adc_kernel_plan, block_topk_adc, block_topk_adc_plain
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 22)
+    out = {}
+    for m, residual in FAULT_ADC_WIDE:
+        nq, c = 16, 512
+        lut = (torch.randn((nq, m, 256), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        codes = torch.randint(0, 256, (FAULT_ROWS, m + (2 if residual else 0)), generator=g,
+                              device=dev, dtype=torch.int32).to(torch.uint8)
+        extra = ()
+        if residual:
+            codes[:, 0] = torch.randint(0, c // 256, (FAULT_ROWS,), generator=g, device=dev,
+                                        dtype=torch.int32).to(torch.uint8)
+            hi = torch.randn((nq, c), generator=g, device=dev).to(torch.bfloat16)
+            extra = (hi, (torch.randn((nq, c), generator=g, device=dev) * 1e-3).to(torch.bfloat16))
+        codes[100:140] = codes[0:40]  # exact ties
+        bias = torch.zeros(FAULT_ROWS, device=dev)
+        bias[-300:] = -1e30
+        got = block_topk_adc(lut, codes, bias, 4, FAULT_BLOCK, *extra)
+        ref = block_topk_adc_plain(lut, codes, bias, 4, FAULT_BLOCK, *extra)
+        what = f"faults ADC M={m} {'residual' if residual else 'plain'}"
+        err = check_bits(got, ref, what)
+        qt, ms, smem = adc_kernel_plan(m, 256, residual)
+        out[f"m{m}_{'residual' if residual else 'plain'}"] = {
+            "queries_per_block": qt, "subspaces_staged": ms, "smem_bytes": smem,
+            "max_abs_err": err}
+    return out
+
+
+def fault_attention_wide(dev, seed: int) -> dict:
+    """Kernel 10 at the shapes it once refused, against its plain version:
+    head_dim 256, 384, 512, G 12 and 16 (slices of 8 along the grid), and a
+    cache longer than 128 chunks (S = 139,264); B 3, Hkv 2, one row with no
+    valid slot and one valid only in a window."""
+    import torch
+
+    from crs_tpu_torch.ops import decode_attention as da
+    from crs_tpu_torch.ops.launch import sm_count
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 23)
+    out = {}
+    for hd, grp, s in ((256, 2, 2176), (384, 8, 2176), (512, 4, 2176), (128, 12, 4096),
+                       (128, 16, 2176), (256, 16, 2176), (128, 1, 139264)):
+        b, hkv = 3, 2
+        q, kc, ks, vc, vs = attn_case(g, dev, b, hkv, grp, s, hd)
+        rows, nchunk = da.split_plan(b * hkv, s, sm_count(dev))
+        valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+        valid[1] = False
+        valid[0] = False
+        lo = (nchunk // 2) * rows
+        valid[0, lo + 3:min(s, lo + rows) - 5] = True
+        err = attn_check((q, kc, ks, vc, vs, valid), f"hd={hd} G={grp} S={s}", zero_rows=(1,))
+        out[f"hd={hd} G={grp} S={s}"] = {"max_abs_err": err, "launch_groups": da.launch_groups(grp),
+                                         "chunk_rows": rows, "nchunk": nchunk}
+    return out
+
+
+def fault_ragged_cost(dev, seed: int) -> dict:
+    """What a D off the kernels' multiple costs a search at the main path's
+    1,048,576 rows, B = 328, k = 64: a ragged D against the aligned D above
+    it, ms per ``scan_topk`` (bf16 D 100: the corpus zero-padded to 104 per
+    call) and ``scan_topk_int8`` (kernel 1's zero-fill: D 100 by 4-byte
+    loads, D 99 byte by byte; 112 aligned), timed in turns on the card."""
+    import torch
+
+    from crs_tpu_torch.ops.quant import scalar_quantize
+    from crs_tpu_torch.ops.scan import scan_topk, scan_topk_int8
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 24)
+    out = {}
+    for fmt, dims in (("bf16", (100, 104)), ("int8", (99, 100, 112))):
+        fns = {}
+        for d in dims:
+            x = torch.randn((RAGGED_COST_ROWS, d), generator=g, device=dev)
+            x /= torch.linalg.vector_norm(x, dim=1, keepdim=True)
+            q = torch.randn((BATCH, d), generator=g, device=dev)
+            if fmt == "bf16":
+                v = x.to(torch.bfloat16)
+                fns[d] = lambda v=v, q=q: scan_topk(v, q, CAND_K, RAGGED_COST_ROWS, SCAN_BLOCK)
+            else:
+                codes, scales = scalar_quantize(x)
+                fns[d] = lambda c=codes, sc=scales, q=q: scan_topk_int8(c, sc, q, CAND_K,
+                                                                        RAGGED_COST_ROWS)
+            del x
+        ms = {d: [] for d in dims}
+        for d in (*dims, *reversed(dims)):
+            ms[d].append(device_ms(dev, fns[d], iters=10, warmup=2))
+        out[fmt] = {f"d{d}_ms": sum(v) / len(v) for d, v in ms.items()}
+        for d in dims[:-1]:
+            out[fmt][f"d{d}_over_d{dims[-1]}"] = out[fmt][f"d{d}_ms"] / out[fmt][f"d{dims[-1]}_ms"]
+        del fns
+    return out
+
+
+def phase_faults(ph: Phase, dev, seed: int) -> dict:
+    """ROADMAP §3's card-only refusals, repaired in the kernels, at small
+    sizes, each through its entry point with its kernel's launches counted,
+    against the port on the CPU: hashed stores at D ∈ FAULT_DIMS in fp32,
+    bf16 and int8 (ids equal where the scores separate, scores within the
+    kernels' tolerances); residual-pq stores at M = 64, unsorted and sorted
+    (state copied to the CPU through save / load); the ADC kernels past one
+    tile's LUTs, bit for bit; the 1b model as int4 and nf4 at group_size 8
+    (first decode step's logits against the plain versions, 113 kernel
+    launches a step); one int8-KV decode step of each FAULT_ATTN_MODELS
+    model (logits against the CPU, one decode-attention launch a layer) and
+    kernel 10 at head dims to 512, G to 16 and S past 128 chunks; what a
+    ragged D costs a search at 1M rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.models import create_model_interface
+    from crs_tpu_torch.models.transformer import (
+        TransformerConfig, decode_step, init_cache, init_params, prefill,
+    )
+    from crs_tpu_torch.ops.decode_attention import launch_groups
+    from crs_tpu_torch.rag.embedding import EmbeddingModel
+    from crs_tpu_torch.rag.index import VectorStore
+
+    rng = np.random.default_rng(seed + 21)
+    texts, queries = synthetic_corpus(rng, FAULT_ROWS)
+    queries = queries[:FAULT_QUERIES]
+    out = {}
+    kernel_of = {"fp32": "scan_topk_f32", "bf16": "scan_topk_bf16", "int8": "int8_scan_topk"}
+    for d in FAULT_DIMS:
+        enc = EmbeddingModel({"backend": "hashed", "embedding_dim": d}, device="cpu")
+        emb, q = enc.embed(texts), enc.embed(queries)
+        for fmt in ("fp32", "bf16", "int8"):
+            cfg = {"format": fmt, "block_size": FAULT_BLOCK, "rescore_k": 64}
+            card, cpu = VectorStore(cfg, device=dev), VectorStore(cfg, device="cpu")
+            card.create_index(texts, emb)
+            cpu.create_index(texts, emb)
+            out[f"{fmt}_d{d}"] = fault_search(f"{fmt} D={d}", card, cpu, q.to(dev),
+                                              FLOAT_RTOL.get(fmt, FLOAT_RTOL["fp32"]),
+                                              kernel_of[fmt])
+            del card, cpu
+    enc = EmbeddingModel({"backend": "hashed", "embedding_dim": DIM}, device="cpu")
+    emb, q = enc.embed(texts), enc.embed(queries)
+    card = VectorStore(FAULT_PQ, device=dev)
+    card.create_index(texts, emb)
+    with tempfile.TemporaryDirectory() as tmp:
+        card.save(tmp)
+        cpu = VectorStore(FAULT_PQ, device="cpu")
+        cpu.load(tmp)
+        out["pq_residual_m64"] = fault_search("pq M=64", card, cpu, q.to(dev),
+                                              FLOAT_RTOL["fp32"], "adc_scan_topk_residual")
+        sorted_cfg = {**FAULT_PQ, "pq_sorted": True}
+        card_s, cpu_s = VectorStore(sorted_cfg, device=dev), VectorStore(sorted_cfg, device="cpu")
+        card_s.load(tmp)
+        cpu_s.load(tmp)
+    out["pq_sorted_m64"] = fault_search("pq_sorted M=64", card_s, cpu_s, q.to(dev),
+                                        FLOAT_RTOL["fp32"], "adc_scan_topk_sorted")
+    del card, cpu, card_s, cpu_s
+    out["adc_wide_kernels"] = fault_adc_wide(dev, seed)
+
+    prompts = rag_prompts(1)
+    for kind in ("int4", "nf4"):
+        kernel = "nf4_matmul" if kind == "nf4" else "q4_matmul"
+        model = create_model_interface(kind, {"config": GEN_CONFIG, "kv_bits": 8, "seed": seed,
+                                              "group_size": FAULT_GROUP}, device=dev)
+        model.load()
+        ids, mask = model.encode_batch(prompts, 4)
+        cache = init_cache(model.cfg, 1, ids.shape[1] + 4, device=dev)
+        logits, cache = prefill(model.params, model.cfg, ids, cache, mask)
+        token = torch.argmax(logits[:, -1], dim=-1)
+        reset_counts()
+        got = first_step_logits(model, cache, token)
+        sync(dev)
+        counts = kernel_counts()
+        if counts.get(kernel, 0) != Q4_LAUNCHES_PER_STEP_1B:
+            raise AssertionError(f"faults {kind} group {FAULT_GROUP}: launches {counts} in one "
+                                 f"decode step")
+        with plain_kernels():
+            ref = first_step_logits(model, cache, token)
+        err = rel_l2(got.float(), ref.float())
+        if not err <= GEN_LOGITS_RTOL or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"faults {kind} group {FAULT_GROUP}: first-step logits "
+                                 f"{err} from the plain versions (limit {GEN_LOGITS_RTOL})")
+        out[f"{kind}_group{FAULT_GROUP}"] = {"kernel": kernel, "launches": counts,
+                                             "logits_rel_l2": err,
+                                             "greedy_equal": bool(torch.equal(
+                                                 got.argmax(-1), ref.argmax(-1)))}
+        del model, cache
+    for name, spec in FAULT_ATTN_MODELS.items():
+        cfg = TransformerConfig(kv_bits=8, **spec)
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 200)))
+
+        def step(where):  # prefill, then one decode step's logits
+            params = init_params(seed, cfg, device=where)
+            cache = init_cache(cfg, 1, 256, device=where)
+            _, cache = prefill(params, cfg, ids.to(where), cache)
+            reset_counts()
+            logits = decode_step(params, cfg, torch.tensor([7], device=where), cache)[0]
+            sync(torch.device(where) if isinstance(where, str) else where)
+            return logits.float().cpu()
+
+        ref = step("cpu")
+        got = step(dev)
+        counts = kernel_counts()
+        err = rel_l2(got, ref)
+        if counts.get("decode_attention_int8", 0) != cfg.num_layers or not err <= GEN_LOGITS_RTOL:
+            raise AssertionError(f"faults {name}: launches {counts}, logits {err} from the CPU's")
+        grp = cfg.num_heads // cfg.num_kv_heads
+        out[f"decode_attention_{name}"] = {
+            "kernel": "decode_attention_int8", "head_dim": cfg.head_dim, "group": grp,
+            "launch_groups": launch_groups(grp),
+            "launches": counts, "logits_rel_l2_vs_cpu": err}
+    out["decode_attention_wide_kernels"] = fault_attention_wide(dev, seed)
+    out["ragged_d_cost"] = fault_ragged_cost(dev, seed)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ph.info.update(out)
+    return out
+
+
+def q4_check(kind, kernel, plain, unpack, x, codes, scales, group: int, what: str):
+    """One q4 / NF4 product against its plain version: |kernel − plain| ≤
+    Q4_RTOL·Σ|x·w|; returns (that ratio, the largest |kernel − plain|)."""
+    import torch
+
+    k, n = x.shape[1], codes.shape[1]
+    w = (unpack(codes).to(torch.bfloat16)
+         * torch.repeat_interleave(scales, group, 0).to(torch.bfloat16)).float()
+    got, ref = kernel(x, codes, scales), plain(x, codes, scales)
+    absref = x.float().abs() @ w.abs()
+    ratio = float(((got - ref).abs() / (absref + 1e-30)).max())
+    if not ratio <= Q4_RTOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{kind} {what} {k}→{n} R={x.shape[0]}: kernel differs from the "
+                             f"plain version by {ratio}·Σ|x·w| (limit {Q4_RTOL})")
+    return ratio, float((got - ref).abs().max())
+
+
+def q4_group_cases(dev, g, kinds, worst) -> dict:
+    """Both kinds at Q4_GROUP_CASES (groups off the 16-row step), R ∈
+    Q4_ROWS, against their plain versions on the same codes."""
+    import torch
+
+    out = {}
+    for k, n, group in Q4_GROUP_CASES:
+        raw = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.int8)
+        scales = torch.rand((k // group, n), generator=g, device=dev) * 0.02 + 1e-3
+        for r in Q4_ROWS:
+            x = torch.randn((r, k), generator=g, device=dev).to(torch.bfloat16)
+            for kind, (kernel, plain, unpack) in kinds.items():
+                codes = raw.view(torch.uint8) if kind == "nf4" else raw
+                ratio, err = q4_check(kind, kernel, plain, unpack, x, codes, scales, group,
+                                      f"group {group}")
+                worst[kind] = max(worst[kind], err)
+                out[f"{kind} {k}->{n} group {group} R={r}"] = ratio
+    sync(dev)
     return out
 
 
@@ -1379,7 +1825,7 @@ def phase_kernel_q4(ph: Phase, dev, seed: int) -> dict:
              "nf4": (qgemm.nf4_matmul, qgemm.emulate_nf4_matmul, qgemm._unpack_nf4)}
     per_shape = {kind: {} for kind in kinds}
     worst = {kind: 0.0 for kind in kinds}
-    faster = {}
+    int4_over_nf4 = {}
     for model, shapes in {**Q4_SHAPES, **Q4_EDGE_SHAPES}.items():
         for k, n in shapes:
             raw = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
@@ -1393,16 +1839,9 @@ def phase_kernel_q4(ph: Phase, dev, seed: int) -> dict:
                 timed = {}
                 for kind, (kernel, plain, unpack) in kinds.items():
                     codes = raw.view(torch.uint8) if kind == "nf4" else raw
-                    w = (unpack(codes).to(torch.bfloat16)
-                         * torch.repeat_interleave(scales, Q4_GROUP, 0).to(torch.bfloat16)).float()
-                    got, ref = kernel(x, codes, scales), plain(x, codes, scales)
-                    absref = x.float().abs() @ w.abs()
-                    del w
-                    ratio = float(((got - ref).abs() / (absref + 1e-30)).max())
-                    if not ratio <= Q4_RTOL or not bool(torch.isfinite(got).all()):
-                        raise AssertionError(f"{kind} {k}→{n} R={r}: kernel differs from the plain "
-                                             f"version by {ratio}·Σ|x·w| (limit {Q4_RTOL})")
-                    worst[kind] = max(worst[kind], float((got - ref).abs().max()))
+                    ratio, err = q4_check(kind, kernel, plain, unpack, x, codes, scales,
+                                          Q4_GROUP, model)
+                    worst[kind] = max(worst[kind], err)
                     it = iter(range(1 << 30))
 
                     def run(kernel=kernel, kind=kind, it=it):
@@ -1410,7 +1849,7 @@ def phase_kernel_q4(ph: Phase, dev, seed: int) -> dict:
                         kernel(x, c.view(torch.uint8) if kind == "nf4" else c, sc)
 
                     timed[kind] = run
-                    row = {"max_abs_err": float((got - ref).abs().max()), "err_over_abs_sum": ratio}
+                    row = {"max_abs_err": err, "err_over_abs_sum": ratio}
                     if r in Q4_ROWS:
                         row["wall_ms_per_call"] = device_ms(dev, run, iters=max(20, len(copies)),
                                                             warmup=3)
@@ -1440,11 +1879,9 @@ def phase_kernel_q4(ph: Phase, dev, seed: int) -> dict:
                                 "device_ms": ms, "turns_ms": turns[kind],
                                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]})
                 plan = qgemm.nf4_plan(r, k // 2, n, Q4_GROUP // 2, sm_count(dev))
-                per_shape["nf4"][key]["plan"] = {**plan._asdict(), "blocks": plan.blocks(n)}
-                per_shape["int4"][key]["ksplit"] = qgemm.q4_split_k(k // 2, n, r, Q4_GROUP // 2,
-                                                                   sm_count(dev))
-                if model != "edge" and r in Q4_ROWS:
-                    faster[key] = per_shape["nf4"][key]["ms"] < per_shape["int4"][key]["ms"]
+                for kind in kinds:  # one plan for both kinds
+                    per_shape[kind][key]["plan"] = {**plan._asdict(), "blocks": plan.blocks(n)}
+                int4_over_nf4[key] = per_shape["int4"][key]["ms"] / per_shape["nf4"][key]["ms"]
             del copies
     step = list(Q4_STEP_1B) * 16 + [(2048, 32000)]  # 113 launches per 1b decode step
     out = {"plan_sweep": nf4_plan_sweep(dev, g)}
@@ -1458,7 +1895,10 @@ def phase_kernel_q4(ph: Phase, dev, seed: int) -> dict:
                      "bound_ms": step_sum("bound_ms") / len(step), "bound_by": "bytes",
                      "step_ms_at_r8": step_sum("ms"), "step_bound_ms_at_r8": step_sum("bound_ms"),
                      "shapes": per_shape[kind]}
-    out["nf4_faster_than_int4"] = faster
+    out["int4_ms_over_nf4_ms"] = int4_over_nf4
+    out["groups_off_the_step"] = q4_group_cases(dev, g, kinds, worst)
+    for kind in kinds:
+        out[kind]["max_abs_err"] = worst[kind]
     out["note"] = ("ms / plain_ms / bound_ms: mean per launch over one 1b decode step's 113 "
                    "launches at R = 8; ms is the kernels' device time (torch.profiler, every "
                    "launch of the design; the mean of two turns, 8, 9, 9, 8, on the same code "
@@ -2640,8 +3080,8 @@ def kernel_table(res: dict) -> list:
 
 
 ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted_adc",
-              "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "bench",
-              "full", "formats", "add", "generate", "rag", "generate_7b", "calibrated")
+              "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "faults",
+              "bench", "full", "formats", "add", "generate", "rag", "generate_7b", "calibrated")
 
 
 def main(argv=None) -> int:
@@ -2676,7 +3116,8 @@ def main(argv=None) -> int:
     steps = {
         "build": lambda ph: phase_build(ph),
         "kernel": lambda ph: phase_kernel(ph, dev, args.seed, FULL_ROWS),
-        "kernel_f32_bf16": lambda ph: phase_kernel_f32_bf16(ph, dev, args.seed, FULL_ROWS),
+        "kernel_f32_bf16": lambda ph: phase_kernel_f32_bf16(ph, dev, args.seed, FULL_ROWS,
+                                                            res.get("build") or {}),
         "kernel_adc": lambda ph: phase_kernel_adc(ph, dev, args.seed, FULL_ROWS),
         "kernel_sorted_adc": lambda ph: phase_kernel_sorted_adc(ph, dev, args.seed, FULL_ROWS),
         "kernel_segmax": lambda ph: phase_kernel_segmax(ph, dev, args.seed, FULL_ROWS,
@@ -2684,6 +3125,7 @@ def main(argv=None) -> int:
         "kernel_q4": lambda ph: phase_kernel_q4(ph, dev, args.seed),
         "kernel_decode_attn": lambda ph: phase_kernel_decode_attn(ph, dev, args.seed),
         "kernel_fused_mlp": lambda ph: phase_kernel_fused_mlp(ph, dev, args.seed),
+        "faults": lambda ph: phase_faults(ph, dev, args.seed),
         "bench": lambda ph: phase_bench(ph, dev),
         "full": lambda ph: phase_full(ph, dev, args.seed, FULL_ROWS, res.get("kernel", 0.0),
                                       shared),

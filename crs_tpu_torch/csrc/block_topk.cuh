@@ -7,7 +7,8 @@
 // re-emits its lowest id at -1e30). A CUDA block here walks its corpus block
 // CHUNK rows at a time, so it keeps a running list instead: lane p < kb of
 // the warp that owns a query holds the list's entry p. merge_chunk folds the
-// next CHUNK rows into the list with kb arg-max passes over (chunk ∪ list).
+// next CHUNK rows into the list with kb arg-max passes over (chunk ∪ list);
+// merge_chunk_rows does the same for any layout of the rows over the lanes.
 // Because every list id is lower than every id of a later chunk, and an
 // extracted list entry stays in the pass at -1e30 under its id, the list
 // after the last chunk is exactly the Pallas kernel's kb emissions for the
@@ -22,25 +23,26 @@ namespace block_topk {
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// s[j] holds the score of row base + lane + 32·j of this chunk (RPL·32 rows).
-// have_list: the lanes < kb hold a running list (false for the first chunk).
-// On return lanes < kb hold the new list in (ls, li).
-template <int RPL>
-__device__ __forceinline__ void merge_chunk(float (&s)[RPL], int base, bool have_list,
-                                            float& ls, int& li, int kb, int lane) {
+// s[j] holds the score of row row_of(j) of this chunk (RPL·32 rows over the
+// warp); a lane's rows ascend with j. have_list: the lanes < kb hold a
+// running list (false for the first chunk). On return lanes < kb hold the
+// new list in (ls, li).
+template <int RPL, typename RowOf>
+__device__ __forceinline__ void merge_chunk_rows(float (&s)[RPL], RowOf row_of, bool have_list,
+                                                 float& ls, int& li, int kb, int lane) {
     float new_s = NEG_INF;
     int new_i = 0;
     const bool list_here = have_list && lane < kb;
     for (int p = 0; p < kb; ++p) {
         // lane-local best: chunk rows ascend with j, so strict > keeps the lowest id
         float best = s[0];
-        int bid = base + lane;
+        int bid = row_of(0);
         int slot = 0;
 #pragma unroll
         for (int j = 1; j < RPL; ++j) {
             if (s[j] > best) {
                 best = s[j];
-                bid = base + lane + 32 * j;
+                bid = row_of(j);
                 slot = j;
             }
         }
@@ -80,6 +82,14 @@ __device__ __forceinline__ void merge_chunk(float (&s)[RPL], int base, bool have
     }
     ls = new_s;
     li = new_i;
+}
+
+// merge_chunk_rows with lane l holding rows base + l + 32·j
+template <int RPL>
+__device__ __forceinline__ void merge_chunk(float (&s)[RPL], int base, bool have_list,
+                                            float& ls, int& li, int kb, int lane) {
+    merge_chunk_rows<RPL>(s, [=](int j) { return base + lane + 32 * j; }, have_list, ls, li, kb,
+                          lane);
 }
 
 }  // namespace block_topk

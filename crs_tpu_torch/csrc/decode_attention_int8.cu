@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel crs_tpu/ops/decode_attention.py:
 // decode_attention_int8 / _decode_attn_kernel. Per (batch row b, kv-head h),
-// with G query heads on that kv-head and head dim HD = 128:
+// with G query heads on that kv-head and head dim HD (128, 256, 384 or 512,
+// the multiples of 128 that crs_tpu's gate admits up to 512):
 //   scores[g, s] = (Σ_d bf16(q[g, d]) · k[s, d]) · (k_scale[s] · scale) + bias[s]
 //   m = max_s scores, e = exp(scores − m), l = Σ_s e      (one global m and l)
 //   p[g, s] = bf16((e / max(l, 1e-30)) · v_scale[s])
@@ -42,6 +43,16 @@
 // A chunk whose slots are all masked has m_c = -1e30 and l_c = its row
 // count; exp(m_c − m) is 0 against any valid chunk, so it drops out. The
 // whole cache is read, masked slots included.
+//
+// Shapes. A lane reads 16 bytes of a row, so a row takes HD / 16 lanes (8 at
+// HD = 128; 16, 24 and 32 at 256, 384 and 512, a warp then reading 2, 1
+// and 1 rows per load; at 384 a quarter of the lanes idle). The kernels are
+// built for G ∈ {1, 2, 4, 8} heads; a launch with more heads than 8 (the
+// wrapper pads them to a multiple of 8, and a G between the built ones to
+// the next, with zero heads) runs G / 8 slices of 8 along the grid's third
+// dimension, each reading the cache (the slices of one chunk are adjacent
+// in launch order, so the second finds it in L2). Any number of chunks is
+// taken (the statistics are read in rounds of 32 chunks), so any S.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,15 +60,21 @@
 
 namespace {
 
-constexpr int HD = 128;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int SEG = 16;                      // int8 values per lane per row (16 bytes)
-constexpr int LANES_PER_ROW = HD / SEG;      // 8
-constexpr int ROWS_PER_WARP = 32 / LANES_PER_ROW;  // 4
-constexpr int ROWS_PER_STEP = WARPS * ROWS_PER_WARP;  // 32
 constexpr int MAX_CHUNK_ROWS = 1024;
-constexpr int MAX_CHUNKS = 128;              // 4 chunks' statistics per lane
+constexpr int MAX_G = 8;                     // query heads per launch slice, at most
+
+// the layout of a row over a warp at head dim HD
+template <int HD>
+struct RowLayout {
+    static constexpr int ACTIVE = HD / SEG;  // lanes holding a row's bytes
+    static constexpr int LANES = ACTIVE <= 8 ? 8 : ACTIVE <= 16 ? 16 : 32;  // lanes per row
+    static constexpr int ROWS_PER_WARP = 32 / LANES;
+    static constexpr int ROWS_PER_STEP = WARPS * ROWS_PER_WARP;
+    static_assert(HD % 128 == 0 && ACTIVE <= 32, "head dim: a multiple of 128 up to 512");
+};
 
 __device__ __forceinline__ float bf16_round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
@@ -76,24 +93,27 @@ __device__ __forceinline__ void unpack16(const int4 v, float (&out)[SEG]) {
 template <int G>
 constexpr int LOADS_IN_FLIGHT = G >= 8 ? 2 : 4;
 
-template <int G>
+// Grid (chunk, b·Hkv, slice of G heads); gt = the launch's heads per kv-head.
+template <int HD, int G>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·Hkv, G, HD]
+decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·Hkv, gt, HD]
                                     const int8_t* __restrict__ k_codes, // [B·Hkv, S, HD]
                                     const float* __restrict__ k_scales, // [B·Hkv, S]
                                     const float* __restrict__ bias,     // [B, S]
-                                    float* __restrict__ scores,         // [B·Hkv, G, S]
-                                    float* __restrict__ stats,          // [B·Hkv, nchunk, G, 2]
-                                    int hkv, int S, int chunk_rows, float scale) {
+                                    float* __restrict__ scores,         // [B·Hkv, gt, S]
+                                    float* __restrict__ stats,          // [B·Hkv, nchunk, gt, 2]
+                                    int hkv, int gt, int S, int chunk_rows, float scale) {
+    using L = RowLayout<HD>;
     constexpr int U = LOADS_IN_FLIGHT<G>;
     extern __shared__ __align__(16) float sc[];  // [G][chunk_rows]
-    const int c = blockIdx.x, nchunk = gridDim.x, bh = blockIdx.y;
+    const int c = blockIdx.x, nchunk = gridDim.x, bh = blockIdx.y, g0 = blockIdx.z * G;
     const int b = bh / hkv;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int rr = lane / LANES_PER_ROW, seg = lane % LANES_PER_ROW;
+    const int rr = lane / L::LANES, seg = lane % L::LANES;
+    const bool active = seg < L::ACTIVE;
     const int s0 = c * chunk_rows;
     const int n = min(chunk_rows, S - s0);  // a multiple of 32
-    const int8_t* kb = k_codes + ((size_t)bh * S + s0) * HD + seg * SEG;
+    const int8_t* kb = k_codes + ((size_t)bh * S + s0) * HD + (active ? seg : 0) * SEG;
     const float* ksb = k_scales + (size_t)bh * S + s0;
     const float* bb = bias + (size_t)b * S + s0;
 
@@ -102,19 +122,23 @@ decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·H
     for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int j = 0; j < SEG; j += 4) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(q + ((size_t)bh * G + g) * HD + seg * SEG + j));
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (active)
+                v = __ldg(reinterpret_cast<const float4*>(
+                    q + ((size_t)bh * gt + g0 + g) * HD + seg * SEG + j));
             qr[g][j] = bf16_round(v.x), qr[g][j + 1] = bf16_round(v.y);
             qr[g][j + 2] = bf16_round(v.z), qr[g][j + 3] = bf16_round(v.w);
         }
 
-    for (int t0 = 0; t0 < n; t0 += U * ROWS_PER_STEP) {
+    for (int t0 = 0; t0 < n; t0 += U * L::ROWS_PER_STEP) {
         int4 kv[U];
         float ks[U], bs[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-            const int row = t0 + u * ROWS_PER_STEP + warp * ROWS_PER_WARP + rr;
-            if (t0 + u * ROWS_PER_STEP < n) {
-                kv[u] = __ldg(reinterpret_cast<const int4*>(kb + (size_t)row * HD));
+            const int row = t0 + u * L::ROWS_PER_STEP + warp * L::ROWS_PER_WARP + rr;
+            kv[u] = make_int4(0, 0, 0, 0);
+            if (t0 + u * L::ROWS_PER_STEP < n) {
+                if (active) kv[u] = __ldg(reinterpret_cast<const int4*>(kb + (size_t)row * HD));
                 if (seg == 0) {
                     ks[u] = __ldg(ksb + row);
                     bs[u] = __ldg(bb + row);
@@ -123,8 +147,8 @@ decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·H
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-            if (t0 + u * ROWS_PER_STEP < n) {  // the same for every thread of the block
-                const int row = t0 + u * ROWS_PER_STEP + warp * ROWS_PER_WARP + rr;
+            if (t0 + u * L::ROWS_PER_STEP < n) {  // the same for every thread of the block
+                const int row = t0 + u * L::ROWS_PER_STEP + warp * L::ROWS_PER_WARP + rr;
                 float kf[SEG];
                 unpack16(kv[u], kf);
                 float dot[G];
@@ -134,7 +158,7 @@ decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·H
 #pragma unroll
                     for (int j = 0; j < SEG; ++j) dot[g] = fmaf(qr[g][j], kf[j], dot[g]);
 #pragma unroll
-                    for (int off = LANES_PER_ROW / 2; off > 0; off >>= 1)
+                    for (int off = L::LANES / 2; off > 0; off >>= 1)
                         dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
                 }
                 if (seg == 0) {
@@ -150,7 +174,7 @@ decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·H
 
     for (int i = tid; i < G * n; i += THREADS) {
         const int g = i / n, j = i - g * n;
-        scores[((size_t)bh * G + g) * S + s0 + j] = sc[g * chunk_rows + j];
+        scores[((size_t)bh * gt + g0 + g) * S + s0 + j] = sc[g * chunk_rows + j];
     }
     if (warp < G) {  // warp g: the chunk's max and sum of query head g
         const float* row = sc + warp * chunk_rows;
@@ -163,70 +187,62 @@ decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·H
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
         if (lane == 0) {
-            float* st = stats + (((size_t)bh * nchunk + c) * G + warp) * 2;
+            float* st = stats + (((size_t)bh * nchunk + c) * gt + g0 + warp) * 2;
             st[0] = m;
             st[1] = l;
         }
     }
 }
 
-template <int G>
+template <int HD, int G>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, G, S]
-                                const float* __restrict__ stats,    // [B·Hkv, nchunk, G, 2]
+decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, gt, S]
+                                const float* __restrict__ stats,    // [B·Hkv, nchunk, gt, 2]
                                 const int8_t* __restrict__ v_codes, // [B·Hkv, S, HD]
                                 const float* __restrict__ v_scales, // [B·Hkv, S]
-                                float* __restrict__ partials,       // [B·Hkv, nchunk, G, HD]
-                                int* __restrict__ counters,         // [B·Hkv], zero between launches
-                                float* __restrict__ out,            // [B·Hkv, G, HD]
-                                int S, int chunk_rows) {
+                                float* __restrict__ partials,       // [B·Hkv, nchunk, gt, HD]
+                                int* __restrict__ counters,         // [B·Hkv, gt / G], zero between launches
+                                float* __restrict__ out,            // [B·Hkv, gt, HD]
+                                int gt, int S, int chunk_rows) {
+    using L = RowLayout<HD>;
     constexpr int U = LOADS_IN_FLIGHT<G>;
     extern __shared__ __align__(16) float smem[];
     float* p = smem;                     // [G][chunk_rows]
     float* red = p + G * chunk_rows;     // [WARPS][G][HD]
     __shared__ float m_s[G], den_s[G];
     __shared__ int last_block;
-    const int c = blockIdx.x, nchunk = gridDim.x, bh = blockIdx.y;
+    const int c = blockIdx.x, nchunk = gridDim.x, bh = blockIdx.y, g0 = blockIdx.z * G;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int rr = lane / LANES_PER_ROW, seg = lane % LANES_PER_ROW;
+    const int rr = lane / L::LANES, seg = lane % L::LANES;
+    const bool active = seg < L::ACTIVE;
     const int s0 = c * chunk_rows;
     const int n = min(chunk_rows, S - s0);
-    const int8_t* vb = v_codes + ((size_t)bh * S + s0) * HD + seg * SEG;
-    const int lrow = warp * ROWS_PER_WARP + rr;
+    const int8_t* vb = v_codes + ((size_t)bh * S + s0) * HD + (active ? seg : 0) * SEG;
+    const int lrow = warp * L::ROWS_PER_WARP + rr;
 
     // the first V loads go out before the softmax work
     int4 vv[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-        if (u * ROWS_PER_STEP < n)
-            vv[u] = __ldg(reinterpret_cast<const int4*>(vb + (size_t)(u * ROWS_PER_STEP + lrow) * HD));
+    for (int u = 0; u < U; ++u) {
+        vv[u] = make_int4(0, 0, 0, 0);
+        if (active && u * L::ROWS_PER_STEP < n)
+            vv[u] = __ldg(reinterpret_cast<const int4*>(vb + (size_t)(u * L::ROWS_PER_STEP + lrow) * HD));
+    }
 
     if (warp < G) {  // warp g: the global m and l of query head g
-        float mc[MAX_CHUNKS / 32], t[MAX_CHUNKS / 32];
+        const float* st = stats + ((size_t)bh * nchunk * gt + g0 + warp) * 2;  // chunk cc: + cc·gt·2
         float m = __int_as_float(0xff800000);
-#pragma unroll
-        for (int j = 0; j < MAX_CHUNKS / 32; ++j) {
-            const int cc = lane + 32 * j;
-            mc[j] = m;
-            t[j] = 0.f;
-            if (cc < nchunk) {
-                const float* st = stats + (((size_t)bh * nchunk + cc) * G + warp) * 2;
-                mc[j] = st[0];
-                t[j] = st[1];
-                m = fmaxf(m, mc[j]);
-            }
-        }
+        for (int cc = lane; cc < nchunk; cc += 32) m = fmaxf(m, st[(size_t)cc * gt * 2]);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-#pragma unroll
-        for (int j = 0; j < MAX_CHUNKS / 32; ++j)
-            if (lane + 32 * j < nchunk) t[j] = __fmul_rn(t[j], expf(__fsub_rn(mc[j], m)));
-        float l = 0.f;  // Σ_c l_c·exp(m_c − m), in chunk order
-#pragma unroll
-        for (int j = 0; j < MAX_CHUNKS / 32; ++j) {
-            if (32 * j >= nchunk) break;
-            for (int i = 0; i < 32 && 32 * j + i < nchunk; ++i)
-                l = __fadd_rn(l, __shfl_sync(0xffffffffu, t[j], i));
+        float l = 0.f;  // Σ_c l_c·exp(m_c − m), in chunk order, 32 chunks a round
+        for (int c0 = 0; c0 < nchunk; c0 += 32) {
+            const int cc = c0 + lane;
+            float t = 0.f;
+            if (cc < nchunk)
+                t = __fmul_rn(st[(size_t)cc * gt * 2 + 1], expf(__fsub_rn(st[(size_t)cc * gt * 2], m)));
+            const int nr = min(32, nchunk - c0);
+            for (int i = 0; i < nr; ++i) l = __fadd_rn(l, __shfl_sync(0xffffffffu, t, i));
         }
         if (lane == 0) {
             m_s[warp] = m;
@@ -237,7 +253,7 @@ decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, 
 #pragma unroll 4
     for (int i = tid; i < G * n; i += THREADS) {
         const int g = i / n, j = i - g * n;
-        const float e = expf(__fsub_rn(scores[((size_t)bh * G + g) * S + s0 + j], m_s[g]));
+        const float e = expf(__fsub_rn(scores[((size_t)bh * gt + g0 + g) * S + s0 + j], m_s[g]));
         p[g * chunk_rows + j] =
             bf16_round(__fmul_rn(__fdiv_rn(e, den_s[g]), __ldg(v_scales + (size_t)bh * S + s0 + j)));
     }
@@ -248,18 +264,18 @@ decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, 
     for (int g = 0; g < G; ++g)
 #pragma unroll
         for (int j = 0; j < SEG; ++j) acc[g][j] = 0.f;
-    for (int t0 = 0; t0 < n; t0 += U * ROWS_PER_STEP) {
+    for (int t0 = 0; t0 < n; t0 += U * L::ROWS_PER_STEP) {
         if (t0 > 0) {
 #pragma unroll
             for (int u = 0; u < U; ++u)
-                if (t0 + u * ROWS_PER_STEP < n)
+                if (active && t0 + u * L::ROWS_PER_STEP < n)
                     vv[u] = __ldg(reinterpret_cast<const int4*>(
-                        vb + (size_t)(t0 + u * ROWS_PER_STEP + lrow) * HD));
+                        vb + (size_t)(t0 + u * L::ROWS_PER_STEP + lrow) * HD));
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-            if (t0 + u * ROWS_PER_STEP < n) {
-                const int row = t0 + u * ROWS_PER_STEP + lrow;
+            if (t0 + u * L::ROWS_PER_STEP < n) {
+                const int row = t0 + u * L::ROWS_PER_STEP + lrow;
                 float vf[SEG];
                 unpack16(vv[u], vf);
 #pragma unroll
@@ -271,22 +287,23 @@ decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, 
             }
         }
     }
+    // the warp's rows → one sum per (head, column): add the ROWS_PER_WARP rows
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int j = 0; j < SEG; ++j) {
-            acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], LANES_PER_ROW);
-            acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], 2 * LANES_PER_ROW);
-        }
-    if (rr == 0) {
+        for (int j = 0; j < SEG; ++j)
+#pragma unroll
+            for (int off = L::LANES; off < 32; off <<= 1)
+                acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
+    if (rr == 0 && active) {
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
             for (int j = 0; j < SEG; ++j) red[(warp * G + g) * HD + seg * SEG + j] = acc[g][j];
     }
     __syncthreads();
-    float* dst = nchunk == 1 ? out + (size_t)bh * G * HD
-                             : partials + ((size_t)bh * nchunk + c) * G * HD;
+    float* dst = nchunk == 1 ? out + ((size_t)bh * gt + g0) * HD
+                             : partials + (((size_t)bh * nchunk + c) * gt + g0) * HD;
     for (int i = tid; i < G * HD; i += THREADS) {
         float s = 0.f;
 #pragma unroll
@@ -295,21 +312,22 @@ decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, 
     }
     if (nchunk == 1) return;
 
-    // the last block of this (b, h) adds the chunks' partials in chunk order
+    // the last block of this (b, h, slice) adds the chunks' partials in chunk order
+    int* counter = counters + (size_t)bh * gridDim.z + blockIdx.z;
     __threadfence();
     __syncthreads();
-    if (tid == 0) last_block = atomicAdd(counters + bh, 1) == nchunk - 1;
+    if (tid == 0) last_block = atomicAdd(counter, 1) == nchunk - 1;
     __syncthreads();
     if (!last_block) return;
     __threadfence();
-    const float* part = partials + (size_t)bh * nchunk * G * HD;
+    const float* part = partials + ((size_t)bh * nchunk * gt + g0) * HD;  // chunk cc: + cc·gt·HD
     for (int i = tid; i < G * HD; i += THREADS) {
         float s = 0.f;
 #pragma unroll 8
-        for (int cc = 0; cc < nchunk; ++cc) s += __ldcg(part + (size_t)cc * G * HD + i);
-        out[(size_t)bh * G * HD + i] = s;
+        for (int cc = 0; cc < nchunk; ++cc) s += __ldcg(part + (size_t)cc * gt * HD + i);
+        out[((size_t)bh * gt + g0) * HD + i] = s;
     }
-    if (tid == 0) counters[bh] = 0;
+    if (tid == 0) *counter = 0;
 }
 
 template <typename Kernel>
@@ -318,65 +336,84 @@ int allow_smem(Kernel kernel, size_t smem) {
     return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int G>
-int launch_g(int bh, int nchunk, int hkv, int S, int chunk_rows, float scale,
-             cudaStream_t stream, const float* q, const int8_t* kc, const float* ks,
-             const int8_t* vc, const float* vs, const float* bias, float* scores, float* stats,
-             float* partials, int* counters, float* out) {
-    const dim3 grid(nchunk, bh);
-    const size_t smem_scores = sizeof(float) * G * chunk_rows;
-    const size_t smem_pv = sizeof(float) * ((size_t)G * chunk_rows + (size_t)WARPS * G * HD);
-    int e = allow_smem(decode_attention_int8_scores_kernel<G>, smem_scores);
+struct Args {
+    int bh, nchunk, hkv, gt, S, chunk_rows;
+    float scale;
+    cudaStream_t stream;
+    const float* q;
+    const int8_t* kc;
+    const float* ks;
+    const int8_t* vc;
+    const float* vs;
+    const float* bias;
+    float *scores, *stats, *partials;
+    int* counters;
+    float* out;
+};
+
+template <int HD, int G>
+int launch_g(const Args& a) {
+    const dim3 grid(a.nchunk, a.bh, a.gt / G);
+    const size_t smem_scores = sizeof(float) * G * a.chunk_rows;
+    const size_t smem_pv = sizeof(float) * ((size_t)G * a.chunk_rows + (size_t)WARPS * G * HD);
+    int e = allow_smem(decode_attention_int8_scores_kernel<HD, G>, smem_scores);
     if (e) return e;
-    e = allow_smem(decode_attention_int8_pv_kernel<G>, smem_pv);
+    e = allow_smem(decode_attention_int8_pv_kernel<HD, G>, smem_pv);
     if (e) return e;
-    decode_attention_int8_scores_kernel<G><<<grid, THREADS, smem_scores, stream>>>(
-        q, kc, ks, bias, scores, stats, hkv, S, chunk_rows, scale);
+    decode_attention_int8_scores_kernel<HD, G><<<grid, THREADS, smem_scores, a.stream>>>(
+        a.q, a.kc, a.ks, a.bias, a.scores, a.stats, a.hkv, a.gt, a.S, a.chunk_rows, a.scale);
     e = (int)cudaGetLastError();
     if (e) return e;
-    decode_attention_int8_pv_kernel<G><<<grid, THREADS, smem_pv, stream>>>(
-        scores, stats, vc, vs, partials, counters, out, S, chunk_rows);
+    decode_attention_int8_pv_kernel<HD, G><<<grid, THREADS, smem_pv, a.stream>>>(
+        a.scores, a.stats, a.vc, a.vs, a.partials, a.counters, a.out, a.gt, a.S, a.chunk_rows);
     return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(const Args& a) {
+    switch (a.gt) {
+        case 1: return launch_g<HD, 1>(a);
+        case 2: return launch_g<HD, 2>(a);
+        case 4: return launch_g<HD, 4>(a);
+        default: return a.gt % MAX_G ? (int)cudaErrorInvalidValue : launch_g<HD, MAX_G>(a);
+    }
 }
 
 }  // namespace
 
-extern "C" int decode_attention_int8_head_dim() { return HD; }
+extern "C" int decode_attention_int8_max_group() { return MAX_G; }
+extern "C" int decode_attention_int8_max_chunk_rows() { return MAX_CHUNK_ROWS; }
 
-// q [B·Hkv, G, 128] f32; k/v codes [B·Hkv, S, 128] int8; k/v scales
+// q [B·Hkv, G, hd] f32; k/v codes [B·Hkv, S, hd] int8; k/v scales
 // [B·Hkv, S] f32; bias [B, S] f32; scratch: scores [B·Hkv, G, S] f32, stats
-// [B·Hkv, nchunk, G, 2] f32, partials [B·Hkv, nchunk, G, 128] f32, counters
-// [B·Hkv] int32 (zero; left zero); out [B·Hkv, G, 128] f32. S and
-// chunk_rows multiples of 32, chunk_rows ≤ 1024, nchunk = ⌈S / chunk_rows⌉
-// ≤ 128. Returns the CUDA error of the launches.
+// [B·Hkv, nchunk, G, 2] f32, partials [B·Hkv, nchunk, G, hd] f32, counters
+// [B·Hkv, G / 8 or 1] int32 (zero; left zero); out [B·Hkv, G, hd] f32.
+// G ∈ {1, 2, 4} or a multiple of 8; hd ∈ {128, 256, 384, 512}; S and
+// chunk_rows multiples of 32, chunk_rows ≤ 1024, nchunk = ⌈S / chunk_rows⌉.
+// Returns the CUDA error of the launches.
 extern "C" int decode_attention_int8_launch(const void* q, const void* k_codes,
                                             const void* k_scales, const void* v_codes,
                                             const void* v_scales, const void* bias,
                                             void* scores, void* stats, void* partials,
                                             void* counters, void* out, int bh, int hkv, int G,
-                                            int S, int chunk_rows, int nchunk, float scale,
-                                            void* stream) {
-    if (bh < 1 || hkv < 1 || bh % hkv || S < ROWS_PER_STEP || S % ROWS_PER_STEP ||
-        chunk_rows < ROWS_PER_STEP || chunk_rows % ROWS_PER_STEP || chunk_rows > MAX_CHUNK_ROWS ||
-        nchunk < 1 || nchunk > MAX_CHUNKS || nchunk != (S + chunk_rows - 1) / chunk_rows)
+                                            int S, int chunk_rows, int nchunk, int hd,
+                                            float scale, void* stream) {
+    if (bh < 1 || hkv < 1 || bh % hkv || G < 1 || S < 32 || S % 32 || chunk_rows < 32 ||
+        chunk_rows % 32 || chunk_rows > MAX_CHUNK_ROWS || nchunk < 1 ||
+        nchunk != (S + chunk_rows - 1) / chunk_rows)
         return (int)cudaErrorInvalidValue;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const auto* qf = static_cast<const float*>(q);
-    const auto* kc = static_cast<const int8_t*>(k_codes);
-    const auto* ks = static_cast<const float*>(k_scales);
-    const auto* vc = static_cast<const int8_t*>(v_codes);
-    const auto* vs = static_cast<const float*>(v_scales);
-    const auto* bs = static_cast<const float*>(bias);
-    auto* sc = static_cast<float*>(scores);
-    auto* sa = static_cast<float*>(stats);
-    auto* pp = static_cast<float*>(partials);
-    auto* ct = static_cast<int*>(counters);
-    auto* o = static_cast<float*>(out);
-    switch (G) {
-        case 1: return launch_g<1>(bh, nchunk, hkv, S, chunk_rows, scale, st, qf, kc, ks, vc, vs, bs, sc, sa, pp, ct, o);
-        case 2: return launch_g<2>(bh, nchunk, hkv, S, chunk_rows, scale, st, qf, kc, ks, vc, vs, bs, sc, sa, pp, ct, o);
-        case 4: return launch_g<4>(bh, nchunk, hkv, S, chunk_rows, scale, st, qf, kc, ks, vc, vs, bs, sc, sa, pp, ct, o);
-        case 8: return launch_g<8>(bh, nchunk, hkv, S, chunk_rows, scale, st, qf, kc, ks, vc, vs, bs, sc, sa, pp, ct, o);
+    const Args a{bh, nchunk, hkv, G, S, chunk_rows, scale, static_cast<cudaStream_t>(stream),
+                 static_cast<const float*>(q), static_cast<const int8_t*>(k_codes),
+                 static_cast<const float*>(k_scales), static_cast<const int8_t*>(v_codes),
+                 static_cast<const float*>(v_scales), static_cast<const float*>(bias),
+                 static_cast<float*>(scores), static_cast<float*>(stats),
+                 static_cast<float*>(partials), static_cast<int*>(counters),
+                 static_cast<float*>(out)};
+    switch (hd) {
+        case 128: return launch_hd<128>(a);
+        case 256: return launch_hd<256>(a);
+        case 384: return launch_hd<384>(a);
+        case 512: return launch_hd<512>(a);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -20,14 +20,21 @@
 // bound; the tensor-core (mma/wgmma s8) version is later work.
 //
 // Design: one CUDA block per (corpus block, query tile), 256 threads = 8
-// warps. The query tile's codes sit in shared memory as 32-bit words laid
-// out [word][query]; the corpus block streams through shared memory in
-// chunks of KCHUNK_WORDS words per row, laid out [word][row] so that lane l
-// reads rows l, l+32, ... without bank conflicts. Warp w owns queries
-// 8w..8w+7 and every lane holds the scores of its 8 rows for those queries in
+// warps. The query tile's codes pass through shared memory as 32-bit words
+// laid out [word][query], Q_SLICE_WORDS words of each query at a time (so
+// any D fits: a wide corpus is scored slice by slice into the same int32
+// sums); the corpus block streams through shared memory in chunks of
+// KCHUNK_WORDS words per row, laid out [word][row] so that lane l reads
+// rows l, l+32, ... without bank conflicts. Warp w owns queries 8w..8w+7
+// and every lane holds the scores of its 8 rows for those queries in
 // registers, so the whole 8 × 256 score tile of a warp is in registers and
 // the top-kb extraction is kb warp-shuffle arg-max passes per query — no
-// score tile in shared memory.
+// score tile in shared memory. A D that is not a multiple of 16 is read 4
+// bytes (D a multiple of 4) or a byte at a time and zero-filled past D
+// inside the kernel (a zero product
+// adds nothing to an int32 sum), so the corpus is never copied to pad it;
+// the queries arrive padded to the multiple (the wrapper pads them, B × D
+// bytes). The int32 sums are exact up to D = 133,143 (127² per product).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,10 +48,44 @@ constexpr int WARPS = THREADS / 32;
 constexpr int Q_PER_WARP = QUERY_TILE / WARPS;   // 8
 constexpr int ROWS_PER_LANE = BLOCK_ROWS / 32;   // 8
 constexpr int KCHUNK_WORDS = 16;                 // 64 bytes of each row per chunk
+constexpr int Q_SLICE_WORDS = 128;               // 512 bytes of each query per slice
 constexpr float NEG_INF = -1e30f;
 
+// the dynamic shared memory at width d: a query slice, then a corpus chunk
+__host__ __device__ inline int q_slice_words(int d) {
+    const int dw = (d + 15) / 16 * 4;
+    return dw < Q_SLICE_WORDS ? dw : Q_SLICE_WORDS;
+}
+size_t smem_bytes(int d) {
+    return (size_t)(q_slice_words(d) * QUERY_TILE + KCHUNK_WORDS * BLOCK_ROWS) * sizeof(int);
+}
+
+// 16 bytes of a corpus row from byte `o` on, zero at or past D: one
+// 16-byte load when D is a multiple of 16 (ALIGN 16), four 4-byte loads
+// when it is a multiple of 4 (ALIGN 4), else byte by byte (ALIGN 1)
+template <int ALIGN>
+__device__ __forceinline__ int4 load16(const int8_t* row, int o, int d) {
+    if (ALIGN == 16) return *reinterpret_cast<const int4*>(row + o);
+    int w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int c0 = o + 4 * i;
+        if (ALIGN == 4) {
+            w[i] = c0 < d ? *reinterpret_cast<const int*>(row + c0) : 0;
+            continue;
+        }
+        uint32_t v = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+            if (c0 + b < d) v |= (uint32_t)(uint8_t)row[c0 + b] << (8 * b);
+        w[i] = (int)v;
+    }
+    return make_int4(w[0], w[1], w[2], w[3]);
+}
+
+template <int ALIGN>
 __global__ void __launch_bounds__(THREADS, 2)
-int8_scan_topk_kernel(const int8_t* __restrict__ q_codes,     // [nq·QUERY_TILE, D]
+int8_scan_topk_kernel(const int8_t* __restrict__ q_codes,     // [nq·QUERY_TILE, ⌈D/16⌉·16]
                       const int8_t* __restrict__ codes,       // [nblocks·BLOCK_ROWS, D]
                       const float* __restrict__ row_scale,    // [nblocks·BLOCK_ROWS]
                       const float* __restrict__ bias,         // [nblocks·BLOCK_ROWS]
@@ -52,9 +93,10 @@ int8_scan_topk_kernel(const int8_t* __restrict__ q_codes,     // [nq·QUERY_TILE
                       int* __restrict__ out_i,
                       int nblocks, int d, int kb) {
     extern __shared__ int smem[];
-    const int dw = d / 4;                        // 32-bit words per row
-    int* qs = smem;                              // [dw][QUERY_TILE]
-    int* cs = smem + dw * QUERY_TILE;            // [KCHUNK_WORDS][BLOCK_ROWS]
+    const int dq = (d + 15) & ~15;               // the queries' padded width
+    const int dw = dq / 4;                       // 32-bit words per (padded) row
+    int* qs = smem;                                  // [q_slice_words][QUERY_TILE]
+    int* cs = smem + q_slice_words(d) * QUERY_TILE;  // [KCHUNK_WORDS][BLOCK_ROWS]
 
     const int blk = blockIdx.x;
     const int iq = blockIdx.y;
@@ -63,48 +105,51 @@ int8_scan_topk_kernel(const int8_t* __restrict__ q_codes,     // [nq·QUERY_TILE
     const int warp = tid >> 5;
     const long long row0 = (long long)blk * BLOCK_ROWS;
 
-    // query tile → shared memory, 16 bytes per load
-    const int segs = d / 16;
-    const int4* qsrc = reinterpret_cast<const int4*>(q_codes + (long long)iq * QUERY_TILE * d);
-    for (int idx = tid; idx < QUERY_TILE * segs; idx += THREADS) {
-        const int q = idx / segs, sg = idx % segs;
-        const int4 v = qsrc[(long long)q * segs + sg];
-        qs[(sg * 4 + 0) * QUERY_TILE + q] = v.x;
-        qs[(sg * 4 + 1) * QUERY_TILE + q] = v.y;
-        qs[(sg * 4 + 2) * QUERY_TILE + q] = v.z;
-        qs[(sg * 4 + 3) * QUERY_TILE + q] = v.w;
-    }
-
     int acc[Q_PER_WARP][ROWS_PER_LANE];
 #pragma unroll
     for (int i = 0; i < Q_PER_WARP; ++i)
 #pragma unroll
         for (int j = 0; j < ROWS_PER_LANE; ++j) acc[i][j] = 0;
 
+    const int8_t* qbase = q_codes + (long long)iq * QUERY_TILE * dq;
     const int8_t* cbase = codes + row0 * d;
-    for (int kc = 0; kc < dw; kc += KCHUNK_WORDS) {
-        const int nw = min(KCHUNK_WORDS, dw - kc);   // a multiple of 4 (d % 16 == 0)
-        const int nseg = nw / 4;
-        __syncthreads();                              // previous chunk consumed
-        for (int idx = tid; idx < BLOCK_ROWS * nseg; idx += THREADS) {
-            const int r = idx / nseg, sg = idx % nseg;
-            const int4 v = *reinterpret_cast<const int4*>(cbase + (long long)r * d + kc * 4 + sg * 16);
-            cs[(sg * 4 + 0) * BLOCK_ROWS + r] = v.x;
-            cs[(sg * 4 + 1) * BLOCK_ROWS + r] = v.y;
-            cs[(sg * 4 + 2) * BLOCK_ROWS + r] = v.z;
-            cs[(sg * 4 + 3) * BLOCK_ROWS + r] = v.w;
+    for (int q0 = 0; q0 < dw; q0 += q_slice_words(d)) {
+        const int qn = min(q_slice_words(d), dw - q0);   // a multiple of 4
+        const int qsegs = qn / 4;
+        __syncthreads();                               // the previous slice consumed
+        // the query tile's slice → shared memory, 16 bytes per load
+        for (int idx = tid; idx < QUERY_TILE * qsegs; idx += THREADS) {
+            const int q = idx / qsegs, sg = idx % qsegs;
+            const int4 v = *reinterpret_cast<const int4*>(qbase + (long long)q * dq + q0 * 4 + sg * 16);
+            qs[(sg * 4 + 0) * QUERY_TILE + q] = v.x;
+            qs[(sg * 4 + 1) * QUERY_TILE + q] = v.y;
+            qs[(sg * 4 + 2) * QUERY_TILE + q] = v.z;
+            qs[(sg * 4 + 3) * QUERY_TILE + q] = v.w;
         }
-        __syncthreads();
-        for (int w = 0; w < nw; ++w) {
-            int qv[Q_PER_WARP], cv[ROWS_PER_LANE];
+        for (int kc = 0; kc < qn; kc += KCHUNK_WORDS) {
+            const int nw = min(KCHUNK_WORDS, qn - kc);   // a multiple of 4
+            const int nseg = nw / 4;
+            __syncthreads();                              // previous chunk consumed
+            for (int idx = tid; idx < BLOCK_ROWS * nseg; idx += THREADS) {
+                const int r = idx / nseg, sg = idx % nseg;
+                const int4 v = load16<ALIGN>(cbase + (long long)r * d, (q0 + kc) * 4 + sg * 16, d);
+                cs[(sg * 4 + 0) * BLOCK_ROWS + r] = v.x;
+                cs[(sg * 4 + 1) * BLOCK_ROWS + r] = v.y;
+                cs[(sg * 4 + 2) * BLOCK_ROWS + r] = v.z;
+                cs[(sg * 4 + 3) * BLOCK_ROWS + r] = v.w;
+            }
+            __syncthreads();
+            for (int w = 0; w < nw; ++w) {
+                int qv[Q_PER_WARP], cv[ROWS_PER_LANE];
 #pragma unroll
-            for (int i = 0; i < Q_PER_WARP; ++i) qv[i] = qs[(kc + w) * QUERY_TILE + warp * Q_PER_WARP + i];
+                for (int i = 0; i < Q_PER_WARP; ++i) qv[i] = qs[(kc + w) * QUERY_TILE + warp * Q_PER_WARP + i];
 #pragma unroll
-            for (int j = 0; j < ROWS_PER_LANE; ++j) cv[j] = cs[w * BLOCK_ROWS + lane + 32 * j];
+                for (int j = 0; j < ROWS_PER_LANE; ++j) cv[j] = cs[w * BLOCK_ROWS + lane + 32 * j];
 #pragma unroll
-            for (int i = 0; i < Q_PER_WARP; ++i)
+                for (int i = 0; i < Q_PER_WARP; ++i)
 #pragma unroll
-                for (int j = 0; j < ROWS_PER_LANE; ++j) acc[i][j] = __dp4a(qv[i], cv[j], acc[i][j]);
+                    for (int j = 0; j < ROWS_PER_LANE; ++j) acc[i][j] = __dp4a(qv[i], cv[j], acc[i][j]);
+            }
         }
     }
 
@@ -166,19 +211,22 @@ int int8_scan_topk_block_rows() { return BLOCK_ROWS; }
 int int8_scan_topk_query_tile() { return QUERY_TILE; }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// The caller checks shapes: q rows = nq·QUERY_TILE, codes rows =
-// nblocks·BLOCK_ROWS, d % 16 == 0, 1 <= kb <= BLOCK_ROWS, 16-byte aligned
-// pointers.
+// The caller checks shapes: q rows = nq·QUERY_TILE of ⌈d/16⌉·16 bytes (zero
+// past d), codes rows = nblocks·BLOCK_ROWS of d bytes, d >= 1,
+// 1 <= kb <= BLOCK_ROWS, 16-byte aligned pointers.
 int int8_scan_topk_launch(const void* q_codes, const void* codes, const void* row_scale,
                           const void* bias, void* out_s, void* out_i, int nq, int nblocks,
                           int d, int kb, void* stream) {
-    const size_t smem = (size_t)(d / 4) * QUERY_TILE * sizeof(int) +
-                        (size_t)KCHUNK_WORDS * BLOCK_ROWS * sizeof(int);
-    cudaError_t err = cudaFuncSetAttribute(
-        int8_scan_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (d < 1 || kb < 1 || kb > BLOCK_ROWS) return (int)cudaErrorInvalidValue;
+    auto kernel = d % 16 == 0 ? int8_scan_topk_kernel<16>
+                : d % 4 == 0  ? int8_scan_topk_kernel<4>
+                              : int8_scan_topk_kernel<1>;
+    const size_t smem = smem_bytes(d);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)nblocks, (unsigned)nq);
-    int8_scan_topk_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         static_cast<const int8_t*>(q_codes), static_cast<const int8_t*>(codes),
         static_cast<const float*>(row_scale), static_cast<const float*>(bias),
         static_cast<float*>(out_s), static_cast<int*>(out_i), nblocks, d, kb);

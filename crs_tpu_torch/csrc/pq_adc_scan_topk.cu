@@ -58,6 +58,16 @@
 // staged in shared memory (M+2 bytes a row); thread t scores row t for all 8
 // queries, the scores go to shared memory, and warp w folds them into query
 // w's running top-kb.
+//
+// Wider tables. When the tile's LUTs do not fit beside a chunk (M ≥ 52 at
+// K = 256), a CUDA block scores QT = 4, 2 or 1 of the tile's 8 queries (the
+// largest that fits; QT·M·K·2 bytes of LUT, entries of QT values), and the
+// grid has 8 / QT blocks per tile and run. Past one query's LUTs (M ≥ 296 at
+// K = 256) the block takes its 8 queries' LUTs SLICE subspaces at a time:
+// for every chunk, each slice of the LUTs and of the chunk's codes is staged
+// in turn and its terms added, in subspace order, so the sums are the same;
+// the LUTs are then read once per chunk instead of once per run. Every M and
+// K ≤ 256 is taken.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,10 +78,11 @@
 namespace {
 
 constexpr int CHUNK = 256;      // corpus rows per step; thread t scores row t
-constexpr int QUERY_TILE = 8;   // queries per CUDA block (= warps)
+constexpr int QUERY_TILE = 8;   // queries per tile of the partials and the LUT layout
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_LANE = CHUNK / 32;
 constexpr int MAX_KB = 32;
+constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one CUDA block may use
 enum Mode { PLAIN = 0, RESIDUAL = 1, SORTED = 2 };
 
 __host__ __device__ inline size_t round16(size_t x) { return (x + 15) / 16 * 16; }
@@ -79,15 +90,52 @@ __host__ __device__ inline size_t round16(size_t x) { return (x + 15) / 16 * 16;
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
-// the 8 bf16 of a 16-byte entry, in order, widened exactly
-__device__ __forceinline__ void unpack8(const uint4 v, float (&f)[QUERY_TILE]) {
-    f[0] = bf16_lo(v.x); f[1] = bf16_hi(v.x);
-    f[2] = bf16_lo(v.y); f[3] = bf16_hi(v.y);
-    f[4] = bf16_lo(v.z); f[5] = bf16_hi(v.z);
-    f[6] = bf16_lo(v.w); f[7] = bf16_hi(v.w);
+// A LUT entry of QT queries' bf16 values for one (subspace, code), and its
+// values widened exactly, in query order.
+template <int QT> struct Entry;
+template <> struct Entry<8> {
+    using T = uint4;
+    __device__ static void unpack(const T v, float (&f)[8]) {
+        f[0] = bf16_lo(v.x); f[1] = bf16_hi(v.x); f[2] = bf16_lo(v.y); f[3] = bf16_hi(v.y);
+        f[4] = bf16_lo(v.z); f[5] = bf16_hi(v.z); f[6] = bf16_lo(v.w); f[7] = bf16_hi(v.w);
+    }
+};
+template <> struct Entry<4> {
+    using T = uint2;
+    __device__ static void unpack(const T v, float (&f)[4]) {
+        f[0] = bf16_lo(v.x); f[1] = bf16_hi(v.x); f[2] = bf16_lo(v.y); f[3] = bf16_hi(v.y);
+    }
+};
+template <> struct Entry<2> {
+    using T = uint32_t;
+    __device__ static void unpack(const T v, float (&f)[2]) { f[0] = bf16_lo(v); f[1] = bf16_hi(v); }
+};
+template <> struct Entry<1> {
+    using T = uint16_t;
+    __device__ static void unpack(const T v, float (&f)[1]) { f[0] = bf16_lo(v); }
+};
+
+// Shared memory of one CUDA block: QT queries' LUTs for `ms` subspaces, the
+// chunk's staged codes (whole rows of `cols` bytes when ms = m, else `ms`
+// bytes a row) and its scores.
+__host__ __device__ inline size_t adc_smem(int qt, int m, int ms, int kc, int cols) {
+    const size_t code_bytes = (size_t)CHUNK * (ms == m ? cols : ms);
+    return (size_t)qt * ms * kc * 2 + round16(code_bytes) + (size_t)qt * CHUNK * 4;
 }
 
-template <int MODE>
+// entries [e0, e1) of the query tile's [m·kc] LUT entries (16 bytes, 8
+// queries) → shared memory from 0, the QT values of queries q0.. of each
+template <int QT>
+__device__ __forceinline__ void load_lut(typename Entry<QT>::T* dst, const unsigned char* tile_lut,
+                                         int e0, int e1, int q0, int tid) {
+    using T = typename Entry<QT>::T;
+    for (int e = e0 + tid; e < e1; e += THREADS)
+        dst[e - e0] = *reinterpret_cast<const T*>(tile_lut + (size_t)e * 16 + q0 * 2);
+}
+
+// MODE, QT queries per CUDA block, SLICED: the LUTs and codes staged `ms`
+// subspaces at a time per chunk (else all M, the LUTs once per run).
+template <int MODE, int QT, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 1)
 adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUERY_TILE]
                      const uint32_t* __restrict__ hilo,      // [nq, c, QUERY_TILE] (not PLAIN)
@@ -97,29 +145,28 @@ adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUER
                      int* __restrict__ out_i,
                      const int* __restrict__ wbase,          // [nblocks / group] (SORTED)
                      int nblocks, int block_size, int blocks_per_cta, int m, int kc, int c,
-                     int kb, int group) {
+                     int kb, int group, int ms) {
+    using T = typename Entry<QT>::T;
+    constexpr int SUBS = QUERY_TILE / QT;  // CUDA blocks per query tile
     extern __shared__ __align__(16) unsigned char smem[];
     constexpr bool COARSE = MODE != PLAIN;
     const int cols = m + (COARSE ? 2 : 0);
-    const size_t lut_bytes = (size_t)QUERY_TILE * m * kc * 2;  // a multiple of 16
-    const size_t code_bytes = (size_t)CHUNK * cols;            // a multiple of 16
-    const uint4* lut_s = reinterpret_cast<const uint4*>(smem);  // [m·kc] entries of 8 queries
-    unsigned char* codes_s = smem + lut_bytes;
-    float* sc = reinterpret_cast<float*>(smem + lut_bytes + round16(code_bytes));  // [QT][CHUNK]
+    const int off = COARSE ? 2 : 0;
+    const int stride = SLICED ? ms : cols;                     // staged bytes a row
+    const size_t lut_bytes = (size_t)QT * ms * kc * 2;         // a multiple of 16 (SLICED: QT = 8)
+    T* lut_s = reinterpret_cast<T*>(smem);                     // [ms·kc] entries of QT queries
+    unsigned char* codes_s = smem + round16(lut_bytes);
+    float* sc = reinterpret_cast<float*>(codes_s + round16((size_t)CHUNK * stride));  // [QT][CHUNK]
 
-    const int iq = blockIdx.y;
+    const int iq = blockIdx.y / SUBS;
+    const int q0 = (blockIdx.y % SUBS) * QT;  // the first of the tile's queries scored here
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-
-    {  // the query tile's LUTs → shared memory, 16 bytes per load
-        const uint4* src = reinterpret_cast<const uint4*>(lut + (long long)iq * QUERY_TILE * m * kc);
-        uint4* dst = reinterpret_cast<uint4*>(smem);
-        for (int idx = tid; idx < (int)(lut_bytes / 16); idx += THREADS) dst[idx] = src[idx];
-    }
-    const uint4* hilo_q =
-        COARSE ? reinterpret_cast<const uint4*>(hilo + (long long)iq * c * QUERY_TILE) : nullptr;
-    const int off = COARSE ? 2 : 0;
+    const unsigned char* tile_lut =
+        reinterpret_cast<const unsigned char*>(lut) + (size_t)iq * m * kc * QUERY_TILE * 2;
+    if (!SLICED) load_lut<QT>(lut_s, tile_lut, 0, m * kc, q0, tid);
+    const uint32_t* hilo_q = COARSE ? hilo + (size_t)iq * c * QUERY_TILE : nullptr;
 
     const int blk_begin = blockIdx.x * blocks_per_cta;
     const int blk_end = min(nblocks, blk_begin + blocks_per_cta);
@@ -129,72 +176,140 @@ adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUER
         int li = 0;
         for (int c0 = 0; c0 < block_size; c0 += CHUNK) {
             const long long row0 = (long long)blk * block_size + c0;
-            __syncthreads();  // LUT loaded / previous chunk's codes and scores consumed
-            {
+            const uint8_t* rowp = codes + (row0 + tid) * cols;  // this thread's row
+            if (!SLICED) {
+                __syncthreads();  // LUT loaded / previous chunk's codes and scores consumed
                 const uint4* src = reinterpret_cast<const uint4*>(codes + row0 * cols);
                 uint4* dst = reinterpret_cast<uint4*>(codes_s);
-                for (int idx = tid; idx < (int)(code_bytes / 16); idx += THREADS) dst[idx] = src[idx];
+                for (int idx = tid; idx < CHUNK * cols / 16; idx += THREADS) dst[idx] = src[idx];
+                __syncthreads();
             }
-            __syncthreads();
-
-            const unsigned char* my = codes_s + tid * cols;
-            float s[QUERY_TILE];
-            const int cid = COARSE ? ((int)my[0] << 8) | (int)my[1] : 0;
+            float s[QT];
+            int cid = 0;
+            if (COARSE) {
+                const unsigned char* cb = SLICED ? rowp : codes_s + tid * cols;
+                cid = ((int)cb[0] << 8) | (int)cb[1];
+            }
             // SORTED: an id outside the tile's window has no coarse term
             const bool in_window = MODE != SORTED || ((unsigned)(cid - win) < 512u && cid < c);
             if (COARSE && in_window) {
                 // word q of the row's 32-byte entry: hi in the low half, lo in the high half
-                const uint4 a = __ldg(hilo_q + 2 * cid), b = __ldg(hilo_q + 2 * cid + 1);
-                const uint32_t w[QUERY_TILE] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+                uint32_t w[QT];
+                if (QT == 8) {
+                    const uint4* e = reinterpret_cast<const uint4*>(hilo_q + (size_t)cid * QUERY_TILE);
+                    const uint4 a = __ldg(e), b = __ldg(e + 1);
+                    const uint32_t all[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-                for (int qq = 0; qq < QUERY_TILE; ++qq)
+                    for (int qq = 0; qq < QT; ++qq) w[qq] = all[qq];
+                } else {
+#pragma unroll
+                    for (int qq = 0; qq < QT; ++qq)
+                        w[qq] = __ldg(hilo_q + (size_t)cid * QUERY_TILE + q0 + qq);
+                }
+#pragma unroll
+                for (int qq = 0; qq < QT; ++qq)
                     s[qq] = __fadd_rn(__fadd_rn(0.0f, bf16_lo(w[qq])), bf16_hi(w[qq]));
             } else {
 #pragma unroll
-                for (int qq = 0; qq < QUERY_TILE; ++qq) s[qq] = 0.0f;
+                for (int qq = 0; qq < QT; ++qq) s[qq] = 0.0f;
             }
-            for (int mm = 0; mm < m; ++mm) {
-                float r[QUERY_TILE];
-                unpack8(lut_s[mm * kc + my[off + mm]], r);
+            for (int m0 = 0; m0 < m; m0 += (SLICED ? ms : m)) {
+                const int m1 = SLICED ? min(m, m0 + ms) : m;
+                if (SLICED) {  // this slice's LUTs and codes → shared memory
+                    const int w = m1 - m0;
+                    __syncthreads();  // the previous slice (or chunk's scores) consumed
+                    load_lut<QT>(lut_s, tile_lut, m0 * kc, m1 * kc, q0, tid);
+                    for (int idx = tid; idx < CHUNK * w; idx += THREADS) {
+                        const int r = idx / w, j = idx - r * w;
+                        codes_s[r * ms + j] = codes[(row0 + r) * cols + off + m0 + j];
+                    }
+                    __syncthreads();
+                }
+                const unsigned char* my = SLICED ? codes_s + tid * ms : codes_s + tid * cols + off;
+                for (int mm = m0; mm < m1; ++mm) {
+                    float r[QT];
+                    Entry<QT>::unpack(lut_s[(mm - m0) * kc + my[mm - m0]], r);
 #pragma unroll
-                for (int qq = 0; qq < QUERY_TILE; ++qq) s[qq] = __fadd_rn(s[qq], r[qq]);
+                    for (int qq = 0; qq < QT; ++qq) s[qq] = __fadd_rn(s[qq], r[qq]);
+                }
             }
             const float b = bias[row0 + tid];
 #pragma unroll
-            for (int qq = 0; qq < QUERY_TILE; ++qq) sc[qq * CHUNK + tid] = __fadd_rn(s[qq], b);
+            for (int qq = 0; qq < QT; ++qq) sc[qq * CHUNK + tid] = __fadd_rn(s[qq], b);
             __syncthreads();
 
-            float v[ROWS_PER_LANE];
+            if (warp < QT) {
+                float v[ROWS_PER_LANE];
 #pragma unroll
-            for (int j = 0; j < ROWS_PER_LANE; ++j) v[j] = sc[warp * CHUNK + lane + 32 * j];
-            block_topk::merge_chunk<ROWS_PER_LANE>(v, (int)row0, c0 > 0, ls, li, kb, lane);
+                for (int j = 0; j < ROWS_PER_LANE; ++j) v[j] = sc[warp * CHUNK + lane + 32 * j];
+                block_topk::merge_chunk<ROWS_PER_LANE>(v, (int)row0, c0 > 0, ls, li, kb, lane);
+            }
         }
-        if (lane < kb) {
-            const long long o = (((long long)iq * nblocks + blk) * kb + lane) * QUERY_TILE + warp;
+        if (warp < QT && lane < kb) {
+            const long long o =
+                (((long long)iq * nblocks + blk) * kb + lane) * QUERY_TILE + q0 + warp;
             out_s[o] = ls;
             out_i[o] = li;
         }
     }
 }
 
+template <int MODE, int QT, bool SLICED>
+int launch_as(const void* lut, const void* hilo, const void* codes, const void* bias,
+              void* out_s, void* out_i, const void* wbase, int nq, int nblocks, int block_size,
+              int grid_x, int m, int kc, int c, int kb, int group, int ms, size_t smem,
+              void* stream) {
+    cudaError_t err = cudaFuncSetAttribute(adc_scan_topk_kernel<MODE, QT, SLICED>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int per_cta = (nblocks + grid_x - 1) / grid_x;
+    const dim3 grid((unsigned)((nblocks + per_cta - 1) / per_cta),
+                    (unsigned)nq * (QUERY_TILE / QT));
+    adc_scan_topk_kernel<MODE, QT, SLICED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        static_cast<const __nv_bfloat16*>(lut), static_cast<const uint32_t*>(hilo),
+        static_cast<const uint8_t*>(codes), static_cast<const float*>(bias),
+        static_cast<float*>(out_s), static_cast<int*>(out_i), static_cast<const int*>(wbase),
+        nblocks, block_size, per_cta, m, kc, c, kb, group, ms);
+    return (int)cudaGetLastError();
+}
+
+// The layout of one CUDA block at (m, kc): the most queries whose whole LUTs
+// fit (8, 4, 2, 1), else 8 queries with the subspaces sliced. qt = 0: none.
+struct Plan {
+    int qt, ms;
+    size_t smem;
+};
+
+Plan plan(int m, int kc, int cols) {
+    for (int qt = QUERY_TILE; qt >= 1; qt /= 2) {
+        const size_t smem = adc_smem(qt, m, m, kc, cols);
+        if (smem <= (size_t)SMEM_LIMIT) return {qt, m, smem};
+    }
+    for (int ms = m - 1; ms >= 1; --ms) {
+        const size_t smem = adc_smem(QUERY_TILE, m, ms, kc, cols);
+        if (smem <= (size_t)SMEM_LIMIT) return {QUERY_TILE, ms, smem};
+    }
+    return {0, 0, 0};
+}
+
 template <int MODE>
 int launch(const void* lut, const void* hilo, const void* codes, const void* bias, void* out_s,
            void* out_i, const void* wbase, int nq, int nblocks, int block_size, int grid_x,
            int m, int kc, int c, int kb, int group, void* stream) {
-    const int cols = m + (MODE != PLAIN ? 2 : 0);
-    const size_t smem = (size_t)QUERY_TILE * m * kc * 2 + round16((size_t)CHUNK * cols) +
-                        (size_t)QUERY_TILE * CHUNK * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(adc_scan_topk_kernel<MODE>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int per_cta = (nblocks + grid_x - 1) / grid_x;
-    const dim3 grid((unsigned)((nblocks + per_cta - 1) / per_cta), (unsigned)nq);
-    adc_scan_topk_kernel<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        static_cast<const __nv_bfloat16*>(lut), static_cast<const uint32_t*>(hilo),
-        static_cast<const uint8_t*>(codes), static_cast<const float*>(bias),
-        static_cast<float*>(out_s), static_cast<int*>(out_i), static_cast<const int*>(wbase),
-        nblocks, block_size, per_cta, m, kc, c, kb, group);
-    return (int)cudaGetLastError();
+    if (m < 1 || kc < 1 || kc > 256 || kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
+    const Plan p = plan(m, kc, m + (MODE != PLAIN ? 2 : 0));
+#define ADC_LAUNCH(QT, SLICED)                                                                   \
+    launch_as<MODE, QT, SLICED>(lut, hilo, codes, bias, out_s, out_i, wbase, nq, nblocks,        \
+                                block_size, grid_x, m, kc, c, kb, group, p.ms, p.smem, stream)
+    if (p.qt == 0) return (int)cudaErrorInvalidValue;
+    if (p.ms < m) return ADC_LAUNCH(8, true);
+    switch (p.qt) {
+        case 8: return ADC_LAUNCH(8, false);
+        case 4: return ADC_LAUNCH(4, false);
+        case 2: return ADC_LAUNCH(2, false);
+        default: return ADC_LAUNCH(1, false);
+    }
+#undef ADC_LAUNCH
 }
 
 }  // namespace
@@ -205,11 +320,21 @@ int adc_scan_topk_chunk_rows() { return CHUNK; }
 int adc_scan_topk_query_tile() { return QUERY_TILE; }
 int adc_scan_topk_max_kb() { return MAX_KB; }
 
+// How a CUDA block takes (m, kc) in `mode` (0 plain, 1 residual or sorted):
+// queries per block (8, 4, 2, 1), subspaces staged at a time (m: all, the
+// LUTs once per run) and its dynamic shared memory.
+int adc_scan_topk_plan(int mode, int m, int kc, int* qt, int* ms) {
+    const Plan p = plan(m, kc, m + (mode != PLAIN ? 2 : 0));
+    *qt = p.qt;
+    *ms = p.ms;
+    return (int)p.smem;
+}
+
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // The caller checks shapes: LUT rows = nq·QUERY_TILE, code rows =
 // nblocks·block_size, block_size % CHUNK == 0, kc <= 256, c <= 65536,
-// 1 <= kb <= MAX_KB, the shared memory within the card's limit, 16-byte
-// aligned pointers. grid_x = CUDA blocks wanted along the corpus.
+// 1 <= kb <= MAX_KB, 16-byte aligned pointers. grid_x = CUDA blocks wanted
+// along the corpus (per query tile, or per part of one when QT < 8).
 int adc_scan_topk_residual_launch(const void* lut, const void* hilo, const void* codes,
                                   const void* bias, void* out_s, void* out_i, int nq, int nblocks,
                                   int block_size, int grid_x, int m, int kc, int c, int kb,

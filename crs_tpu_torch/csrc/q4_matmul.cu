@@ -1,10 +1,9 @@
 // int4 and NF4 weight-only matmuls for decode-sized row counts, for Hopper
-// (sm_90a).
+// (sm_90a): one tensor-core kernel, q4_mma_kernel, with a table per kind.
 //
 // Replaces the TPU kernels crs_tpu/ops/qgemm.py:q4_matmul / _q4_kernel
-// (q4_matmul_kernel below) and nf4_matmul / _nf4_kernel (nf4_mma_kernel).
-// For x [R, K] (bf16), packed codes [K/2, N] and f32 group scales
-// [K/group, N]:
+// (kernel 8) and nf4_matmul / _nf4_kernel (kernel 9). For x [R, K] (bf16),
+// packed codes [K/2, N] and f32 group scales [K/group, N]:
 //   w[2i, n]   = bf16(bf16(level(lo nibble of codes[i, n])) · bf16(scale))
 //   w[2i+1, n] = the same with the hi nibble
 //   out[r, n]  = Σ_k x[r, k] · w[k, n]                          (f32 sums)
@@ -13,55 +12,50 @@
 // product of two bf16 values is exact in f32, so the result differs from the
 // plain version (ops/qgemm.py emulate_*) only in the order of the f32 sums.
 //
-// What bounds both on an H100: at R ≤ 64 the packed weight is read once and
-// each byte feeds 2·R multiply-adds, so they are bound by bytes: K/2·N code
+// What bounds it on an H100: at R ≤ 64 the packed weight is read once and
+// each byte feeds 2·R multiply-adds, so it is bound by bytes: K/2·N code
 // bytes plus K/group·N·4 scale bytes at 3.35 TB/s (1b's lm_head, 2048 →
 // 32000: 32.8 MB codes + 2 MB scales ≈ 10 µs).
 //
-// q4_matmul_kernel (int4; the simple first design): one CUDA block of 256
-// threads per (128-column tile, K slice, row tile of RT ≤ 8 rows). Lane l of
-// every warp owns columns 4l..4l+3 of the tile and reads them as one 32-bit
-// word per packed row; the 8 warps take interleaved packed rows. The row
-// tile's x slice sits in shared memory as f32. The nibbles are unpacked and
-// scaled in registers; each thread keeps RT × 4 f32 sums, and the 8 warps'
-// sums are added in warp order. When the columns give too few blocks, K is
-// split over `ksplit` slices, each writing its own partial [ksplit, R, N],
-// and a second kernel adds them in slice order.
-//
-// nf4_mma_kernel (NF4, redesigned for Hopper): the R×K×N multiply-adds run
-// on the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums) with the
-// weight as the A operand (16 columns × 16 k) and x as B (8 rows × 16 k), so
-// R ≤ 8 pads to 8 rows, not 16. The packed layout is A's register layout:
-// byte (i, n) holds k rows (2i, 2i+1) of column n, one bf16x2 register of
-// an A fragment. A thread (gid = lane / 4, tig = lane % 4) loads W
-// consecutive bytes of packed rows tig and tig + 4 of each 8-row step (W =
-// 16, 8 or 4: a warp reads 8·W contiguous bytes per packed row); byte 2j
-// and 2j + 1 become A's rows gid and gid + 8 of m-tile j, so the warp's
-// W/2 m-tiles cover its 8·W columns in a fixed permutation. Each byte is
-// dequantised whole: one read of a 256-entry bf16x2 table (level_lo,
-// level_hi) in shared memory, kept once per lane so the 32 lanes never
-// share a bank, then one bf16x2 multiply by (bf16(scale), bf16(scale)),
-// which rounds the exact product once as the plain version does. Scales
-// are read once per group per column. The CUDA cores do only that dequant,
-// so the cost no longer grows with R; the weight is read once for every
-// R ≤ 64 (R > 8 takes ⌈R/8⌉ n-tiles, with W shrinking so the f32 sums stay
-// in 64 registers). A block of 8 warps owns 8·W columns; its K slice is
-// split over the warps in contiguous runs of steps, their sums added in
-// warp order through shared memory. A decode-sized product is a chain of
+// Design: the R×K×N multiply-adds run on the tensor cores (mma.sync
+// m16n8k16, bf16 in, f32 sums) with the weight as the A operand (16 columns
+// × 16 k) and x as B (8 rows × 16 k), so R ≤ 8 pads to 8 rows, not 16. The
+// packed layout is A's register layout: byte (i, n) holds k rows (2i, 2i+1)
+// of column n, one bf16x2 register of an A fragment. A thread (gid = lane /
+// 4, tig = lane % 4) loads W consecutive bytes of packed rows tig and
+// tig + 4 of each 8-row step (W = 16, 8 or 4: a warp reads 8·W contiguous
+// bytes per packed row); byte 2j and 2j + 1 become A's rows gid and gid + 8
+// of m-tile j, so the warp's W/2 m-tiles cover its 8·W columns in a fixed
+// permutation. Each byte is dequantised whole: one read of a 256-entry
+// bf16x2 table (level_lo, level_hi) in shared memory — NF4's levels or
+// int4's sign-extended nibbles, ops/qgemm.py byte_table — kept once per
+// lane so the 32 lanes never share a bank, then one bf16x2 multiply by
+// (bf16(scale), bf16(scale)), which rounds the exact product once as the
+// plain version does. The CUDA cores do only that dequant, so the cost no
+// longer grows with R; the weight is read once for every R ≤ 64 (R > 8
+// takes ⌈R/8⌉ n-tiles, with W shrinking so the f32 sums stay in 64
+// registers). A block of 8 warps owns 8·W columns; its K slice is split
+// over the warps in contiguous runs of steps, their sums added in warp
+// order through shared memory. A decode-sized product is a chain of
 // latencies more than a stream of bytes, so nothing waits that need not:
 // each warp streams its codes and x's fragments through its own ring of
-// cp.async stages in shared memory, 2–3 steps ahead of the
-// tensor cores, and the block's table (kept replicated per lane in device
-// memory) and its slice's f32 scales arrive by cp.async too, so the
-// prologue holds no load in a register; a group's scales become bf16 pairs
-// in registers when a warp enters it. K is split over ksplit ≤ 8
-// group-aligned slices (ops/qgemm.py nf4_plan), launched as one
-// thread-block cluster per column slab: each block stores its sums into
-// the shared memory of the block that owns them (distributed shared
-// memory), and after one cluster barrier each owner adds its sums over the
-// slices in slice order. No partial reaches device memory, and every sum
-// has a fixed order, so the result has the same bits on every run. int4 is
-// the same kernel with another table.
+// cp.async stages in shared memory, 2–3 steps ahead of the tensor cores,
+// and the block's table (kept replicated per lane in device memory) and its
+// slice's f32 scales arrive by cp.async too, so the prologue holds no load
+// in a register; a group's scales become bf16 pairs in registers when a
+// warp enters it. Groups of any number of packed rows gs2: when gs2 is a
+// multiple of the 8-row step (group_size 16, 32, … — every preset), a step
+// lies in one group and the scales are staged as above; otherwise (RAGGED:
+// group_size 2, 8, 24, …) the step's rows tig and tig + 4 may lie in two
+// groups, and each thread reads the scales of both of its rows, for each
+// step, from device memory (L1 / L2) instead. K is split over ksplit ≤ 8
+// slices of whole groups that are also whole steps (ops/qgemm.py
+// q4_plan), launched as one thread-block cluster per column slab: each
+// block stores its sums into the shared memory of the block that owns them
+// (distributed shared memory), and after one cluster barrier each owner
+// adds its sums over the slices in slice order. No partial reaches device
+// memory, and every sum has a fixed order, so the result has the same bits
+// on every run.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -72,127 +66,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int COLS = 4;                  // columns per thread (one 32-bit word)
-constexpr int TILE_N = 32 * COLS;        // 128 columns per CUDA block
-constexpr int CHUNK = 256;               // packed rows of x staged per pass
-constexpr int MAX_RT = 8;
-constexpr int SMEM_FLOATS = WARPS * MAX_RT * TILE_N;  // 8192 (32 KB), ≥ MAX_RT·2·CHUNK
-
-__device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <int RT>
-__global__ void __launch_bounds__(THREADS)
-q4_matmul_kernel(const __nv_bfloat16* __restrict__ x,   // [R, 2·K2]
-                 const uint8_t* __restrict__ codes,     // [K2, N]
-                 const float* __restrict__ scales,      // [K2/gs2, N]
-                 float* __restrict__ out,               // [ksplit, R, N]
-                 int R, int K2, int N, int gs2, int rows_per_split) {
-    __shared__ __align__(16) float smem[SMEM_FLOATS];
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int n0 = blockIdx.x * TILE_N + lane * COLS;
-    const int split = blockIdx.y;
-    const int row0 = blockIdx.z * RT;
-    const int k_begin = split * rows_per_split;
-    const int k_end = k_begin + rows_per_split;
-    const int K = 2 * K2;
-
-    float acc[RT][COLS];
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) acc[r][j] = 0.f;
-
-    int g_cur = -1;
-    float s_bf[COLS] = {0.f, 0.f, 0.f, 0.f};
-    float* xs = smem;  // [RT][2·CHUNK]
-    for (int c0 = k_begin; c0 < k_end; c0 += CHUNK) {
-        const int c1 = min(c0 + CHUNK, k_end);
-        const int width = 2 * (c1 - c0);
-        __syncthreads();
-        for (int idx = tid; idx < RT * width; idx += THREADS) {
-            const int r = idx / width, c = idx - r * width;
-            const int row = row0 + r;
-            xs[r * 2 * CHUNK + c] =
-                row < R ? __bfloat162float(x[(size_t)row * K + 2 * c0 + c]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int i = c0 + warp; i < c1; i += WARPS) {
-            const int g = i / gs2;
-            if (g != g_cur) {
-                const float4 s = __ldg(reinterpret_cast<const float4*>(scales + (size_t)g * N + n0));
-                s_bf[0] = bf16_round(s.x);
-                s_bf[1] = bf16_round(s.y);
-                s_bf[2] = bf16_round(s.z);
-                s_bf[3] = bf16_round(s.w);
-                g_cur = g;
-            }
-            const uint32_t word = __ldg(reinterpret_cast<const unsigned int*>(codes + (size_t)i * N + n0));
-            float wlo[COLS], whi[COLS];
-#pragma unroll
-            for (int j = 0; j < COLS; ++j) {
-                const uint32_t b = (word >> (8 * j)) & 0xFFu;
-                const float lo = (float)(((int)(b << 28)) >> 28);
-                const float hi = (float)(((int)(b << 24)) >> 28);
-                wlo[j] = bf16_round(lo * s_bf[j]);
-                whi[j] = bf16_round(hi * s_bf[j]);
-            }
-            const int xi = 2 * (i - c0);
-#pragma unroll
-            for (int r = 0; r < RT; ++r) {
-                const float2 xv = *reinterpret_cast<const float2*>(xs + r * 2 * CHUNK + xi);
-#pragma unroll
-                for (int j = 0; j < COLS; ++j) {
-                    acc[r][j] = fmaf(xv.x, wlo[j], acc[r][j]);
-                    acc[r][j] = fmaf(xv.y, whi[j], acc[r][j]);
-                }
-            }
-        }
-    }
-
-    // the 8 warps' sums, added in warp order
-    __syncthreads();
-    float* red = smem;  // [WARPS][RT][TILE_N]
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) red[(warp * RT + r) * TILE_N + lane * COLS + j] = acc[r][j];
-    __syncthreads();
-    for (int idx = tid; idx < RT * TILE_N; idx += THREADS) {
-        const int r = idx / TILE_N, col = idx - r * TILE_N;
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += red[(w * RT + r) * TILE_N + col];
-        const int row = row0 + r;
-        if (row < R) out[((size_t)split * R + row) * N + blockIdx.x * TILE_N + col] = s;
-    }
-}
-
-// out[i] = Σ_s partials[s, i], in slice order
-__global__ void q4_split_sum_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                                    int ksplit, long long total) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= total) return;
-    float s = 0.f;
-    for (int sp = 0; sp < ksplit; ++sp) s += partials[(long long)sp * total + i];
-    out[i] = s;
-}
-
-template <int RT>
-void launch_rt(dim3 grid, cudaStream_t stream, const __nv_bfloat16* x, const uint8_t* codes,
-               const float* scales, float* dst, int R, int K2, int N, int gs2,
-               int rows_per_split) {
-    q4_matmul_kernel<RT><<<grid, THREADS, 0, stream>>>(x, codes, scales, dst, R, K2, N, gs2,
-                                                       rows_per_split);
-}
-
-// -- nf4_mma_kernel -------------------------------------------------------------
+// -- q4_mma_kernel --------------------------------------------------------------
 
 constexpr int MMA_WARPS = 8;
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
@@ -275,7 +149,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// The per-warp ring of nf4_mma_kernel: STAGES steps in flight, each holding
+// The per-warp ring of q4_mma_kernel: STAGES steps in flight, each holding
 // the warp's codes (packed rows tig and tig + 4, W bytes a lane) and the
 // step's 16 k of x's 8·NT rows (32 bytes a row, copied 16 at a time; a row
 // stride of 48 bytes puts the 32 lanes' fragment reads on 32 banks).
@@ -303,17 +177,17 @@ struct Ring {
 //
 // Shared memory: [table: 256 × 32 words][rings: 8 × WARP_BYTES] — after the
 // main loop the warps' sums [8 / WN][RP][BC] reuse that front — then,
-// past the larger of the two, [scales: n_groups × BC f32][recv: ksplit ×
-// ⌈R·BC/ksplit⌉ f32]. `recv` is written by the cluster's other blocks, so
-// nothing else uses it.
-template <int NT, int W, int WN>
+// past the larger of the two, [scales: n_groups × BC f32, none when RAGGED]
+// [recv: ksplit × ⌈R·BC/ksplit⌉ f32]. `recv` is written by the cluster's
+// other blocks, so nothing else uses it.
+template <int NT, int W, int WN, bool RAGGED>
 __global__ void __launch_bounds__(MMA_THREADS, 2)
-nf4_mma_kernel(const __nv_bfloat16* __restrict__ x,  // [R, 2·K2]
-               const uint8_t* __restrict__ codes,    // [K2, N]
-               const float* __restrict__ scales,     // [K2/gs2, N]
-               const uint32_t* __restrict__ table,   // [256 × 32] bf16x2, an entry per lane
-               float* __restrict__ out,              // [R, N]
-               int R, int K2, int N, int gs2, int slice_rows) {
+q4_mma_kernel(const __nv_bfloat16* __restrict__ x,  // [R, 2·K2]
+              const uint8_t* __restrict__ codes,    // [K2, N]
+              const float* __restrict__ scales,     // [K2/gs2, N]
+              const uint32_t* __restrict__ table,   // [256 × 32] bf16x2, an entry per lane
+              float* __restrict__ out,              // [R, N]
+              int R, int K2, int N, int gs2, int slice_rows) {
     constexpr int CW = 8 * W;      // columns per warp
     constexpr int BC = WN * CW;    // columns per block
     constexpr int WK = MMA_WARPS / WN;  // warps along K
@@ -340,7 +214,7 @@ nf4_mma_kernel(const __nv_bfloat16* __restrict__ x,  // [R, 2·K2]
     const int per_owner = (R * BC + ksplit - 1) / ksplit;
     uint8_t* ring = reinterpret_cast<uint8_t*>(smem + TABLE_WORDS) + warp * RG::WARP_BYTES;
     float* sraw = reinterpret_cast<float*>(smem + RG::BASE_BYTES / 4);
-    float* recv = sraw + slice_groups * BC;  // [ksplit][per_owner]
+    float* recv = sraw + (RAGGED ? 0 : slice_groups * BC);  // [ksplit][per_owner]
     const uint8_t* cbase = codes + (size_t)slab * BC + col0;
 
     // step st of this warp → ring stage `stage`
@@ -361,7 +235,7 @@ nf4_mma_kernel(const __nv_bfloat16* __restrict__ x,  // [R, 2·K2]
     // block's), then one group per step of this warp's first S - 1
     for (int i = tid; i < TABLE_WORDS / 4; i += MMA_THREADS)
         cp_async<16>(smem_addr(smem + 4 * i), table + 4 * i);
-    for (int i = tid; i < n_groups * BC / 4; i += MMA_THREADS) {
+    for (int i = tid; i < (RAGGED ? 0 : n_groups * BC / 4); i += MMA_THREADS) {
         const int g = 4 * i / BC, c = 4 * i - g * BC;
         cp_async<16>(smem_addr(sraw + 4 * i), scales + (size_t)(p_begin / gs2 + g) * N + slab * BC + c);
     }
@@ -383,8 +257,10 @@ nf4_mma_kernel(const __nv_bfloat16* __restrict__ x,  // [R, 2·K2]
         for (int t = 0; t < NT; ++t)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[j][t][e] = 0.f;
-    uint32_t s2[W];      // (bf16(scale), bf16(scale)) of the thread's columns, this group
-    int group_end = 0;   // packed rows into the slice where that group ends
+    // (bf16(scale), bf16(scale)) of the thread's columns: for packed row
+    // tig of the step (s2) and, when RAGGED, for row tig + 4 (s2b)
+    uint32_t s2[W], s2b[W];
+    int group_end = 0;   // packed rows into the slice where s2's group ends
     int stage = 0;
     for (int st = st_begin; st < st_end; ++st) {
         if (st + S - 1 < st_end) issue(st + S - 1, stage == 0 ? S - 1 : stage - 1);
@@ -392,8 +268,26 @@ nf4_mma_kernel(const __nv_bfloat16* __restrict__ x,  // [R, 2·K2]
         cp_async_wait<S - 1>();  // this thread's copies of step st have landed
         const uint8_t* d = ring + stage * RG::STAGE_BYTES;
         stage = stage == S - 1 ? 0 : stage + 1;
-        const int off = STEP_ROWS * st;  // the step lies in one group (gs2 % 8 == 0)
-        if (off >= group_end) {
+        const int off = STEP_ROWS * st;
+        if constexpr (RAGGED) {  // rows tig and tig + 4 of the step: each its own group
+            const float* scol = scales + (size_t)slab * BC + col0;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const float* sg = scol + (size_t)((p_begin + off + tig + 4 * h) / gs2) * N;
+#pragma unroll
+                for (int q = 0; q < W / 4; ++q) {
+                    const float4 v = __ldg(reinterpret_cast<const float4*>(sg + 4 * q));
+                    const float sv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const __nv_bfloat162 hv = __floats2bfloat162_rn(sv[e], sv[e]);
+                        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(&hv);
+                        if (h) s2b[4 * q + e] = w2;
+                        else s2[4 * q + e] = w2;
+                    }
+                }
+            }
+        } else if (off >= group_end) {  // the step lies in one group (gs2 % 8 == 0)
             const int g = off / gs2;
             group_end = (g + 1) * gs2;
             const float* sg = sraw + g * BC + col0;
@@ -421,8 +315,9 @@ nf4_mma_kernel(const __nv_bfloat16* __restrict__ x,  // [R, 2·K2]
         for (int j = 0; j < MT; ++j) {
             const uint32_t a0 = dequant<W>(tbl, lane4, c0, 2 * j, s2[2 * j]);
             const uint32_t a1 = dequant<W>(tbl, lane4, c0, 2 * j + 1, s2[2 * j + 1]);
-            const uint32_t a2 = dequant<W>(tbl, lane4, c1, 2 * j, s2[2 * j]);
-            const uint32_t a3 = dequant<W>(tbl, lane4, c1, 2 * j + 1, s2[2 * j + 1]);
+            const uint32_t a2 = dequant<W>(tbl, lane4, c1, 2 * j, RAGGED ? s2b[2 * j] : s2[2 * j]);
+            const uint32_t a3 =
+                dequant<W>(tbl, lane4, c1, 2 * j + 1, RAGGED ? s2b[2 * j + 1] : s2[2 * j + 1]);
 #pragma unroll
             for (int t = 0; t < NT; ++t) mma_bf16(acc[j][t], a0, a1, a2, a3, b[t][0], b[t][1]);
         }
@@ -469,21 +364,24 @@ nf4_mma_kernel(const __nv_bfloat16* __restrict__ x,  // [R, 2·K2]
     }
 }
 
-template <int NT, int W, int WN>
-int launch_nf4(int ksplit, cudaStream_t stream, const __nv_bfloat16* x, const uint8_t* codes,
-               const float* scales, const uint32_t* table, float* out, int R, int K2, int N,
-               int gs2, int slice_rows) {
+template <int NT, int W, int WN, bool RAGGED>
+int launch_q4(int ksplit, cudaStream_t stream, const __nv_bfloat16* x, const uint8_t* codes,
+              const float* scales, const uint32_t* table, float* out, int R, int K2, int N,
+              int gs2, int slice_rows) {
     constexpr int BC = 8 * W * WN;
     if (N % BC) return (int)cudaErrorInvalidValue;
-    const size_t groups = (slice_rows + gs2 - 1) / gs2;
+    const size_t groups = RAGGED ? 0 : (slice_rows + gs2 - 1) / gs2;
     const size_t per_owner = ((size_t)R * BC + ksplit - 1) / ksplit;
     const size_t smem = Ring<NT, W>::BASE_BYTES
                         + sizeof(float) * (groups * BC + (ksplit > 1 ? ksplit * per_owner : 0));
     if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(nf4_mma_kernel<NT, W, WN>,
+        const cudaError_t e = cudaFuncSetAttribute(q4_mma_kernel<NT, W, WN, RAGGED>,
                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                    (int)smem);
-        if (e != cudaSuccess) return (int)e;
+        if (e != cudaSuccess) {
+            cudaGetLastError();
+            return (int)e;
+        }
     }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(N / BC, ksplit, 1);
@@ -497,61 +395,28 @@ int launch_nf4(int ksplit, cudaStream_t stream, const __nv_bfloat16* x, const ui
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    const cudaError_t l = cudaLaunchKernelEx(&cfg, nf4_mma_kernel<NT, W, WN>, x, codes, scales,
-                                             table, out, R, K2, N, gs2, slice_rows);
+    const cudaError_t l = cudaLaunchKernelEx(&cfg, q4_mma_kernel<NT, W, WN, RAGGED>, x, codes,
+                                             scales, table, out, R, K2, N, gs2, slice_rows);
     const cudaError_t last = cudaGetLastError();  // clears the runtime's error
     return (int)(l != cudaSuccess ? l : last);
 }
 
 }  // namespace
 
-extern "C" int q4_matmul_tile_n() { return TILE_N; }
-
-// x [R, 2·K2] bf16; codes [K2, N] int8; scales [K2/gs2, N] f32; partials
-// [ksplit, R, N] f32 (used when ksplit > 1); out [R, N] f32. Returns the
-// CUDA error of the launches.
-extern "C" int q4_matmul_launch(const void* x, const void* codes, const void* scales,
-                                void* partials, void* out, int R, int K2, int N, int gs2,
-                                int ksplit, void* stream) {
-    if (R < 1 || K2 < 1 || N % TILE_N || gs2 < 1 || K2 % gs2 || ksplit < 1 || K2 % ksplit)
-        return (int)cudaErrorInvalidValue;
-    const int rt = R <= 1 ? 1 : R <= 2 ? 2 : R <= 4 ? 4 : 8;
-    const dim3 grid(N / TILE_N, ksplit, (R + rt - 1) / rt);
-    float* dst = static_cast<float*>(ksplit > 1 ? partials : out);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const auto* xb = static_cast<const __nv_bfloat16*>(x);
-    const auto* cb = static_cast<const uint8_t*>(codes);
-    const auto* sb = static_cast<const float*>(scales);
-    const int rps = K2 / ksplit;
-    switch (rt) {
-        case 1: launch_rt<1>(grid, st, xb, cb, sb, dst, R, K2, N, gs2, rps); break;
-        case 2: launch_rt<2>(grid, st, xb, cb, sb, dst, R, K2, N, gs2, rps); break;
-        case 4: launch_rt<4>(grid, st, xb, cb, sb, dst, R, K2, N, gs2, rps); break;
-        default: launch_rt<8>(grid, st, xb, cb, sb, dst, R, K2, N, gs2, rps); break;
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || ksplit == 1) return (int)err;
-    const long long total = (long long)R * N;
-    q4_split_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(partials), static_cast<float*>(out), ksplit, total);
-    return (int)cudaGetLastError();
-}
-
-// x [R, 2·K2] bf16 (R ≤ 64); codes [K2, N] uint8; scales [K2/gs2, N] f32
-// (gs2 % 8 == 0); table [256 × 32] bf16x2 words, each entry of
-// ops/qgemm.py nf4_byte_table once per lane;
-// out [R, N] f32. K is cut into ksplit ≤ 8 slices of slice_rows packed rows
-// (a multiple of gs2; the last may be shorter, none empty), width (16, 8 or
-// 4) is the bytes of a packed row each thread reads and warps_n (1, or 8
-// for R > 32) the warps of a block along N: ops/qgemm.py nf4_plan. Returns
-// the CUDA error of the launch.
-extern "C" int nf4_matmul_launch(const void* x, const void* codes, const void* scales,
-                                 const void* table, void* out, int R, int K2, int N, int gs2,
-                                 int ksplit, int slice_rows, int width, int warps_n,
-                                 void* stream) {
-    if (R < 1 || R > MAX_ROWS || K2 < STEP_ROWS || K2 % STEP_ROWS || gs2 < STEP_ROWS ||
-        gs2 % STEP_ROWS || K2 % gs2 || N < 1 || ksplit < 1 || ksplit > MAX_CLUSTER ||
-        slice_rows < gs2 || slice_rows % gs2 || (long long)ksplit * slice_rows < K2 ||
+// x [R, 2·K2] bf16 (R ≤ 64); codes [K2, N] bytes (int4 or NF4 nibble
+// pairs); scales [K2/gs2, N] f32 (any gs2 ≥ 1 dividing K2); table [256 × 32]
+// bf16x2 words, each entry of ops/qgemm.py byte_table once per lane; out
+// [R, N] f32. K2 % 8 == 0. K is cut into ksplit ≤ 8 slices of slice_rows
+// packed rows (a multiple of gs2 and of 8; the last may be shorter, none
+// empty), width (16, 8 or 4) is the bytes of a packed row each thread reads
+// and warps_n (1, or 8 for R > 32) the warps of a block along N:
+// ops/qgemm.py q4_plan. Returns the CUDA error of the launch.
+extern "C" int q4_mma_launch(const void* x, const void* codes, const void* scales,
+                             const void* table, void* out, int R, int K2, int N, int gs2,
+                             int ksplit, int slice_rows, int width, int warps_n, void* stream) {
+    if (R < 1 || R > MAX_ROWS || K2 < STEP_ROWS || K2 % STEP_ROWS || gs2 < 1 || K2 % gs2 ||
+        N < 1 || ksplit < 1 || ksplit > MAX_CLUSTER || slice_rows < gs2 || slice_rows % gs2 ||
+        slice_rows % STEP_ROWS || (long long)ksplit * slice_rows < K2 ||
         (long long)(ksplit - 1) * slice_rows >= K2)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -561,16 +426,20 @@ extern "C" int nf4_matmul_launch(const void* x, const void* codes, const void* s
     const auto* tb = static_cast<const uint32_t*>(table);
     auto* o = static_cast<float*>(out);
     const int nt = R <= 8 ? 1 : R <= 16 ? 2 : R <= 32 ? 4 : 8;
-#define NF4_LAUNCH(NT_, W_, WN_)                                                        \
-    if (nt == NT_ && width == W_ && warps_n == WN_)                                     \
-        return launch_nf4<NT_, W_, WN_>(ksplit, st, xb, cb, sb, tb, o, R, K2, N, gs2, slice_rows);
-    NF4_LAUNCH(1, 16, 1)
-    NF4_LAUNCH(1, 8, 1)
-    NF4_LAUNCH(2, 16, 1)
-    NF4_LAUNCH(2, 8, 1)
-    NF4_LAUNCH(4, 8, 1)
-    NF4_LAUNCH(8, 4, 1)
-    NF4_LAUNCH(8, 4, 8)
-#undef NF4_LAUNCH
+    const bool ragged = gs2 % STEP_ROWS != 0;
+#define Q4_LAUNCH(NT_, W_, WN_)                                                              \
+    if (nt == NT_ && width == W_ && warps_n == WN_)                                          \
+        return ragged ? launch_q4<NT_, W_, WN_, true>(ksplit, st, xb, cb, sb, tb, o, R, K2, N,  \
+                                                      gs2, slice_rows)                        \
+                      : launch_q4<NT_, W_, WN_, false>(ksplit, st, xb, cb, sb, tb, o, R, K2, N, \
+                                                       gs2, slice_rows);
+    Q4_LAUNCH(1, 16, 1)
+    Q4_LAUNCH(1, 8, 1)
+    Q4_LAUNCH(2, 16, 1)
+    Q4_LAUNCH(2, 8, 1)
+    Q4_LAUNCH(4, 8, 1)
+    Q4_LAUNCH(8, 4, 1)
+    Q4_LAUNCH(8, 4, 8)
+#undef Q4_LAUNCH
     return (int)cudaErrorInvalidValue;
 }

@@ -1,297 +1,366 @@
 // Float scan with per-block top-kb, for Hopper (sm_90a), fp32 and bf16 corpora.
 //
 // Replaces the TPU kernel crs_tpu/ops/pallas_scan.py:pallas_topk / _scan_kernel
-// (with _extract_block_topk). For each query tile and each corpus block of
-// block_size rows:
+// (with _extract_block_topk). For each query tile of QUERY_TILE queries and
+// each corpus block of block_size rows:
 //   s = q · v  in f32 (the queries come cast to the corpus dtype; a bf16
-//              product is exact in f32), + bias (0, or -1e30 for padding and
-//              rows the `where` mask drops)
+//              product is exact in f32), then __fadd_rn(s, bias) (bias 0, or
+//              -1e30 for padding and rows the `where` mask drops)
 //   kb times: the max, the lowest global id among equal maxima, that entry
-//   set to -1e30 (block_topk.cuh).
+//   set to -1e30 (it stays a candidate under its id, so a block with no
+//   allowed rows left re-emits its lowest id at -1e30).
 // Partials go to out_s / out_i laid out [nq, nblocks, kb, QUERY_TILE].
+// Scores must be -1e30 or above it (|q·v| far below 1e22, as for any
+// embedding): then the emissions' scores never rise, which the running lists
+// below rely on.
 //
-// What bounds it on an H100: at N = 1,048,576, D = 384, B = 328 the fp32
-// work is 2·B·N·D ≈ 2.6e11 FLOP, ≈ 3.9 ms at the 67 TFLOP/s of the CUDA
-// cores (TF32 would change the scores the plain version computes, so it is
-// not used), against 1.6 GB of corpus ≈ 0.48 ms: operations bound fp32. In
-// bf16 the corpus is 0.8 GB ≈ 0.24 ms and the same FLOP take ≈ 0.27 ms on
-// the bf16 tensor cores (989 TFLOP/s): operations, barely.
+// What bounds it on an H100 at the main path's shape (N = 1,048,576, D =
+// 384, B = 328 queries): the work, 2·B·N·D = 2.64e11 operations, is 3.94 ms
+// of f32 FMA on the CUDA cores at 67 TFLOP/s (TF32 would change the scores
+// the plain version computes, so it is not used) and 0.267 ms of bf16 on the
+// tensor cores at 989 TFLOP/s; the corpus, 1.5 GiB / 768 MiB, is 0.48 /
+// 0.24 ms at 3.35 TB/s. So fp32 is bound by the FMA rate and bf16 by the
+// tensor cores, with the corpus bytes close behind. (B is padded to 384,
+// six tiles of 64: the kernels do 17 % more work.)
 //
-// fp32 design (scan_topk_float_kernel): plain f32 FMA on the CUDA cores. One
-// CUDA block per (corpus block, 64-query tile), 256 threads = 8 warps. The
-// block walks its rows CHUNK = 256 at a time; per chunk, query and corpus
-// slices of KC = 32 dimensions are staged in shared memory as [dim][query]
-// and [dim][row] floats (rows padded by one word, so both the transposing
-// stores and the reads are free of bank conflicts). Warp w owns queries
-// 8w..8w+7 and lane l rows l, l+32, ..., so each thread keeps an 8 × 8 tile
-// of sums in registers; after the bias, block_topk::merge_chunk folds the
-// chunk into each query's running top-kb (one entry per lane).
+// The scoring passes are csrc/float_scan.cuh's, which kernel 6
+// (csrc/segmax_scan_topk.cu) shares: one corpus pass per launch, a CTA
+// scoring one corpus block against two query tiles; fp32 on FFMA with an
+// 8 × 8 register tile per thread (any D: a ragged last slice is
+// zero-filled), bf16 on wgmma m64n256k16 fed by TMA (D a multiple of 8).
+// This file adds the epilogue, a running top-kb per (query, block). (The
+// first port ran the corpus block fastest: each of the six query tiles read
+// the whole corpus from device memory.)
 //
-// bf16 design (scan_topk_bf16_mma_kernel): the products run on the tensor
-// cores, mma.sync m16n8k16 (bf16 × bf16, exact products, f32 accumulation).
-// Same grid and chunking; per chunk the 64 × 256 score tile is computed by
-// 8 warps of 16 queries × 128 rows (16 mma tiles each, 64 f32 accumulators
-// per thread) from bf16 slices of 32 dimensions staged row-major in shared
-// memory (rows padded to 40 bf16, so the fragment loads of a quad's 8 rows
-// fall in distinct banks). The tile then goes to shared memory as f32, and
-// warp w reads its 8 queries back in the merge layout (lane l: rows l,
-// l+32, ...), adds the bias and runs the same merge.
+// The running list. A CTA walks its block CHUNK = 256 rows at a time and
+// keeps, per query, the kb emissions of the rows seen so far, in shared
+// memory. A chunk is folded in by kb arg-max passes over (chunk ∪ list), an
+// extracted entry set to -1e30 under its id; every list id is lower than
+// every id of a later chunk, so the list after the last chunk is exactly the
+// kb emissions of the whole block, ties and re-emissions included. Skip: a
+// chunk whose scores all lie at or below the list's kb-th entry cannot
+// change the list (the list's entries win every pass: their scores are at
+// least as high and their ids lower), so a warp whose queries all see such
+// a chunk leaves their lists as they are.
+//
+// F32: a scored chunk gets its bias and is merged per query by the warp
+// that owns it (block_topk.cuh, each lane's 8 row ids passed through);
+// lanes < kb hold the list during the merge.
+//
+// BF16: the top-kb comes straight from the accumulators: a quad of threads
+// holds a query row's 256 columns, 64 per thread (columns 8j + 2t + {0, 1}),
+// so a pass is a thread-local arg-max over 64 values (columns ascend: a
+// strict > keeps the lowest) and two shfl_xor steps; the list is
+// double-buffered in shared memory (the old one read, the new one written)
+// and is read as one more candidate per pass. No score tile passes through
+// shared memory. What holds it: the merge runs between a chunk's products
+// and the next, and the tensor cores idle while both warpgroups merge.
+// (Tried on the H100 and slower: a tree in place of the thread-local scan,
+// both rows merged side by side, and the scores above the list's kb-th
+// copied to shared memory before the passes.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "block_topk.cuh"
+#include "float_scan.cuh"
 
 namespace {
 
-constexpr int CHUNK = 256;       // corpus rows per step
-constexpr int QUERY_TILE = 64;   // queries per CUDA block
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int Q_PER_WARP = QUERY_TILE / WARPS;  // 8
-constexpr int ROWS_PER_LANE = CHUNK / 32;       // 8
-constexpr int KC = 32;                          // dimensions per shared-memory stage
+using namespace fscan;
+
 constexpr int MAX_KB = 32;
-// bf16 tensor-core kernel
-constexpr int SROW = KC + 8;                    // bf16 per staged row (bank padding)
-constexpr int SC_STRIDE = CHUNK + 8;            // floats per score-tile row
-constexpr int MMA_Q = 16;                       // queries per warp tile (mma M)
-constexpr int MMA_ROWS = 128;                   // corpus rows per warp tile
-constexpr int N_TILES = MMA_ROWS / 8;           // mma N = 8 rows each
-constexpr size_t BF16_SMEM = (size_t)(QUERY_TILE + CHUNK) * SROW * 2 +
-                             (size_t)QUERY_TILE * SC_STRIDE * sizeof(float);
+constexpr float NEG_INF = block_topk::NEG_INF;
+constexpr unsigned FULL = 0xffffffffu;
 
-// rows [0, R) × dims [k0, k0 + KC) of a row-major [*, d] matrix → dst[dim][row]
-template <int R>
-__device__ __forceinline__ void stage(float (*dst)[R + 1], const float* src, int d, int k0,
-                                      int tid) {
-    constexpr int V = KC / 4;  // float4 per row slice
-    for (int idx = tid; idx < R * V; idx += THREADS) {
-        const int r = idx / V, g = idx % V;
-        const float4 v = *reinterpret_cast<const float4*>(src + (long long)r * d + k0 + g * 4);
-        dst[g * 4 + 0][r] = v.x;
-        dst[g * 4 + 1][r] = v.y;
-        dst[g * 4 + 2][r] = v.z;
-        dst[g * 4 + 3][r] = v.w;
-    }
-}
-
-__global__ void __launch_bounds__(THREADS)
-scan_topk_float_kernel(const float* __restrict__ q,     // [nq·QUERY_TILE, d]
-                       const float* __restrict__ vecs,  // [nblocks·block_size, d]
-                       const float* __restrict__ bias, // [nblocks·block_size]
-                       float* __restrict__ out_s,      // [nq, nblocks, kb, QUERY_TILE]
-                       int* __restrict__ out_i,
-                       int nblocks, int block_size, int d, int kb) {
-    __shared__ float qs[KC][QUERY_TILE + 1];
-    __shared__ float cs[KC][CHUNK + 1];
-
-    const int blk = blockIdx.x;
-    const int iq = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const float* qbase = q + (long long)iq * QUERY_TILE * d;
-
-    float ls[Q_PER_WARP];
-    int li[Q_PER_WARP];
-#pragma unroll
-    for (int i = 0; i < Q_PER_WARP; ++i) {
-        ls[i] = block_topk::NEG_INF;
-        li[i] = 0;
-    }
-
-    for (int c0 = 0; c0 < block_size; c0 += CHUNK) {
-        const long long row0 = (long long)blk * block_size + c0;
-        const float* cbase = vecs + row0 * d;
-        float acc[Q_PER_WARP][ROWS_PER_LANE];
-#pragma unroll
-        for (int i = 0; i < Q_PER_WARP; ++i)
-#pragma unroll
-            for (int j = 0; j < ROWS_PER_LANE; ++j) acc[i][j] = 0.0f;
-
-        for (int k0 = 0; k0 < d; k0 += KC) {
-            __syncthreads();  // the previous stage is consumed
-            stage<QUERY_TILE>(qs, qbase, d, k0, tid);
-            stage<CHUNK>(cs, cbase, d, k0, tid);
-            __syncthreads();
-#pragma unroll 4
-            for (int kk = 0; kk < KC; ++kk) {
-                float qv[Q_PER_WARP], cv[ROWS_PER_LANE];
-#pragma unroll
-                for (int i = 0; i < Q_PER_WARP; ++i) qv[i] = qs[kk][warp * Q_PER_WARP + i];
-#pragma unroll
-                for (int j = 0; j < ROWS_PER_LANE; ++j) cv[j] = cs[kk][lane + 32 * j];
-#pragma unroll
-                for (int i = 0; i < Q_PER_WARP; ++i)
-#pragma unroll
-                    for (int j = 0; j < ROWS_PER_LANE; ++j)
-                        acc[i][j] = fmaf(qv[i], cv[j], acc[i][j]);
-            }
-        }
-
-#pragma unroll
-        for (int j = 0; j < ROWS_PER_LANE; ++j) {
-            const float b = bias[row0 + lane + 32 * j];
-#pragma unroll
-            for (int i = 0; i < Q_PER_WARP; ++i) acc[i][j] = __fadd_rn(acc[i][j], b);
-        }
-#pragma unroll
-        for (int i = 0; i < Q_PER_WARP; ++i)
-            block_topk::merge_chunk<ROWS_PER_LANE>(acc[i], (int)row0, c0 > 0, ls[i], li[i], kb,
-                                                   lane);
-    }
-
-    if (lane < kb) {
-#pragma unroll
-        for (int i = 0; i < Q_PER_WARP; ++i) {
+// The CTA's finished lists [TILE_Q][kb] → the partials of its one or two tiles.
+__device__ __forceinline__ void write_lists(const float* ls, const int* li, int tid, int threads,
+                                            int pair, int nq, int nblocks, int blk, int kb,
+                                            float* __restrict__ out_s, int* __restrict__ out_i) {
+    for (int e = tid; e < TILE_Q * kb; e += threads) {
+        const int q = e % TILE_Q, p = e / TILE_Q;
+        const int tile = pair * 2 + q / QUERY_TILE;
+        if (tile < nq) {
             const long long o =
-                (((long long)iq * nblocks + blk) * kb + lane) * QUERY_TILE + warp * Q_PER_WARP + i;
-            out_s[o] = ls[i];
-            out_i[o] = li[i];
+                (((long long)tile * nblocks + blk) * kb + p) * QUERY_TILE + q % QUERY_TILE;
+            out_s[o] = ls[q * kb + p];
+            out_i[o] = li[q * kb + p];
         }
     }
 }
 
-// rows [0, R) × dims [k0, k0 + KC) of a row-major bf16 [*, d] matrix →
-// dst[row][SROW], 16 bytes per load and store
-template <int R>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int d,
-                                           int k0, int tid) {
-    constexpr int V = KC / 8;
-    for (int idx = tid; idx < R * V; idx += THREADS) {
-        const int r = idx / V, g = idx % V;
-        *reinterpret_cast<uint4*>(dst + r * SROW + g * 8) =
-            *reinterpret_cast<const uint4*>(src + (long long)r * d + k0 + g * 8);
-    }
-}
+// ---- F32: the running lists from the FFMA tiles -----------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
+size_t f32_smem_bytes(int kb) { return (size_t)F_PIPE_FLOATS * 4 + (size_t)TILE_Q * kb * 8; }
 
-// D = A·B + D, A 16 × 16 (row), B 16 × 8 (col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+template <bool RAGGED>
+__global__ void __launch_bounds__(F_THREADS, 1)
+scan_topk_f32_kernel(const float* __restrict__ q,      // [nq·QUERY_TILE, d]
+                     const float* __restrict__ vecs,   // [nblocks·block_size, d]
+                     const float* __restrict__ bias,   // [nblocks·block_size]
+                     float* __restrict__ out_s,        // [nq, nblocks, kb, QUERY_TILE]
+                     int* __restrict__ out_i, int nq, int nblocks, int block_size, int d,
+                     int kb) {
+    extern __shared__ __align__(16) float fsmem[];  // the staging, then the lists
+    float* lst_s = fsmem + F_PIPE_FLOATS;           // [TILE_Q][kb]
+    int* lst_i = reinterpret_cast<int*>(lst_s + TILE_Q * kb);
+    const int npairs = (nq + 1) / 2;
+    const int pair = blockIdx.x % npairs;
+    const int blk = blockIdx.x / npairs;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
 
-__global__ void __launch_bounds__(THREADS, 2)
-scan_topk_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,     // [nq·QUERY_TILE, d]
-                          const __nv_bfloat16* __restrict__ vecs,  // [nblocks·block_size, d]
-                          const float* __restrict__ bias,          // [nblocks·block_size]
-                          float* __restrict__ out_s,               // [nq, nblocks, kb, QUERY_TILE]
-                          int* __restrict__ out_i,
-                          int nblocks, int block_size, int d, int kb) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);        // [QUERY_TILE][SROW]
-    __nv_bfloat16* cs = qs + QUERY_TILE * SROW;                         // [CHUNK][SROW]
-    float* sc = reinterpret_cast<float*>(cs + CHUNK * SROW);            // [QUERY_TILE][SC_STRIDE]
-
-    const int blk = blockIdx.x;
-    const int iq = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int group = lane >> 2, tig = lane & 3;  // the mma fragments' row and column pair
-    const int q0 = MMA_Q * (warp % 4);            // this warp's 16 queries
-    const int n0 = MMA_ROWS * (warp / 4);         // and its 128 rows of the chunk
-    const __nv_bfloat16* qbase = q + (long long)iq * QUERY_TILE * d;
-
-    float ls[Q_PER_WARP];
-    int li[Q_PER_WARP];
+    // each scored chunk: bias, then each query's merge by its warp
+    f32_scores<RAGGED>(q, vecs, fsmem, nq, pair, blk, block_size, d,
+                       [&](int c, float (&acc)[8][8]) {
+        const int grow0 = blk * block_size + c * CHUNK;
+        const float4 bb0 = *reinterpret_cast<const float4*>(bias + grow0 + 4 * lane);
+        const float4 bb1 = *reinterpret_cast<const float4*>(bias + grow0 + HALF + 4 * lane);
+        const float bv[8] = {bb0.x, bb0.y, bb0.z, bb0.w, bb1.x, bb1.y, bb1.z, bb1.w};
+        const auto row_of = [=](int j) { return grow0 + f32_row(lane, j); };
 #pragma unroll
-    for (int i = 0; i < Q_PER_WARP; ++i) {
-        ls[i] = block_topk::NEG_INF;
-        li[i] = 0;
-    }
-
-    for (int c0 = 0; c0 < block_size; c0 += CHUNK) {
-        const long long row0 = (long long)blk * block_size + c0;
-        float acc[N_TILES][4];
+        for (int i = 0; i < 8; ++i) {
+            float s[8];
+            float m = NEG_INF;
 #pragma unroll
-        for (int t = 0; t < N_TILES; ++t)
+            for (int j = 0; j < 8; ++j) {
+                s[j] = __fadd_rn(acc[i][j], bv[j]);
+                m = fmaxf(m, s[j]);
+            }
+            const int ql = warp * 8 + i;
+            float ls = NEG_INF;
+            int li = 0;
+            if (c > 0) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
-
-        for (int k0 = 0; k0 < d; k0 += KC) {
-            __syncthreads();  // the previous stage (and the previous chunk's merge) is done
-            stage_rows<QUERY_TILE>(qs, qbase, d, k0, tid);
-            stage_rows<CHUNK>(cs, vecs + row0 * d, d, k0, tid);
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < KC; kk += 16) {
-                const __nv_bfloat16* pa = qs + (q0 + group) * SROW + kk + 2 * tig;
-                const uint32_t a0 = ld32(pa), a1 = ld32(pa + 8 * SROW);
-                const uint32_t a2 = ld32(pa + 8), a3 = ld32(pa + 8 * SROW + 8);
-#pragma unroll
-                for (int t = 0; t < N_TILES; ++t) {
-                    const __nv_bfloat16* pb = cs + (n0 + 8 * t + group) * SROW + kk + 2 * tig;
-                    mma_bf16(acc[t], a0, a1, a2, a3, ld32(pb), ld32(pb + 8));
+                for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+                if (m <= lst_s[ql * kb + kb - 1]) continue;  // the list stays as it is
+                if (lane < kb) {
+                    ls = lst_s[ql * kb + lane];
+                    li = lst_i[ql * kb + lane];
                 }
             }
+            block_topk::merge_chunk_rows<8>(s, row_of, c > 0, ls, li, kb, lane);
+            if (lane < kb) {
+                lst_s[ql * kb + lane] = ls;
+                lst_i[ql * kb + lane] = li;
+            }
         }
-        // the score tile → shared memory: acc[t] holds (query q0 + group (+8),
-        // rows n0 + 8t + 2·tig, +1)
-#pragma unroll
-        for (int t = 0; t < N_TILES; ++t) {
-            const int n = n0 + 8 * t + 2 * tig;
-            *reinterpret_cast<float2*>(sc + (q0 + group) * SC_STRIDE + n) =
-                make_float2(acc[t][0], acc[t][1]);
-            *reinterpret_cast<float2*>(sc + (q0 + group + 8) * SC_STRIDE + n) =
-                make_float2(acc[t][2], acc[t][3]);
-        }
-        __syncthreads();
-        float b[ROWS_PER_LANE];
-#pragma unroll
-        for (int j = 0; j < ROWS_PER_LANE; ++j) b[j] = bias[row0 + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < Q_PER_WARP; ++i) {
-            float s[ROWS_PER_LANE];
-            const float* row = sc + (warp * Q_PER_WARP + i) * SC_STRIDE;
-#pragma unroll
-            for (int j = 0; j < ROWS_PER_LANE; ++j) s[j] = __fadd_rn(row[lane + 32 * j], b[j]);
-            block_topk::merge_chunk<ROWS_PER_LANE>(s, (int)row0, c0 > 0, ls[i], li[i], kb, lane);
-        }
-    }
+    });
+    __syncthreads();
+    write_lists(lst_s, lst_i, threadIdx.x, F_THREADS, pair, nq, nblocks, blk, kb, out_s, out_i);
+}
 
-    if (lane < kb) {
+// ---- BF16: the running lists from the accumulators --------------------------------
+
+// the lists' room: two buffers of [TILE_Q][kb] scores, then ids
+__host__ __device__ inline int lists_bytes(int kb) { return 2 * TILE_Q * kb * 8; }
+
+__host__ __device__ inline RingLayout bf16_layout(int d, int kb) {
+    return ring_layout(d, lists_bytes(kb));
+}
+
+// One query row's merge (quad-cooperative): the quad's 4 threads hold its
+// 256 chunk scores, thread t columns 8j + 2t + e in d[4j + 2R + e]; the old
+// list [kb] is read, the new one written (by thread 0 of the quad).
+template <int R>
+__device__ __forceinline__ void merge_row(float (&d)[128], int t, int grow0, bool have_list,
+                                          const float* os, const int* oi, float* ns, int* ni,
+                                          int kb, int block_row0) {
+    // this thread's best remaining (value, column): columns ascend with
+    // (j, e), so a strict > keeps the lowest
+    auto local_best = [&](float& bv, int& bc) {
+        bv = d[2 * R];
+        bc = 2 * t;
 #pragma unroll
-        for (int i = 0; i < Q_PER_WARP; ++i) {
-            const long long o =
-                (((long long)iq * nblocks + blk) * kb + lane) * QUERY_TILE + warp * Q_PER_WARP + i;
-            out_s[o] = ls[i];
-            out_i[o] = li[i];
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const float v = d[4 * j + 2 * R + e];
+                if (v > bv) {
+                    bv = v;
+                    bc = 8 * j + 2 * t + e;
+                }
+            }
+    };
+    auto quad_best = [&](float& bv, int& bc) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            const float ov = __shfl_xor_sync(FULL, bv, off);
+            const int oc = __shfl_xor_sync(FULL, bc, off);
+            if (ov > bv || (ov == bv && oc < bc)) {
+                bv = ov;
+                bc = oc;
+            }
+        }
+    };
+    float cv;
+    int cc;
+    local_best(cv, cc);
+    quad_best(cv, cc);
+    int ptr = 0;
+    for (int p = 0; p < kb; ++p) {
+        // the list's next entry wins a tie (its id is lower); past every
+        // score above -1e30, each row of the block is at -1e30 and the
+        // lowest, the block's first, is emitted
+        const float lv = have_list ? os[ptr] : NEG_INF;
+        const bool from_list = lv > NEG_INF && (lv >= cv || cv <= NEG_INF);
+        const bool from_chunk = !from_list && cv > NEG_INF;
+        if (t == 0) {
+            ns[p] = from_list ? lv : from_chunk ? cv : NEG_INF;
+            ni[p] = from_list ? oi[ptr] : from_chunk ? grow0 + cc : block_row0;
+        }
+        if (from_list) ++ptr;
+        if (from_chunk && ((cc >> 1) & 3) == t) {  // the owner sets the entry to -1e30
+            const int slot = 4 * (cc >> 3) + 2 * R + (cc & 1);
+#pragma unroll
+            for (int k = 0; k < 32; ++k)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                    if (4 * k + 2 * R + e == slot) d[4 * k + 2 * R + e] = NEG_INF;
+        }
+        if (__any_sync(FULL, from_chunk)) {  // the next chunk candidate (shuffles need the warp)
+            float nv;
+            int nc;
+            local_best(nv, nc);
+            quad_best(nv, nc);
+            if (from_chunk) {
+                cv = nv;
+                cc = nc;
+            }
         }
     }
+}
+
+// A quad's list copied unchanged into the new buffer (a chunk that cannot change it).
+__device__ __forceinline__ void copy_list(const float* os, const int* oi, float* ns, int* ni,
+                                          int kb, int t) {
+    for (int p = t; p < kb; p += 4) {
+        ns[p] = os[p];
+        ni[p] = oi[p];
+    }
+}
+
+template <bool RESIDENT>
+__global__ void __launch_bounds__(B_THREADS, 1)
+scan_topk_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,  // [nq·64, d] bf16, box 64 × 128
+                      const __grid_constant__ CUtensorMap tm_v,  // [N, d] bf16, box 64 × 256
+                      const float* __restrict__ bias,            // [N]
+                      float* __restrict__ out_s, int* __restrict__ out_i, int nq, int nblocks,
+                      int block_size, int d, int kb) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = aligned_smem(smem_raw);
+    const RingLayout L = bf16_layout(d, kb);
+    // list buffer b (chunk parity): scores [TILE_Q][kb], then ids
+    float* lists = reinterpret_cast<float*>(smem + L.extra);
+    const int npairs = (nq + 1) / 2;
+    const int pair = blockIdx.x % npairs;
+    const int blk = blockIdx.x / npairs;
+    const int block_row0 = blk * block_size;
+    const bool consumer = bf16_scores<RESIDENT>(
+        &tm_q, &tm_v, smem, L, pair, blk, block_size, d,
+        [&](int c, float (&acc)[128], int wg, int t, int qa) {
+            // the chunk's scores + bias, straight from the accumulators
+            const int grow0 = block_row0 + c * CHUNK;
+            float m0 = NEG_INF, m1 = NEG_INF;
+#pragma unroll
+            for (int j = 0; j < 32; ++j) {
+                const float2 bb = *reinterpret_cast<const float2*>(bias + grow0 + 8 * j + 2 * t);
+                acc[4 * j + 0] = __fadd_rn(acc[4 * j + 0], bb.x);
+                acc[4 * j + 1] = __fadd_rn(acc[4 * j + 1], bb.y);
+                acc[4 * j + 2] = __fadd_rn(acc[4 * j + 2], bb.x);
+                acc[4 * j + 3] = __fadd_rn(acc[4 * j + 3], bb.y);
+                m0 = fmaxf(m0, fmaxf(acc[4 * j + 0], acc[4 * j + 1]));
+                m1 = fmaxf(m1, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+            }
+            const bool have = c > 0;
+            float* os = lists + ((c & 1) ^ 1) * 2 * TILE_Q * kb;  // the list so far
+            float* ns = lists + (c & 1) * 2 * TILE_Q * kb;        // the list with this chunk
+            const int* oi = reinterpret_cast<const int*>(os + TILE_Q * kb);
+            int* ni = reinterpret_cast<int*>(ns + TILE_Q * kb);
+            bool need0 = true, need1 = true;
+            if (have) {
+#pragma unroll
+                for (int off = 1; off < 4; off <<= 1) {
+                    m0 = fmaxf(m0, __shfl_xor_sync(FULL, m0, off));
+                    m1 = fmaxf(m1, __shfl_xor_sync(FULL, m1, off));
+                }
+                need0 = m0 > os[qa * kb + kb - 1];
+                need1 = m1 > os[(qa + 8) * kb + kb - 1];
+            }
+            const int o0 = qa * kb, o1 = (qa + 8) * kb;
+            if (__any_sync(FULL, need0))
+                merge_row<0>(acc, t, grow0, have, os + o0, oi + o0, ns + o0, ni + o0, kb,
+                             block_row0);
+            else
+                copy_list(os + o0, oi + o0, ns + o0, ni + o0, kb, t);
+            if (__any_sync(FULL, need1))
+                merge_row<1>(acc, t, grow0, have, os + o1, oi + o1, ns + o1, ni + o1, kb,
+                             block_row0);
+            else
+                copy_list(os + o1, oi + o1, ns + o1, ni + o1, kb, t);
+            __syncwarp();
+        });
+    if (!consumer) return;
+    asm volatile("bar.sync 1, %0;\n" ::"n"(B_CONSUMERS * 128) : "memory");
+    const int nchunks = block_size / CHUNK;
+    const float* fs = lists + ((nchunks - 1) & 1) * 2 * TILE_Q * kb;
+    write_lists(fs, reinterpret_cast<const int*>(fs + TILE_Q * kb), threadIdx.x,
+                B_CONSUMERS * 128, pair, nq, nblocks, blk, kb, out_s, out_i);
+}
+
+// ---- launchers ------------------------------------------------------------------
+
+bool shape_ok(int nq, int nblocks, int block_size, int kb, int d) {
+    return nq >= 1 && nblocks >= 1 && block_size >= CHUNK && block_size % CHUNK == 0 &&
+           kb >= 1 && kb <= MAX_KB && d >= 1 &&
+           (long long)nblocks * block_size < (1LL << 31);
 }
 
 int launch_f32(const void* q, const void* vecs, const void* bias, void* out_s, void* out_i,
-               int nq, int nblocks, int block_size, int kb, int d, void* stream) {
-    const dim3 grid((unsigned)nblocks, (unsigned)nq);
-    scan_topk_float_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+               int nq, int nblocks, int block_size, int kb, int d, cudaStream_t stream) {
+    if (!shape_ok(nq, nblocks, block_size, kb, d)) return (int)cudaErrorInvalidValue;
+    const size_t smem = f32_smem_bytes(kb);
+    auto kernel = d % F_KC ? scan_topk_f32_kernel<true> : scan_topk_f32_kernel<false>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return refused(err);
+    kernel<<<(unsigned)((nq + 1) / 2) * (unsigned)nblocks, F_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(vecs),
-        static_cast<const float*>(bias), static_cast<float*>(out_s), static_cast<int*>(out_i),
+        static_cast<const float*>(bias), static_cast<float*>(out_s), static_cast<int*>(out_i), nq,
         nblocks, block_size, d, kb);
+    return (int)cudaGetLastError();
+}
+
+template <bool RESIDENT>
+int launch_bf16_as(const CUtensorMap& tq, const CUtensorMap& tv, const void* bias, void* out_s,
+                   void* out_i, int nq, int nblocks, int block_size, int kb, int d,
+                   cudaStream_t stream) {
+    const size_t smem = ring_bytes(bf16_layout(d, kb));
+    if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(scan_topk_bf16_kernel<RESIDENT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return refused(err);
+    const unsigned grid = (unsigned)((nq + 1) / 2) * (unsigned)nblocks;
+    scan_topk_bf16_kernel<RESIDENT><<<grid, B_THREADS, smem, stream>>>(
+        tq, tv, static_cast<const float*>(bias), static_cast<float*>(out_s),
+        static_cast<int*>(out_i), nq, nblocks, block_size, d, kb);
     return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* q, const void* vecs, const void* bias, void* out_s, void* out_i,
-                int nq, int nblocks, int block_size, int kb, int d, void* stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        scan_topk_bf16_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)nblocks, (unsigned)nq);
-    scan_topk_bf16_mma_kernel<<<grid, THREADS, BF16_SMEM, (cudaStream_t)stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(vecs),
-        static_cast<const float*>(bias), static_cast<float*>(out_s), static_cast<int*>(out_i),
-        nblocks, block_size, d, kb);
-    return (int)cudaGetLastError();
+                int nq, int nblocks, int block_size, int kb, int d, cudaStream_t stream) {
+    if (!shape_ok(nq, nblocks, block_size, kb, d) || d % 8) return (int)cudaErrorInvalidValue;
+    CUtensorMap tq, tv;
+    int err = encode_bf16_map(&tq, q, (long long)nq * QUERY_TILE, d, TILE_Q);
+    if (err) return err;
+    err = encode_bf16_map(&tv, vecs, (long long)nblocks * block_size, d, CHUNK);
+    if (err) return err;
+    if (bf16_layout(d, kb).a_bytes > 0)
+        return launch_bf16_as<true>(tq, tv, bias, out_s, out_i, nq, nblocks, block_size, kb, d,
+                                    stream);
+    return launch_bf16_as<false>(tq, tv, bias, out_s, out_i, nq, nblocks, block_size, kb, d,
+                                 stream);
 }
 
 }  // namespace
@@ -302,20 +371,32 @@ int scan_topk_float_chunk_rows() { return CHUNK; }
 int scan_topk_float_query_tile() { return QUERY_TILE; }
 int scan_topk_float_max_kb() { return MAX_KB; }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// The caller checks shapes: q rows = nq·QUERY_TILE, vector rows =
-// nblocks·block_size, block_size % CHUNK == 0, d % 32 == 0,
-// 1 <= kb <= MAX_KB, 16-byte aligned pointers.
+// Dynamic shared memory of one CTA (mode 0 f32, 1 bf16) at (d, kb), and
+// whether the bf16 kernel keeps its queries resident.
+int scan_topk_float_smem_bytes(int mode, int d, int kb) {
+    return mode == 0 ? (int)f32_smem_bytes(kb) : ring_bytes(bf16_layout(d, kb));
+}
+int scan_topk_float_bf16_queries_resident(int d, int kb) {
+    return bf16_layout(d, kb).a_bytes > 0 ? 1 : 0;
+}
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 = success),
+// or for bf16 the CUresult of a failed tensor-map encode. q rows =
+// nq·QUERY_TILE, vector rows = nblocks·block_size, block_size % CHUNK == 0,
+// 1 <= kb <= MAX_KB, d >= 1 (bf16: d % 8 == 0), 16-byte aligned
+// pointers; scores must be ≥ -1e30.
 int scan_topk_f32_launch(const void* q, const void* vecs, const void* bias, void* out_s,
                          void* out_i, int nq, int nblocks, int block_size, int kb, int d,
                          void* stream) {
-    return launch_f32(q, vecs, bias, out_s, out_i, nq, nblocks, block_size, kb, d, stream);
+    return launch_f32(q, vecs, bias, out_s, out_i, nq, nblocks, block_size, kb, d,
+                      (cudaStream_t)stream);
 }
 
 int scan_topk_bf16_launch(const void* q, const void* vecs, const void* bias, void* out_s,
                           void* out_i, int nq, int nblocks, int block_size, int kb, int d,
                           void* stream) {
-    return launch_bf16(q, vecs, bias, out_s, out_i, nq, nblocks, block_size, kb, d, stream);
+    return launch_bf16(q, vecs, bias, out_s, out_i, nq, nblocks, block_size, kb, d,
+                       (cudaStream_t)stream);
 }
 
 }  // extern "C"

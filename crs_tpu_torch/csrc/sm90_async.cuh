@@ -1,0 +1,227 @@
+// Hopper (sm_90a) building blocks the float scans share (segmax_scan_topk.cu,
+// scan_topk_f32_bf16.cu): cp.async, mbarriers, TMA tensor maps and loads, and
+// wgmma m64n256k16 on 128-byte-swizzled K-major operands.
+//
+// The tensor maps are encoded on the host per launch (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPointByVersion, so a library that
+// includes this needs no -lcuda) and passed as __grid_constant__ kernel
+// parameters.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the encode function's types; no libcuda link
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- cp.async ----------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+}
+
+// 4 bytes, or a zero when !valid (src is then not read)
+__device__ __forceinline__ void cp_async4_or_zero(float* dst, const float* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+                 "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- mbarriers and TMA ---------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait that lasts 2^32
+// clocks (about 2 s) means the pipeline is broken: trap, so the launch fails
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    long long t0 = 0;
+    for (;;) {
+        uint32_t done;
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (t0 == 0) {
+            t0 = clock64();
+        } else if (clock64() - t0 > (1LL << 32)) {
+            __trap();
+        }
+    }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+        : "memory");
+}
+
+// ---- wgmma ---------------------------------------------------------------------
+
+// K-major operand, 128-byte swizzle: rows of 128 bytes, 8-row groups 1024
+// bytes apart (SBO), LBO unused; +2 in the address field steps 32 bytes (16
+// bf16) along K inside the swizzle atom.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+           ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator accesses across the async region
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 × 256] (+)= A[64 × 16] · B[256 × 16]ᵀ, both K-major in shared memory;
+// scale_d = 0 overwrites d. Thread (warp w of the warpgroup, lane l) holds
+// in d[4j + 2r + e] row 16w + l/4 + 8r, column 8j + 2(l % 4) + e.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87,"
+        "%88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103,"
+        "%104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127},"
+        " %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---- tensor maps (host) ----------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (!fn) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err =
+            cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// A bf16 [rows, d] row-major tensor (d % 8 == 0: 16-byte row strides) seen
+// as boxes of 64 dimensions (128 bytes) × box_rows rows, 128-byte swizzled,
+// zero-filled past its edges. Returns a CUresult.
+inline int encode_bf16_map(CUtensorMap* map, const void* ptr, long long rows, int d,
+                           int box_rows) {
+    const EncodeTiledFn fn = encode_tiled();
+    if (!fn) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+    const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A refused launch's error, cleared from the runtime's last error so that
+// the next launch on this thread (ours or PyTorch's) does not report it.
+inline int refused(cudaError_t err) {
+    cudaGetLastError();
+    return (int)err;
+}
+
+}  // namespace sm90

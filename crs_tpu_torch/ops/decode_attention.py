@@ -14,8 +14,10 @@ softmax, f32 sums, and exact zeros for a batch row with no valid slot.
 :func:`decode_attention_int8` is the wrapper of the CUDA kernel in
 ``csrc/decode_attention_int8.cu``: two launches over S cut into chunks by
 :func:`split_plan` (``decode_attention_int8_scores_kernel``, then
-``decode_attention_int8_pv_kernel``). On a CUDA tensor it launches them or
-raises; on a CPU tensor it runs :func:`emulate_decode_attention_int8`, the
+``decode_attention_int8_pv_kernel``), for every shape ``crs_tpu``'s gate
+sends to its kernel: hd a multiple of 128 up to 512, any number of query
+heads per kv-head (padded with zero heads to a built count), any S a
+multiple of 128. On a CUDA tensor it launches them or raises; on a CPU tensor it runs :func:`emulate_decode_attention_int8`, the
 plain torch version beside it (a literal mirror of ``crs_tpu``'s
 emulation). There is no ``mesh`` argument: multi-device serving is not
 ported yet.
@@ -35,8 +37,8 @@ from .launch import ARG_FLOAT, ARG_INT, ARG_PTR, KernelStats, check_operands, la
 
 __all__ = [
     "STATS", "quantize_kv_rows", "decode_attention_supported", "decode_attention_int8",
-    "emulate_decode_attention_int8", "split_plan", "KERNEL_HEAD_DIM", "KERNEL_GROUPS",
-    "ROWS_PER_STEP", "MAX_CHUNK_ROWS", "MAX_CHUNKS",
+    "emulate_decode_attention_int8", "split_plan", "launch_groups", "KERNEL_HEAD_DIMS",
+    "KERNEL_GROUPS", "ROWS_PER_STEP", "MAX_CHUNK_ROWS", "MAX_CHUNKS",
 ]
 
 NEG_INF = -1e30
@@ -44,11 +46,14 @@ STATS = KernelStats()
 
 _SOURCE = "decode_attention_int8.cu"
 _LAUNCHER = "decode_attention_int8_launch"
-KERNEL_HEAD_DIM = 128  # the CUDA kernel's head dim
-KERNEL_GROUPS = (1, 2, 4, 8)  # query heads per kv-head the kernel is built for
+KERNEL_HEAD_DIMS = (128, 256, 384, 512)  # the head dims the CUDA kernel is built for
+# query heads per kv-head the kernel is built for (ascending); a launch with
+# more runs slices of the last along the grid
+KERNEL_GROUPS = (1, 2, 4, 8)
 # the chunks of S (csrc/decode_attention_int8.cu): a multiple of the 32 rows
-# a block reads per step, at most 1,024 rows (the scores and p of a chunk sit
-# in shared memory) and at most 128 chunks (a warp holds their statistics)
+# a block reads per step and at most 1,024 rows (the scores and p of a chunk
+# sit in shared memory); the planner lengthens chunks before it passes
+# MAX_CHUNKS of them (past MAX_CHUNKS · MAX_CHUNK_ROWS rows their count grows)
 ROWS_PER_STEP = 32
 MAX_CHUNK_ROWS = 1024
 MAX_CHUNKS = 128
@@ -69,6 +74,17 @@ def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def decode_attention_supported(head_dim: int, seq: int) -> bool:
     """``crs_tpu``'s gate for the fused kernel: hd and S 128-aligned."""
     return head_dim % 128 == 0 and seq % 128 == 0
+
+
+def launch_groups(group: int) -> int:
+    """The query heads per kv-head a launch runs for ``group`` real ones: the
+    next built count, or past the largest the next multiple of it (zero
+    heads padded; each head's attention is its own, so the real heads are
+    unchanged and the added ones are sliced off)."""
+    top = KERNEL_GROUPS[-1]
+    if group <= top:
+        return next(kg for kg in KERNEL_GROUPS if kg >= group)
+    return -(-group // top) * top
 
 
 def emulate_decode_attention_int8(q, k_codes, k_scales, v_codes, v_scales, valid):
@@ -107,7 +123,7 @@ def split_plan(bh: int, s: int, sm_count: int) -> Tuple[int, int]:
 
 
 def _load():
-    return load_library(_SOURCE, {_LAUNCHER: [ARG_PTR] * 11 + [ARG_INT] * 6 + [ARG_FLOAT]
+    return load_library(_SOURCE, {_LAUNCHER: [ARG_PTR] * 11 + [ARG_INT] * 7 + [ARG_FLOAT]
                                   + [ARG_PTR]})
 
 
@@ -130,20 +146,20 @@ def decode_attention_int8(
         raise ValueError("q must be [B, Hkv, G, hd] and the codes [B, Hkv, S, hd]")
     b, hkv, g, hd = q.shape
     s = k_codes.shape[2]
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(f"the kernel takes head_dim {KERNEL_HEAD_DIM}, got {hd}")
-    if g not in KERNEL_GROUPS:
-        raise ValueError(f"the kernel takes {KERNEL_GROUPS} query heads per kv-head, got {g}")
-    if s % 128 or s < 128:
-        raise ValueError(f"the cache length must be a positive multiple of 128, got {s}")
-    if s > MAX_CHUNKS * MAX_CHUNK_ROWS:
-        raise ValueError(f"the kernel takes S ≤ {MAX_CHUNKS * MAX_CHUNK_ROWS}, got {s}")
+    if hd not in KERNEL_HEAD_DIMS or g < 1 or s < 128 or s % 128:
+        raise ValueError(f"the kernel takes head_dim in {KERNEL_HEAD_DIMS}, at least one query "
+                         f"head per kv-head and S a positive multiple of 128; got hd {hd}, "
+                         f"G {g}, S {s}")
     for name, t, shape in (("k_codes", k_codes, (b, hkv, s, hd)), ("v_codes", v_codes, (b, hkv, s, hd)),
                            ("k_scales", k_scales, (b, hkv, s)), ("v_scales", v_scales, (b, hkv, s)),
                            ("valid", valid, (b, s))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    qf = q.float().contiguous()
+    g_run = launch_groups(g)
+    qf = q.float()
+    if g_run != g:
+        qf = torch.nn.functional.pad(qf, (0, 0, 0, g_run - g))
+    qf = qf.contiguous()
     bias = torch.where(valid != 0, 0.0, NEG_INF).float()
     check_operands(dev, ("q", qf, torch.float32), ("k_codes", k_codes, torch.int8),
                    ("k_scales", k_scales, torch.float32), ("v_codes", v_codes, torch.int8),
@@ -151,16 +167,17 @@ def decode_attention_int8(
     bh = b * hkv
     rows, nchunk = split_plan(bh, s, sm_count(dev))
     stream = stream_handle(dev)
-    scores = scratch(dev, stream, "attn_scores", bh * g * s, torch.float32)
-    stats = scratch(dev, stream, "attn_stats", bh * nchunk * g * 2, torch.float32)
-    partials = scratch(dev, stream, "attn_partials", bh * nchunk * g * hd, torch.float32)
-    counters = scratch(dev, stream, "attn_counters", bh, torch.int32, zero=True)
-    out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=dev)
+    scores = scratch(dev, stream, "attn_scores", bh * g_run * s, torch.float32)
+    stats = scratch(dev, stream, "attn_stats", bh * nchunk * g_run * 2, torch.float32)
+    partials = scratch(dev, stream, "attn_partials", bh * nchunk * g_run * hd, torch.float32)
+    counters = scratch(dev, stream, "attn_counters", bh * max(1, g_run // KERNEL_GROUPS[-1]),
+                       torch.int32, zero=True)
+    out = torch.empty((b, hkv, g_run, hd), dtype=torch.float32, device=dev)
     launch(STATS, "decode_attention_int8", getattr(_load(), _LAUNCHER),
            qf.data_ptr(), k_codes.data_ptr(), k_scales.data_ptr(), v_codes.data_ptr(),
            v_scales.data_ptr(), bias.data_ptr(), scores.data_ptr(), stats.data_ptr(),
-           partials.data_ptr(), counters.data_ptr(), out.data_ptr(), bh, hkv, g, s, rows,
-           nchunk, float(np.float32(1.0 / math.sqrt(hd))), stream)
+           partials.data_ptr(), counters.data_ptr(), out.data_ptr(), bh, hkv, g_run, s, rows,
+           nchunk, hd, float(np.float32(1.0 / math.sqrt(hd))), stream)
     # a row with no valid slot softmaxes the bias into garbage: exact zeros
     any_valid = (valid != 0).any(dim=1).to(out.dtype)
-    return out * any_valid[:, None, None, None]
+    return out[:, :, :g] * any_valid[:, None, None, None]

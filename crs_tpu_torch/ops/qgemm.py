@@ -13,20 +13,21 @@ which is the Pallas kernels' arithmetic (``_q4_kernel`` / ``_nf4_kernel``):
 every product of two bf16 values is exact in f32, so kernel and plain
 version differ only in the order of the f32 sums.
 
-:func:`q4_matmul` and :func:`nf4_matmul` are the wrappers of the CUDA
-kernels in ``csrc/q4_matmul.cu`` (``q4_matmul_kernel``, and the tensor-core
-``nf4_mma_kernel`` with its planner :func:`nf4_plan` and dequant table
-:func:`nf4_byte_table`). On a CUDA tensor they launch the kernel or raise;
-on a CPU tensor they run :func:`emulate_q4_matmul` /
-:func:`emulate_nf4_matmul`, the plain torch versions beside them (literal
-mirrors of ``crs_tpu``'s emulations). ``qmatmul`` takes them when
-:func:`q4_pallas_supported` says so, exactly where ``crs_tpu`` takes its
-Pallas kernels.
+:func:`q4_matmul` and :func:`nf4_matmul` are the wrappers of one CUDA
+kernel, the tensor-core ``q4_mma_kernel`` of ``csrc/q4_matmul.cu``, with
+its planner :func:`nf4_plan` and a dequant table per kind
+(:func:`int4_byte_table`, :func:`nf4_byte_table`); it takes groups of any
+even number of rows. On a CUDA tensor they launch the kernel or raise; on a
+CPU tensor they run :func:`emulate_q4_matmul` / :func:`emulate_nf4_matmul`,
+the plain torch versions beside them (literal mirrors of ``crs_tpu``'s
+emulations). ``qmatmul`` takes them when :func:`q4_pallas_supported` says
+so, exactly where ``crs_tpu`` takes its Pallas kernels.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, NamedTuple
 
 import numpy as np
@@ -37,7 +38,7 @@ from .launch import ARG_INT, ARG_PTR, KernelStats, check_operands, launch, load_
 
 __all__ = [
     "NF4_LEVELS", "STATS", "q4_pallas_supported", "q4_matmul", "nf4_matmul",
-    "emulate_q4_matmul", "emulate_nf4_matmul", "q4_split_k", "Nf4Plan", "nf4_plan",
+    "emulate_q4_matmul", "emulate_nf4_matmul", "Nf4Plan", "nf4_plan", "int4_byte_table",
     "nf4_byte_table", "NF4_MAX_SPLIT", "NF4_BLOCKS_PER_SM", "NF4_WIDE_N",
 ]
 
@@ -54,12 +55,10 @@ NF4_LEVELS = np.array([
 STATS = KernelStats()
 
 _SOURCE = "q4_matmul.cu"
-_LAUNCHER = "q4_matmul_launch"
-_NF4_LAUNCHER = "nf4_matmul_launch"
-TILE_N = 128  # output columns per CUDA block (csrc/q4_matmul.cu)
+_LAUNCHER = "q4_mma_launch"
+_N_MULTIPLE = 128  # the wrappers' gate on N (crs_tpu's tiling rule)
 MAX_ROWS = 64  # decode-sized row counts: qmatmul's gate
-_TARGET_BLOCKS_PER_SM = 2
-# nf4_mma_kernel: packed rows per k16 step, and the most K slices (one
+# q4_mma_kernel: packed rows per k16 step, and the most K slices (one
 # thread-block cluster of the portable size adds them)
 NF4_STEP_ROWS = 8
 NF4_MAX_SPLIT = 8
@@ -71,7 +70,7 @@ NF4_BLOCKS_PER_SM = 0.75
 # R = 64 on the H100: lm_head 2048 → 32000 and 4096 → 14336 ran faster so,
 # 2048 → 5632 and 14336 → 4096 slower; chip_smoke.py kernel_q4)
 NF4_WIDE_N = 8192
-_tables: Dict[torch.device, torch.Tensor] = {}
+_tables: Dict[tuple, torch.Tensor] = {}
 
 
 def _tile_config(k2: int, n: int, g: int):
@@ -140,28 +139,14 @@ def emulate_nf4_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tens
 
 # -- the kernels' wrappers ----------------------------------------------------------
 
-def q4_split_k(k2: int, n: int, rows: int, gs2: int, sm_count: int) -> int:
-    """Kernel 8's K split: each CUDA block sums a K slice into its own
-    partial and a second pass adds them in order, so a decode-sized product
-    still fills the card: the smallest power of two that gives
-    ``_TARGET_BLOCKS_PER_SM`` blocks per SM, while each slice keeps at least
-    one group of packed rows and divides K/2 evenly."""
-    rt = 8 if rows > 4 else max(1, 1 << (rows - 1).bit_length())
-    blocks = (n // TILE_N) * -(-rows // rt)
-    split = 1
-    while (blocks * split < _TARGET_BLOCKS_PER_SM * sm_count
-           and k2 % (2 * split) == 0 and k2 // (2 * split) >= max(gs2, 8)):
-        split *= 2
-    return split
-
-
 class Nf4Plan(NamedTuple):
-    """How ``nf4_mma_kernel`` covers an [R, K] × [K/2, N] product: ``n_tiles``
-    tiles of 8 rows of x, ``width`` bytes of a packed row per thread (so
-    8·width columns per warp), ``warps_n`` of a block's 8 warps side by side
-    along N (the others along K), and K cut into ``ksplit`` slices of
-    ``slice_rows`` packed rows (whole groups; the last may be shorter), the
-    blocks of a column slab's slices forming one cluster."""
+    """How ``q4_mma_kernel`` covers an [R, K] × [K/2, N] product (int4 or
+    NF4): ``n_tiles`` tiles of 8 rows of x, ``width`` bytes of a packed row
+    per thread (so 8·width columns per warp), ``warps_n`` of a block's 8
+    warps side by side along N (the others along K), and K cut into
+    ``ksplit`` slices of ``slice_rows`` packed rows (whole groups that are
+    also whole 8-row k steps; the last may be shorter), the blocks of a
+    column slab's slices forming one cluster."""
     n_tiles: int
     width: int
     ksplit: int
@@ -178,17 +163,19 @@ class Nf4Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def nf4_plan(rows: int, k2: int, n: int, gs2: int, sm_count: int) -> Nf4Plan:
-    """The grid of ``nf4_mma_kernel``: 8·n_tiles ≥ R rows in one weight pass
+    """The grid of ``q4_mma_kernel`` (both kinds): 8·n_tiles ≥ R rows in one weight pass
     (the launcher derives n_tiles from R the same way), width 16 or 8 bytes
     for n_tiles ≤ 2 and 8 / 4 beyond, so the f32 sums stay in 64 registers;
     for 8 n-tiles at N ≥ :data:`NF4_WIDE_N` the block's 8 warps lie along N,
     so they share x's 64 rows and the table (each of the N/32 narrow blocks
-    would read all of x from L2); then whole-group K slices (at most
-    :data:`NF4_MAX_SPLIT`) so the grid comes as near as it can to
+    would read all of x from L2); then K slices (at most
+    :data:`NF4_MAX_SPLIT`) of whole units of lcm(gs2, 8) packed rows — whole
+    groups and whole k steps — so the grid comes as near as it can to
     :data:`NF4_BLOCKS_PER_SM` blocks per SM. The width that comes nearer
     wins, the wider on a tie."""
     n_tiles = 1 << max(0, (-(-rows // 8) - 1).bit_length())
-    groups = k2 // gs2
+    unit = math.lcm(gs2, NF4_STEP_ROWS)
+    groups = k2 // unit
     target = NF4_BLOCKS_PER_SM * sm_count
     best = None
     for width in ((16, 8) if n_tiles <= 2 else (32 // n_tiles,)):
@@ -197,35 +184,49 @@ def nf4_plan(rows: int, k2: int, n: int, gs2: int, sm_count: int) -> Nf4Plan:
         if slabs == 0:
             continue
         ksplit = max(1, min(round(target / slabs), NF4_MAX_SPLIT, groups))
-        per = -(-groups // ksplit)  # groups per slice
-        plan = Nf4Plan(n_tiles, width, -(-groups // per), per * gs2, warps_n)
+        per = -(-groups // ksplit)  # units per slice
+        plan = Nf4Plan(n_tiles, width, -(-groups // per), per * unit, warps_n)
         if best is None or abs(plan.blocks(n) - target) < abs(best.blocks(n) - target):
             best = plan
     return best
 
 
-def nf4_byte_table() -> np.ndarray:
-    """The dequant table of ``nf4_mma_kernel``: for each byte value, the
-    bf16 pair (level of the low nibble, level of the high nibble) as one
-    uint32 word (low nibble in the low half: weight rows 2i, 2i+1)."""
-    bits = torch.from_numpy(NF4_LEVELS).to(torch.bfloat16).view(torch.int16).numpy()
+def _pair_table(levels: np.ndarray) -> np.ndarray:
+    """For each byte value, the bf16 pair (level of the low nibble, level of
+    the high nibble) as one uint32 word (low nibble in the low half: weight
+    rows 2i, 2i+1); ``levels`` [16] by nibble value."""
+    bits = torch.from_numpy(levels.astype(np.float32)).to(torch.bfloat16).view(torch.int16).numpy()
     half = bits.astype(np.uint16).astype(np.uint32)
     byte = np.arange(256)
     return (half[byte & 15] | (half[byte >> 4] << 16)).astype(np.uint32)
 
 
-def _nf4_table(dev: torch.device) -> torch.Tensor:
-    """:func:`nf4_byte_table` with each entry repeated for the 32 lanes, as
-    the kernel copies it into shared memory (entry e, lane l at 32·e + l)."""
-    if dev not in _tables:
-        _tables[dev] = torch.from_numpy(np.repeat(nf4_byte_table(), 32).view(np.int32)).to(dev)
-    return _tables[dev]
+def nf4_byte_table() -> np.ndarray:
+    """``q4_mma_kernel``'s dequant table for NF4: the unsigned nibbles'
+    :data:`NF4_LEVELS`, a pair per byte."""
+    return _pair_table(NF4_LEVELS)
+
+
+def int4_byte_table() -> np.ndarray:
+    """``q4_mma_kernel``'s dequant table for int4: each nibble sign-extended
+    (0..7 → 0..7, 8..15 → -8..-1; exact in bf16), a pair per byte."""
+    nib = np.arange(16)
+    return _pair_table(np.where(nib < 8, nib, nib - 16))
+
+
+def _lane_table(dev: torch.device, kind: str) -> torch.Tensor:
+    """The ``kind`` ("int4" / "nf4") byte table with each entry repeated for
+    the 32 lanes, as the kernel copies it into shared memory (entry e, lane
+    l at 32·e + l)."""
+    key = (dev, kind)
+    if key not in _tables:
+        table = int4_byte_table() if kind == "int4" else nf4_byte_table()
+        _tables[key] = torch.from_numpy(np.repeat(table, 32).view(np.int32)).to(dev)
+    return _tables[key]
 
 
 def _load():
-    return load_library(_SOURCE, {
-        _LAUNCHER: [ARG_PTR] * 5 + [ARG_INT] * 5 + [ARG_PTR],
-        _NF4_LAUNCHER: [ARG_PTR] * 5 + [ARG_INT] * 8 + [ARG_PTR]})
+    return load_library(_SOURCE, {_LAUNCHER: [ARG_PTR] * 5 + [ARG_INT] * 8 + [ARG_PTR]})
 
 
 def _check_shapes(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor):
@@ -240,44 +241,31 @@ def _check_shapes(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor):
                          f"scales {tuple(scales.shape)}")
     if not 1 <= r <= MAX_ROWS:
         raise ValueError(f"the kernel takes 1..{MAX_ROWS} rows, got {r}")
-    if n % TILE_N:
-        raise ValueError(f"N must be a multiple of {TILE_N}, got {n}")
-    if k2 % 8:
-        raise ValueError(f"K/2 must be a multiple of 8, got {k2}")
+    if n % _N_MULTIPLE:
+        raise ValueError(f"N must be a multiple of {_N_MULTIPLE}, got {n}")
+    if k2 % NF4_STEP_ROWS:
+        raise ValueError(f"K/2 must be a multiple of {NF4_STEP_ROWS}, got {k2}")
     return r, k2, n, k2 // g
 
 
-def _q4_forward(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    dev = codes.device
-    r, k2, n, gs2 = _check_shapes(x2, codes, scales)
-    xb = x2.to(torch.bfloat16)
-    check_operands(dev, ("x2", xb, torch.bfloat16), ("codes", codes, torch.int8),
-                   ("scales", scales, torch.float32))
-    split = q4_split_k(k2, n, r, gs2, sm_count(dev))
-    out = torch.empty((r, n), dtype=torch.float32, device=dev)
-    partials = (torch.empty((split, r, n), dtype=torch.float32, device=dev)
-                if split > 1 else out)
-    launch(STATS, "q4_matmul", getattr(_load(), _LAUNCHER),
-           xb.data_ptr(), codes.data_ptr(), scales.data_ptr(), partials.data_ptr(),
-           out.data_ptr(), r, k2, n, gs2, split, stream_handle(dev))
-    return out
+_KINDS = {"int4": ("q4_matmul", torch.int8), "nf4": ("nf4_matmul", torch.uint8)}
 
 
-def _nf4_forward(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
-                 plan: Nf4Plan = None) -> torch.Tensor:
+def _forward(kind: str, x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+             plan: Nf4Plan = None) -> torch.Tensor:
+    """Launch ``q4_mma_kernel`` with ``kind``'s table, counted under its
+    wrapper's name; ``plan`` overrides :func:`nf4_plan` (the smoke's sweep)."""
     dev = codes.device
+    name, code_dtype = _KINDS[kind]
     r, k2, n, gs2 = _check_shapes(x2, codes, scales)
-    if gs2 % NF4_STEP_ROWS:
-        raise ValueError(f"the kernel takes groups of a multiple of {2 * NF4_STEP_ROWS} rows, "
-                         f"got {2 * gs2}")
     xb = x2.to(torch.bfloat16)
-    check_operands(dev, ("x2", xb, torch.bfloat16), ("codes", codes, torch.uint8),
+    check_operands(dev, ("x2", xb, torch.bfloat16), ("codes", codes, code_dtype),
                    ("scales", scales, torch.float32))
     if plan is None:
         plan = nf4_plan(r, k2, n, gs2, sm_count(dev))
     out = torch.empty((r, n), dtype=torch.float32, device=dev)
-    launch(STATS, "nf4_matmul", getattr(_load(), _NF4_LAUNCHER),
-           xb.data_ptr(), codes.data_ptr(), scales.data_ptr(), _nf4_table(dev).data_ptr(),
+    launch(STATS, name, getattr(_load(), _LAUNCHER),
+           xb.data_ptr(), codes.data_ptr(), scales.data_ptr(), _lane_table(dev, kind).data_ptr(),
            out.data_ptr(), r, k2, n, gs2, plan.ksplit, plan.slice_rows, plan.width,
            plan.warps_n, stream_handle(dev))
     return out
@@ -286,16 +274,18 @@ def _nf4_forward(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
 def q4_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``x2`` [R, K] @ int4-packed weight (``codes`` [K/2, N] int8,
     ``scales`` [K/group, N] f32) → [R, N] f32. CPU tensors take
-    :func:`emulate_q4_matmul`; CUDA tensors launch ``q4_matmul`` or raise."""
+    :func:`emulate_q4_matmul`; CUDA tensors launch ``q4_mma_kernel`` with the
+    int4 table or raise."""
     if codes.device.type == "cpu":
         return emulate_q4_matmul(x2, codes, scales)
-    return _q4_forward(x2, codes, scales)
+    return _forward("int4", x2, codes, scales)
 
 
 def nf4_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``x2`` [R, K] @ NF4-packed weight (``codes`` [K/2, N] uint8,
     ``scales`` [K/group, N] f32 absmax) → [R, N] f32. CPU tensors take
-    :func:`emulate_nf4_matmul`; CUDA tensors launch ``nf4_matmul`` or raise."""
+    :func:`emulate_nf4_matmul`; CUDA tensors launch ``q4_mma_kernel`` with the
+    NF4 table or raise."""
     if codes.device.type == "cpu":
         return emulate_nf4_matmul(x2, codes, scales)
-    return _nf4_forward(x2, codes, scales)
+    return _forward("nf4", x2, codes, scales)

@@ -70,25 +70,29 @@ def int8_product(xq: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ codes.double()).to(torch.int32)
 
 
-def _check_exact(d: int, t: torch.Tensor) -> None:
-    if d > _MAX_EXACT_DIM:
-        raise ValueError(f"int8 products are exact in float32 only for D <= {_MAX_EXACT_DIM}, got {d}")
+def _check_no_tf32(t: torch.Tensor) -> None:
     if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("exact int8 products need torch.backends.cuda.matmul.allow_tf32 = False")
 
 
 def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int8 product ``a [M, D] · b [N, D]ᵀ`` as float32 [M, N].
-
-    Float32 holds every partial sum exactly for D ≤ 1040 (checked). TF32
-    would round the products, so it must be off on the card."""
-    _check_exact(a.shape[-1], a)
+    """Exact int8 product ``a [M, D] · b [N, D]ᵀ`` as float32 [M, N]: the
+    int32 sum ``crs_tpu`` accumulates, rounded once to f32. Float32 holds
+    every partial sum for D ≤ 1040; past that the sums run in float64,
+    which holds them for any D (127²·D < 2⁵³). TF32 would round the
+    products, so it must be off on the card."""
+    if a.shape[-1] > _MAX_EXACT_DIM:
+        return (a.double() @ b.double().T).float()
+    _check_no_tf32(a)
     return a.float() @ b.float().T
 
 
 def int8_rowdot(blocks: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Exact ``blocks [R, S, D] · q [R, D]`` per r, as float32 [R, S]."""
-    _check_exact(q.shape[-1], q)
+    """Exact ``blocks [R, S, D] · q [R, D]`` per r, as float32 [R, S] (as
+    :func:`int8_dot`)."""
+    if q.shape[-1] > _MAX_EXACT_DIM:
+        return torch.bmm(blocks.double(), q.double()[:, :, None])[..., 0].float()
+    _check_no_tf32(q)
     return torch.bmm(blocks.float(), q.float()[:, :, None])[..., 0]
 
 

@@ -63,7 +63,7 @@ __all__ = [
     "block_topk_adc", "block_topk_adc_plain", "block_topk_adc_sorted",
     "block_topk_adc_sorted_plain", "block_topk_segmax", "block_topk_segmax_plain",
     "block_topk_segmax_int8", "block_topk_segmax_int8_plain", "adc_tables",
-    "adc_auto_group", "plan_sorted_coarse_windows", "build_kernels",
+    "adc_auto_group", "adc_kernel_plan", "plan_sorted_coarse_windows", "build_kernels",
 ]
 
 # Kernel 1's tile: BLOCK_ROWS corpus rows × QUERY_TILE queries per CUDA
@@ -77,13 +77,19 @@ CHUNK_ROWS = 256
 MAX_KB = 32
 FLOAT_QUERY_TILE = 64
 ADC_QUERY_TILE = 8
+# the corpus widths the kernels take: kernel 1 and kernel 2's fp32 any D
+# (they zero-fill past D themselves), kernel 2's bf16 a multiple of 8 (TMA's
+# 16-byte row stride), to which scan_topk zero-pads a bf16 corpus (exact: a
+# zero product adds nothing to an f32 sum). Kernel 1's queries arrive padded
+# to a multiple of 16 (its wrapper pads them).
+_INT8_Q_MULTIPLE = 16
+_FLOAT_D_MULTIPLE = {torch.float32: 1, torch.bfloat16: 8}
 # Kernels 6 and 7 (segment max): partials in tiles of 64 queries (a kernel 6
 # CUDA block scores two tiles, a kernel 7 block one), CHUNK_ROWS rows a
 # step, at most MAX_SEGMENTS 128-row segments per corpus block.
 SEGMAX_QUERY_TILE = 64
 SEGMENT_ROWS = 128
 MAX_SEGMENTS = 32
-_SMEM_LIMIT = 232448  # bytes of shared memory one CUDA block may use (H100)
 _INT_BIG = 2**31 - 1
 
 KernelOut = Tuple[torch.Tensor, torch.Tensor]
@@ -213,6 +219,14 @@ def _check_block_shape(n_rows: int, bias: torch.Tensor, block_size: int, kb: int
         raise ValueError(f"kb must be in [1, {MAX_KB}], got {kb}")
 
 
+# -- zero padding -----------------------------------------------------------
+
+def _pad_cols(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``x`` [N, D] with zero columns up to a multiple of ``multiple``."""
+    extra = _round_up(x.shape[1], multiple) - x.shape[1]
+    return x if extra == 0 else torch.nn.functional.pad(x, (0, extra))
+
+
 # -- kernel 1: int8 (csrc/int8_scan_topk.cu) ---------------------------------
 
 def block_topk_int8_plain(
@@ -259,12 +273,15 @@ def block_topk_int8(
     if n_rows % BLOCK_ROWS or n_rows >= _INT_BIG or row_scale.shape != (n_rows,) \
             or bias.shape != (n_rows,):
         raise ValueError("codes rows must be a multiple of BLOCK_ROWS, with scale/bias per row")
-    if d % 16 or not 16 <= d <= 2048:
-        raise ValueError(f"D must be a multiple of 16 in [16, 2048], got {d}")
+    if d < 1:
+        raise ValueError("the corpus must have at least one dimension")
     if not 1 <= kb <= BLOCK_ROWS:
         raise ValueError(f"kb must be in [1, {BLOCK_ROWS}], got {kb}")
     nq = q_codes.shape[0] // QUERY_TILE
     nblocks = n_rows // BLOCK_ROWS
+    # the kernel reads the queries in 16-byte words and zero-fills the corpus
+    # past D itself: only the [B, D] queries are padded here
+    q_codes = _pad_cols(q_codes, _INT8_Q_MULTIPLE).contiguous()
     out_s, out_i = _partials(nq, nblocks, kb, QUERY_TILE, dev)
     launch(STATS, "int8_scan_topk", _load_lib().int8_scan_topk_launch,
            q_codes.data_ptr(), codes.data_ptr(), row_scale.data_ptr(), bias.data_ptr(),
@@ -318,8 +335,9 @@ def block_topk_float(
     n_rows, d = vecs.shape
     if q.dim() != 2 or q.shape[1] != d or q.shape[0] % FLOAT_QUERY_TILE:
         raise ValueError(f"q must be [m·{FLOAT_QUERY_TILE}, {d}], got {tuple(q.shape)}")
-    if d % 32 or not 32 <= d <= 4096:
-        raise ValueError(f"D must be a multiple of 32 in [32, 4096], got {d}")
+    if d < 1 or d % _FLOAT_D_MULTIPLE[vecs.dtype]:
+        raise ValueError(f"D must be a positive multiple of {_FLOAT_D_MULTIPLE[vecs.dtype]} "
+                         f"for {vecs.dtype}, got {d}")
     _check_block_shape(n_rows, bias, block_size, kb)
     nq = q.shape[0] // FLOAT_QUERY_TILE
     nblocks = n_rows // block_size
@@ -391,6 +409,18 @@ def _adc_grid_x(nblocks: int, nq: int, dev) -> int:
     return max(1, min(nblocks, -(-8 * sms // max(nq, 1))))
 
 
+def adc_kernel_plan(m_sub: int, k_clusters: int, residual: bool) -> Tuple[int, int, int]:
+    """How the ADC kernels' CUDA block takes M subspaces of K clusters (from
+    the built library): (queries per block — 8, or 4, 2, 1 when the tile's
+    LUTs do not fit beside a chunk —, subspaces staged at a time — M, or
+    fewer when even one query's LUTs do not fit —, shared memory bytes)."""
+    fn = _load_kernel_lib("pq_adc_scan_topk.cu").adc_scan_topk_plan
+    fn.restype = ctypes.c_int
+    qt, ms = ctypes.c_int(), ctypes.c_int()
+    smem = fn(int(residual), m_sub, k_clusters, ctypes.byref(qt), ctypes.byref(ms))
+    return qt.value, ms.value, smem
+
+
 def _adc_kernel_operands(lut_bf, codes, bias, kb: int, block_size: int, coarse_hi, coarse_lo,
                          max_coarse: int = 65536):
     """Check what the ADC kernels take and lay out their tables: returns
@@ -408,11 +438,6 @@ def _adc_kernel_operands(lut_bf, codes, bias, kb: int, block_size: int, coarse_h
     if not 1 <= k_clusters <= 256:
         raise ValueError(f"the ADC kernels take K ≤ 256 clusters, got {k_clusters}")
     _check_block_shape(codes.shape[0], bias, block_size, kb)
-    smem = (ADC_QUERY_TILE * m_sub * k_clusters * 2 + ((CHUNK_ROWS * cols + 15) // 16) * 16
-            + ADC_QUERY_TILE * CHUNK_ROWS * 4)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"M·K = {m_sub}·{k_clusters} needs {smem} bytes of shared memory "
-                         f"per CUDA block, more than {_SMEM_LIMIT}")
     hilo = codes
     if residual:
         width = coarse_hi.shape[1]
@@ -979,9 +1004,10 @@ def scan_topk(
     n, d = vectors.shape
     b_real = queries.shape[0]
     dev = vectors.device
-    q = _pad_rows(queries.to(vectors.dtype), FLOAT_QUERY_TILE).contiguous()
+    d_multiple = _FLOAT_D_MULTIPLE.get(vectors.dtype, 1)
+    q = _pad_cols(_pad_rows(queries.to(vectors.dtype), FLOAT_QUERY_TILE), d_multiple).contiguous()
     group = _auto_group(-(-n // block_size), block_size * d * vectors.element_size())
-    vecs = _pad_rows(vectors, group * block_size).contiguous()
+    vecs = _pad_cols(_pad_rows(vectors, group * block_size), d_multiple).contiguous()
     np_rows = vecs.shape[0]
     nblocks = np_rows // block_size
     if not kb:

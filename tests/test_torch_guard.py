@@ -248,8 +248,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fake_card, monkeypatch, b
         codes = codes.float()
     elif bad == "rows":
         codes, rs, bias = codes[:300], rs[:300], bias[:300]
-    elif bad == "dim":
-        q, codes = q[:, :40].contiguous(), codes[:, :40].contiguous()
+    elif bad == "dim":  # the queries' D is not the corpus's (any one D is taken)
+        q = q[:, :40].contiguous()
     elif bad == "kb":
         kb = 0
     elif bad == "block_size":
@@ -399,14 +399,14 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monkeypa
         args[3] = 33
     elif bad == "block_size":
         args[4] = 300
-    elif bad == "dim":  # float: D not a multiple of 32; adc: codes not M+2 wide
-        args[1] = torch.empty((1024, 40 if family == "float" else 9),
-                              dtype=args[1].dtype, device="meta")
-    else:  # float: queries not a whole tile; adc: M·K past the shared memory
+    elif bad == "dim":  # float: a bf16 D off TMA's 8; adc: codes not M+2 wide
+        if family == "float":
+            args[:3] = _float_operands(torch.bfloat16, d=100)[:3]
+        else:
+            args[1] = torch.empty((1024, 9), dtype=args[1].dtype, device="meta")
+    else:  # float: queries not a whole tile; adc: more clusters than a code byte holds
         args[0] = (torch.empty((65, 64), device="meta") if family == "float" else
-                   torch.empty((8, 64, 256), dtype=torch.bfloat16, device="meta"))
-        if family == "adc":
-            args[1] = torch.empty((1024, 66), dtype=torch.uint8, device="meta")
+                   torch.empty((8, 8, 257), dtype=torch.bfloat16, device="meta"))
     fn = fake_kernels.block_topk_float if family == "float" else fake_kernels.block_topk_adc
     with pytest.raises(ValueError):
         fn(*args)
@@ -539,7 +539,7 @@ def fake_generator_kernels(monkeypatch):
     return qgemm, decode_attention, launch
 
 
-GEN_CALLS = {"q4_matmul": "q4_matmul_launch", "nf4_matmul": "nf4_matmul_launch",
+GEN_CALLS = {"q4_matmul": "q4_mma_launch", "nf4_matmul": "q4_mma_launch",
              "decode_attention_int8": "decode_attention_int8_launch"}
 
 
@@ -620,18 +620,15 @@ def test_generator_wrappers_count_a_launch(fake_generator_kernels, monkeypatch, 
         bh, hkv, g, s, rows, nchunk = args[11:17]
         assert (bh, hkv, g, s) == (4, 2, 2, 256)
         assert (rows, nchunk) == attn.split_plan(4, 256, 132) and rows * nchunk >= s
-    elif which == "nf4_matmul":
+    else:  # int4 and NF4: one kernel and plan, each kind's own table
         assert out.shape == (8, 256)
         r, k2, n, gs2, split, slice_rows, width, warps_n = args[5:13]
         assert (r, k2, n, gs2) == (8, 256, 256, 64)
         plan = qgemm.nf4_plan(8, 256, 256, 64, 132)
         assert (split, slice_rows, width, warps_n) == (plan.ksplit, plan.slice_rows, plan.width,
                                                        plan.warps_n)
-    else:
-        assert out.shape == (8, 256)
-        r, k2, n, gs2, split = args[5:10]
-        assert (r, k2, n, gs2) == (8, 256, 256, 64)
-        assert split >= 1 and k2 % split == 0
+        kind = "nf4" if which == "nf4_matmul" else "int4"
+        assert (torch.device("meta"), kind) in qgemm._tables  # the kind's own table
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "rows", "width", "contiguous"])
@@ -655,18 +652,24 @@ def test_q4_wrappers_reject_what_the_kernel_does_not_take(fake_generator_kernels
         getattr(fake_generator_kernels[0], which)(x, codes, scales)
 
 
-def test_nf4_wrapper_rejects_groups_off_the_kernels_step(fake_generator_kernels, monkeypatch):
-    """The NF4 kernel's 16-row k steps lie inside one scale group: a group of
-    8 rows (4 packed rows) is refused, one of 16 taken."""
+@pytest.mark.parametrize("which", ["q4_matmul", "nf4_matmul"])
+def test_nf4_wrapper_rejects_groups_off_the_kernels_step(fake_generator_kernels, monkeypatch,
+                                                         which):
+    """Groups off the kernel's 16-row k step launch (since the kernel reads
+    each packed row's own scale): groups of 8 and 24 rows (4 and 12 packed
+    rows, a step across two groups and a group across two steps) and of 2,
+    each with a plan of whole groups and whole steps; 16 as before."""
     lib = _FakeKernels(0)
     _patch_lib(fake_generator_kernels, monkeypatch, lib)
-    x, codes, _ = _q4_operands(nf4=True)
-    with pytest.raises(ValueError, match="groups"):
-        fake_generator_kernels[0].nf4_matmul(
-            x, codes, torch.empty((512 // 8, 256), dtype=torch.float32, device="meta"))
-    fake_generator_kernels[0].nf4_matmul(
-        x, codes, torch.empty((512 // 16, 256), dtype=torch.float32, device="meta"))
-    assert [c[0] for c in lib.calls] == ["nf4_matmul_launch"]
+    qgemm = fake_generator_kernels[0]
+    nf4 = which == "nf4_matmul"
+    for k, group in ((512, 8), (768, 24), (512, 2), (512, 16)):
+        x, codes, _ = _q4_operands(nf4=nf4, k=k)
+        getattr(qgemm, which)(x, codes, torch.empty((k // group, 256), device="meta"))
+        gs2, split, slice_rows = lib.calls[-1][1][8:11]
+        assert gs2 == group // 2 and slice_rows % gs2 == 0 and slice_rows % 8 == 0
+        assert (split - 1) * slice_rows < k // 2 <= split * slice_rows
+    assert [c[0] for c in lib.calls] == ["q4_mma_launch"] * 4
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "group", "seq", "shape", "contiguous"])
@@ -678,8 +681,8 @@ def test_decode_attention_wrapper_rejects_what_the_kernel_does_not_take(
         ops[1] = ops[1].float()
     elif bad == "head_dim":
         ops = list(_attn_operands(hd=64))
-    elif bad == "group":
-        ops = list(_attn_operands(g=3))
+    elif bad == "group":  # no query head (any positive count is taken)
+        ops = list(_attn_operands(g=0))
     elif bad == "seq":
         ops = list(_attn_operands(s=200))
     elif bad == "shape":

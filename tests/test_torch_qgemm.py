@@ -12,7 +12,7 @@ Tolerances:
   bf16 × bf16 product is exact in f32, so only the order of the f32 sums
   differs;
 - the int8 route of ``qmatmul``: bit for bit (an exact int32 product);
-- the NF4 kernel's whole-byte dequant table: bit for bit against the plain
+- the kernel's whole-byte dequant tables (int4, NF4): bit for bit against the plain
   version's bf16 weights.
 """
 
@@ -210,24 +210,25 @@ def test_nf4_plan_main_shapes():
         (5632, 2048): (1, 16, 6), (2048, 32000): (1, 16, 1)}
 
 
-def test_nf4_byte_table_reproduces_the_plain_weights():
+def _check_byte_table(kind):
     """The kernel dequantises a whole byte: the table's bf16 pair (low
     nibble, high nibble) times bf16(scale), the exact product rounded once
-    (bf16x2 multiply), equals ``emulate_nf4_matmul``'s bf16 weights bit for
-    bit for all 256 bytes over a spread of scales."""
+    (bf16x2 multiply), equals the plain version's bf16 weights bit for bit
+    for all 256 bytes over a spread of scales."""
     from crs_tpu_torch.ops import qgemm as tq
 
-    table = tq.nf4_byte_table()
+    table = tq.nf4_byte_table() if kind == "nf4" else tq.int4_byte_table()
     assert table.dtype == np.uint32 and table.shape == (256,)
     # the kernel's copy: each entry once per lane, entry e of lane l at 32·e + l
-    lanes = tq._nf4_table(torch.device("cpu")).numpy().view(np.uint32).reshape(256, 32)
+    lanes = tq._lane_table(torch.device("cpu"), kind).numpy().view(np.uint32).reshape(256, 32)
     assert np.array_equal(lanes, np.repeat(table[:, None], 32, axis=1))
     rng = np.random.default_rng(0)
     spread = np.concatenate([10.0 ** np.arange(-12, 4), rng.random(48) * 0.05,
                              rng.standard_normal(16) * 3]).astype(np.float32)
     codes = torch.from_numpy(np.tile(np.arange(256, dtype=np.uint8), (64, len(spread))))
     scales = torch.from_numpy(np.repeat(spread, 256)[None, :].copy())  # one group
-    vals = tq._unpack_nf4(codes)  # the plain version's weights, as _emulate forms them
+    # the plain version's weights, as _emulate forms them
+    vals = tq._unpack_nf4(codes) if kind == "nf4" else tq._unpack_int4(codes.view(torch.int8))
     w = vals.to(torch.bfloat16) * torch.repeat_interleave(scales, 128, 0).to(torch.bfloat16)
     words = torch.from_numpy(table.view(np.int32)).long() & 0xFFFFFFFF
     lo = (words & 0xFFFF).to(torch.int16).view(torch.bfloat16)
@@ -238,3 +239,68 @@ def test_nf4_byte_table_reproduces_the_plain_weights():
     got_hi = (hi[byte].double() * s).to(torch.bfloat16)
     assert torch.equal(got_lo.view(torch.int16), w[0].view(torch.int16))
     assert torch.equal(got_hi.view(torch.int16), w[1].view(torch.int16))
+
+
+def test_nf4_byte_table_reproduces_the_plain_weights():
+    _check_byte_table("nf4")
+
+
+def test_int4_byte_table_reproduces_the_plain_weights():
+    """int4's table (sign-extended nibbles) against ``emulate_q4_matmul``'s
+    weights: the twin of the NF4 test, since one kernel serves both."""
+    _check_byte_table("int4")
+
+
+# (packed rows per group, K, N): each K holds whole groups
+PLAN_GROUP_CASES = [(gs2, k, n) for gs2 in (1, 4, 12, 24, 64)
+                    for k, n in ((2048, 2048), (5632, 2048), (2048, 32000), (6144, 1024))
+                    if (k // 2) % gs2 == 0]
+
+
+@pytest.mark.parametrize("gs2,k,n", PLAN_GROUP_CASES)
+def test_nf4_plan_takes_groups_off_the_step(gs2, k, n):
+    """Groups of any even size: every K slice holds whole groups and whole
+    8-row k steps, the slices cover K once, and the group count caps the
+    split only in units of lcm(gs2, 8) packed rows."""
+    import math
+
+    from crs_tpu_torch.ops import qgemm as tq
+
+    k2 = k // 2
+    unit = math.lcm(gs2, 8)
+    for r in (1, 3, 8, 17, 64):
+        plan = tq.nf4_plan(r, k2, n, gs2, 132)
+        assert plan.slice_rows % unit == 0 and plan.slice_rows > 0
+        assert (plan.ksplit - 1) * plan.slice_rows < k2 <= plan.ksplit * plan.slice_rows
+        assert 1 <= plan.ksplit <= min(tq.NF4_MAX_SPLIT, k2 // unit)
+
+
+@pytest.mark.parametrize("nf4", [False, True], ids=["int4", "nf4"])
+@pytest.mark.parametrize("gs2,k", [(1, 256), (4, 256), (12, 384)])
+def test_q4_matmul_off_step_groups_match_crs_tpu(nf4, gs2, k):
+    """Groups of 2, 8 and 24 rows (packed rows 1, 4, 12: off the kernel's
+    8-row step): the port's plain version (the kernel's arithmetic) against
+    ``crs_tpu``'s emulation on the same codes, and against its Pallas kernel
+    where its gate takes the shape."""
+    from crs_tpu.models.quantized import quantize_tensor
+    from crs_tpu.ops import qgemm as jq
+
+    from crs_tpu_torch.ops import qgemm as tq
+
+    rng = np.random.default_rng(gs2 * 31 + k)
+    n, r = 256, 5
+    qt = quantize_tensor(_weights(rng, k, n), bits="nf4" if nf4 else 4, group_size=2 * gs2)
+    assert np.asarray(qt.scales).shape == (k // (2 * gs2), n)
+    x = rng.standard_normal((r, k)).astype(np.float32)
+    codes, scales = torch.from_numpy(np.array(qt.codes)), torch.from_numpy(np.array(qt.scales))
+    xt = torch.from_numpy(x)
+    got = (tq.nf4_matmul if nf4 else tq.q4_matmul)(xt, codes, scales)
+    tol = SUM_RTOL * _abs_sum(xt, codes, scales, nf4).numpy() + 1e-6
+    emul = (jq.emulate_nf4_matmul if nf4 else jq.emulate_q4_matmul)(jnp.asarray(x), qt.codes,
+                                                                   qt.scales)
+    assert np.all(np.abs(got.numpy() - np.asarray(emul)) <= tol)
+    g = k // (2 * gs2)
+    assert tq.q4_pallas_supported(r, k // 2, n, g) == jq.q4_pallas_supported(r, k // 2, n, g)
+    if jq.q4_pallas_supported(r, k // 2, n, g):
+        pallas = (jq.nf4_matmul if nf4 else jq.q4_matmul)(jnp.asarray(x), qt.codes, qt.scales)
+        assert np.all(np.abs(got.numpy() - np.asarray(pallas)) <= tol)
