@@ -63,8 +63,9 @@ the largest difference); any failure raises and exits non-zero:
                         mistral-7b's MLP (H 4096, I 14336, chunk 1024), R ∈ {1,
                         3, 8}, and a small multi-chunk case: xq / hq codes equal
                         in ≥ 99.9 % of entries, the output within the flipped
-                        codes' effect; device ms, plain ms, the unfused int8
-                        route's ms, bound;
+                        codes' effect; device ms, each launch's µs (one
+                        launch a call), plain ms, the unfused int8 route's
+                        ms, bound;
 10. faults            — ROADMAP §3's repairs at 8,192 rows: hashed stores at D =
                         100 and 3072 in fp32, bf16 and int8, residual pq and
                         pq_sorted stores at M = 64, each on its kernel (launch
@@ -72,8 +73,9 @@ the largest difference); any failure raises and exits non-zero:
                         kernels at M 64–320 bit for bit; the 1b model as int4
                         and nf4 at group_size 8 (113 kernel launches a decode
                         step, logits against the plain versions); int8-KV
-                        decode steps at G 3, G 12 and hd 256 against the CPU,
-                        kernel 10 at hd 384 / 512, G 16, S 139,264; the cost
+                        decode steps at G 3, G 12, hd 256 and hd 640 against
+                        the CPU, kernel 10 at hd 384 / 512 / 640 / 1024, G 16,
+                        S 139,264; the cost
                         of a ragged D at 1M rows;
 11. bench             — the bench.py slice on the held-out corpus: chunk, hashed
                         encoder, int8 store, retrieve_batch_fused over 328 queries,
@@ -178,8 +180,11 @@ ID_RTOL = 1e-5  # the f32 sum-order bound: ranks farther apart must agree
 # f32 on the CUDA cores, bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1.979e15
-PEAK_F32_OPS_PER_S = 67e12
+PEAK_F32_OPS_PER_S = 67e12  # FMAs counted as two operations
 PEAK_BF16_OPS_PER_S = 989e12
+H100_SMS, H100_CLOCK_HZ = 132, 1.98e9
+# a lone f32 add (the ADC kernels' work) takes a lane for a clock: half the FMA-counting peak
+PEAK_F32_ADDS_PER_S = H100_SMS * 128 * H100_CLOCK_HZ
 
 
 def emit(obj) -> None:
@@ -761,7 +766,105 @@ def adc_case(rng, n: int, d: int, b: int, m: int, c: int):
     return cl, lut, torch.from_numpy(ext), plut, torch.from_numpy(codes)
 
 
-def phase_kernel_adc(ph: Phase, dev, seed: int, rows: int) -> dict:
+ADC_INSTANCES = {"adc_scan_topk_skew_kernelILi1E": "residual_skew",
+                 "adc_scan_topk_skew_kernelILi0E": "plain_skew",
+                 "adc_scan_topk_skew_kernelILi2E": "sorted_skew",
+                 "adc_scan_topk_kernelILi1ELi8ELb0E": "residual_qt8",
+                 "adc_scan_topk_kernelILi0ELi8ELb0E": "plain_qt8"}
+
+
+def occupancy(registers: int, threads: int, smem: int) -> dict:
+    """CTAs and warps an SM holds for a kernel, from its ptxas registers and
+    its shared memory (65,536 registers allocated per warp in units of 256;
+    228 KB of shared memory, 1 KB of it reserved per CTA; 64 warps)."""
+    warps = threads // 32
+    regs_per_warp = -(-registers * 32 // 256) * 256
+    by_regs = 65536 // (regs_per_warp * warps)
+    by_smem = (228 * 1024) // (smem + 1024)
+    ctas = min(by_regs, by_smem, 64 // warps)
+    limit = ("registers" if by_regs < by_smem else "shared memory" if by_smem < by_regs
+             else "registers and shared memory")
+    return {"ctas_per_sm": ctas, "warps_per_sm": ctas * warps, "limited_by": limit}
+
+
+def gather_wavefronts(codes, m: int, off: int, skewed: bool, rows: int = 1 << 16) -> float:
+    """Mean shared-memory wavefronts of one warp's 16-byte LUT gather, from
+    this run's codes (computed, not a hardware counter): a warp's 32 lanes
+    score 32 consecutive rows; a 16-byte load is served 8 lanes a phase,
+    and a phase takes as many wavefronts as the most distinct entries that
+    fall on one of the 8 four-bank groups (entry e sits on group e mod 8;
+    equal entries are one broadcast). Unskewed, the lanes of a step read
+    subspace j of their rows, entry m·K + code; skewed (the main path), lane
+    l reads subspace j − (l mod 8), entry code·Mp + j − (l mod 8), Mp = M
+    rounded up to 8 (an idle lane of the first and last 7 steps reads the
+    zero entry before the LUT on its step's bank group)."""
+    import torch
+
+    c = codes[:rows, off:off + m].long().reshape(-1, 8, m)  # [phase, lane, m]
+    lag = torch.arange(8, device=codes.device)
+    waves = []
+    steps = range(m + 7) if skewed else range(m)
+    mp = -(-m // 8) * 8
+    for j in steps:
+        if skewed:
+            sub = j - lag  # [lane]
+            on = (sub >= 0) & (sub < m)
+            code = c.gather(2, sub.clamp(0, m - 1)[None, :, None].expand(c.shape[0], 8, 1))[..., 0]
+            entry = torch.where(on[None, :], code * mp + sub[None, :], (sub[None, :] & 7) - 8)
+        else:
+            entry = c[..., j] + j * 256
+        same = entry[:, :, None] == entry[:, None, :]
+        first = ~torch.tril(same, diagonal=-1).any(-1)
+        per_group = torch.zeros((entry.shape[0], 8), dtype=torch.long, device=codes.device)
+        per_group.scatter_add_(1, entry % 8, first.long())
+        waves.append(per_group.amax(-1).float().mean())
+    return float(torch.stack(waves).mean()) * 4  # 4 phases a warp
+
+
+def adc_kernel_threads() -> int:
+    from crs_tpu_torch.ops.scan import _load_kernel_lib
+
+    return _load_kernel_lib("pq_adc_scan_topk.cu").adc_scan_topk_threads()
+
+
+def adc_counters(build_log: str, codes, nq: int, rows: int) -> dict:
+    """What the card lets this script read of the ADC kernel at the main
+    shape: registers, spills and shared memory of each instantiation
+    (ptxas, read from the build) and the CTAs and warps an SM holds; beside
+    them a model, not a hardware counter: the 16-byte gather's wavefronts
+    computed from this run's codes, and the gather's floor at one wavefront
+    per SM per clock. Stall reasons and measured bank conflicts need Nsight
+    Compute, which this machine cannot run: not measured."""
+    from crs_tpu_torch.ops.scan import adc_layout
+
+    build = ptxas_report(build_log, ADC_INSTANCES)
+    threads = adc_kernel_threads()
+    for name, resid in (("residual_skew", True), ("plain_skew", False)):
+        plan = adc_layout(PQ_M, PQ_K, resid)
+        if not plan.skewed:
+            raise AssertionError(f"ADC plan at the main shape: {plan}, not the skewed main path")
+        if name in build:
+            build[name].update(plan=plan._asdict(), threads=threads,
+                               **occupancy(build[name]["registers"], threads,
+                                           plan.smem + build[name]["static_smem"]))
+    unskewed = gather_wavefronts(codes, PQ_M, 2, skewed=False)
+    skewed = gather_wavefronts(codes, PQ_M, 2, skewed=True)
+    loads = float(nq) * rows / 32  # warp loads a subspace step: one per (query tile, 32 rows)
+    per_ms = H100_SMS * H100_CLOCK_HZ / 1e3  # wavefronts the card serves a ms
+    return {"ptxas": build,
+            "gather_model": {
+                "wavefronts_per_warp_load": {"unskewed": unskewed, "skewed": skewed},
+                "floor_ms": {"conflict_free": loads * PQ_M * 4 / per_ms,
+                             "unskewed": loads * PQ_M * unskewed / per_ms,
+                             "skewed": loads * (PQ_M + 7) * skewed / per_ms},
+                "note": "modelled from this run's codes, not read from the hardware: query "
+                        "tiles × rows / 32 warp loads for each of M subspace steps (M + 7 "
+                        "skewed), each as many wavefronts as above (4 without conflicts), one "
+                        "wavefront per SM per clock at 1.98 GHz"},
+            "stall_reasons": "not measured (no Nsight Compute on this machine)"}
+
+
+def phase_kernel_adc(ph: Phase, dev, seed: int, rows: int, build_logs: dict) -> dict:
     """Kernels 3 and 5 against their plain version, bit for bit, at the main
     shape and on the repair / fallback / padding / mask / tie cases."""
     import numpy as np
@@ -799,15 +902,18 @@ def phase_kernel_adc(ph: Phase, dev, seed: int, rows: int) -> dict:
         library_ms = device_ms(dev, adc_library(lut_bf, hi, lo, cd, cid, resid, rows), iters=3)
         b = bound(cd.numel() + rows * 4 + lut_bf.numel() * 2 + (hi.numel() * 4 if resid else 0)
                   + nq * nblocks * SCAN_KB * ADC_QUERY_TILE * 8,
-                  float(BATCH) * rows * (PQ_M + (2 if resid else 1)), PEAK_F32_OPS_PER_S)
+                  float(BATCH) * rows * (PQ_M + (2 if resid else 1)), PEAK_F32_ADDS_PER_S)
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "library_composition_ms": library_ms, **b}
+    out["counters"] = adc_counters(build_logs.get("pq_adc_scan_topk.cu", ""), codes, nq, rows)
     del codes, lut_bf, hi, lo
     out["shape"] = {"rows": rows, "m": PQ_M, "coarse": PQ_C, "clusters": PQ_K, "batch": BATCH,
                     "block_size": SCAN_BLOCK, "kb": SCAN_KB}
     out["library_composition"] = ("torch.index_select of the LUT entries + sum + torch.topk "
                                   "per block, 16,384 rows a step: not one call")
-    out["bound_note"] = "operations = B·N·(M+2) (residual) or B·N·(M+1) f32 adds at 67 TFLOP/s"
+    out["bound_note"] = ("operations = B·N·(M+2) (residual) or B·N·(M+1) f32 adds at "
+                         f"{PEAK_F32_ADDS_PER_S:.4g}/s (132 SMs × 128 lanes × 1.98 GHz: one add "
+                         "a lane a clock)")
 
     rng = np.random.default_rng(seed + 5)
     n, d, b, k = 4096, 64, 16, 40
@@ -957,7 +1063,7 @@ def phase_kernel_sorted_adc(ph: Phase, dev, seed: int, rows: int) -> dict:
     nblocks = n_pad // SCAN_BLOCK
     b = bound(ext_s.numel() + n_pad * 4 + lut_bf.numel() * 2 + hi.numel() * 4
               + wbase.numel() * 4 + nq * nblocks * SCAN_KB * ADC_QUERY_TILE * 8,
-              float(BATCH) * rows * (PQ_M + 2), PEAK_F32_OPS_PER_S)
+              float(BATCH) * rows * (PQ_M + 2), PEAK_F32_ADDS_PER_S)
     out = {"max_abs_err": err, "ms": sum(ms["sorted"]) / 2, "unsorted_ms": sum(ms["unsorted"]) / 2,
            "ab_ms": ms, "plain_ms": plain_ms, "library_composition_ms": library_ms, **b,
            "plan": spread,
@@ -1459,6 +1565,44 @@ def kernel_device_ms(fn, iters: int, names, tries: int = 3) -> float:
     return None
 
 
+def launch_trace(fn, iters: int, names) -> dict:
+    """Device µs per call of each kernel whose name holds one of ``names``
+    (torch.profiler over ``iters`` calls), its launches per call, and the
+    µs from the first launch's start to the last one's end per call (gaps
+    included); {"not measured": reason} without device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)),
+                 key=lambda e: e.time_range.start)
+    if not evs:
+        return {"not measured": "the profiler recorded no device time"}
+    import re
+
+    per = {}
+    for e in evs:
+        found = re.search(r"(\w*(?:%s)\w*)" % "|".join(map(re.escape, names)), e.name)
+        key = found.group(1) if found else e.name[:90]
+        t = per.setdefault(key, {"us": 0.0, "launches": 0})
+        t["us"] += (e.time_range.end - e.time_range.start) / iters
+        t["launches"] += 1
+    for t in per.values():
+        t["launches"] /= iters
+    launches = len(evs) // iters
+    spans = [evs[i + launches - 1].time_range.end - evs[i].time_range.start
+             for i in range(0, launches * iters, launches)]
+    return {"kernels": per, "launches_per_call": len(evs) / iters,
+            "first_start_to_last_end_us": sum(spans) / len(spans)}
+
+
 def nf4_plan_sweep(dev, g) -> dict:
     """Kernel 9's device ms over the plans it could take (width × K slices)
     at each 1b decode-step shape, R = 8, weights cold: the measurement that
@@ -1512,7 +1656,8 @@ FAULT_PQ = {"format": "pq", "block_size": FAULT_BLOCK, "pq_subspaces": 64, "pq_i
             "pq_coarse_clusters": 256, "pq_opq_iters": 1, "rescore_k": 64}  # a tile's LUTs past smem
 FAULT_GROUP = 8  # q4 / NF4 groups of 8 rows: a k step's packed rows in two groups
 # int8-KV models whose decode step the kernel once refused: G = 3 (padded to
-# 4), G = 12 (padded to 16, two slices of 8) and head_dim 256
+# 4), G = 12 (padded to 16, two slices of 8), head_dim 256 and head_dim 640
+# (past 512: the row in 512-byte segments)
 FAULT_ATTN_MODELS = {
     "g3": {"vocab_size": 2048, "hidden_size": 768, "num_layers": 2, "num_heads": 6,
            "num_kv_heads": 2, "intermediate_size": 2048, "max_seq_len": 1024},
@@ -1520,10 +1665,18 @@ FAULT_ATTN_MODELS = {
             "num_kv_heads": 1, "intermediate_size": 2048, "max_seq_len": 1024},
     "hd256": {"vocab_size": 2048, "hidden_size": 1024, "num_layers": 2, "num_heads": 4,
               "num_kv_heads": 2, "intermediate_size": 2048, "max_seq_len": 1024},
+    "hd640": {"vocab_size": 2048, "hidden_size": 2560, "num_layers": 2, "num_heads": 4,
+              "num_kv_heads": 2, "intermediate_size": 2048, "max_seq_len": 1024},
 }
-# the ADC kernels past one tile's LUTs, (M, residual): 4, 2 and 1 queries a
-# CUDA block (M 64, 128, 256 at K = 256), and the LUTs staged in slices (M 320)
-FAULT_ADC_WIDE = tuple((m, r) for m in (64, 128, 256, 320) for r in (True, False))
+# the ADC kernels over their plans, (M, residual, K): the skewed main path
+# (M 5 at K 256, M 96 at K 16), 8 queries unskewed (M 50), 4, 2 and 1
+# queries a CUDA block (M 64, 128, 256 at K = 256), the LUTs in slices (M 320)
+# (H, I, chunk, R): kernel 11 past mistral-7b's width; xq in shared memory to H 27,136
+FAULT_MLP_WIDE = ((16384, 2048, 1024, 1), (16384, 2048, 1024, 8), (27136, 1024, 1024, 8),
+                  (28672, 1024, 1024, 8), (32768, 2048, 1024, 3))
+FAULT_ADC_WIDE = tuple((m, r, k) for m, k in ((5, 256), (96, 16), (50, 256), (64, 256),
+                                             (128, 256), (256, 256), (320, 256))
+                       for r in (True, False))
 RAGGED_COST_ROWS = 1 << 20  # the main path's corpus rows, for the cost of a D off the multiple
 
 
@@ -1549,15 +1702,15 @@ def fault_adc_wide(dev, seed: int) -> dict:
     kernel's plan for each (queries per CUDA block, subspaces staged)."""
     import torch
 
-    from crs_tpu_torch.ops.scan import adc_kernel_plan, block_topk_adc, block_topk_adc_plain
+    from crs_tpu_torch.ops.scan import adc_layout, block_topk_adc, block_topk_adc_plain
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 22)
     out = {}
-    for m, residual in FAULT_ADC_WIDE:
+    for m, residual, k in FAULT_ADC_WIDE:
         nq, c = 16, 512
-        lut = (torch.randn((nq, m, 256), generator=g, device=dev) * 0.1).to(torch.bfloat16)
-        codes = torch.randint(0, 256, (FAULT_ROWS, m + (2 if residual else 0)), generator=g,
+        lut = (torch.randn((nq, m, k), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        codes = torch.randint(0, k, (FAULT_ROWS, m + (2 if residual else 0)), generator=g,
                               device=dev, dtype=torch.int32).to(torch.uint8)
         extra = ()
         if residual:
@@ -1570,20 +1723,20 @@ def fault_adc_wide(dev, seed: int) -> dict:
         bias[-300:] = -1e30
         got = block_topk_adc(lut, codes, bias, 4, FAULT_BLOCK, *extra)
         ref = block_topk_adc_plain(lut, codes, bias, 4, FAULT_BLOCK, *extra)
-        what = f"faults ADC M={m} {'residual' if residual else 'plain'}"
+        what = f"faults ADC M={m} K={k} {'residual' if residual else 'plain'}"
         err = check_bits(got, ref, what)
-        qt, ms, smem = adc_kernel_plan(m, 256, residual)
-        out[f"m{m}_{'residual' if residual else 'plain'}"] = {
-            "queries_per_block": qt, "subspaces_staged": ms, "smem_bytes": smem,
-            "max_abs_err": err}
+        plan = adc_layout(m, k, residual)
+        out[f"m{m}_k{k}_{'residual' if residual else 'plain'}"] = {**plan._asdict(),
+                                                                  "max_abs_err": err}
     return out
 
 
 def fault_attention_wide(dev, seed: int) -> dict:
     """Kernel 10 at the shapes it once refused, against its plain version:
-    head_dim 256, 384, 512, G 12 and 16 (slices of 8 along the grid), and a
-    cache longer than 128 chunks (S = 139,264); B 3, Hkv 2, one row with no
-    valid slot and one valid only in a window."""
+    head_dim 256, 384, 512, 640 and 1024 (past 512 in 512-byte segments), G
+    12 and 16 (slices of 8 along the grid), and a cache longer than 128
+    chunks (S = 139,264); B 3, Hkv 2, one row with no valid slot and one
+    valid only in a window."""
     import torch
 
     from crs_tpu_torch.ops import decode_attention as da
@@ -1592,7 +1745,8 @@ def fault_attention_wide(dev, seed: int) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 23)
     out = {}
-    for hd, grp, s in ((256, 2, 2176), (384, 8, 2176), (512, 4, 2176), (128, 12, 4096),
+    for hd, grp, s in ((256, 2, 2176), (384, 8, 2176), (512, 4, 2176), (640, 2, 2176),
+                       (640, 8, 4096), (1024, 4, 2176), (1024, 16, 2176), (128, 12, 4096),
                        (128, 16, 2176), (256, 16, 2176), (128, 1, 139264)):
         b, hkv = 3, 2
         q, kc, ks, vc, vs = attn_case(g, dev, b, hkv, grp, s, hd)
@@ -1605,6 +1759,35 @@ def fault_attention_wide(dev, seed: int) -> dict:
         err = attn_check((q, kc, ks, vc, vs, valid), f"hd={hd} G={grp} S={s}", zero_rows=(1,))
         out[f"hd={hd} G={grp} S={s}"] = {"max_abs_err": err, "launch_groups": da.launch_groups(grp),
                                          "chunk_rows": rows, "nchunk": nchunk}
+    return out
+
+
+def fault_mlp_wide(dev, seed: int) -> dict:
+    """Kernel 11 at FAULT_MLP_WIDE against its plain version, as
+    ``kernel_fused_mlp`` holds it: codes, output within ``mlp_check``'s
+    tolerance, two launches bitwise equal. H 27,136 is the widest whose xq
+    rows fit in shared memory; past it they go to device memory (the
+    kernel's XG instance)."""
+    import torch
+
+    from crs_tpu_torch.ops import fused_mlp as fm
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 24)
+    out = {}
+    for h, inter, chunk, r in FAULT_MLP_WIDE:
+        x, norm, lay = mlp_case(g, dev, h, inter, chunk, r)
+        before = fm.STATS.by_kernel.get("fused_mlp_int8", 0)
+        got, kc = fm.fused_mlp_int8(x, norm, *lay, chunk=chunk, return_codes=True)
+        again = fm.fused_mlp_int8(x, norm, *lay, chunk=chunk)
+        launches = fm.STATS.by_kernel.get("fused_mlp_int8", 0) - before
+        ref, pc = fm.emulate_fused_mlp_int8(x, norm, *lay, chunk=chunk, return_codes=True)
+        if not torch.equal(got, again) or launches != 2:
+            raise AssertionError(f"fused MLP H={h} R={r}: {launches} launches for 2 calls, or "
+                                 f"two launches differ")
+        out[f"H={h} I={inter} chunk={chunk} R={r}"] = {
+            **mlp_check(got, ref, kc, pc, lay[4], lay[5], x, chunk), "launches": launches}
+        del x, lay, got, ref, kc, pc
     return out
 
 
@@ -1657,8 +1840,8 @@ def phase_faults(ph: Phase, dev, seed: int) -> dict:
     (first decode step's logits against the plain versions, 113 kernel
     launches a step); one int8-KV decode step of each FAULT_ATTN_MODELS
     model (logits against the CPU, one decode-attention launch a layer) and
-    kernel 10 at head dims to 512, G to 16 and S past 128 chunks; what a
-    ragged D costs a search at 1M rows."""
+    kernel 10 at head dims to 1024, G to 16 and S past 128 chunks; kernel
+    11 at H to 32,768; what a ragged D costs a search at 1M rows."""
     import tempfile
 
     import numpy as np
@@ -1761,6 +1944,7 @@ def phase_faults(ph: Phase, dev, seed: int) -> dict:
             "launch_groups": launch_groups(grp),
             "launches": counts, "logits_rel_l2_vs_cpu": err}
     out["decode_attention_wide_kernels"] = fault_attention_wide(dev, seed)
+    out["fused_mlp_wide_kernels"] = fault_mlp_wide(dev, seed)
     out["ragged_d_cost"] = fault_ragged_cost(dev, seed)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2039,7 +2223,7 @@ MLP_SHAPES = ((4096, 14336, 1024, 1), (4096, 14336, 1024, 3), (4096, 14336, 1024
               (512, 1024, 256, 5))  # (H, I, chunk, R): mistral-7b's MLP, and a small multi-chunk one
 MLP_MIN_AGREE = 0.999  # least share of equal xq / hq codes, kernel against plain
 MLP_RTOL = 1e-6  # f32 rounding of the sums, relative to Σ|terms|, beside the flipped codes' effect
-MLP_KERNELS = ("fused_mlp_",)  # the five launches' names in the profiler
+MLP_KERNELS = ("fused_mlp_",)  # the kernel's name in the profiler (one launch a call)
 
 
 def mlp_case(g, dev, h: int, inter: int, chunk: int, r: int):
@@ -2096,8 +2280,9 @@ def mlp_check(got, ref, kc, pc, down, s_down, x, chunk: int) -> dict:
 def phase_kernel_fused_mlp(ph: Phase, dev, seed: int) -> dict:
     """Kernel 11 against its plain version at mistral-7b's MLP (H 4096,
     I 14336, chunk 1024) for R ∈ {1, 3, 8} and one small multi-chunk case;
-    device ms per launch (torch.profiler, the five kernels of a call summed),
-    plain ms, the unfused int8 route's ms (the library composition), bound."""
+    device ms per call (torch.profiler), each launch's device µs and the
+    launches a call (the launch trace), plain ms, the unfused int8 route's
+    ms (the library composition), bound."""
     import torch
 
     from crs_tpu_torch.models.quantized import _int8_act_matmul
@@ -2117,8 +2302,10 @@ def phase_kernel_fused_mlp(ph: Phase, dev, seed: int) -> dict:
         info = mlp_check(got, ref, kc, pc, down, sd, x, chunk)
         wall_ms = device_ms(dev, lambda: fm.fused_mlp_int8(x, norm, *lay, chunk=chunk), iters=20,
                             warmup=3)
-        ms = kernel_device_ms(lambda: fm.fused_mlp_int8(x, norm, *lay, chunk=chunk), 20,
-                              MLP_KERNELS)
+        trace = launch_trace(lambda: fm.fused_mlp_int8(x, norm, *lay, chunk=chunk), 20,
+                             MLP_KERNELS)
+        ms = (sum(t["us"] for t in trace["kernels"].values()) / 1e3
+              if "kernels" in trace and trace["launches_per_call"] >= 1 else None)
         plain_ms = device_ms(dev, lambda: fm.emulate_fused_mlp_int8(x, norm, *lay, chunk=chunk),
                              iters=3)
         gate_c, up_c = gate_t.T.contiguous(), up_t.T.contiguous()
@@ -2136,17 +2323,18 @@ def phase_kernel_fused_mlp(ph: Phase, dev, seed: int) -> dict:
         b = bound(nbytes, 2.0 * r * 3 * inter * h, PEAK_INT8_OPS_PER_S)
         per_shape[f"H={h} I={inter} chunk={chunk} R={r}"] = {
             **info, "ms": wall_ms if ms is None else ms, "device_ms": ms,
+            "clusters": inter // chunk,
             "wall_ms_per_call": wall_ms, "plain_ms": plain_ms,
             "library_composition_ms": library_ms, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "down_splits": fm.down_splits(chunk)}
+            "bound_by": b["bound_by"], "launch_trace": trace}
         del lay, gate_t, up_t, down
     main = per_shape["H=4096 I=14336 chunk=1024 R=8"]  # a batch-8 decode step's shape
     out = {"max_abs_err": max(v["max_abs_err"] for v in per_shape.values()),
            **{k: main[k] for k in ("ms", "plain_ms", "library_composition_ms", "bound_ms",
                                    "bound_by")},
            "shapes": per_shape,
-           "note": "kernel-table numbers at mistral-7b, R = 8 (ms: the five kernels' device time "
-                   "per call by torch.profiler); tolerance: xq / hq codes equal in at least "
+           "note": "kernel-table numbers at mistral-7b, R = 8 (ms: the kernel's device time per "
+                   "call by torch.profiler); tolerance: xq / hq codes equal in at least "
                    f"{MLP_MIN_AGREE} of entries, output within the flipped codes' effect plus "
                    f"{MLP_RTOL}·Σ|terms|",
            "library_composition": "RMSNorm + three torch._int_mm products + silu·up (the port's "
@@ -3118,7 +3306,8 @@ def main(argv=None) -> int:
         "kernel": lambda ph: phase_kernel(ph, dev, args.seed, FULL_ROWS),
         "kernel_f32_bf16": lambda ph: phase_kernel_f32_bf16(ph, dev, args.seed, FULL_ROWS,
                                                             res.get("build") or {}),
-        "kernel_adc": lambda ph: phase_kernel_adc(ph, dev, args.seed, FULL_ROWS),
+        "kernel_adc": lambda ph: phase_kernel_adc(ph, dev, args.seed, FULL_ROWS,
+                                                  res.get("build") or {}),
         "kernel_sorted_adc": lambda ph: phase_kernel_sorted_adc(ph, dev, args.seed, FULL_ROWS),
         "kernel_segmax": lambda ph: phase_kernel_segmax(ph, dev, args.seed, FULL_ROWS,
                                                         res.get("build") or {}),

@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel crs_tpu/ops/decode_attention.py:
 // decode_attention_int8 / _decode_attn_kernel. Per (batch row b, kv-head h),
-// with G query heads on that kv-head and head dim HD (128, 256, 384 or 512,
-// the multiples of 128 that crs_tpu's gate admits up to 512):
+// with G query heads on that kv-head and head dim HD (any multiple of 128,
+// every head dim crs_tpu's gate admits):
 //   scores[g, s] = (Σ_d bf16(q[g, d]) · k[s, d]) · (k_scale[s] · scale) + bias[s]
 //   m = max_s scores, e = exp(scores − m), l = Σ_s e      (one global m and l)
 //   p[g, s] = bf16((e / max(l, 1e-30)) · v_scale[s])
@@ -46,7 +46,14 @@
 //
 // Shapes. A lane reads 16 bytes of a row, so a row takes HD / 16 lanes (8 at
 // HD = 128; 16, 24 and 32 at 256, 384 and 512, a warp then reading 2, 1
-// and 1 rows per load; at 384 a quarter of the lanes idle). The kernels are
+// and 1 rows per load; at 384 a quarter of the lanes idle). A wider row
+// (HD = 640, 768, ...: the WIDE instantiation, HD a runtime value) is read
+// in segments of 512 bytes, one warp a row: the scores kernel adds each
+// segment's q·k partial into the row's score in shared memory, in segment
+// order, and applies the scale and bias after the last segment; the p·v
+// kernel walks the chunk's rows once per segment and writes that segment's
+// columns (V accumulated per segment, p formed once). The lanes past the
+// row's end in its last segment idle. The kernels are
 // built for G ∈ {1, 2, 4, 8} heads; a launch with more heads than 8 (the
 // wrapper pads them to a multiple of 8, and a G between the built ones to
 // the next, with zero heads) runs G / 8 slices of 8 along the grid's third
@@ -66,7 +73,9 @@ constexpr int SEG = 16;                      // int8 values per lane per row (16
 constexpr int MAX_CHUNK_ROWS = 1024;
 constexpr int MAX_G = 8;                     // query heads per launch slice, at most
 
-// the layout of a row over a warp at head dim HD
+constexpr int WIDE_SEGMENT = 512;            // bytes of a row a warp reads per segment (HD > 512)
+
+// the layout of a row (or of one 512-byte segment of a wider row) over a warp
 template <int HD>
 struct RowLayout {
     static constexpr int ACTIVE = HD / SEG;  // lanes holding a row's bytes
@@ -75,6 +84,10 @@ struct RowLayout {
     static constexpr int ROWS_PER_STEP = WARPS * ROWS_PER_WARP;
     static_assert(HD % 128 == 0 && ACTIVE <= 32, "head dim: a multiple of 128 up to 512");
 };
+
+// HD = 0: the WIDE instantiation (a runtime head dim past 512, in segments)
+template <int HD>
+using Layout = RowLayout<HD == 0 ? WIDE_SEGMENT : HD>;
 
 __device__ __forceinline__ float bf16_round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
@@ -96,81 +109,103 @@ constexpr int LOADS_IN_FLIGHT = G >= 8 ? 2 : 4;
 // Grid (chunk, b·Hkv, slice of G heads); gt = the launch's heads per kv-head.
 template <int HD, int G>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·Hkv, gt, HD]
-                                    const int8_t* __restrict__ k_codes, // [B·Hkv, S, HD]
+decode_attention_int8_scores_kernel(const float* __restrict__ q,        // [B·Hkv, gt, hd]
+                                    const int8_t* __restrict__ k_codes, // [B·Hkv, S, hd]
                                     const float* __restrict__ k_scales, // [B·Hkv, S]
                                     const float* __restrict__ bias,     // [B, S]
                                     float* __restrict__ scores,         // [B·Hkv, gt, S]
                                     float* __restrict__ stats,          // [B·Hkv, nchunk, gt, 2]
-                                    int hkv, int gt, int S, int chunk_rows, float scale) {
-    using L = RowLayout<HD>;
+                                    int hkv, int gt, int S, int chunk_rows, int hd, float scale) {
+    constexpr bool WIDE = HD == 0;
+    using L = Layout<HD>;
     constexpr int U = LOADS_IN_FLIGHT<G>;
     extern __shared__ __align__(16) float sc[];  // [G][chunk_rows]
     const int c = blockIdx.x, nchunk = gridDim.x, bh = blockIdx.y, g0 = blockIdx.z * G;
     const int b = bh / hkv;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int rr = lane / L::LANES, seg = lane % L::LANES;
-    const bool active = seg < L::ACTIVE;
+    const int rowb = WIDE ? hd : HD;  // bytes of a cached row
+    const int nseg = WIDE ? (hd + WIDE_SEGMENT - 1) / WIDE_SEGMENT : 1;
     const int s0 = c * chunk_rows;
     const int n = min(chunk_rows, S - s0);  // a multiple of 32
-    const int8_t* kb = k_codes + ((size_t)bh * S + s0) * HD + (active ? seg : 0) * SEG;
     const float* ksb = k_scales + (size_t)bh * S + s0;
     const float* bb = bias + (size_t)b * S + s0;
 
-    float qr[G][SEG];
+    for (int sg = 0; sg < nseg; ++sg) {
+        const int col = sg * WIDE_SEGMENT + seg * SEG;  // this lane's 16 bytes of the row
+        const bool active = seg < L::ACTIVE && col < rowb;
+        const int8_t* kb = k_codes + ((size_t)bh * S + s0) * rowb + (active ? col : 0);
+        float qr[G][SEG];
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+        for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int j = 0; j < SEG; j += 4) {
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (active)
-                v = __ldg(reinterpret_cast<const float4*>(
-                    q + ((size_t)bh * gt + g0 + g) * HD + seg * SEG + j));
-            qr[g][j] = bf16_round(v.x), qr[g][j + 1] = bf16_round(v.y);
-            qr[g][j + 2] = bf16_round(v.z), qr[g][j + 3] = bf16_round(v.w);
-        }
+            for (int j = 0; j < SEG; j += 4) {
+                float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (active)
+                    v = __ldg(reinterpret_cast<const float4*>(
+                        q + ((size_t)bh * gt + g0 + g) * rowb + col + j));
+                qr[g][j] = bf16_round(v.x), qr[g][j + 1] = bf16_round(v.y);
+                qr[g][j + 2] = bf16_round(v.z), qr[g][j + 3] = bf16_round(v.w);
+            }
 
-    for (int t0 = 0; t0 < n; t0 += U * L::ROWS_PER_STEP) {
-        int4 kv[U];
-        float ks[U], bs[U];
+        for (int t0 = 0; t0 < n; t0 += U * L::ROWS_PER_STEP) {
+            int4 kv[U];
+            float ks[U], bs[U];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int row = t0 + u * L::ROWS_PER_STEP + warp * L::ROWS_PER_WARP + rr;
-            kv[u] = make_int4(0, 0, 0, 0);
-            if (t0 + u * L::ROWS_PER_STEP < n) {
-                if (active) kv[u] = __ldg(reinterpret_cast<const int4*>(kb + (size_t)row * HD));
-                if (seg == 0) {
-                    ks[u] = __ldg(ksb + row);
-                    bs[u] = __ldg(bb + row);
+            for (int u = 0; u < U; ++u) {
+                const int row = t0 + u * L::ROWS_PER_STEP + warp * L::ROWS_PER_WARP + rr;
+                kv[u] = make_int4(0, 0, 0, 0);
+                if (t0 + u * L::ROWS_PER_STEP < n) {
+                    if (active) kv[u] = __ldg(reinterpret_cast<const int4*>(kb + (size_t)row * rowb));
+                    if (!WIDE && seg == 0) {
+                        ks[u] = __ldg(ksb + row);
+                        bs[u] = __ldg(bb + row);
+                    }
                 }
             }
-        }
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-            if (t0 + u * L::ROWS_PER_STEP < n) {  // the same for every thread of the block
-                const int row = t0 + u * L::ROWS_PER_STEP + warp * L::ROWS_PER_WARP + rr;
-                float kf[SEG];
-                unpack16(kv[u], kf);
-                float dot[G];
+            for (int u = 0; u < U; ++u) {
+                if (t0 + u * L::ROWS_PER_STEP < n) {  // the same for every thread of the block
+                    const int row = t0 + u * L::ROWS_PER_STEP + warp * L::ROWS_PER_WARP + rr;
+                    float kf[SEG];
+                    unpack16(kv[u], kf);
+                    float dot[G];
 #pragma unroll
-                for (int g = 0; g < G; ++g) {
-                    dot[g] = 0.f;
+                    for (int g = 0; g < G; ++g) {
+                        dot[g] = 0.f;
 #pragma unroll
-                    for (int j = 0; j < SEG; ++j) dot[g] = fmaf(qr[g][j], kf[j], dot[g]);
+                        for (int j = 0; j < SEG; ++j) dot[g] = fmaf(qr[g][j], kf[j], dot[g]);
 #pragma unroll
-                    for (int off = L::LANES / 2; off > 0; off >>= 1)
-                        dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
-                }
-                if (seg == 0) {
-                    const float kss = __fmul_rn(ks[u], scale);
+                        for (int off = L::LANES / 2; off > 0; off >>= 1)
+                            dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], off);
+                    }
+                    if (seg == 0) {
+                        if (WIDE) {  // the segment's partial, in segment order (same lane each time)
 #pragma unroll
-                    for (int g = 0; g < G; ++g)
-                        sc[g * chunk_rows + row] = __fadd_rn(__fmul_rn(dot[g], kss), bs[u]);
+                            for (int g = 0; g < G; ++g) {
+                                float* d = sc + g * chunk_rows + row;
+                                *d = sg == 0 ? dot[g] : __fadd_rn(*d, dot[g]);
+                            }
+                        } else {
+                            const float kss = __fmul_rn(ks[u], scale);
+#pragma unroll
+                            for (int g = 0; g < G; ++g)
+                                sc[g * chunk_rows + row] = __fadd_rn(__fmul_rn(dot[g], kss), bs[u]);
+                        }
+                    }
                 }
             }
         }
     }
     __syncthreads();
+    if (WIDE) {  // the whole row's q·k is in: scale and bias
+        for (int i = tid; i < G * n; i += THREADS) {
+            const int g = i / n, j = i - g * n;
+            float* d = sc + g * chunk_rows + j;
+            *d = __fadd_rn(__fmul_rn(*d, __fmul_rn(__ldg(ksb + j), scale)), __ldg(bb + j));
+        }
+        __syncthreads();
+    }
 
     for (int i = tid; i < G * n; i += THREADS) {
         const int g = i / n, j = i - g * n;
@@ -198,27 +233,31 @@ template <int HD, int G>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, gt, S]
                                 const float* __restrict__ stats,    // [B·Hkv, nchunk, gt, 2]
-                                const int8_t* __restrict__ v_codes, // [B·Hkv, S, HD]
+                                const int8_t* __restrict__ v_codes, // [B·Hkv, S, hd]
                                 const float* __restrict__ v_scales, // [B·Hkv, S]
-                                float* __restrict__ partials,       // [B·Hkv, nchunk, gt, HD]
+                                float* __restrict__ partials,       // [B·Hkv, nchunk, gt, hd]
                                 int* __restrict__ counters,         // [B·Hkv, gt / G], zero between launches
-                                float* __restrict__ out,            // [B·Hkv, gt, HD]
-                                int gt, int S, int chunk_rows) {
-    using L = RowLayout<HD>;
+                                float* __restrict__ out,            // [B·Hkv, gt, hd]
+                                int gt, int S, int chunk_rows, int hd) {
+    constexpr bool WIDE = HD == 0;
+    using L = Layout<HD>;
+    constexpr int SW = WIDE ? WIDE_SEGMENT : HD;  // columns of one pass
     constexpr int U = LOADS_IN_FLIGHT<G>;
     extern __shared__ __align__(16) float smem[];
     float* p = smem;                     // [G][chunk_rows]
-    float* red = p + G * chunk_rows;     // [WARPS][G][HD]
+    float* red = p + G * chunk_rows;     // [WARPS][G][SW]
     __shared__ float m_s[G], den_s[G];
     __shared__ int last_block;
     const int c = blockIdx.x, nchunk = gridDim.x, bh = blockIdx.y, g0 = blockIdx.z * G;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int rr = lane / L::LANES, seg = lane % L::LANES;
-    const bool active = seg < L::ACTIVE;
+    const int rowb = WIDE ? hd : HD;
+    const int nseg = WIDE ? (hd + WIDE_SEGMENT - 1) / WIDE_SEGMENT : 1;
     const int s0 = c * chunk_rows;
     const int n = min(chunk_rows, S - s0);
-    const int8_t* vb = v_codes + ((size_t)bh * S + s0) * HD + (active ? seg : 0) * SEG;
     const int lrow = warp * L::ROWS_PER_WARP + rr;
+    bool active = seg < L::ACTIVE && seg * SEG < rowb;
+    const int8_t* vb = v_codes + ((size_t)bh * S + s0) * rowb + (active ? seg * SEG : 0);
 
     // the first V loads go out before the softmax work
     int4 vv[U];
@@ -226,7 +265,7 @@ decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, 
     for (int u = 0; u < U; ++u) {
         vv[u] = make_int4(0, 0, 0, 0);
         if (active && u * L::ROWS_PER_STEP < n)
-            vv[u] = __ldg(reinterpret_cast<const int4*>(vb + (size_t)(u * L::ROWS_PER_STEP + lrow) * HD));
+            vv[u] = __ldg(reinterpret_cast<const int4*>(vb + (size_t)(u * L::ROWS_PER_STEP + lrow) * rowb));
     }
 
     if (warp < G) {  // warp g: the global m and l of query head g
@@ -259,56 +298,67 @@ decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, 
     }
     __syncthreads();
 
-    float acc[G][SEG];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int j = 0; j < SEG; ++j) acc[g][j] = 0.f;
-    for (int t0 = 0; t0 < n; t0 += U * L::ROWS_PER_STEP) {
-        if (t0 > 0) {
-#pragma unroll
-            for (int u = 0; u < U; ++u)
-                if (active && t0 + u * L::ROWS_PER_STEP < n)
-                    vv[u] = __ldg(reinterpret_cast<const int4*>(
-                        vb + (size_t)(t0 + u * L::ROWS_PER_STEP + lrow) * HD));
+    float* dst = nchunk == 1 ? out + ((size_t)bh * gt + g0) * rowb
+                             : partials + (((size_t)bh * nchunk + c) * gt + g0) * rowb;
+    for (int sg = 0; sg < nseg; ++sg) {  // WIDE: one pass per 512-byte segment of the row
+        const int col0 = sg * WIDE_SEGMENT;
+        if (sg > 0) {
+            active = seg < L::ACTIVE && col0 + seg * SEG < rowb;
+            vb = v_codes + ((size_t)bh * S + s0) * rowb + (active ? col0 + seg * SEG : 0);
         }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            if (t0 + u * L::ROWS_PER_STEP < n) {
-                const int row = t0 + u * L::ROWS_PER_STEP + lrow;
-                float vf[SEG];
-                unpack16(vv[u], vf);
-#pragma unroll
-                for (int g = 0; g < G; ++g) {
-                    const float pg = p[g * chunk_rows + row];
-#pragma unroll
-                    for (int j = 0; j < SEG; ++j) acc[g][j] = fmaf(pg, vf[j], acc[g][j]);
-                }
-            }
-        }
-    }
-    // the warp's rows → one sum per (head, column): add the ROWS_PER_WARP rows
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int j = 0; j < SEG; ++j)
-#pragma unroll
-            for (int off = L::LANES; off < 32; off <<= 1)
-                acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
-    if (rr == 0 && active) {
+        float acc[G][SEG];
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
-            for (int j = 0; j < SEG; ++j) red[(warp * G + g) * HD + seg * SEG + j] = acc[g][j];
-    }
-    __syncthreads();
-    float* dst = nchunk == 1 ? out + ((size_t)bh * gt + g0) * HD
-                             : partials + (((size_t)bh * nchunk + c) * gt + g0) * HD;
-    for (int i = tid; i < G * HD; i += THREADS) {
-        float s = 0.f;
+            for (int j = 0; j < SEG; ++j) acc[g][j] = 0.f;
+        for (int t0 = 0; t0 < n; t0 += U * L::ROWS_PER_STEP) {
+            if (t0 > 0 || sg > 0) {
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) s += red[w * G * HD + i];
-        dst[i] = s;
+                for (int u = 0; u < U; ++u)
+                    if (active && t0 + u * L::ROWS_PER_STEP < n)
+                        vv[u] = __ldg(reinterpret_cast<const int4*>(
+                            vb + (size_t)(t0 + u * L::ROWS_PER_STEP + lrow) * rowb));
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                if (t0 + u * L::ROWS_PER_STEP < n) {
+                    const int row = t0 + u * L::ROWS_PER_STEP + lrow;
+                    float vf[SEG];
+                    unpack16(vv[u], vf);  // an idle lane's sums are never written
+#pragma unroll
+                    for (int g = 0; g < G; ++g) {
+                        const float pg = p[g * chunk_rows + row];
+#pragma unroll
+                        for (int j = 0; j < SEG; ++j) acc[g][j] = fmaf(pg, vf[j], acc[g][j]);
+                    }
+                }
+            }
+        }
+        // the warp's rows → one sum per (head, column): add the ROWS_PER_WARP rows
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int j = 0; j < SEG; ++j)
+#pragma unroll
+                for (int off = L::LANES; off < 32; off <<= 1)
+                    acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], off);
+        if (sg > 0) __syncthreads();  // the previous segment's sums are read
+        if (rr == 0 && active) {
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+#pragma unroll
+                for (int j = 0; j < SEG; ++j) red[(warp * G + g) * SW + seg * SEG + j] = acc[g][j];
+        }
+        __syncthreads();
+        const int cols = min(SW, rowb - col0);
+        for (int i = tid; i < G * SW; i += THREADS) {
+            const int g = i / SW, j = i - g * SW;
+            if (j >= cols) continue;
+            float s = 0.f;
+#pragma unroll
+            for (int w = 0; w < WARPS; ++w) s += red[w * G * SW + i];
+            dst[g * rowb + col0 + j] = s;
+        }
     }
     if (nchunk == 1) return;
 
@@ -320,12 +370,12 @@ decode_attention_int8_pv_kernel(const float* __restrict__ scores,   // [B·Hkv, 
     __syncthreads();
     if (!last_block) return;
     __threadfence();
-    const float* part = partials + ((size_t)bh * nchunk * gt + g0) * HD;  // chunk cc: + cc·gt·HD
-    for (int i = tid; i < G * HD; i += THREADS) {
+    const float* part = partials + ((size_t)bh * nchunk * gt + g0) * rowb;  // chunk cc: + cc·gt·hd
+    for (int i = tid; i < G * rowb; i += THREADS) {
         float s = 0.f;
 #pragma unroll 8
-        for (int cc = 0; cc < nchunk; ++cc) s += __ldcg(part + (size_t)cc * gt * HD + i);
-        out[((size_t)bh * gt + g0) * HD + i] = s;
+        for (int cc = 0; cc < nchunk; ++cc) s += __ldcg(part + (size_t)cc * gt * rowb + i);
+        out[((size_t)bh * gt + g0) * rowb + i] = s;
     }
     if (tid == 0) *counter = 0;
 }
@@ -337,7 +387,7 @@ int allow_smem(Kernel kernel, size_t smem) {
 }
 
 struct Args {
-    int bh, nchunk, hkv, gt, S, chunk_rows;
+    int bh, nchunk, hkv, gt, S, chunk_rows, hd;
     float scale;
     cudaStream_t stream;
     const float* q;
@@ -355,17 +405,18 @@ template <int HD, int G>
 int launch_g(const Args& a) {
     const dim3 grid(a.nchunk, a.bh, a.gt / G);
     const size_t smem_scores = sizeof(float) * G * a.chunk_rows;
-    const size_t smem_pv = sizeof(float) * ((size_t)G * a.chunk_rows + (size_t)WARPS * G * HD);
+    const size_t smem_pv =
+        sizeof(float) * ((size_t)G * a.chunk_rows + (size_t)WARPS * G * (HD == 0 ? WIDE_SEGMENT : HD));
     int e = allow_smem(decode_attention_int8_scores_kernel<HD, G>, smem_scores);
     if (e) return e;
     e = allow_smem(decode_attention_int8_pv_kernel<HD, G>, smem_pv);
     if (e) return e;
     decode_attention_int8_scores_kernel<HD, G><<<grid, THREADS, smem_scores, a.stream>>>(
-        a.q, a.kc, a.ks, a.bias, a.scores, a.stats, a.hkv, a.gt, a.S, a.chunk_rows, a.scale);
+        a.q, a.kc, a.ks, a.bias, a.scores, a.stats, a.hkv, a.gt, a.S, a.chunk_rows, a.hd, a.scale);
     e = (int)cudaGetLastError();
     if (e) return e;
     decode_attention_int8_pv_kernel<HD, G><<<grid, THREADS, smem_pv, a.stream>>>(
-        a.scores, a.stats, a.vc, a.vs, a.partials, a.counters, a.out, a.gt, a.S, a.chunk_rows);
+        a.scores, a.stats, a.vc, a.vs, a.partials, a.counters, a.out, a.gt, a.S, a.chunk_rows, a.hd);
     return (int)cudaGetLastError();
 }
 
@@ -388,7 +439,7 @@ extern "C" int decode_attention_int8_max_chunk_rows() { return MAX_CHUNK_ROWS; }
 // [B·Hkv, S] f32; bias [B, S] f32; scratch: scores [B·Hkv, G, S] f32, stats
 // [B·Hkv, nchunk, G, 2] f32, partials [B·Hkv, nchunk, G, hd] f32, counters
 // [B·Hkv, G / 8 or 1] int32 (zero; left zero); out [B·Hkv, G, hd] f32.
-// G ∈ {1, 2, 4} or a multiple of 8; hd ∈ {128, 256, 384, 512}; S and
+// G ∈ {1, 2, 4} or a multiple of 8; hd a positive multiple of 128; S and
 // chunk_rows multiples of 32, chunk_rows ≤ 1024, nchunk = ⌈S / chunk_rows⌉.
 // Returns the CUDA error of the launches.
 extern "C" int decode_attention_int8_launch(const void* q, const void* k_codes,
@@ -402,7 +453,7 @@ extern "C" int decode_attention_int8_launch(const void* q, const void* k_codes,
         chunk_rows % 32 || chunk_rows > MAX_CHUNK_ROWS || nchunk < 1 ||
         nchunk != (S + chunk_rows - 1) / chunk_rows)
         return (int)cudaErrorInvalidValue;
-    const Args a{bh, nchunk, hkv, G, S, chunk_rows, scale, static_cast<cudaStream_t>(stream),
+    const Args a{bh, nchunk, hkv, G, S, chunk_rows, hd, scale, static_cast<cudaStream_t>(stream),
                  static_cast<const float*>(q), static_cast<const int8_t*>(k_codes),
                  static_cast<const float*>(k_scales), static_cast<const int8_t*>(v_codes),
                  static_cast<const float*>(v_scales), static_cast<const float*>(bias),
@@ -414,6 +465,6 @@ extern "C" int decode_attention_int8_launch(const void* q, const void* k_codes,
         case 256: return launch_hd<256>(a);
         case 384: return launch_hd<384>(a);
         case 512: return launch_hd<512>(a);
-        default: return (int)cudaErrorInvalidValue;
+        default: return hd > 512 && hd % 128 == 0 ? launch_hd<0>(a) : (int)cudaErrorInvalidValue;
     }
 }

@@ -22,50 +22,80 @@
 // 3·I·H int8 (mistral-7b: 3·14336·4096 = 176 MB, 52.6 µs at 3.35 TB/s),
 // against 2·R·3·I·H int8 operations (≈ 1.4 µs at 1,979 TOPS for R = 8).
 //
-// Design (simple and right first). The TPU kernel is one sequential loop
-// over I chunks with double-buffered DMAs; on 132 SMs that shape would run
-// a handful of blocks, so the same arithmetic is cut into five launches on
-// the caller's stream:
-//   1. prologue  — one block per row: RMSNorm, × g, amax → xs, xq.
-//   2. gate/up   — 8 warps per block, 4 outputs i per warp: the warp reads
-//                  the contiguous rows gate_t[i] and up_t[i] with 16-byte
-//                  loads (the reason the layout transposes them) and dots
-//                  them with __dp4a against xq staged in shared memory; the
-//                  warp's int32 sums meet by shuffles; the lane of row r
-//                  writes hmid[r, i].
-//   3. requant   — one block per (chunk, row): hs and hq.
-//   4. down      — one block per (512-column tile, row slice of a chunk,
-//                  chunk): each thread owns 4 columns, reads 4 rows of
-//                  down as 32-bit words, transposes the 4×4 bytes with
-//                  __byte_perm and dots them with __dp4a against hq; each
-//                  block writes its int32 partial [slice, chunk, R, H].
-//   5. epilogue  — per (row, column): add the slices' partials (exact), then
-//                  y += f32(acc)·hs in chunk order, out = x + y·s_down.
-// The result has the same bits on every run. Making it fast (cp.async/TMA
-// rings, s8 tensor cores, one launch) is later work.
+// Design: one launch, as the TPU kernel is one invocation. The TPU kernel
+// walks the chunks of I in order with the chunk's [8, ck] intermediates in
+// VMEM; here each chunk is one thread-block cluster of 8 CTAs (one CTA an
+// SM), and the chunks' clusters run side by side:
+//   1. prologue — CTA r of the cluster reads x's row r and g through the
+//      read-only cache, normalises and quantizes the row and writes xq[r]
+//      and xs[r] into the shared memory of all 8 CTAs (distributed shared
+//      memory); the weights' first loads go out before it.
+//   2. gate/up — CTA k owns chunk/8 rows i of the chunk, warp w 16 of them:
+//      the rows of gate_t and up_t are the M operand of int8 tensor-core
+//      products (mma.sync m16n8k32 s8, the ≤ 8 rows of xq the N = 8 operand),
+//      streamed from device memory straight into the A fragments with 16-byte
+//      loads, two groups of 4 × 64-byte k-blocks in flight per thread (the
+//      k order inside a 64-byte block is permuted alike in A and in B, which
+//      leaves the dot unchanged). silu·up stays in the CTA's shared memory.
+//   3. requant — each CTA's max|hmid| per row goes to every CTA of the
+//      cluster; after a cluster barrier each CTA forms the chunk's hs and
+//      writes its rows' hq codes into the shared memory of all 8 CTAs, so
+//      hmid and hq never leave the cluster. A cluster per chunk, not a grid
+//      barrier: the requant needs only its own chunk, so the chunks never
+//      wait for one another and nothing needs the whole grid resident.
+//   4. down — the cluster's 64 warps split the chunk's [chunk, H] slab of
+//      down into 128-column groups (and, when there are fewer groups than
+//      warps, into row parts summed in int32 inside the CTA). down is
+//      j-contiguous, so a thread loads 16 columns of 4 rows at a time and
+//      transposes 4 × 4 bytes with __byte_perm into A fragments with K = i
+//      (no second [H, I] copy of the weights); the B operand is hq from
+//      shared memory. The first loads of down go out before the requant's
+//      barriers. Each column group's f32(acc)·hs (the chunk's term of y) goes
+//      to a [chunks, R, H] buffer.
+//   5. the ordered sum — the last CTA of each rank to finish (a self-resetting
+//      counter) adds the chunks' terms of its columns in chunk order and
+//      writes out = x + y·s_down. So y is the same on every run and the
+//      chunks never wait: no grid barrier, no float atomics.
+// The result has the same bits on every run. Past the streaming of the
+// weights, the time goes to the prologue (two block reductions and a
+// cluster barrier while only the first weight loads are in flight), the
+// requant's wait for the cluster's slowest CTA and the ordered sum (PERF.md).
+//
+// Shared memory grows with H only through xq, 8·(H + 64) bytes. Where it
+// does not fit (H past 27,136 at chunk 1024), the kernel's XG instance keeps
+// the cluster's xq rows in device memory instead, in the first R·H bytes of
+// the chunk's slab of `part`, and gate/up reads its B operand from L2; the
+// slab's down terms are written only after the requant's cluster barrier,
+// when no CTA of the cluster reads xq any more. So every H % 128 launches.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int MAX_R = 8;
-constexpr int PRO_THREADS = 256;
-constexpr int GU_WARPS = 8;
-constexpr int GU_THREADS = 32 * GU_WARPS;
-constexpr int GU_OUT_PER_WARP = 4;
-constexpr int GU_OUT_PER_BLOCK = GU_WARPS * GU_OUT_PER_WARP;  // 32 outputs of I
-constexpr int RQ_THREADS = 256;
-constexpr int DN_THREADS = 128;
-constexpr int DN_COLS = 4;                         // columns per thread
-constexpr int DN_TILE = DN_THREADS * DN_COLS;      // 512 columns per block
-constexpr int EP_THREADS = 256;
-constexpr int DEFAULT_SMEM = 48 * 1024;
+constexpr int CLUSTER = 8;                         // CTAs a chunk, one cluster
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int NPAD = 8;                            // the N = 8 rows of the products (R padded)
+constexpr int KU = 4;                              // gate/up: 64-byte k-blocks a load group
+constexpr int KS = 2;                              // down: 32-row k-steps a load group
+constexpr int XQ_PAD = 64;                         // xq rows' padding: conflict-free B loads
+constexpr int HQ_PAD = 16;                         // hq rows' padding: conflict-free B loads
+constexpr int COLS = 128;                          // columns of down a warp owns
+constexpr int SUMS = 4;                            // ordered sums a thread runs side by side
+constexpr int SMEM_LIMIT = 232448;
+// more than half an SM's shared memory: one CTA an SM, so the cluster's
+// CTAs (and their loads in flight) spread over 8 SMs
+constexpr int SMEM_ONE_CTA = 116 * 1024;
 constexpr float INV_127 = 1.0f / 127.0f;           // f32(1)/f32(127), as XLA folds x / 127
 
 __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    #pragma unroll
+#pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
         const float o = __shfl_xor_sync(0xffffffffu, v, off);
         v = is_max ? fmaxf(v, o) : __fadd_rn(v, o);
@@ -73,8 +103,8 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
     if (lane == 0) red[warp] = v;
     __syncthreads();
     if (warp == 0) {
-        v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0f;  // 0: neutral for Σ and max|·|
-        #pragma unroll
+        v = lane < WARPS ? red[lane] : 0.0f;  // 0: neutral for Σ and max|·|
+#pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
             const float o = __shfl_xor_sync(0xffffffffu, v, off);
             v = is_max ? fmaxf(v, o) : __fadd_rn(v, o);
@@ -87,239 +117,462 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
     return v;
 }
 
-__device__ __forceinline__ int8_t quantize(float v, float scale) {
-    const float q = fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.0f), 127.0f);
-    return static_cast<int8_t>(q);
+__device__ __forceinline__ int quantize(float v, float scale) {
+    return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.0f), 127.0f));
 }
 
-// 1. One block per row: xs[r] and xq[r, :].
-__global__ void __launch_bounds__(PRO_THREADS)
-fused_mlp_prologue_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                int8_t* __restrict__ xq, float* __restrict__ xs, int H, float inv_h, float eps) {
-    __shared__ float red[32];
-    const int r = blockIdx.x;
-    const float* xr = x + (size_t)r * H;
-    float s = 0.0f;
-    for (int j = threadIdx.x; j < H; j += blockDim.x) s = __fadd_rn(s, __fmul_rn(xr[j], xr[j]));
-    s = block_reduce(s, red, false);
-    const float rs = rsqrtf(__fadd_rn(__fmul_rn(s, inv_h), eps));
-    float m = 0.0f;
-    for (int j = threadIdx.x; j < H; j += blockDim.x)
-        m = fmaxf(m, fabsf(__fmul_rn(__fmul_rn(xr[j], rs), g[j])));
-    m = block_reduce(m, red, true);
-    const float scale = __fmul_rn(fmaxf(m, 1e-12f), INV_127);
-    for (int j = threadIdx.x; j < H; j += blockDim.x)
-        xq[(size_t)r * H + j] = quantize(__fmul_rn(__fmul_rn(xr[j], rs), g[j]), scale);
-    if (threadIdx.x == 0) xs[r] = scale;
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// 2. hmid[r, i] for GU_OUT_PER_BLOCK outputs i per block.
-template <int R>
-__global__ void __launch_bounds__(GU_THREADS)
-fused_mlp_gateup_kernel(const int8_t* __restrict__ xq, const float* __restrict__ xs,
-              const int8_t* __restrict__ gate_t, const float* __restrict__ s_gate,
-              const int8_t* __restrict__ up_t, const float* __restrict__ s_up,
-              float* __restrict__ hmid, int H, int I) {
-    extern __shared__ __align__(16) int8_t sx[];  // [R, H]
-    const int4* src = reinterpret_cast<const int4*>(xq);
-    int4* dst = reinterpret_cast<int4*>(sx);
-    const int words = R * H / 16;
-    for (int k = threadIdx.x; k < words; k += blockDim.x) dst[k] = src[k];
-    __syncthreads();
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int hw = H / 16;  // 16-byte words per row
-    float xsr[R];
-    #pragma unroll
-    for (int r = 0; r < R; ++r) xsr[r] = xs[r];
-    for (int o = 0; o < GU_OUT_PER_WARP; ++o) {
-        const int i = blockIdx.x * GU_OUT_PER_BLOCK + warp * GU_OUT_PER_WARP + o;
-        if (i >= I) break;
-        const int4* grow = reinterpret_cast<const int4*>(gate_t + (size_t)i * H);
-        const int4* urow = reinterpret_cast<const int4*>(up_t + (size_t)i * H);
-        int accg[R], accu[R];
-        #pragma unroll
-        for (int r = 0; r < R; ++r) accg[r] = accu[r] = 0;
-        #pragma unroll 4
-        for (int k = lane; k < hw; k += 32) {
-            const int4 gw = __ldg(grow + k);
-            const int4 uw = __ldg(urow + k);
-            #pragma unroll
-            for (int r = 0; r < R; ++r) {
-                const int4 xv = reinterpret_cast<const int4*>(sx + (size_t)r * H)[k];
-                accg[r] = __dp4a(gw.x, xv.x, accg[r]);
-                accg[r] = __dp4a(gw.y, xv.y, accg[r]);
-                accg[r] = __dp4a(gw.z, xv.z, accg[r]);
-                accg[r] = __dp4a(gw.w, xv.w, accg[r]);
-                accu[r] = __dp4a(uw.x, xv.x, accu[r]);
-                accu[r] = __dp4a(uw.y, xv.y, accu[r]);
-                accu[r] = __dp4a(uw.z, xv.z, accu[r]);
-                accu[r] = __dp4a(uw.w, xv.w, accu[r]);
+// d += A·B: A 16×32 s8 (a0: row g, k 4t..; a1: row g+8; a2: row g, k 16+4t..;
+// a3: row g+8), B 32×8 s8 (b0: k 4t.., column g; b1: k 16+4t..), d 16×8 s32
+// (d0, d1: row g, columns 2t, 2t+1; d2, d3: row g+8)
+__device__ __forceinline__ void mma_s8(int (&d)[4], int a0, int a1, int a2, int a3, int b0,
+                                       int b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ int word(const int4& v, int q) {
+    return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// 4 rows × 4 bytes (word q of each row's int4) → one word of the 4 rows per column
+__device__ __forceinline__ void transpose4(const int4* rows, int q, int (&out)[4]) {
+    const unsigned w0 = word(rows[0], q), w1 = word(rows[1], q);
+    const unsigned w2 = word(rows[2], q), w3 = word(rows[3], q);
+    const unsigned lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
+    const unsigned lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
+    out[0] = static_cast<int>(__byte_perm(lo01, lo23, 0x5410));
+    out[1] = static_cast<int>(__byte_perm(lo01, lo23, 0x7632));
+    out[2] = static_cast<int>(__byte_perm(hi01, hi23, 0x5410));
+    out[3] = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
+}
+
+// gate/up: the 16-byte pieces of k-blocks kb0 .. kb0+KU-1 a thread feeds its
+// A fragments from: gate rows g and g+8, up rows g and g+8 of the warp's tile
+__device__ __forceinline__ void gu_load(int4 (&v)[KU][4], const int8_t* gate_tile,
+                                        const int8_t* up_tile, int H, int kb0, int nkb, int g,
+                                        int t) {
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+        const int kb = kb0 + u;
+        if (kb < nkb) {
+            const size_t o = (size_t)g * H + kb * 64 + 16 * t, o8 = o + (size_t)8 * H;
+            v[u][0] = __ldcs(reinterpret_cast<const int4*>(gate_tile + o));
+            v[u][1] = __ldcs(reinterpret_cast<const int4*>(gate_tile + o8));
+            v[u][2] = __ldcs(reinterpret_cast<const int4*>(up_tile + o));
+            v[u][3] = __ldcs(reinterpret_cast<const int4*>(up_tile + o8));
+        }
+    }
+}
+
+// the k-blocks' products: within a 64-byte block, thread t's bytes 16t..16t+7
+// are the (k 4t.., k 16+4t..) of the first product and 16t+8..16t+15 of the
+// second, in A (the weights) and in B (xq row g) alike
+// (XG: xq's R rows in device memory, the padding rows' zeros formed here)
+template <bool XG>
+__device__ __forceinline__ void gu_mma(const int4 (&v)[KU][4], const int8_t* xq, int xstride,
+                                       int R, int kb0, int nkb, int g, int t, int (&ag)[2][4],
+                                       int (&au)[2][4]) {
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+        const int kb = kb0 + u;
+        if (kb < nkb) {
+            const int4* src = reinterpret_cast<const int4*>(xq + (size_t)g * xstride + kb * 64 + 16 * t);
+            const int4 x = !XG ? *src : g < R ? __ldcg(src) : make_int4(0, 0, 0, 0);
+            mma_s8(ag[0], v[u][0].x, v[u][1].x, v[u][0].y, v[u][1].y, x.x, x.y);
+            mma_s8(ag[1], v[u][0].z, v[u][1].z, v[u][0].w, v[u][1].w, x.z, x.w);
+            mma_s8(au[0], v[u][2].x, v[u][3].x, v[u][2].y, v[u][3].y, x.x, x.y);
+            mma_s8(au[1], v[u][2].z, v[u][3].z, v[u][2].w, v[u][3].w, x.z, x.w);
+        }
+    }
+}
+
+// down: piece e of a thread's k-step holds columns 16g..16g+15 of row
+// 4t + e (e < 4) or 16 + 4t + e − 4 of the step's 32 rows
+__device__ __forceinline__ int dn_row(int ks, int e, int t) {
+    return 32 * ks + (e < 4 ? 4 * t + e : 16 + 4 * t + e - 4);
+}
+
+// k-steps ks0 .. ks0+KS-1 from device memory into registers
+__device__ __forceinline__ void dn_load(int4 (&v)[KS][8], const int8_t* slab, int H, int ks0,
+                                        int nks, int t) {
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+        const int ks = ks0 + s;
+        if (ks < nks) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+                v[s][e] = __ldcs(reinterpret_cast<const int4*>(slab + (size_t)dn_row(ks, e, t) * H));
+        }
+    }
+}
+
+// product u = (q, h) covers columns 16g + 4q + 2h (as row g of A) and
+// 16g + 4q + 2h + 1 (row g + 8); K = the step's 32 rows, B = hq
+__device__ __forceinline__ void dn_mma(const int4 (&v)[KS][8], const int8_t* hq_row, int ks0,
+                                       int nks, int t, int (&acc)[8][4]) {
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+        const int ks = ks0 + s;
+        if (ks < nks) {
+            const int b0 = *reinterpret_cast<const int*>(hq_row + 32 * ks + 4 * t);
+            const int b1 = *reinterpret_cast<const int*>(hq_row + 32 * ks + 16 + 4 * t);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                int ta[4], tb[4];
+                transpose4(&v[s][0], q, ta);
+                transpose4(&v[s][4], q, tb);
+                mma_s8(acc[2 * q], ta[0], ta[1], tb[0], tb[1], b0, b1);
+                mma_s8(acc[2 * q + 1], ta[2], ta[3], tb[2], tb[3], b0, b1);
             }
         }
-        #pragma unroll
-        for (int r = 0; r < R; ++r) {
-            #pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                accg[r] += __shfl_xor_sync(0xffffffffu, accg[r], off);
-                accu[r] += __shfl_xor_sync(0xffffffffu, accu[r], off);
+    }
+}
+
+__host__ __device__ inline int down_parts(int H, int chunk) {
+    // row parts of a chunk per 128-column group: enough units for the
+    // cluster's 64 warps, each part whole 32-row k-steps
+    int p = 1;
+    while (p < CLUSTER && (H / COLS) * p * 2 <= CLUSTER * WARPS && (chunk / (2 * p)) % 32 == 0)
+        p *= 2;
+    return p;
+}
+
+// xq (not XG), hq, hmid and, where a column group has row parts, their int32 sums
+__host__ __device__ inline size_t smem_bytes(int H, int chunk, bool xg) {
+    return (xg ? 0 : (size_t)NPAD * (H + XQ_PAD)) + (size_t)NPAD * (chunk + HQ_PAD)
+           + sizeof(float) * NPAD * (chunk / CLUSTER)
+           + (down_parts(H, chunk) > 1 ? sizeof(int) * WARPS * 32 * 32 : 0);
+}
+
+template <bool XG>
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
+fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
+                      const int8_t* __restrict__ gate_t, const float* __restrict__ s_gate,
+                      const int8_t* __restrict__ up_t, const float* __restrict__ s_up,
+                      const int8_t* __restrict__ down, const float* __restrict__ s_down,
+                      float* __restrict__ part, int* __restrict__ counters,
+                      float* __restrict__ out, int8_t* __restrict__ xq_out,
+                      float* __restrict__ xs_out, int8_t* __restrict__ hq_out,
+                      float* __restrict__ hs_out, int R, int H, int I, int chunk, float inv_h,
+                      float eps) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ float red[32], xs_s[NPAD], cmax_s[CLUSTER][NPAD], hs_s[NPAD], wmax_s[WARPS][NPAD];
+    __shared__ int last_cta;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int c = blockIdx.y, nchunks = gridDim.y;
+    const int xstride = XG ? H : H + XQ_PAD, hstride = chunk + HQ_PAD;
+    // [NPAD][H + XQ_PAD] in shared memory, or (XG) [R][H] in the chunk's slab of part
+    int8_t* xq_s = XG ? reinterpret_cast<int8_t*>(part + (size_t)c * R * H)
+                      : reinterpret_cast<int8_t*>(smem);
+    int8_t* hq_s = reinterpret_cast<int8_t*>(smem) + (XG ? 0 : (size_t)NPAD * xstride);
+    const int rows_cta = chunk / CLUSTER;                            // rows i of a CTA
+    float* hmid_s = reinterpret_cast<float*>(hq_s + (size_t)NPAD * hstride);  // [NPAD][rows_cta]
+    int* dn_red = reinterpret_cast<int*>(hmid_s + NPAD * rows_cta);  // [WARPS][32][32]
+
+    const int k = (int)cluster.block_rank();  // == blockIdx.x
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int nkb = H / 64;
+    const int ntile = rows_cta / 16;
+    const size_t i_cta = (size_t)c * chunk + (size_t)k * rows_cta;
+    const int P = down_parts(H, chunk);
+    const int units = (H / COLS) * P, rows_part = chunk / P, nks = rows_part / 32;
+    auto unit_slab = [&](int u) {  // columns 16g.. of unit u's rows in down
+        return down + ((size_t)c * chunk + (u % P) * rows_part) * H + (u / P) * COLS + 16 * g;
+    };
+
+    // the padding rows of the products' B operands are zero
+    if (!XG)
+        for (int i = tid; i < (NPAD - R) * xstride / 16; i += THREADS)
+            reinterpret_cast<int4*>(xq_s + (size_t)R * xstride)[i] = make_int4(0, 0, 0, 0);
+    for (int i = tid; i < (NPAD - R) * hstride / 16; i += THREADS)
+        reinterpret_cast<int4*>(hq_s + (size_t)R * hstride)[i] = make_int4(0, 0, 0, 0);
+    cluster_arrive();  // this CTA runs: the others may write its shared memory
+
+    const int u_first = k * WARPS + warp;  // this warp's first unit of the down product
+
+    // the weights do not depend on x: the first gate/up group goes out now
+    int4 ga[KU][4], gb[KU][4];
+    if (warp < ntile)
+        gu_load(ga, gate_t + (i_cta + 16 * warp) * H, up_t + (i_cta + 16 * warp) * H, H, 0, nkb,
+                g, t);
+
+    // 1. prologue: CTA r forms row r's xq and xs for the whole cluster
+    if (k < R) {
+        const float4* xr = reinterpret_cast<const float4*>(x + (size_t)k * H);
+        const float4* gr = reinterpret_cast<const float4*>(gn);
+        float s = 0.0f;
+        for (int j = 16 * tid; j < H; j += 16 * THREADS)
+#pragma unroll
+            for (int e = 0; e < 16; e += 4) {
+                const float4 v = __ldg(xr + (j + e) / 4);
+                s = __fadd_rn(s, __fmul_rn(v.x, v.x));
+                s = __fadd_rn(s, __fmul_rn(v.y, v.y));
+                s = __fadd_rn(s, __fmul_rn(v.z, v.z));
+                s = __fadd_rn(s, __fmul_rn(v.w, v.w));
             }
+        s = block_reduce(s, red, false);
+        const float rs = rsqrtf(__fadd_rn(__fmul_rn(s, inv_h), eps));
+        auto xn = [&](const float4& v, const float4& w) {  // x·rs·g, element by element
+            return make_float4(__fmul_rn(__fmul_rn(v.x, rs), w.x), __fmul_rn(__fmul_rn(v.y, rs), w.y),
+                               __fmul_rn(__fmul_rn(v.z, rs), w.z), __fmul_rn(__fmul_rn(v.w, rs), w.w));
+        };
+        float m = 0.0f;
+        for (int j = 16 * tid; j < H; j += 16 * THREADS)
+#pragma unroll
+            for (int e = 0; e < 16; e += 4) {
+                const float4 v = xn(__ldg(xr + (j + e) / 4), __ldg(gr + (j + e) / 4));
+                m = fmaxf(fmaxf(fmaxf(fmaxf(m, fabsf(v.x)), fabsf(v.y)), fabsf(v.z)), fabsf(v.w));
+            }
+        m = block_reduce(m, red, true);
+        const float scale = __fmul_rn(fmaxf(m, 1e-12f), INV_127);
+        cluster_wait();
+        for (int j = 16 * tid; j < H; j += 16 * THREADS) {
+            unsigned w[4];
+#pragma unroll
+            for (int e4 = 0; e4 < 4; ++e4) {
+                const float4 v = xn(__ldg(xr + j / 4 + e4), __ldg(gr + j / 4 + e4));
+                w[e4] = (unsigned)(quantize(v.x, scale) & 0xff)
+                        | (unsigned)(quantize(v.y, scale) & 0xff) << 8
+                        | (unsigned)(quantize(v.z, scale) & 0xff) << 16
+                        | (unsigned)(quantize(v.w, scale) & 0xff) << 24;
+            }
+            const int4 v = make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+            if (XG)
+                *reinterpret_cast<int4*>(xq_s + (size_t)k * xstride + j) = v;
+            else
+                for (int r2 = 0; r2 < CLUSTER; ++r2)
+                    *reinterpret_cast<int4*>(cluster.map_shared_rank(xq_s + (size_t)k * xstride + j, r2)) = v;
+            if (c == 0 && xq_out) *reinterpret_cast<int4*>(xq_out + (size_t)k * H + j) = v;
         }
-        const float sg = s_gate[i], su = s_up[i];
-        #pragma unroll
-        for (int r = 0; r < R; ++r) {
-            if (lane == r) {
-                const float gg = __fmul_rn(__fmul_rn(static_cast<float>(accg[r]), xsr[r]), sg);
-                const float uu = __fmul_rn(__fmul_rn(static_cast<float>(accu[r]), xsr[r]), su);
+        if (tid < CLUSTER) *cluster.map_shared_rank(xs_s + k, tid) = scale;
+        if (c == 0 && tid == 0 && xs_out) xs_out[k] = scale;
+    } else {
+        cluster_wait();
+    }
+    cluster.sync();  // xq, xs of every row in every CTA (XG: xq in the slab)
+
+    // 2. gate/up: warp w's tiles of 16 rows i, hmid into shared memory
+    float mx[2] = {0.0f, 0.0f};  // max|hmid| of rows n = 2t, 2t + 1
+    for (int tile = warp; tile < ntile; tile += WARPS) {
+        const int8_t* gt = gate_t + (i_cta + 16 * tile) * H;
+        const int8_t* ut = up_t + (i_cta + 16 * tile) * H;
+        if (tile != warp) gu_load(ga, gt, ut, H, 0, nkb, g, t);
+        int ag[2][4] = {}, au[2][4] = {};
+        for (int kb0 = 0; kb0 < nkb; kb0 += 2 * KU) {
+            gu_load(gb, gt, ut, H, kb0 + KU, nkb, g, t);
+            gu_mma<XG>(ga, xq_s, xstride, R, kb0, nkb, g, t, ag, au);
+            gu_load(ga, gt, ut, H, kb0 + 2 * KU, nkb, g, t);
+            gu_mma<XG>(gb, xq_s, xstride, R, kb0 + KU, nkb, g, t, ag, au);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // d q: row i = g (+8 for q ≥ 2), n = 2t + (q & 1)
+            const int n = 2 * t + (q & 1);
+            const int il = 16 * tile + g + (q >> 1) * 8;  // the row within the CTA's rows
+            if (n < R) {
+                const size_t i = i_cta + il;
+                const float gg = __fmul_rn(__fmul_rn(static_cast<float>(ag[0][q] + ag[1][q]),
+                                                     xs_s[n]), s_gate[i]);
+                const float uu = __fmul_rn(__fmul_rn(static_cast<float>(au[0][q] + au[1][q]),
+                                                     xs_s[n]), s_up[i]);
                 const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-gg)));
-                hmid[(size_t)r * I + i] = __fmul_rn(__fmul_rn(sig, gg), uu);
+                const float hm = __fmul_rn(__fmul_rn(sig, gg), uu);
+                hmid_s[n * rows_cta + il] = hm;
+                mx[q & 1] = fmaxf(mx[q & 1], fabsf(hm));
             }
         }
     }
-}
 
-// 3. One block per (chunk, row): hs[r, c] and hq[r, chunk c].
-__global__ void __launch_bounds__(RQ_THREADS)
-fused_mlp_requant_kernel(const float* __restrict__ hmid, int8_t* __restrict__ hq, float* __restrict__ hs,
-               int I, int chunk) {
-    __shared__ float red[32];
-    const int c = blockIdx.x, r = blockIdx.y, nchunks = gridDim.x;
-    const float* hr = hmid + (size_t)r * I + (size_t)c * chunk;
-    float m = 0.0f;
-    for (int k = threadIdx.x; k < chunk; k += blockDim.x) m = fmaxf(m, fabsf(hr[k]));
-    m = block_reduce(m, red, true);
-    const float scale = __fmul_rn(fmaxf(m, 1e-12f), INV_127);
-    int8_t* qr = hq + (size_t)r * I + (size_t)c * chunk;
-    for (int k = threadIdx.x; k < chunk; k += blockDim.x) qr[k] = quantize(hr[k], scale);
-    if (threadIdx.x == 0) hs[r * nchunks + c] = scale;
-}
+    // down's first k-steps past the prefetched ones go out before the requant's barriers
+    int4 da[KS][8], db[KS][8];
+    if (u_first < units) dn_load(da, unit_slab(u_first), H, 0, nks, t);
 
-// 4. acc[s, c, r, j] = Σ_{i in slice s of chunk c} hq[r, i] · down[i, j].
-template <int R>
-__global__ void __launch_bounds__(DN_THREADS)
-fused_mlp_down_kernel(const int8_t* __restrict__ hq, const int8_t* __restrict__ down,
-            int32_t* __restrict__ acc, int H, int I, int chunk, int slice) {
-    extern __shared__ __align__(16) int sh[];  // [R, slice / 4] packed hq words
-    const int c = blockIdx.z, s = blockIdx.y, nchunks = gridDim.z;
-    const int i0 = c * chunk + s * slice;
-    const int wps = slice / 4;
-    for (int k = threadIdx.x; k < R * wps; k += blockDim.x) {
-        const int r = k / wps, w = k % wps;
-        sh[k] = *reinterpret_cast<const int*>(hq + (size_t)r * I + i0 + 4 * w);
+    // 3. requant: the chunk's max|hmid| per row over the cluster, then hq
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+            mx[q] = fmaxf(mx[q], __shfl_xor_sync(0xffffffffu, mx[q], off));
+    if (g == 0) {
+        wmax_s[warp][2 * t] = mx[0];
+        wmax_s[warp][2 * t + 1] = mx[1];
     }
     __syncthreads();
-    const int j0 = blockIdx.x * DN_TILE + threadIdx.x * DN_COLS;
-    if (j0 >= H) return;
-    int a[R][DN_COLS];
-    #pragma unroll
-    for (int r = 0; r < R; ++r)
-        #pragma unroll
-        for (int k = 0; k < DN_COLS; ++k) a[r][k] = 0;
-    const int8_t* base = down + (size_t)i0 * H + j0;
-    #pragma unroll 4
-    for (int w = 0; w < wps; ++w) {
-        const int8_t* p = base + (size_t)(4 * w) * H;
-        const unsigned w0 = __ldg(reinterpret_cast<const unsigned*>(p));
-        const unsigned w1 = __ldg(reinterpret_cast<const unsigned*>(p + H));
-        const unsigned w2 = __ldg(reinterpret_cast<const unsigned*>(p + 2 * (size_t)H));
-        const unsigned w3 = __ldg(reinterpret_cast<const unsigned*>(p + 3 * (size_t)H));
-        // 4 rows × 4 columns of bytes → one word of 4 rows per column
-        const unsigned lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
-        const unsigned lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
-        const int t0 = static_cast<int>(__byte_perm(lo01, lo23, 0x5410));
-        const int t1 = static_cast<int>(__byte_perm(lo01, lo23, 0x7632));
-        const int t2 = static_cast<int>(__byte_perm(hi01, hi23, 0x5410));
-        const int t3 = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
-        #pragma unroll
-        for (int r = 0; r < R; ++r) {
-            const int hw = sh[r * wps + w];
-            a[r][0] = __dp4a(t0, hw, a[r][0]);
-            a[r][1] = __dp4a(t1, hw, a[r][1]);
-            a[r][2] = __dp4a(t2, hw, a[r][2]);
-            a[r][3] = __dp4a(t3, hw, a[r][3]);
+    if (tid < R * CLUSTER) {  // thread (n, r2): this CTA's max of row n → CTA r2
+        const int n = tid / CLUSTER, r2 = tid % CLUSTER;
+        float m = 0.0f;
+        for (int w = 0; w < WARPS; ++w) m = fmaxf(m, wmax_s[w][n]);
+        *cluster.map_shared_rank(&cmax_s[k][n], r2) = m;
+    }
+    cluster.sync();
+    if (tid < R) {
+        float m = 0.0f;
+        for (int r2 = 0; r2 < CLUSTER; ++r2) m = fmaxf(m, cmax_s[r2][tid]);
+        hs_s[tid] = __fmul_rn(fmaxf(m, 1e-12f), INV_127);
+        if (k == 0 && hs_out) hs_out[(size_t)tid * nchunks + c] = hs_s[tid];
+    }
+    __syncthreads();
+    const int wpr = rows_cta / 4;  // 4-code words of a row in this CTA
+    for (int idx = tid; idx < R * wpr; idx += THREADS) {
+        const int n = idx / wpr, w4 = idx - n * wpr;
+        const float* hr = hmid_s + n * rows_cta + 4 * w4;
+        unsigned packed = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) packed |= (unsigned)(quantize(hr[e], hs_s[n]) & 0xff) << (8 * e);
+        int8_t* dst = hq_s + (size_t)n * hstride + k * rows_cta + 4 * w4;
+        for (int r2 = 0; r2 < CLUSTER; ++r2)
+            *reinterpret_cast<unsigned*>(cluster.map_shared_rank(dst, r2)) = packed;
+        if (hq_out) *reinterpret_cast<unsigned*>(hq_out + (size_t)n * I + i_cta + 4 * w4) = packed;
+    }
+    cluster.sync();  // the chunk's hq in every CTA; no shared memory is read remotely after this
+
+    // 4. down: unit u = (128-column group u / P, row part u % P) of the chunk
+    for (int base = 0; base < units; base += CLUSTER * WARPS) {
+        const int u = base + k * WARPS + warp;
+        const bool have = u < units;
+        const int cgp = u / P, pp = u % P;
+        int acc[8][4] = {};
+        if (have) {
+            const int8_t* slab = unit_slab(u);
+            const int8_t* hq_row = hq_s + (size_t)g * hstride + pp * rows_part;
+            if (base > 0) dn_load(da, slab, H, 0, nks, t);
+            for (int ks0 = 0; ks0 < nks; ks0 += 2 * KS) {
+                dn_load(db, slab, H, ks0 + KS, nks, t);
+                dn_mma(da, hq_row, ks0, nks, t, acc);
+                dn_load(da, slab, H, ks0 + 2 * KS, nks, t);
+                dn_mma(db, hq_row, ks0 + KS, nks, t, acc);
+            }
+        }
+        if (P > 1) {  // the row parts of a column group are warps of this CTA: add them (exact)
+            if (have && pp != 0)
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) dn_red[(warp * 32 + j * 4 + e) * 32 + lane] = acc[j][e];
+            __syncthreads();
+            if (have && pp == 0)
+                for (int p2 = 1; p2 < P; ++p2)
+#pragma unroll
+                    for (int j = 0; j < 8; ++j)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+                            acc[j][e] += dn_red[((warp + p2) * 32 + j * 4 + e) * 32 + lane];
+            __syncthreads();
+        }
+        if (have && pp == 0) {  // this chunk's term of y: f32(acc)·hs
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int j = cgp * COLS + 16 * g + 4 * q + 2 * h;
+                    const int* a = acc[2 * q + h];
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int n = 2 * t + e;
+                        if (n < R)
+                            *reinterpret_cast<float2*>(part + ((size_t)c * R + n) * H + j) =
+                                make_float2(__fmul_rn(static_cast<float>(a[e]), hs_s[n]),
+                                            __fmul_rn(static_cast<float>(a[2 + e]), hs_s[n]));
+                    }
+                }
         }
     }
-    #pragma unroll
-    for (int r = 0; r < R; ++r) {
-        int32_t* o = acc + (((size_t)s * nchunks + c) * R + r) * H + j0;
-        *reinterpret_cast<int4*>(o) = make_int4(a[r][0], a[r][1], a[r][2], a[r][3]);
-    }
-}
 
-// 5. out[r, j] = x[r, j] + (Σ_c f32(Σ_s acc[s, c, r, j]) · hs[r, c]) · s_down[j].
-__global__ void __launch_bounds__(EP_THREADS)
-fused_mlp_epilogue_kernel(const float* __restrict__ x, const int32_t* __restrict__ acc,
-                const float* __restrict__ hs, const float* __restrict__ s_down,
-                float* __restrict__ out, int R, int H, int nchunks, int ksplit) {
-    const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= R * H) return;
-    const int r = idx / H, j = idx % H;
-    float y = 0.0f;
-    for (int c = 0; c < nchunks; ++c) {
-        int a = 0;
-        for (int s = 0; s < ksplit; ++s) a += acc[(((size_t)s * nchunks + c) * R + r) * H + j];
-        y = __fadd_rn(y, __fmul_rn(static_cast<float>(a), hs[r * nchunks + c]));
+    // 5. the last CTA of rank k adds the chunks' terms of its columns in order
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last_cta = atomicAdd(counters + k, 1) == nchunks - 1;
+    __syncthreads();
+    if (!last_cta) return;
+    __threadfence();
+    for (int base = 0; base < units; base += CLUSTER * WARPS) {
+        const int u0 = base + k * WARPS;
+        if (u0 >= units) break;
+        const int j0 = u0 / P * COLS, ncols = (min(units, u0 + WARPS) - u0) / P * COLS;
+        const int q4 = ncols / 4, total = R * q4;
+        // SUMS groups of 4 columns a thread, their loads of one chunk side by
+        // side: the chunk order of each sum is kept, the L2 round trips overlap
+        for (int idx0 = tid; idx0 < total; idx0 += THREADS * SUMS) {
+            float4 y[SUMS];
+            size_t at[SUMS];
+#pragma unroll
+            for (int f = 0; f < SUMS; ++f) {
+                const int idx = min(idx0 + f * THREADS, total - 1);
+                const int n = idx / q4;
+                at[f] = (size_t)n * H + j0 + 4 * (idx - n * q4);
+                y[f] = make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+#pragma unroll 4
+            for (int c2 = 0; c2 < nchunks; ++c2) {
+#pragma unroll
+                for (int f = 0; f < SUMS; ++f) {
+                    const float4 p = __ldcg(reinterpret_cast<const float4*>(part + (size_t)c2 * R * H + at[f]));
+                    y[f].x = __fadd_rn(y[f].x, p.x);
+                    y[f].y = __fadd_rn(y[f].y, p.y);
+                    y[f].z = __fadd_rn(y[f].z, p.z);
+                    y[f].w = __fadd_rn(y[f].w, p.w);
+                }
+            }
+#pragma unroll
+            for (int f = 0; f < SUMS; ++f) {
+                if (idx0 + f * THREADS >= total) break;
+                const int j = (int)(at[f] % H);
+                const float4 xv = *reinterpret_cast<const float4*>(x + at[f]);
+                const float4 sd = *reinterpret_cast<const float4*>(s_down + j);
+                *reinterpret_cast<float4*>(out + at[f]) = make_float4(
+                    __fadd_rn(xv.x, __fmul_rn(y[f].x, sd.x)), __fadd_rn(xv.y, __fmul_rn(y[f].y, sd.y)),
+                    __fadd_rn(xv.z, __fmul_rn(y[f].z, sd.z)), __fadd_rn(xv.w, __fmul_rn(y[f].w, sd.w)));
+            }
+        }
     }
-    out[idx] = __fadd_rn(x[idx], __fmul_rn(y, s_down[j]));
-}
-
-template <int R>
-cudaError_t launch_rows(const int8_t* xq, const float* xs, const int8_t* gate_t,
-                        const float* s_gate, const int8_t* up_t, const float* s_up,
-                        const int8_t* down, const float* s_down, const float* x, float* hmid,
-                        int8_t* hq, float* hs, int32_t* acc, float* out, int H, int I,
-                        int chunk, int ksplit, cudaStream_t stream) {
-    const int gu_smem = R * H;
-    if (gu_smem > DEFAULT_SMEM) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            fused_mlp_gateup_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, gu_smem);
-        if (e != cudaSuccess) return e;
-    }
-    fused_mlp_gateup_kernel<R><<<(I + GU_OUT_PER_BLOCK - 1) / GU_OUT_PER_BLOCK, GU_THREADS, gu_smem,
-                       stream>>>(xq, xs, gate_t, s_gate, up_t, s_up, hmid, H, I);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    const int nchunks = I / chunk;
-    fused_mlp_requant_kernel<<<dim3(nchunks, R), RQ_THREADS, 0, stream>>>(hmid, hq, hs, I, chunk);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    const int slice = chunk / ksplit;
-    const dim3 grid((H + DN_TILE - 1) / DN_TILE, ksplit, nchunks);
-    fused_mlp_down_kernel<R><<<grid, DN_THREADS, R * slice, stream>>>(hq, down, acc, H, I, chunk, slice);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    fused_mlp_epilogue_kernel<<<(R * H + EP_THREADS - 1) / EP_THREADS, EP_THREADS, 0, stream>>>(
-        x, acc, hs, s_down, out, R, H, nchunks, ksplit);
-    return cudaGetLastError();
+    if (tid == 0) counters[k] = 0;
 }
 
 }  // namespace
 
-// The wrapper (ops/fused_mlp.py) allocates every buffer: xq [R, H] int8,
-// xs [R], hmid [R, I] f32, hq [R, I] int8, hs [R, I/chunk], acc [ksplit,
-// I/chunk, R, H] int32, out [R, H] f32. Enqueues the five kernels on
-// `stream` and returns the CUDA error of the first launch that failed, or 0.
-extern "C" int fused_mlp_int8_launch(
-        const float* x, const float* g, const int8_t* gate_t, const float* s_gate,
-        const int8_t* up_t, const float* s_up, const int8_t* down, const float* s_down,
-        int8_t* xq, float* xs, float* hmid, int8_t* hq, float* hs, int32_t* acc, float* out,
-        int R, int H, int I, int chunk, int ksplit, float eps, cudaStream_t stream) {
-    if (R < 1 || R > MAX_R || H % 128 || chunk % 128 || I <= 0 || I % chunk || ksplit < 1
-            || chunk % ksplit || (chunk / ksplit) % 16 || R * (chunk / ksplit) > DEFAULT_SMEM
-            || R * H > 227 * 1024)
+extern "C" {
+
+// x [R, H] f32, g [H], gate_t / up_t / down [I, H] int8, s_gate / s_up [I],
+// s_down [H]; scratch: part [I/chunk, R, H] f32 (also xq's rows where they
+// do not fit in shared memory), counters [8] int32 (zero; left zero); out
+// [R, H] f32. xq_out [R, H] int8, xs_out [R], hq_out [R, I] int8 and hs_out
+// [R, I/chunk] f32 receive the codes and scales when not null. One launch
+// on `stream`; returns its CUDA error, or 0. cudaErrorInvalidValue where hq
+// and hmid alone outgrow shared memory: a chunk past 16,384 rows at H ≤ 4,096,
+// past 19,072 wider.
+int fused_mlp_int8_launch(const float* x, const float* g, const int8_t* gate_t,
+                          const float* s_gate, const int8_t* up_t, const float* s_up,
+                          const int8_t* down, const float* s_down, float* part, int* counters,
+                          float* out, int8_t* xq_out, float* xs_out, int8_t* hq_out,
+                          float* hs_out, int R, int H, int I, int chunk, float eps,
+                          cudaStream_t stream) {
+    if (R < 1 || R > MAX_R || H < 128 || H % 128 || chunk < 128 || chunk % 128 || I <= 0 ||
+        I % chunk)
         return static_cast<int>(cudaErrorInvalidValue);
-    const float inv_h = 1.0f / static_cast<float>(H);
-    fused_mlp_prologue_kernel<<<R, PRO_THREADS, 0, stream>>>(x, g, xq, xs, H, inv_h, eps);
-    cudaError_t e = cudaGetLastError();
+    // xq in shared memory where it fits beside the rest (+ the static arrays), else XG
+    const bool xg = smem_bytes(H, chunk, false) + 2048 > (size_t)SMEM_LIMIT;
+    const size_t need = smem_bytes(H, chunk, xg);
+    if (need + 2048 > (size_t)SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = need > (size_t)SMEM_ONE_CTA ? need : (size_t)SMEM_ONE_CTA;
+    const auto kernel = xg ? fused_mlp_int8_kernel<true> : fused_mlp_int8_kernel<false>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    switch (R) {
-#define ROWS_CASE(N)                                                                     \
-        case N:                                                                          \
-            e = launch_rows<N>(xq, xs, gate_t, s_gate, up_t, s_up, down, s_down, x, hmid, \
-                               hq, hs, acc, out, H, I, chunk, ksplit, stream);           \
-            break;
-        ROWS_CASE(1) ROWS_CASE(2) ROWS_CASE(3) ROWS_CASE(4)
-        ROWS_CASE(5) ROWS_CASE(6) ROWS_CASE(7) ROWS_CASE(8)
-#undef ROWS_CASE
-    }
-    return static_cast<int>(e);
+    const float inv_h = 1.0f / static_cast<float>(H);
+    kernel<<<dim3(CLUSTER, I / chunk), THREADS, smem, stream>>>(
+        x, g, gate_t, s_gate, up_t, s_up, down, s_down, part, counters, out, xq_out, xs_out,
+        hq_out, hs_out, R, H, I, chunk, inv_h, eps);
+    return static_cast<int>(cudaGetLastError());
 }
+
+}  // extern "C"

@@ -15,11 +15,12 @@ softmax, f32 sums, and exact zeros for a batch row with no valid slot.
 ``csrc/decode_attention_int8.cu``: two launches over S cut into chunks by
 :func:`split_plan` (``decode_attention_int8_scores_kernel``, then
 ``decode_attention_int8_pv_kernel``), for every shape ``crs_tpu``'s gate
-sends to its kernel: hd a multiple of 128 up to 512, any number of query
-heads per kv-head (padded with zero heads to a built count), any S a
-multiple of 128. On a CUDA tensor it launches them or raises; on a CPU tensor it runs :func:`emulate_decode_attention_int8`, the
-plain torch version beside it (a literal mirror of ``crs_tpu``'s
-emulation). There is no ``mesh`` argument: multi-device serving is not
+sends to its kernel: any hd a multiple of 128 (past 512 the kernel reads
+a row in 512-byte segments), any number of query heads per kv-head (padded
+with zero heads to a built count), any S a multiple of 128. On a CUDA
+tensor it launches them or raises; on a CPU tensor it runs
+:func:`emulate_decode_attention_int8`, the plain torch version beside it (a
+literal mirror of ``crs_tpu``'s emulation). There is no ``mesh`` argument: multi-device serving is not
 ported yet.
 """
 
@@ -37,8 +38,8 @@ from .launch import ARG_FLOAT, ARG_INT, ARG_PTR, KernelStats, check_operands, la
 
 __all__ = [
     "STATS", "quantize_kv_rows", "decode_attention_supported", "decode_attention_int8",
-    "emulate_decode_attention_int8", "split_plan", "launch_groups", "KERNEL_HEAD_DIMS",
-    "KERNEL_GROUPS", "ROWS_PER_STEP", "MAX_CHUNK_ROWS", "MAX_CHUNKS",
+    "emulate_decode_attention_int8", "split_plan", "launch_groups", "KERNEL_GROUPS",
+    "ROWS_PER_STEP", "MAX_CHUNK_ROWS", "MAX_CHUNKS",
 ]
 
 NEG_INF = -1e30
@@ -46,7 +47,6 @@ STATS = KernelStats()
 
 _SOURCE = "decode_attention_int8.cu"
 _LAUNCHER = "decode_attention_int8_launch"
-KERNEL_HEAD_DIMS = (128, 256, 384, 512)  # the head dims the CUDA kernel is built for
 # query heads per kv-head the kernel is built for (ascending); a launch with
 # more runs slices of the last along the grid
 KERNEL_GROUPS = (1, 2, 4, 8)
@@ -146,10 +146,9 @@ def decode_attention_int8(
         raise ValueError("q must be [B, Hkv, G, hd] and the codes [B, Hkv, S, hd]")
     b, hkv, g, hd = q.shape
     s = k_codes.shape[2]
-    if hd not in KERNEL_HEAD_DIMS or g < 1 or s < 128 or s % 128:
-        raise ValueError(f"the kernel takes head_dim in {KERNEL_HEAD_DIMS}, at least one query "
-                         f"head per kv-head and S a positive multiple of 128; got hd {hd}, "
-                         f"G {g}, S {s}")
+    if not decode_attention_supported(hd, s) or hd < 128 or s < 128 or g < 1:
+        raise ValueError(f"the kernel takes head_dim and S positive multiples of 128 and at "
+                         f"least one query head per kv-head; got hd {hd}, G {g}, S {s}")
     for name, t, shape in (("k_codes", k_codes, (b, hkv, s, hd)), ("v_codes", v_codes, (b, hkv, s, hd)),
                            ("k_scales", k_scales, (b, hkv, s)), ("v_scales", v_scales, (b, hkv, s)),
                            ("valid", valid, (b, s))):

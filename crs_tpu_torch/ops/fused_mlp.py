@@ -16,9 +16,10 @@ int8 with their per-I scales as [I / chunk, chunk]; down in its stored
 [I, H] layout with per-H scales.
 
 :func:`fused_mlp_int8` is the wrapper of the CUDA kernel in
-``csrc/fused_mlp_int8.cu``. On a CUDA tensor it launches the kernel or
-raises; on a CPU tensor it runs :func:`emulate_fused_mlp_int8`, the plain
-torch version beside it. Both can return the int8 codes and scales they
+``csrc/fused_mlp_int8.cu``: one launch a call, a thread-block cluster of 8
+CTAs per chunk of I. On a CUDA tensor it launches the kernel or raises; on
+a CPU tensor it runs :func:`emulate_fused_mlp_int8`, the plain torch version
+beside it. Both can return the int8 codes and scales they
 formed (``return_codes``), which is how the card's check holds one against
 the other: XLA, torch and the kernel each sum the squares and evaluate
 ``exp`` their own way, so a last-ulp difference in ``xs`` or ``hs`` can move
@@ -33,12 +34,12 @@ import numpy as np
 import torch
 
 from .launch import ARG_FLOAT, ARG_INT, ARG_PTR, KernelStats, check_operands, launch, \
-    load_library, stream_handle
+    load_library, scratch, stream_handle
 from .quant import int8_product
 
 __all__ = [
     "STATS", "FusedMLPCodes", "fused_mlp_supported", "fused_mlp_layout", "fused_mlp_int8",
-    "emulate_fused_mlp_int8", "down_splits", "MAX_ROWS",
+    "emulate_fused_mlp_int8", "MAX_ROWS", "CLUSTER",
 ]
 
 STATS = KernelStats()
@@ -47,13 +48,7 @@ MAX_ROWS = 8  # decode-sized rows: the Pallas kernel's padded row tile
 _SOURCE = "fused_mlp_int8.cu"
 _LAUNCHER = "fused_mlp_int8_launch"
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))  # XLA's x / 127 under jit
-_DOWN_SLICE = 256  # rows of a chunk one CUDA block of the down product sums
-
-
-def down_splits(chunk: int) -> int:
-    """Slices of a chunk's rows in the kernel's down product: each CUDA
-    block writes its own int32 partial, and the epilogue adds them (exact)."""
-    return chunk // _DOWN_SLICE if chunk % _DOWN_SLICE == 0 else 1
+CLUSTER = 8  # CTAs of one chunk's thread-block cluster (csrc/fused_mlp_int8.cu)
 
 
 class FusedMLPCodes(NamedTuple):
@@ -130,7 +125,7 @@ def emulate_fused_mlp_int8(x, norm_scale, gate_t, s_gate2, up_t, s_up2, down, s_
 
 
 def _load():
-    return load_library(_SOURCE, {_LAUNCHER: [ARG_PTR] * 15 + [ARG_INT] * 5 + [ARG_FLOAT]
+    return load_library(_SOURCE, {_LAUNCHER: [ARG_PTR] * 15 + [ARG_INT] * 4 + [ARG_FLOAT]
                                   + [ARG_PTR]})
 
 
@@ -166,19 +161,24 @@ def fused_mlp_int8(x, norm_scale, gate_t, s_gate2, up_t, s_up2, down, s_down,
                    ("gate_t", gate_t, torch.int8), ("s_gate2", s_gate2, torch.float32),
                    ("up_t", up_t, torch.int8), ("s_up2", s_up2, torch.float32),
                    ("down", down, torch.int8), ("s_down", s_down, torch.float32))
+    stream = stream_handle(dev)
+    # each chunk's term of y (f32, [chunks, B, H]) and the ranks' counters,
+    # which the last CTA of each rank reads and resets
+    part = scratch(dev, stream, "mlp_part", nchunks * b * h, torch.float32)
+    counters = scratch(dev, stream, "mlp_counters", CLUSTER, torch.int32, zero=True)
     out = torch.empty((b, h), dtype=torch.float32, device=dev)
-    xq = torch.empty((b, h), dtype=torch.int8, device=dev)
-    xs = torch.empty((b,), dtype=torch.float32, device=dev)
-    hmid = torch.empty((b, inter), dtype=torch.float32, device=dev)
-    hq = torch.empty((b, inter), dtype=torch.int8, device=dev)
-    hs = torch.empty((b, nchunks), dtype=torch.float32, device=dev)
-    ksplit = down_splits(chunk)
-    acc = torch.empty((ksplit, nchunks, b, h), dtype=torch.int32, device=dev)
+    codes = None
+    if return_codes:
+        codes = FusedMLPCodes(torch.empty((b, h), dtype=torch.int8, device=dev),
+                              torch.empty((b,), dtype=torch.float32, device=dev),
+                              torch.empty((b, inter), dtype=torch.int8, device=dev),
+                              torch.empty((b, nchunks), dtype=torch.float32, device=dev))
+    code_ptrs = [t.data_ptr() for t in codes] if codes else [None] * 4
     launch(STATS, "fused_mlp_int8", getattr(_load(), _LAUNCHER),
            xf.data_ptr(), gf.data_ptr(), gate_t.data_ptr(), s_gate2.data_ptr(), up_t.data_ptr(),
-           s_up2.data_ptr(), down.data_ptr(), s_down.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-           hmid.data_ptr(), hq.data_ptr(), hs.data_ptr(), acc.data_ptr(), out.data_ptr(),
-           b, h, inter, chunk, ksplit, float(eps), stream_handle(dev))
+           s_up2.data_ptr(), down.data_ptr(), s_down.data_ptr(), part.data_ptr(),
+           counters.data_ptr(), out.data_ptr(), *code_ptrs, b, h, inter, chunk, float(eps),
+           stream)
     if return_codes:
-        return out, FusedMLPCodes(xq, xs, hq, hs)
+        return out, codes
     return out

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,7 +63,8 @@ __all__ = [
     "block_topk_adc", "block_topk_adc_plain", "block_topk_adc_sorted",
     "block_topk_adc_sorted_plain", "block_topk_segmax", "block_topk_segmax_plain",
     "block_topk_segmax_int8", "block_topk_segmax_int8_plain", "adc_tables",
-    "adc_auto_group", "adc_kernel_plan", "plan_sorted_coarse_windows", "build_kernels",
+    "adc_auto_group", "adc_layout", "AdcPlan", "adc_grid_x",
+    "plan_sorted_coarse_windows", "build_kernels",
 ]
 
 # Kernel 1's tile: BLOCK_ROWS corpus rows × QUERY_TILE queries per CUDA
@@ -114,9 +115,9 @@ _KERNELS = {
     "int8_scan_topk": ("int8_scan_topk.cu", [_P] * 6 + [_I] * 4 + [_P]),
     "scan_topk_f32": ("scan_topk_f32_bf16.cu", [_P] * 5 + [_I] * 5 + [_P]),
     "scan_topk_bf16": ("scan_topk_f32_bf16.cu", [_P] * 5 + [_I] * 5 + [_P]),
-    "adc_scan_topk_residual": ("pq_adc_scan_topk.cu", [_P] * 6 + [_I] * 8 + [_P]),
-    "adc_scan_topk_plain": ("pq_adc_scan_topk.cu", [_P] * 6 + [_I] * 8 + [_P]),
-    "adc_scan_topk_sorted": ("pq_adc_scan_topk.cu", [_P] * 7 + [_I] * 9 + [_P]),
+    "adc_scan_topk_residual": ("pq_adc_scan_topk.cu", [_P] * 6 + [_I] * 11 + [_P]),
+    "adc_scan_topk_plain": ("pq_adc_scan_topk.cu", [_P] * 6 + [_I] * 11 + [_P]),
+    "adc_scan_topk_sorted": ("pq_adc_scan_topk.cu", [_P] * 7 + [_I] * 12 + [_P]),
     "segmax_scan_topk_f32": ("segmax_scan_topk.cu", [_P] * 6 + [_I] * 6 + [_P]),
     "segmax_scan_topk_bf16": ("segmax_scan_topk.cu", [_P] * 6 + [_I] * 6 + [_P]),
     "segmax_scan_topk_int8": ("segmax_scan_topk.cu", [_P] * 6 + [_I] * 6 + [_P]),
@@ -401,24 +402,76 @@ def block_topk_adc_plain(
                              codes.device)
 
 
+def adc_grid_x(nblocks: int, nq: int, sms: int) -> int:
+    """CUDA blocks along the corpus for the ADC kernels: about 8 per SM over
+    all query tiles, each walking ⌈nblocks / grid_x⌉ corpus blocks with its
+    query tile's LUT loaded into shared memory once; of the counts from half
+    to twice that, the one whose waves of ``sms`` CUDA blocks are fullest,
+    the nearest to it on a tie (41 query tiles × 1,024 blocks on 132 SMs:
+    32, ten waves 99 % full, against 26's nine waves, the last 8 % full)."""
+    base = max(1, min(nblocks, -(-8 * sms // max(nq, 1))))
+    best, best_eff = base, 0.0
+    for gx in range(max(1, base // 2), min(nblocks, 2 * base) + 1):
+        per = -(-nblocks // gx)
+        waves = -(-(-(-nblocks // per)) * nq // sms)
+        eff = nblocks * nq / (waves * sms * per)
+        if eff > best_eff + 1e-9 or (eff > best_eff - 1e-9 and abs(gx - base) < abs(best - base)):
+            best, best_eff = gx, eff
+    return best
+
+
 def _adc_grid_x(nblocks: int, nq: int, dev) -> int:
-    """CUDA blocks along the corpus: enough for ~8 per SM over all query
-    tiles, each walking ⌈nblocks / grid_x⌉ corpus blocks with its query
-    tile's LUT loaded into shared memory once."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(nblocks, -(-8 * sms // max(nq, 1))))
+    return adc_grid_x(nblocks, nq, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
-def adc_kernel_plan(m_sub: int, k_clusters: int, residual: bool) -> Tuple[int, int, int]:
-    """How the ADC kernels' CUDA block takes M subspaces of K clusters (from
-    the built library): (queries per block — 8, or 4, 2, 1 when the tile's
-    LUTs do not fit beside a chunk —, subspaces staged at a time — M, or
-    fewer when even one query's LUTs do not fit —, shared memory bytes)."""
-    fn = _load_kernel_lib("pq_adc_scan_topk.cu").adc_scan_topk_plan
-    fn.restype = ctypes.c_int
-    qt, ms = ctypes.c_int(), ctypes.c_int()
-    smem = fn(int(residual), m_sub, k_clusters, ctypes.byref(qt), ctypes.byref(ms))
-    return qt.value, ms.value, smem
+class AdcPlan(NamedTuple):
+    """How the ADC kernels' CUDA block takes M subspaces of K clusters."""
+
+    queries: int  # queries a CUDA block scores: 8, or 4, 2, 1 when the tile's LUTs do not fit
+    subspaces: int  # subspaces staged at a time: M, or fewer past one query's LUTs
+    smem: int  # dynamic shared memory, bytes
+    skewed: bool  # the main path: the skewed, conflict-free LUT layout (M ≤ 48 at K = 256)
+
+
+ADC_SMEM_LIMIT = 232448  # shared memory one CUDA block may use
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def adc_layout(m_sub: int, k_clusters: int, residual: bool) -> AdcPlan:
+    """The ADC kernels' plan for M subspaces of K clusters, which the
+    wrappers pass to ``csrc/pq_adc_scan_topk.cu`` (the launcher only checks
+    that it fits): the skewed main path when the 8 queries' LUTs padded to a
+    multiple of 8 subspaces, two chunks' codes and the scores fit; else the
+    most queries whose LUTs fit beside one chunk's codes and scores; else 8
+    queries with the LUTs staged in slices. ``queries`` 0: none fits."""
+    cols = m_sub + (2 if residual else 0)
+    skew = (128 + -(-m_sub // 8) * 8 * k_clusters * 16 + 2 * _round16(CHUNK_ROWS * cols)
+            + ADC_QUERY_TILE * CHUNK_ROWS * 4)
+    if skew <= ADC_SMEM_LIMIT:
+        return AdcPlan(ADC_QUERY_TILE, m_sub, skew, True)
+
+    def smem(qt, ms):
+        staged = CHUNK_ROWS * (cols if ms == m_sub else ms)
+        return qt * ms * k_clusters * 2 + _round16(staged) + qt * CHUNK_ROWS * 4
+
+    qt = ADC_QUERY_TILE
+    while qt >= 1:
+        if smem(qt, m_sub) <= ADC_SMEM_LIMIT:
+            return AdcPlan(qt, m_sub, smem(qt, m_sub), False)
+        qt //= 2
+    for ms in range(m_sub - 1, 0, -1):
+        if smem(ADC_QUERY_TILE, ms) <= ADC_SMEM_LIMIT:
+            return AdcPlan(ADC_QUERY_TILE, ms, smem(ADC_QUERY_TILE, ms), False)
+    return AdcPlan(0, 0, 0, False)
+
+
+def _plan_args(m_sub: int, k_clusters: int, residual: bool) -> Tuple[int, int, int]:
+    """:func:`adc_layout` as the launchers take it: (qt, ms, skew)."""
+    plan = adc_layout(m_sub, k_clusters, residual)
+    return plan.queries, plan.subspaces, int(plan.skewed)
 
 
 def _adc_kernel_operands(lut_bf, codes, bias, kb: int, block_size: int, coarse_hi, coarse_lo,
@@ -478,7 +531,7 @@ def block_topk_adc(
     _launch(kernel, "pq_adc_scan_topk.cu", lut_k.data_ptr(), hilo.data_ptr(), codes.data_ptr(),
             bias.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), nq, nblocks, block_size,
             _adc_grid_x(nblocks, nq, dev), m_sub, k_clusters, num_coarse, kb,
-            _stream_handle(dev))
+            *_plan_args(m_sub, k_clusters, coarse_hi is not None), _stream_handle(dev))
     return out_s, out_i
 
 
@@ -557,7 +610,8 @@ def block_topk_adc_sorted(
     _launch("adc_scan_topk_sorted", "pq_adc_scan_topk.cu", lut_k.data_ptr(), hilo.data_ptr(),
             codes.data_ptr(), bias.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
             wbase.data_ptr(), nq, nblocks, block_size, _adc_grid_x(nblocks, nq, dev), m_sub,
-            k_clusters, width, kb, group, _stream_handle(dev))
+            k_clusters, width, kb, group, *_plan_args(m_sub, k_clusters, True),
+            _stream_handle(dev))
     return out_s, out_i
 
 

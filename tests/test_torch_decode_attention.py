@@ -118,14 +118,19 @@ def test_emulation_matches_crs_tpu_emulation_on_unaligned_dims():
 
 def _chunked_mirror(q, kc, ks, vc, vs, valid, rows):
     """Kernel 10's arithmetic over chunks of ``rows`` slots, in plain torch:
-    each chunk's scores, m_c and l_c = Σ exp(s − m_c); then m = max m_c,
-    l = Σ_c l_c·exp(m_c − m) in chunk order, p = bf16((exp(s − m) / l)·v_scale)
-    and the chunks' partial ctx added in chunk order; zero rows with no valid
-    slot (the wrapper's gate)."""
+    each chunk's scores (past hd 512 a row's q·k as the sum of its 512-wide
+    segments' dots, in segment order), m_c and l_c = Σ exp(s − m_c); then
+    m = max m_c, l = Σ_c l_c·exp(m_c − m) in chunk order, p = bf16((exp(s −
+    m) / l)·v_scale) and the chunks' partial ctx added in chunk order; zero
+    rows with no valid slot (the wrapper's gate)."""
     hd, s = q.shape[-1], kc.shape[2]
     scale = float(np.float32(1.0 / np.sqrt(hd)))
     bias = torch.where(valid != 0, 0.0, -1e30).float()[:, None, None, :]
-    dots = torch.einsum("bhgd,bhsd->bhgs", q.bfloat16().float(), kc.float())
+    seg = hd if hd <= 512 else 512
+    dots = torch.zeros(q.shape[:3] + (s,), dtype=torch.float32)
+    for c0 in range(0, hd, seg):
+        dots = dots + torch.einsum("bhgd,bhsd->bhgs", q[..., c0:c0 + seg].bfloat16().float(),
+                                   kc[..., c0:c0 + seg].float())
     sc = dots * (ks * scale)[:, :, None, :] + bias
     bounds = [(c, min(s, c + rows)) for c in range(0, s, rows)]
     m_c = torch.stack([sc[..., a:b].amax(-1) for a, b in bounds], -1)
@@ -182,6 +187,32 @@ def test_chunked_mirror_matches_pallas(g, rows):
     assert np.all(np.abs(got.numpy() - ref) <= tol.numpy())
     assert not got[1].any() and not np.asarray(ref)[1].any()
     assert got[0].abs().sum() > 0 and got[2].abs().sum() > 0
+
+
+@pytest.mark.parametrize("hd", [640, 1024])
+def test_head_dims_past_512_match_pallas(hd):
+    """Past hd 512 (the kernel reads a row in 512-byte segments): the port's
+    decode attention on the CPU (the plain version) and the segmented,
+    chunked mirror of the kernel's arithmetic agree with crs_tpu's Pallas
+    kernel in interpret mode, a batch row with no valid slot included."""
+    from crs_tpu.ops import decode_attention as jd
+
+    from crs_tpu_torch.ops import decode_attention as td
+
+    q, kc, ks, vc, vs, valid = _case(hd, 2, 2, 2, 256, hd=hd)
+    assert jd.decode_attention_supported(hd, 256) and td.decode_attention_supported(hd, 256)
+    ref = np.asarray(jd.decode_attention_int8(jnp.asarray(q), kc, ks, vc, vs, jnp.asarray(valid)))
+    ops = [torch.from_numpy(np.array(a)) for a in (q, kc, ks, vc, vs, valid)]
+    qb = ops[0].bfloat16().float()
+    sc = torch.einsum("bhgd,bhsd->bhgs", qb, ops[1].float()) * ops[2][:, :, None, :] / hd ** 0.5
+    sc = torch.where(ops[5][:, None, None, :], sc, -1e30)
+    terms = (torch.softmax(sc, -1) * ops[4][:, :, None, :]).abs()[..., None] \
+        * ops[3].float().abs()[:, :, None]
+    tol = SUM_RTOL * terms.sum(3) + 2 ** -8 * terms.amax(3) + 1e-6
+    for got in (td.decode_attention_int8(*ops), _chunked_mirror(*ops, 96)):
+        assert got.shape == (2, 2, 2, hd)
+        assert np.all(np.abs(got.numpy() - ref) <= tol.numpy())
+        assert not got[1].any() and not np.asarray(ref)[1].any()
 
 
 @pytest.mark.parametrize("bh", [1, 8, 16, 24, 64, 256])

@@ -9,8 +9,9 @@ the port routes exactly as ``crs_tpu`` does.
   subspaces, when a tile's tables do not fit in shared memory).
 - q4 / NF4 groups off the kernel's 16-row step are taken by the kernel
   itself (``tests/test_torch_qgemm.py`` and ``test_torch_guard.py``).
-- Decode attention: head dims 128 to 512, any number of query heads per
-  kv-head (zero heads padded to a built count, ``launch_groups``), any S.
+- Decode attention: every head dim a multiple of 128 (past 512 the kernel
+  reads a row in 512-byte segments), any number of query heads per kv-head
+  (zero heads padded to a built count, ``launch_groups``), any S.
 
 The wrappers are held with the guard's patched launchers (meta tensors, no
 card). The stores run on the CPU with the kernel route forced (``_scan_here``
@@ -124,16 +125,84 @@ def test_adc_kernels_take_every_table(fake_scans, m, k, coarse):
     assert ok == (not residual or coarse <= 65536)
     assert len(lib.calls) == int(ok)
     if ok:
+        plan = scan.adc_layout(m, k, residual)
         assert lib.calls[0][1][10:12] == (m, k)
+        assert lib.calls[0][1][14:17] == (plan.queries, plan.subspaces, int(plan.skewed))
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256, 512])
+@pytest.mark.parametrize("k", [16, 256])
+@pytest.mark.parametrize("residual", [True, False])
+def test_adc_plan_takes_the_skewed_main_path_where_it_fits(fake_scans, k, residual):
+    """``adc_layout`` is the one plan of the ADC kernels, and the launchers
+    get it as it is (qt, ms, skew; the launcher checks that it fits): the
+    skewed main path (8 queries, all M) wherever it fits in a CUDA block's
+    shared memory, M ≤ 48 at K = 256; then 8 queries unskewed (M 49–51),
+    fewer queries, or LUT slices. Every M gets a plan that fits; the
+    sorted launcher gets the residual plan."""
+    from crs_tpu_torch.ops.scan import ADC_QUERY_TILE, ADC_SMEM_LIMIT, adc_layout
+
+    scan, lib = fake_scans
+    for m in range(1, 400):
+        p = adc_layout(m, k, residual)
+        assert 0 < p.smem <= ADC_SMEM_LIMIT and p.queries in (1, 2, 4, 8)
+        assert 1 <= p.subspaces <= m and (p.subspaces == m or p.queries == ADC_QUERY_TILE)
+        assert not p.skewed or (p.queries, p.subspaces) == (ADC_QUERY_TILE, m)
+    if k == 256:
+        assert all(adc_layout(m, k, residual).skewed for m in range(1, 49))
+        assert [adc_layout(m, k, residual)[:2] for m in (49, 50, 51, 52)] == \
+            [(8, 49), (8, 50), (8, 51), (4, 52)]
+        assert adc_layout(320, k, residual)[:2] == (8, 51)
+    else:
+        assert adc_layout(256, k, residual).skewed and not adc_layout(399, k, residual).skewed
+    for m in (8, 48, 49, 52, 320):
+        p = adc_layout(m, k, residual)
+        want = (p.queries, p.subspaces, int(p.skewed))
+        cols = m + (2 if residual else 0)
+        extra = [_meta((8, 512), torch.bfloat16)] * 2 if residual else []
+        scan.block_topk_adc(_meta((8, m, k), torch.bfloat16), _meta((1024, cols), torch.uint8),
+                            _meta((1024,)), 3, 512, *extra)
+        assert lib.calls[-1][0] == ("adc_scan_topk_residual_launch" if residual
+                                    else "adc_scan_topk_plain_launch")
+        assert lib.calls[-1][1][14:17] == want
+        if residual:
+            scan.block_topk_adc_sorted(_meta((8, m, k), torch.bfloat16),
+                                       _meta((1024, cols), torch.uint8), _meta((1024,)), 3, 512,
+                                       _meta((8, 768), torch.bfloat16),
+                                       _meta((8, 768), torch.bfloat16),
+                                       _meta((2,), torch.int32), 1)
+            assert lib.calls[-1][0] == "adc_scan_topk_sorted_launch"
+            assert lib.calls[-1][1][16:19] == want
+
+
+@pytest.mark.parametrize("nq", [1, 2, 5, 16, 41, 64])
+@pytest.mark.parametrize("nblocks", [1, 4, 8, 1024, 1088])
+def test_adc_grid_fills_the_waves(nq, nblocks):
+    """``adc_grid_x``: a count of CUDA blocks along the corpus within [1,
+    nblocks], near 8 per SM over the query tiles, whose waves on 132 SMs
+    are at least as full as the old rule's (⌈8·132 / nq⌉), and 99 % full at
+    the main shape (41 tiles × 1,024 blocks)."""
+    from crs_tpu_torch.ops.scan import adc_grid_x
+
+    def fill(gx):
+        per = -(-nblocks // gx)
+        return nblocks * nq / (-(-(-(-nblocks // per)) * nq // 132) * 132 * per)
+
+    base = max(1, min(nblocks, -(-8 * 132 // nq)))
+    gx = adc_grid_x(nblocks, nq, 132)
+    assert 1 <= gx <= nblocks and base // 2 <= gx <= 2 * base
+    assert fill(gx) >= fill(base)
+    if (nq, nblocks) == (41, 1024):
+        assert gx == 32 and fill(gx) > 0.99
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256, 512, 640, 1024])
 @pytest.mark.parametrize("g", [1, 2, 3, 5, 6, 7, 8, 9, 16])
 @pytest.mark.parametrize("s", [128, 2176, 131072, 131200])
 def test_kernel_10_takes_every_gated_shape(monkeypatch, hd, g, s):
     """The wrapper launches wherever ``crs_tpu``'s gate sends a step to its
-    kernel (hd and S multiples of 128; hd up to 512), with G's heads padded
-    to ``launch_groups(G)``, and returns G heads."""
+    kernel (hd and S multiples of 128, hd past 512 included), with G's heads
+    padded to ``launch_groups(G)``, and returns G heads; the launch carries
+    the head dim."""
     from crs_tpu_torch.ops import decode_attention as da
 
     lib = _FakeKernels()
@@ -281,10 +350,11 @@ def test_padded_query_heads_leave_the_real_ones_exact(g):
 
 
 @pytest.mark.parametrize("heads,kv_heads,hd", [(3, 1, 128), (6, 2, 128), (9, 1, 128),
-                                               (16, 1, 128), (4, 2, 256)])
+                                               (16, 1, 128), (4, 2, 256), (4, 2, 640)])
 def test_transformer_takes_the_kernel_where_crs_tpu_does(monkeypatch, heads, kv_heads, hd):
     """The int8-KV decode step calls the kernel's wrapper wherever
-    ``crs_tpu``'s gate holds (hd and S 128-aligned), at any G and at hd 256."""
+    ``crs_tpu``'s gate holds (hd and S 128-aligned), at any G and at hd 256
+    and 640."""
     from crs_tpu_torch.models import transformer as tr
 
     calls = []

@@ -750,9 +750,64 @@ def test_fused_mlp_wrapper_counts_a_launch(fake_mlp_kernel, monkeypatch, chunk):
     assert out.shape == (3, 256) and out.dtype == torch.float32
     assert codes.hq.shape == (3, 512) and codes.hs.shape == (3, 512 // chunk)
     args = lib.calls[0][1]
-    r, h, inter, ck, ksplit = args[15:20]
-    assert (r, h, inter, ck) == (3, 256, 512, chunk)
-    assert ksplit == fake_mlp_kernel.down_splits(chunk) and chunk % ksplit == 0
+    assert args[15:19] == (3, 256, 512, chunk)
+    assert all(p is not None for p in args[11:15])  # the codes' buffers
+
+
+@pytest.mark.parametrize("b", range(1, 9))
+def test_fused_mlp_is_one_launch_on_what_the_kernel_reads(fake_mlp_kernel, monkeypatch, b):
+    """One launch a call at every row count: the operands, the chunks' terms
+    of y ([chunks, B, H] f32) and the 8 ranks' counters (zeroed once) are all
+    it is given; the codes' buffers only with ``return_codes``."""
+    lib = _FakeKernels(0)
+    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: lib)
+    asked = []
+    real = fake_mlp_kernel.scratch
+    monkeypatch.setattr(fake_mlp_kernel, "scratch",
+                        lambda dev, stream, name, numel, dtype, zero=False:
+                        asked.append((name, numel, dtype, zero))
+                        or real(dev, stream, name, numel, dtype, zero))
+    h, inter, chunk = 256, 512, 128
+    fake_mlp_kernel.STATS.reset()
+    out = fake_mlp_kernel.fused_mlp_int8(*_mlp_operands(b=b, h=h, inter=inter, chunk=chunk),
+                                         chunk=chunk)
+    assert out.shape == (b, h)
+    assert fake_mlp_kernel.STATS.by_kernel == {"fused_mlp_int8": 1}
+    assert [c[0] for c in lib.calls] == ["fused_mlp_int8_launch"]
+    args = lib.calls[0][1]
+    assert len(args) == 21 and args[15:19] == (b, h, inter, chunk)
+    assert args[11:15] == (None,) * 4  # no codes asked for: none written
+    assert asked == [("mlp_part", inter // chunk * b * h, torch.float32, False),
+                     ("mlp_counters", fake_mlp_kernel.CLUSTER, torch.int32, True)]
+
+
+@pytest.mark.parametrize("h", [4096, 16384, 27136, 28672, 32768])
+@pytest.mark.parametrize("b", [1, 8])
+def test_fused_mlp_launches_every_gated_width(fake_mlp_kernel, monkeypatch, h, b):
+    """Every H % 128 that ``fused_mlp_supported`` admits reaches the one
+    launch, past H 27,136 too, where the kernel keeps xq's rows in the first
+    B·H bytes of the chunk's [B, H] f32 slab of the terms' buffer instead of
+    shared memory (``chip_smoke.py``'s faults phase runs those widths on the
+    card)."""
+    from crs_tpu_torch.ops.fused_mlp import fused_mlp_supported
+
+    lib = _FakeKernels(0)
+    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: lib)
+    asked = {}
+    real = fake_mlp_kernel.scratch
+    monkeypatch.setattr(fake_mlp_kernel, "scratch",
+                        lambda dev, stream, name, numel, dtype, zero=False:
+                        asked.setdefault(name, (numel, dtype))
+                        and real(dev, stream, name, numel, dtype, zero))
+    inter, chunk = 2048, 1024
+    assert fused_mlp_supported(b, h, inter, chunk)
+    out = fake_mlp_kernel.fused_mlp_int8(*_mlp_operands(b=b, h=h, inter=inter, chunk=chunk),
+                                         chunk=chunk)
+    assert out.shape == (b, h)
+    assert [c[0] for c in lib.calls] == ["fused_mlp_int8_launch"]
+    assert lib.calls[0][1][15:19] == (b, h, inter, chunk)
+    numel, dtype = asked["mlp_part"]
+    assert dtype == torch.float32 and numel == inter // chunk * b * h  # a slab of B·H f32 a chunk
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rows", "hidden", "chunk", "shape", "contiguous"])
