@@ -9,10 +9,18 @@ the largest difference); any failure raises and exits non-zero:
 1. build              — compile the seven CUDA sources (nvcc, sm_90a) and the
                         native featurizer (g++), all at once, from the sources here;
 2. kernel             — the int8 scan kernel against its plain torch version:
-                        (a) 1,048,576 × 384 random unit vectors, 328 queries, k = 64;
+                        (a) 1,048,576 × 384 random unit vectors, 328 queries, k = 64,
+                            the main path's 256-row blocks; the kernel, its
+                            dequantize + matmul + topk composition and its
+                            torch._int_mm (cuBLAS int8) + topk composition timed
+                            in turns, plain ms, bound; first a line with each
+                            instantiation's registers, spills and shared memory;
                         (b) a clustered corpus with kb = 2 that forces targeted
                             repairs and the over-budget exact fallback;
                         (c) padding (valid_n < N), a `where` row mask and exact ties;
+                        (d) INT8_EDGE_CASES (ragged D by 4-byte and byte offsets,
+                            D past one query slice, kb = 32) and a corpus of one
+                            repeated vector;
 3. kernel_f32_bf16    — the float scan kernel (fp32 and bf16) against its plain
                         version at 1,048,576 × 384, B = 328 (scores within
                         rtol·(1+|s|), rtol 1e-5 fp32 / 1e-2 bf16; ids equal where
@@ -40,7 +48,8 @@ the largest difference); any failure raises and exits non-zero:
                         for bit), the tiling's edge cases at small sizes (valid_n
                         inside a segment, blocks past it, odd query tiles, D = 32,
                         160, 512, 4096, blocks of 256 and 4096, exact ties), each
-                        kernel and its library composition timed in turns,
+                        kernel and its library composition timed in turns
+                        (int8: also torch._int_mm + segment max + topk),
                         through scan_topk_segmax / _int8 (counted), and recall@10
                         against the exact f32 top-10; first a line with each
                         instantiation's registers, spills and shared memory;
@@ -75,8 +84,10 @@ the largest difference); any failure raises and exits non-zero:
                         step, logits against the plain versions); int8-KV
                         decode steps at G 3, G 12, hd 256 and hd 640 against
                         the CPU, kernel 10 at hd 384 / 512 / 640 / 1024, G 16,
-                        S 139,264; the cost
-                        of a ragged D at 1M rows;
+                        S 139,264; kernel 11 at chunks 64, 96, 40, 16,512 and
+                        24,576; kernels 6 and 7 at D 40 / 100 / 4,104 and blocks
+                        of 384, 8,192 and 16,384 rows; kernel 1 at blocks of 512
+                        to 8,192 rows; the cost of a ragged D at 1M rows;
 11. bench             — the bench.py slice on the held-out corpus: chunk, hashed
                         encoder, int8 store, retrieve_batch_fused over 328 queries,
                         checked against the standard (host-rerank) retrieve;
@@ -156,6 +167,7 @@ BENCH_CHUNKER = {"strategy": "semantic", "chunk_size": 160, "chunk_overlap": 30,
 BENCH_RETRIEVER = {"top_k": 3, "similarity_threshold": 0.05, "rerank": True,
                    "diversity_penalty": 0.1}
 BENCH_STORE = {"format": "int8", "block_size": 256, "rescore_k": 64}
+INT8_BLOCK = BENCH_STORE["block_size"]  # kernel 1's block on the main path (`full`)
 
 # config.json's vector_store values (rag.vector_store) for the formats phase
 CONFIG_STORE = {"block_size": 1024, "rescore_k": 64, "pq_subspaces": 48, "pq_clusters": 256,
@@ -185,6 +197,7 @@ PEAK_BF16_OPS_PER_S = 989e12
 H100_SMS, H100_CLOCK_HZ = 132, 1.98e9
 # a lone f32 add (the ADC kernels' work) takes a lane for a clock: half the FMA-counting peak
 PEAK_F32_ADDS_PER_S = H100_SMS * 128 * H100_CLOCK_HZ
+SMEM_LIMIT = 232448  # shared memory one CTA may use (227 KB)
 
 
 def emit(obj) -> None:
@@ -312,18 +325,19 @@ def clustered_case(rng, n: int, d: int, b: int, hot: int = 50):
     return base, q
 
 
-def partial_inputs(codes, scales, queries, valid_n, row_mask=None):
-    """The kernel's operands as ``scan_topk_int8`` builds them."""
+def partial_inputs(codes, scales, queries, valid_n, row_mask=None, block_size: int = INT8_BLOCK):
+    """The kernel's operands as ``scan_topk_int8`` builds them (rows padded
+    to whole blocks of ``block_size``)."""
     import torch
 
     from crs_tpu_torch.ops.quant import scalar_quantize
-    from crs_tpu_torch.ops.scan import BLOCK_ROWS, QUERY_TILE, _pad_rows
+    from crs_tpu_torch.ops.scan import QUERY_TILE, _pad_rows
     from crs_tpu_torch.ops.topk import NEG_INF
 
     q_codes, q_scales = scalar_quantize(queries)
     q_codes = _pad_rows(q_codes, QUERY_TILE)
-    vecs = _pad_rows(codes, BLOCK_ROWS)
-    vs = _pad_rows(scales, BLOCK_ROWS)
+    vecs = _pad_rows(codes, block_size)
+    vs = _pad_rows(scales, block_size)
     allowed = torch.arange(vecs.shape[0], device=codes.device) < valid_n
     if row_mask is not None:
         allowed = allowed & _pad_rows(row_mask, vecs.shape[0])
@@ -408,15 +422,53 @@ def phase_build(ph: Phase) -> dict:
     return {src: r.log for src, r in kernels.items()}
 
 
-def phase_kernel(ph: Phase, dev, seed: int, rows: int) -> float:
+def kernel_build_report(log: str, stem: str) -> dict:
+    """Registers, spills and static shared memory of each instantiation of
+    the kernel ``stem`` from ``nvcc -Xptxas -v`` output, keyed by its
+    template arguments as mangled (``ILb1ELb0E``: RESIDENT, not RAGGED)."""
+    import re
+
+    args = sorted({m.group(1) for m in re.finditer(stem + r"(I\w*?E)E?v", log)})
+    return ptxas_report(log, {stem + a: a or stem for a in args} or {stem: stem})
+
+
+def int8_yardsticks(q, ops, kb: int, block: int):
+    """Kernel 1's two PyTorch compositions at its operands (queries q,
+    ``partial_inputs`` ops): dequantize + torch.matmul (TF32 off) +
+    torch.topk per block; torch._int_mm (cuBLAS int8) of the query codes and
+    the corpus + row scale and bias + torch.topk per block."""
+    import torch
+
+    q_codes, vecs, vs, bias = ops
+    nblocks = vecs.shape[0] // block
+
+    def dequantize():
+        s = torch.matmul(q, (vecs.float() * vs[:, None]).T)
+        return torch.topk(s.view(q.shape[0], nblocks, block), kb, dim=-1)
+
+    def int_mm():
+        s = torch._int_mm(q_codes, vecs.T).float() * vs[None, :] + bias[None, :]
+        return torch.topk(s.view(q_codes.shape[0], nblocks, block), kb, dim=-1)
+
+    return dequantize, int_mm
+
+
+def phase_kernel(ph: Phase, dev, seed: int, rows: int, build_logs: dict) -> float:
     import numpy as np
     import torch
 
     from crs_tpu_torch.ops.quant import _int8_topk_dense, scalar_quantize
     from crs_tpu_torch.ops.scan import (
-        STATS, _default_kb_repair, block_topk_int8, block_topk_int8_plain, scan_topk_int8,
+        STATS, _default_kb_repair, _load_lib, block_topk_int8, block_topk_int8_plain,
+        scan_topk_int8,
     )
 
+    build = kernel_build_report(build_logs.get("int8_scan_topk.cu", ""), "int8_scan_topk_kernel")
+    lib = _load_lib()
+    if hasattr(lib, "int8_scan_topk_smem_bytes"):  # the dynamic shared memory at (D, kb 3)
+        build["dynamic_smem_at_main_shape"] = lib.int8_scan_topk_smem_bytes(DIM, 3)
+        build["queries_resident_at_main_shape"] = bool(lib.int8_scan_topk_queries_resident(DIM, 3))
+    emit({"int8_scan_build": build})
     max_err = 0.0
     # (a) main-path shape, random unit vectors from the seed
     g = torch.Generator(device=dev)
@@ -428,7 +480,8 @@ def phase_kernel(ph: Phase, dev, seed: int, rows: int) -> float:
     q = torch.randn((BATCH, DIM), generator=g, device=dev)
     q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
     ops = partial_inputs(codes, scales, q, rows)
-    kb = _default_kb_repair(CAND_K, ops[1].shape[0] // 256, BATCH, 256)
+    nblocks = ops[1].shape[0] // INT8_BLOCK
+    kb = _default_kb_repair(CAND_K, nblocks, BATCH, 256)
     max_err = max(max_err, compare_partials(block_topk_int8(*ops, kb),
                                             block_topk_int8_plain(*ops, kb)))
     s, i = scan_topk_int8(codes, scales, q, CAND_K, rows)
@@ -438,9 +491,25 @@ def phase_kernel(ph: Phase, dev, seed: int, rows: int) -> float:
     a_err = float((s - ds).abs().max())
     if a_err > 1e-6 * float(ds.abs().max()):
         raise AssertionError(f"(a) scan scores differ from the dense ones by {a_err}")
+    # the kernel at the main path's blocks, its two compositions in turns
+    # (kernel, dequantize, _int_mm, _int_mm, dequantize, kernel), plain, bound
+    dequantize, int_mm = int8_yardsticks(q, ops, kb, INT8_BLOCK)
+    kernel = lambda: block_topk_int8(*ops, kb)  # noqa: E731
+    turns = [device_ms(dev, kernel, iters=10, warmup=2), device_ms(dev, dequantize, iters=3),
+             device_ms(dev, int_mm, iters=3), device_ms(dev, int_mm, iters=3),
+             device_ms(dev, dequantize, iters=3), device_ms(dev, kernel, iters=10, warmup=1)]
+    plain_ms = device_ms(dev, lambda: block_topk_int8_plain(*ops, kb), iters=2)
+    q_codes, vecs = ops[0], ops[1]
+    nbytes = (vecs.numel() + 4 * vecs.shape[0] * 2 + q_codes.numel()
+              + q_codes.shape[0] // 64 * nblocks * kb * 64 * 8)
     ph.info["a"] = {"rows": rows, "dim": DIM, "batch": BATCH, "k": CAND_K, "kb": kb,
-                    "partials": "kernel == plain", "topk_vs_dense_max_abs": a_err}
-    del codes, scales, ops
+                    "block_size": INT8_BLOCK, "partials": "kernel == plain",
+                    "topk_vs_dense_max_abs": a_err, "ms": (turns[0] + turns[5]) / 2,
+                    "plain_ms": plain_ms, "library_composition_ms": (turns[1] + turns[4]) / 2,
+                    "int_mm_composition_ms": (turns[2] + turns[3]) / 2,
+                    "turns_kernel_dequantize_int_mm_int_mm_dequantize_kernel_ms": turns,
+                    **bound(nbytes, 2.0 * BATCH * rows * DIM, PEAK_INT8_OPS_PER_S)}
+    del codes, scales, ops, q_codes, vecs
 
     # (b) clustered: every query owns a hot block → targeted repair, then the
     # over-budget fallback (tests/test_pallas_scan.py's construction)
@@ -516,17 +585,29 @@ def phase_kernel(ph: Phase, dev, seed: int, rows: int) -> float:
         err = compare_partials(block_topk_int8(*ops_e, kb), block_topk_int8_plain(*ops_e, kb))
         edge[name] = {"rows": n, "dim": d, "batch": b, "kb": kb, "max_abs": err}
         max_err = max(max_err, err)
+    # one vector repeated: every score of a block equal (the first-chunk
+    # candidates overflow and the full merge takes over), the tail masked
+    x = torch.randn((1, 64), generator=g, device=dev).repeat(2048, 1)
+    codes_e, scales_e = scalar_quantize(x)
+    ops_e = partial_inputs(codes_e, scales_e, torch.randn((64, 64), generator=g, device=dev), 1900)
+    err = compare_partials(block_topk_int8(*ops_e, 4), block_topk_int8_plain(*ops_e, 4))
+    edge["all_equal"] = {"rows": 2048, "dim": 64, "batch": 64, "kb": 4, "max_abs": err}
     ph.info["d"] = edge
     ph.info["max_abs_err"] = max_err
-    return max_err
+    return {"max_abs_err": max_err, **ph.info["a"]}
 
 
-# kernel 1's widths, (rows, D, queries, kb): ragged D inside one query slice,
-# ragged D over five slices, an aligned D over six
+# kernel 1's widths on its main-path blocks, (rows, D, queries, kb): ragged
+# D in one 128-byte slice (4-byte and byte offsets, an odd query tile
+# count), ragged D over 17 slices, an aligned D over 24 (the queries
+# streamed), a D under one slice, the lists' room (kb 32)
 INT8_EDGE_CASES = {
     "d_ragged_100": (4096, 100, 130, 4),
+    "d_ragged_99": (4096, 99, 64, 3),
     "d_ragged_2049": (2048, 2049, 64, 3),
     "d3072_sliced": (2048, 3072, 130, 3),
+    "d16": (2048, 16, 64, 4),
+    "kb32": (2048, 384, 64, 32),
 }
 
 
@@ -1180,17 +1261,17 @@ SEGMAX_TIE_ROWS = (9, 70, 384 + 40, 384 + 100, 1024 + 128 + 127, 1024 + 128 + 1)
 
 
 def segmax_build_report(log: str, lib, d: int, block_size: int) -> dict:
-    """Per instantiation of csrc/segmax_scan_topk.cu: registers, spills and
-    static shared memory from ptxas -v, and the dynamic shared memory of one
-    CTA at (d, block_size); ptxas's wgmma remarks verbatim."""
-    names = {"segmax_f32_kernel": ("f32", 0), "segmax_bf16_kernelILb1E": ("bf16_resident", 1),
-             "segmax_bf16_kernelILb0E": ("bf16_streamed", 1), "segmax_i8_kernel": ("int8", 2)}
-    found = ptxas_report(log, {key: name for key, (name, _) in names.items()})
-    out = {name: dict(found.get(name, {}),
-                      dynamic_smem_at_main_shape=lib.segmax_scan_topk_smem_bytes(mode, d, block_size))
-           for name, mode in names.values()}
-    out["bf16_queries_resident_at_main_shape"] = bool(
-        lib.segmax_scan_topk_bf16_queries_resident(d, block_size))
+    """Per instantiation of csrc/segmax_scan_topk.cu (keyed by its mangled
+    template arguments): registers, spills and static shared memory from
+    ptxas -v; the dynamic shared memory of one CTA of each dtype at (d,
+    block_size); ptxas's wgmma remarks verbatim."""
+    out = {dt: kernel_build_report(log, f"segmax_{dt}_kernel") for dt in ("f32", "bf16", "i8")}
+    out["dynamic_smem_at_main_shape"] = {dt: lib.segmax_scan_topk_smem_bytes(mode, d, block_size)
+                                         for dt, mode in (("f32", 0), ("bf16", 1), ("i8", 2))}
+    if hasattr(lib, "segmax_scan_topk_queries_resident"):
+        out["queries_resident_at_main_shape"] = {
+            dt: bool(lib.segmax_scan_topk_queries_resident(mode, d, block_size))
+            for dt, mode in (("bf16", 1), ("i8", 2))}
     out["wgmma_remarks"] = [ln.strip() for ln in log.splitlines() if "wgmma" in ln.lower()]
     return out
 
@@ -1249,17 +1330,20 @@ def segmax_check(name: str, dtype, ops, block_size: int, kseg: int, valid_n: int
                                       segmax_exact(ops[0], ops[1], nblocks, kseg))
 
 
-def segmax_edge_cases(dev, seed: int) -> dict:
+def segmax_edge_cases(dev, seed: int, lib) -> dict:
     """SEGMAX_EDGE_CASES and the tie test on the card, each dtype's kernel
-    against its plain version (int8 bit for bit)."""
+    against its plain version (int8 bit for bit); a case whose CTA the
+    library's own plan does not fit in shared memory is listed as skipped."""
     import torch
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 19)
     out = {}
-    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+    for mode, (dname, dtype) in enumerate((("fp32", torch.float32), ("bf16", torch.bfloat16),
+                                           ("int8", torch.int8))):
         for case, (rows, d, queries, bs, kseg, valid) in SEGMAX_EDGE_CASES.items():
-            if dtype == torch.int8 and d > 1040:  # the plain int8 dot is exact to D = 1040
+            if lib.segmax_scan_topk_smem_bytes(mode, d, bs) > SMEM_LIMIT:
+                out[f"{dname}.{case}"] = "skipped: past one CTA's shared memory"
                 continue
             _, err = segmax_check(case, dtype, segmax_operands(dtype, g, dev, rows, d, queries),
                                   bs, kseg, valid)
@@ -1297,7 +1381,7 @@ def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int, build_logs: dict) 
     lib = _load_kernel_lib("segmax_scan_topk.cu")
     build = segmax_build_report(build_logs.get("segmax_scan_topk.cu", ""), lib, DIM, SEGMAX_BLOCK)
     emit({"segmax_build": build})
-    edge = segmax_edge_cases(dev, seed)
+    edge = segmax_edge_cases(dev, seed, lib)
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 9)
@@ -1340,6 +1424,11 @@ def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int, build_logs: dict) 
                 m = s.view(BATCH, rows // 128, 128).max(dim=-1)
                 return torch.topk(m.values.view(BATCH, nblocks, -1), kseg, dim=-1)
 
+            def int_mm():  # torch._int_mm (cuBLAS int8), the two scales, segment max, topk
+                s = torch._int_mm(qc, codes.T).float() * qs[:, None] * scales[None, :]
+                m = s.view(qc.shape[0], rows // 128, 128).max(dim=-1)
+                return torch.topk(m.values.view(qc.shape[0], nblocks, -1), kseg, dim=-1)
+
             nbytes = codes.numel() + rows * 4 + qc.numel() + qs.numel() * 4 + out_bytes
             corpus_bytes = codes.numel() + rows * 4
         else:
@@ -1369,8 +1458,14 @@ def phase_kernel_segmax(ph: Phase, dev, seed: int, rows: int, build_logs: dict) 
                  device_ms(dev, lambda: kernel(*args), iters=10, warmup=1)]
         ms = (turns[0] + turns[3]) / 2
         plain_ms = device_ms(dev, lambda: plain(*args), iters=2)
+        extra = {}
+        if dtype == torch.int8:
+            int_mm_ms = [device_ms(dev, int_mm, iters=3) for _ in range(2)]
+            extra = {"int_mm_composition_ms": sum(int_mm_ms) / 2,
+                     "int_mm_composition": "torch._int_mm (cuBLAS int8) + the query and row "
+                                           "scales + max over 128-row segments + torch.topk"}
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "library_composition_ms": (turns[1] + turns[2]) / 2,
+                     "library_composition_ms": (turns[1] + turns[2]) / 2, **extra,
                      "turns_kernel_library_library_kernel_ms": turns,
                      # device bytes the run can have moved, in corpus reads: ms · 3.35 TB/s
                      "corpus_reads_at_most": ms * 1e-3 * PEAK_BYTES_PER_S / corpus_bytes,
@@ -1677,6 +1772,38 @@ FAULT_MLP_WIDE = ((16384, 2048, 1024, 1), (16384, 2048, 1024, 8), (27136, 1024, 
 FAULT_ADC_WIDE = tuple((m, r, k) for m, k in ((5, 256), (96, 16), (50, 256), (64, 256),
                                              (128, 256), (256, 256), (320, 256))
                        for r in (True, False))
+# (H, I, chunk, R): kernel 11 at chunks off 128, below it, and past 16,384
+# rows (hq and hmid in the chunk's slab of device memory)
+FAULT_MLP_CHUNKS = ((4096, 1024, 64, 8), (4096, 960, 96, 3), (1024, 200, 40, 1),
+                    (128, 24576, 24576, 8), (4096, 16512, 16512, 2))
+# kernels 6 and 7 at the widths and blocks they once refused, name → (rows,
+# D, queries, block_size, kseg, valid_n): D off 32 and 16 and past the old
+# cap of 4,096, blocks of 3 segments (each ends in half a chunk), 64 (the
+# most kept in shared memory) and 128 (the winners in a device scratch)
+FAULT_SEGMAX = {
+    "d40_block384": (3072, 40, 130, 384, 3, 3000),
+    "d100_block8192": (16384, 100, 64, 8192, 16, 16000),
+    "d4104_block384": (1536, 4104, 64, 384, 3, 1500),
+    "d40_block8192": (16384, 40, 130, 8192, 64, 16384),
+    "d64_block16384": (32768, 64, 64, 16384, 10, 32000),
+}
+# kernel 1 on blocks other than the main path's 256, name → (rows, D,
+# queries, block_size, kb): several blocks a CTA (SPAN_CHUNKS 16, the last
+# CTA's span short), one, a block of 32 chunks with the queries streamed,
+# and blocks off the 256-row chunk whose last chunk is part masked (128 and
+# 640 as int8 stores take them, an odd 1,000 at a ragged D, 24 below kb)
+FAULT_INT8_BLOCKS = {
+    "block512_d384": (8192, 384, 130, 512, 4),
+    "block768_d384": (6144, 384, 64, 768, 3),
+    "block1024_d100": (8192, 100, 64, 1024, 3),
+    "block4096_d99": (16384, 99, 130, 4096, 5),
+    "block8192_d3072": (16384, 3072, 64, 8192, 3),
+    "block128_d384": (8192, 384, 130, 128, 4),
+    "block640_d384": (6400, 384, 64, 640, 3),
+    "block1000_d99": (9000, 99, 130, 1000, 5),
+    "block24_d112": (4800, 112, 64, 24, 32),
+}
+FAULT_INT8_STORE_BLOCKS = (128, 640)  # int8 stores whose blocks are off kernel 1's chunk
 RAGGED_COST_ROWS = 1 << 20  # the main path's corpus rows, for the cost of a D off the multiple
 
 
@@ -1762,12 +1889,13 @@ def fault_attention_wide(dev, seed: int) -> dict:
     return out
 
 
-def fault_mlp_wide(dev, seed: int) -> dict:
-    """Kernel 11 at FAULT_MLP_WIDE against its plain version, as
+def fault_mlp_wide(dev, seed: int, shapes=FAULT_MLP_WIDE) -> dict:
+    """Kernel 11 at ``shapes`` against its plain version, as
     ``kernel_fused_mlp`` holds it: codes, output within ``mlp_check``'s
-    tolerance, two launches bitwise equal. H 27,136 is the widest whose xq
-    rows fit in shared memory; past it they go to device memory (the
-    kernel's XG instance)."""
+    tolerance, two launches bitwise equal. FAULT_MLP_WIDE: H 27,136 is the
+    widest whose xq rows fit in shared memory; past it they go to device
+    memory (the kernel's XG instance). FAULT_MLP_CHUNKS: chunks off 128
+    (masked tiles) and past what shared memory holds (the HG instance)."""
     import torch
 
     from crs_tpu_torch.ops import fused_mlp as fm
@@ -1775,7 +1903,7 @@ def fault_mlp_wide(dev, seed: int) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 24)
     out = {}
-    for h, inter, chunk, r in FAULT_MLP_WIDE:
+    for h, inter, chunk, r in shapes:
         x, norm, lay = mlp_case(g, dev, h, inter, chunk, r)
         before = fm.STATS.by_kernel.get("fused_mlp_int8", 0)
         got, kc = fm.fused_mlp_int8(x, norm, *lay, chunk=chunk, return_codes=True)
@@ -1791,21 +1919,83 @@ def fault_mlp_wide(dev, seed: int) -> dict:
     return out
 
 
+def fault_segmax_wide(dev, seed: int) -> dict:
+    """Kernels 6 (fp32, bf16) and 7 at FAULT_SEGMAX against their plain
+    versions (int8 bit for bit, the float kernels as ``kernel_segmax``
+    holds them), each launch counted; bf16 at a D off 8 zero-padded as
+    ``scan_topk_segmax`` pads it."""
+    import torch
+
+    from crs_tpu_torch.ops import scan
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 25)
+    out = {}
+    for dname, dtype, kernel in (("fp32", torch.float32, "segmax_scan_topk_f32"),
+                                 ("bf16", torch.bfloat16, "segmax_scan_topk_bf16"),
+                                 ("int8", torch.int8, "segmax_scan_topk_int8")):
+        for case, (rows, d, queries, bs, kseg, valid) in FAULT_SEGMAX.items():
+            ops = segmax_operands(dtype, g, dev, rows, d, queries)
+            if dtype == torch.bfloat16:
+                ops = tuple(scan._pad_cols(t, 8).contiguous() for t in ops)
+            before = scan.STATS.by_kernel.get(kernel, 0)
+            _, err = segmax_check(case, dtype, ops, bs, kseg, valid)
+            launches = scan.STATS.by_kernel.get(kernel, 0) - before
+            if launches != (dev.type == "cuda"):
+                raise AssertionError(f"faults segmax {dname} {case}: {launches} launches")
+            out[f"{dname}.{case}"] = {"max_abs_err": err, "launches": launches}
+            del ops
+    return out
+
+
+def fault_int8_blocks(dev, seed: int) -> dict:
+    """Kernel 1 at FAULT_INT8_BLOCKS against its plain version (ids
+    identical, scores within 1e-6 relative), a masked tail and exact ties in
+    block 0, each launch counted."""
+    import torch
+
+    from crs_tpu_torch.ops import scan
+    from crs_tpu_torch.ops.quant import scalar_quantize
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 26)
+    out = {}
+    for case, (rows, d, queries, bs, kb) in FAULT_INT8_BLOCKS.items():
+        x = torch.randn((rows, d), generator=g, device=dev)
+        x[40:60] = x[0:20]
+        codes, scales = scalar_quantize(x)
+        ops = partial_inputs(codes, scales, torch.randn((queries, d), generator=g, device=dev),
+                             rows - 300, block_size=bs)
+        before = scan.STATS.by_kernel.get("int8_scan_topk", 0)
+        err = compare_partials(scan.block_topk_int8(*ops, kb, bs),
+                               scan.block_topk_int8_plain(*ops, kb, bs))
+        launches = scan.STATS.by_kernel.get("int8_scan_topk", 0) - before
+        if launches != (dev.type == "cuda"):
+            raise AssertionError(f"faults int8 {case}: {launches} launches")
+        out[case] = {"max_abs_err": err, "launches": launches}
+        del x, codes, scales, ops
+    return out
+
+
 def fault_ragged_cost(dev, seed: int) -> dict:
     """What a D off the kernels' multiple costs a search at the main path's
     1,048,576 rows, B = 328, k = 64: a ragged D against the aligned D above
     it, ms per ``scan_topk`` (bf16 D 100: the corpus zero-padded to 104 per
-    call) and ``scan_topk_int8`` (kernel 1's zero-fill: D 100 by 4-byte
-    loads, D 99 byte by byte; 112 aligned), timed in turns on the card."""
+    call) and ``scan_topk_int8`` (kernel 1's RAGGED staging: D 100 and 99
+    staged by cp.async and shifted into place; 112 by TMA), timed in turns
+    on the card; and kernel 1 alone (``block_topk_int8`` on the main path's
+    blocks and kb) at those D, in turns, without the search's host work."""
     import torch
 
     from crs_tpu_torch.ops.quant import scalar_quantize
-    from crs_tpu_torch.ops.scan import scan_topk, scan_topk_int8
+    from crs_tpu_torch.ops.scan import _default_kb_repair, block_topk_int8, scan_topk, \
+        scan_topk_int8
 
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 24)
     out = {}
-    for fmt, dims in (("bf16", (100, 104)), ("int8", (99, 100, 112))):
+    for fmt, dims in (("bf16", (100, 104)), ("int8", (99, 100, 112)),
+                      ("int8_kernel", (99, 100, 112))):
         fns = {}
         for d in dims:
             x = torch.randn((RAGGED_COST_ROWS, d), generator=g, device=dev)
@@ -1814,6 +2004,10 @@ def fault_ragged_cost(dev, seed: int) -> dict:
             if fmt == "bf16":
                 v = x.to(torch.bfloat16)
                 fns[d] = lambda v=v, q=q: scan_topk(v, q, CAND_K, RAGGED_COST_ROWS, SCAN_BLOCK)
+            elif fmt == "int8_kernel":
+                ops = partial_inputs(*scalar_quantize(x), q, RAGGED_COST_ROWS)
+                kb = _default_kb_repair(CAND_K, ops[1].shape[0] // INT8_BLOCK, BATCH, 256)
+                fns[d] = lambda ops=ops, kb=kb: block_topk_int8(*ops, kb, INT8_BLOCK)
             else:
                 codes, scales = scalar_quantize(x)
                 fns[d] = lambda c=codes, sc=scales, q=q: scan_topk_int8(c, sc, q, CAND_K,
@@ -1841,7 +2035,10 @@ def phase_faults(ph: Phase, dev, seed: int) -> dict:
     launches a step); one int8-KV decode step of each FAULT_ATTN_MODELS
     model (logits against the CPU, one decode-attention launch a layer) and
     kernel 10 at head dims to 1024, G to 16 and S past 128 chunks; kernel
-    11 at H to 32,768; what a ragged D costs a search at 1M rows."""
+    11 at H to 32,768 and at FAULT_MLP_CHUNKS; kernels 6 and 7 at
+    FAULT_SEGMAX; kernel 1 at FAULT_INT8_BLOCKS and under int8 stores of
+    FAULT_INT8_STORE_BLOCKS rows a block; what a ragged D costs a search
+    and kernel 1 at 1M rows."""
     import tempfile
 
     import numpy as np
@@ -1874,6 +2071,14 @@ def phase_faults(ph: Phase, dev, seed: int) -> dict:
             del card, cpu
     enc = EmbeddingModel({"backend": "hashed", "embedding_dim": DIM}, device="cpu")
     emb, q = enc.embed(texts), enc.embed(queries)
+    for bs in FAULT_INT8_STORE_BLOCKS:  # kernel 1 on the store's own blocks
+        cfg = {"format": "int8", "block_size": bs, "rescore_k": 64}
+        card, cpu = VectorStore(cfg, device=dev), VectorStore(cfg, device="cpu")
+        card.create_index(texts, emb)
+        cpu.create_index(texts, emb)
+        out[f"int8_store_block{bs}"] = fault_search(f"int8 block {bs}", card, cpu, q.to(dev),
+                                                    FLOAT_RTOL["fp32"], "int8_scan_topk")
+        del card, cpu
     card = VectorStore(FAULT_PQ, device=dev)
     card.create_index(texts, emb)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1945,6 +2150,9 @@ def phase_faults(ph: Phase, dev, seed: int) -> dict:
             "launches": counts, "logits_rel_l2_vs_cpu": err}
     out["decode_attention_wide_kernels"] = fault_attention_wide(dev, seed)
     out["fused_mlp_wide_kernels"] = fault_mlp_wide(dev, seed)
+    out["fused_mlp_chunks"] = fault_mlp_wide(dev, seed, FAULT_MLP_CHUNKS)
+    out["segmax_widths_and_blocks"] = fault_segmax_wide(dev, seed)
+    out["int8_scan_blocks"] = fault_int8_blocks(dev, seed)
     out["ragged_d_cost"] = fault_ragged_cost(dev, seed)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2413,6 +2621,10 @@ def synthetic_corpus(rng, rows: int, n_topics: int = 1024, topic_words: int = 48
 
 
 def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dict) -> dict:
+    """The main path: a 1,048,576-row int8 store, retrieve_batch_fused at
+    batch 328 through kernel 1 (counted), the host's and the device's share
+    of a batch, and kernel 1 alone at the store's operands: ms, plain ms,
+    both compositions, bound. ``max_err``: the kernel phase's."""
     import numpy as np
     import torch
 
@@ -2479,20 +2691,16 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dic
 
     # the kernel alone at this shape, its plain version, and its bound
     ops = partial_inputs(store._codes, store._scales, q_emb, store.n)
-    nblocks = ops[1].shape[0] // 256
+    nblocks = ops[1].shape[0] // INT8_BLOCK
     kb = _default_kb_repair(CAND_K, nblocks, BATCH, 256)
     max_err = max(max_err, compare_partials(block_topk_int8(*ops, kb),
                                             block_topk_int8_plain(*ops, kb)))
     kernel_ms = device_ms(dev, lambda: block_topk_int8(*ops, kb), iters=10, warmup=2)
     plain_ms = device_ms(dev, lambda: block_topk_int8_plain(*ops, kb), iters=2, warmup=1)
     q_codes, vecs = ops[0], ops[1]
-
-    def library():  # dequantize, torch.matmul (TF32 off), torch.topk per block: three calls
-        dense = vecs.float() * ops[2][:, None]
-        s = torch.matmul(q_emb, dense.T)
-        return torch.topk(s.view(BATCH, nblocks, 256), kb, dim=-1)
-
-    library_ms = device_ms(dev, library, iters=3)
+    dequantize, int_mm = int8_yardsticks(q_emb, ops, kb, INT8_BLOCK)
+    library_ms = device_ms(dev, dequantize, iters=3)
+    int_mm_ms = device_ms(dev, int_mm, iters=3)
     nq = q_codes.shape[0] // 64
     bytes_moved = (vecs.numel() + 4 * vecs.shape[0] * 2 + q_codes.numel()
                    + nq * nblocks * kb * 64 * 8)
@@ -2509,9 +2717,12 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dic
         "breakdown": {"query_embed_ms": t_embed, "query_token_ids_ms": t_tokens,
                       "profile": profile},
         "rescore_vs_dense_max_abs": rescore_err,
-        "kernel": {"kb": kb, "nblocks": nblocks, "ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_composition_ms": library_ms,
+        "kernel": {"kb": kb, "nblocks": nblocks, "block_size": INT8_BLOCK, "ms": kernel_ms,
+                   "plain_ms": plain_ms, "library_composition_ms": library_ms,
                    "library_composition": "dequantize + torch.matmul + torch.topk per block",
+                   "int_mm_composition_ms": int_mm_ms,
+                   "int_mm_composition": "torch._int_mm (cuBLAS int8) + row scale and bias + "
+                                         "torch.topk per block",
                    "bytes": bytes_moved, "int8_ops": int8_ops,
                    "bound_ms": max(bytes_ms, ops_ms)},
     })
@@ -2522,6 +2733,7 @@ def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dic
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None, "library_composition_ms": library_ms,
+        "int_mm_composition_ms": int_mm_ms,
     }
 
 
@@ -3242,7 +3454,8 @@ def kernel_table(res: dict) -> list:
         "source": "crs_tpu_torch/csrc/segmax_scan_topk.cu",
         "replaces": "crs_tpu/ops/pallas_scan.py:489",
         "launches": seg_launches["segmax_scan_topk_int8"], "max_abs_err": seg["int8"]["max_abs_err"],
-        **{k: seg["int8"][k] for k in keys}, "library_ms": None})
+        **{k: seg["int8"][k] for k in keys}, "library_ms": None,
+        "int_mm_composition_ms": seg["int8"]["int_mm_composition_ms"]})
     gen, q4, attn = res["generate"], res["kernel_q4"], res["kernel_decode_attn"]
     for name, kind, line in (("q4_matmul", "int4", 105), ("nf4_matmul", "nf4", 161)):
         rows.append({
@@ -3303,7 +3516,7 @@ def main(argv=None) -> int:
     shared = {}
     steps = {
         "build": lambda ph: phase_build(ph),
-        "kernel": lambda ph: phase_kernel(ph, dev, args.seed, FULL_ROWS),
+        "kernel": lambda ph: phase_kernel(ph, dev, args.seed, FULL_ROWS, res.get("build") or {}),
         "kernel_f32_bf16": lambda ph: phase_kernel_f32_bf16(ph, dev, args.seed, FULL_ROWS,
                                                             res.get("build") or {}),
         "kernel_adc": lambda ph: phase_kernel_adc(ph, dev, args.seed, FULL_ROWS,
@@ -3316,7 +3529,8 @@ def main(argv=None) -> int:
         "kernel_fused_mlp": lambda ph: phase_kernel_fused_mlp(ph, dev, args.seed),
         "faults": lambda ph: phase_faults(ph, dev, args.seed),
         "bench": lambda ph: phase_bench(ph, dev),
-        "full": lambda ph: phase_full(ph, dev, args.seed, FULL_ROWS, res.get("kernel", 0.0),
+        "full": lambda ph: phase_full(ph, dev, args.seed, FULL_ROWS,
+                                      (res.get("kernel") or {}).get("max_abs_err", 0.0),
                                       shared),
         "formats": lambda ph: phase_formats(ph, dev, shared),
         "add": lambda ph: phase_add(ph, dev, args.seed, shared),

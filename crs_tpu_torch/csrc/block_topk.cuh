@@ -13,6 +13,10 @@
 // extracted list entry stays in the pass at -1e30 under its id, the list
 // after the last chunk is exactly the Pallas kernel's kb emissions for the
 // whole block, in order, ties and re-emissions included.
+//
+// merge_row is the same fold for the tensor-core scans (kernels 1 and 2),
+// straight from a wgmma accumulator: a quad of threads holds a query row's
+// 256 chunk scores and the list lives in shared memory.
 
 #pragma once
 
@@ -90,6 +94,95 @@ __device__ __forceinline__ void merge_chunk(float (&s)[RPL], int base, bool have
                                             float& ls, int& li, int kb, int lane) {
     merge_chunk_rows<RPL>(s, [=](int j) { return base + lane + 32 * j; }, have_list, ls, li, kb,
                           lane);
+}
+
+// A wgmma accumulator element as an f32 score: kernel 2's hold f32, kernel
+// 1's int32 registers hold the f32 bits of the score computed in place.
+__device__ __forceinline__ float acc_score(float v) { return v; }
+__device__ __forceinline__ float acc_score(int v) { return __int_as_float(v); }
+__device__ __forceinline__ void set_score(float& v, float s) { v = s; }
+__device__ __forceinline__ void set_score(int& v, float s) { v = __float_as_int(s); }
+
+// One query row's merge (quad-cooperative): the quad's 4 threads hold its
+// 256 chunk scores, thread t columns 8j + 2t + e in d[4j + 2R + e]; the old
+// list [kb] is read, the new one written (by thread 0 of the quad).
+template <int R, typename A>
+__device__ __forceinline__ void merge_row(A (&d)[128], int t, int grow0, bool have_list,
+                                          const float* os, const int* oi, float* ns, int* ni,
+                                          int kb, int block_row0) {
+    // this thread's best remaining (value, column): columns ascend with
+    // (j, e), so a strict > keeps the lowest
+    auto local_best = [&](float& bv, int& bc) {
+        bv = acc_score(d[2 * R]);
+        bc = 2 * t;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const float v = acc_score(d[4 * j + 2 * R + e]);
+                if (v > bv) {
+                    bv = v;
+                    bc = 8 * j + 2 * t + e;
+                }
+            }
+    };
+    auto quad_best = [&](float& bv, int& bc) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            const float ov = __shfl_xor_sync(FULL, bv, off);
+            const int oc = __shfl_xor_sync(FULL, bc, off);
+            if (ov > bv || (ov == bv && oc < bc)) {
+                bv = ov;
+                bc = oc;
+            }
+        }
+    };
+    float cv;
+    int cc;
+    local_best(cv, cc);
+    quad_best(cv, cc);
+    int ptr = 0;
+    for (int p = 0; p < kb; ++p) {
+        // the list's next entry wins a tie (its id is lower); past every
+        // score above -1e30, each row of the block is at -1e30 and the
+        // lowest, the block's first, is emitted
+        const float lv = have_list ? os[ptr] : NEG_INF;
+        const bool from_list = lv > NEG_INF && (lv >= cv || cv <= NEG_INF);
+        const bool from_chunk = !from_list && cv > NEG_INF;
+        if (t == 0) {
+            ns[p] = from_list ? lv : from_chunk ? cv : NEG_INF;
+            ni[p] = from_list ? oi[ptr] : from_chunk ? grow0 + cc : block_row0;
+        }
+        if (from_list) ++ptr;
+        if (p + 1 == kb) break;  // the last pass: no entry is read after it
+        if (from_chunk && ((cc >> 1) & 3) == t) {  // the owner sets the entry to -1e30
+            const int slot = 4 * (cc >> 3) + 2 * R + (cc & 1);
+#pragma unroll
+            for (int k = 0; k < 32; ++k)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                    if (4 * k + 2 * R + e == slot) set_score(d[4 * k + 2 * R + e], NEG_INF);
+        }
+        if (__any_sync(FULL, from_chunk)) {  // the next chunk candidate (shuffles need the warp)
+            float nv;
+            int nc;
+            local_best(nv, nc);
+            quad_best(nv, nc);
+            if (from_chunk) {
+                cv = nv;
+                cc = nc;
+            }
+        }
+    }
+}
+
+// A quad's list copied unchanged into the new buffer (a chunk that cannot change it).
+__device__ __forceinline__ void copy_list(const float* os, const int* oi, float* ns, int* ni,
+                                          int kb, int t) {
+    for (int p = t; p < kb; p += 4) {
+        ns[p] = os[p];
+        ni[p] = oi[p];
+    }
 }
 
 }  // namespace block_topk

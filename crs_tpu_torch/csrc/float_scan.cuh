@@ -75,19 +75,21 @@ __device__ __forceinline__ int f32_row(int lane, int j) {
 // Scores corpus block `blk` against the CTA's query pair, staging through
 // fsmem[0, F_PIPE_FLOATS). After chunk c, epi(c, acc) gets this thread's
 // scores: acc[i][j] = q(8·warp + i of the pair) · row(c·CHUNK + f32_row(lane, j));
-// they are zeroed after it. RAGGED: d need not be a multiple of F_KC (the
-// copies then carry a zero-fill predicate, which costs a few % at D 384).
-// Called by all F_THREADS threads.
+// they are zeroed after it. RAGGED: d need not be a multiple of F_KC, nor
+// block_size of CHUNK (the copies then carry a zero-fill predicate, which
+// costs a few % at D 384: dimensions past d and rows past the corpus's n
+// read as 0; a last half chunk's rows past the block are the next block's,
+// which the epilogue drops). Called by all F_THREADS threads.
 template <bool RAGGED, class Epi>
 __device__ __forceinline__ void f32_scores(const float* __restrict__ q,     // [nq·QUERY_TILE, d]
-                                           const float* __restrict__ vecs,  // [N, d]
+                                           const float* __restrict__ vecs,  // [n, d]
                                            float* fsmem, int nq, int pair, int blk,
-                                           int block_size, int d, Epi&& epi) {
+                                           int block_size, int d, long long n, Epi&& epi) {
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
     const int nk = (d + F_KC - 1) / F_KC;
-    const int nslices = (block_size / CHUNK) * nk;
+    const int nslices = ((block_size + CHUNK - 1) / CHUNK) * nk;
     const float* vb = vecs + (long long)blk * block_size * d;
 
     // Copy i of this thread moves element (row crow + 16i, dimension cdim) of
@@ -108,23 +110,28 @@ __device__ __forceinline__ void f32_scores(const float* __restrict__ q,     // [
             const bool ok = !RAGGED || dim < d;
             const int off = ok ? dim : 0;
             const float* rows = vb + ((long long)(t / nk) * CHUNK + crow) * d + off;
-            auto copy = [&](float* dst, const float* src) {
+            auto copy = [&](float* dst, const float* src, bool valid) {
                 if (RAGGED)
-                    cp_async4_or_zero(dst, src, ok);
+                    cp_async4_or_zero(dst, valid ? src : vecs, valid);
                 else
                     cp_async4(dst, src);
             };
+            // rows of this chunk inside the corpus (RAGGED)
+            const long long live =
+                n - (long long)blk * block_size - (long long)(t / nk) * CHUNK - crow;
 #pragma unroll
             for (int i = part * (F_ROW_ROUNDS / F_PARTS);
                  i < (part + 1) * (F_ROW_ROUNDS / F_PARTS); ++i)
-                copy(st + cdim * F_ROW_STRIDE + crow + F_RPR * i, rows + (long long)(F_RPR * i) * d);
+                copy(st + cdim * F_ROW_STRIDE + crow + F_RPR * i, rows + (long long)(F_RPR * i) * d,
+                     ok && F_RPR * i < live);
             float* sq = st + F_KC * F_ROW_STRIDE;
 #pragma unroll
             for (int i = part * (F_Q_ROUNDS / F_PARTS); i < (part + 1) * (F_Q_ROUNDS / F_PARTS);
                  ++i) {
                 const int r = crow + F_RPR * i;
                 copy(sq + cdim * F_Q_STRIDE + r,
-                     qsrc + (long long)(r < qvalid ? F_RPR * i : F_RPR * i - QUERY_TILE) * d + off);
+                     qsrc + (long long)(r < qvalid ? F_RPR * i : F_RPR * i - QUERY_TILE) * d + off,
+                     ok);
             }
         }
     };
@@ -193,10 +200,11 @@ struct RingLayout {
     int stages, a_bytes, stage_bytes, ring, extra, bars, total;
 };
 
-__host__ __device__ inline RingLayout ring_layout_as(int d, int extra_bytes, bool resident,
+// nk: the slices of one row (the int8 pass, csrc/int8_scan.cuh, takes the
+// same layout: its 128-dimension slices are 128 bytes too)
+__host__ __device__ inline RingLayout ring_layout_as(int nk, int extra_bytes, bool resident,
                                                      int stages) {
     RingLayout L;
-    const int nk = (d + B_BK - 1) / B_BK;
     L.stages = stages;
     L.a_bytes = resident ? nk * B_A_BYTES : 0;
     L.stage_bytes = resident ? B_B_BYTES : B_A_BYTES + B_B_BYTES;
@@ -211,14 +219,18 @@ __host__ __device__ inline int ring_bytes(const RingLayout& L) { return 1024 + L
 
 // The queries resident beside a 3-stage ring when they fit; else both
 // streamed, through as many stages (4, 3, 2) as fit beside the extra bytes.
-__host__ __device__ inline RingLayout ring_layout(int d, int extra_bytes) {
-    RingLayout L = ring_layout_as(d, extra_bytes, true, B_STAGES_RESIDENT);
+__host__ __device__ inline RingLayout ring_layout_k(int nk, int extra_bytes) {
+    RingLayout L = ring_layout_as(nk, extra_bytes, true, B_STAGES_RESIDENT);
     if (ring_bytes(L) <= SMEM_LIMIT) return L;
     for (int s = B_STAGES_STREAM; s > 2; --s) {
-        L = ring_layout_as(d, extra_bytes, false, s);
+        L = ring_layout_as(nk, extra_bytes, false, s);
         if (ring_bytes(L) <= SMEM_LIMIT) return L;
     }
-    return ring_layout_as(d, extra_bytes, false, 2);
+    return ring_layout_as(nk, extra_bytes, false, 2);
+}
+
+__host__ __device__ inline RingLayout ring_layout(int d, int extra_bytes) {
+    return ring_layout_k((d + B_BK - 1) / B_BK, extra_bytes);
 }
 
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
@@ -242,7 +254,7 @@ __device__ __forceinline__ bool bf16_scores(const CUtensorMap* tm_q,  // [nq·64
     const uint32_t empty0 = full0 + 8 * L.stages;    // empty[s]
     const uint32_t qbar = empty0 + 8 * L.stages;     // the resident queries
     const int nk = (d + B_BK - 1) / B_BK;
-    const int nchunks = block_size / CHUNK;
+    const int nchunks = (block_size + CHUNK - 1) / CHUNK;  // TMA zero-fills rows past n
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const int lane = tid & 31;

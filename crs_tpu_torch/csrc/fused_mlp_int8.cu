@@ -67,6 +67,19 @@
 // the chunk's slab of `part`, and gate/up reads its B operand from L2; the
 // slab's down terms are written only after the requant's cluster barrier,
 // when no CTA of the cluster reads xq any more. So every H % 128 launches.
+//
+// Any chunk of I: CTA k owns rows_cta = ⌈chunk/8⌉ rounded up to 16 rows i
+// of the chunk (fewer, or none, at the chunk's end), so a chunk that is
+// not a multiple of 128 has CTAs whose last 16-row tile runs past it: those
+// rows load as zeros, form no hmid, add nothing to the chunk's max and are
+// never stored. hq is kept to a multiple of 32 codes a row (down's k-step),
+// its columns past the chunk zero; down's rows past the chunk load as zeros.
+// Where hq and hmid outgrow shared memory (a chunk past 16,384 rows at H ≤
+// 4,096, past 19,072 wider), the HG instance keeps them in device memory,
+// in the chunk's slab of a region of `part` after the terms ([chunks] of
+// 5·R·⌈chunk/128⌉·128 bytes: hq [R][⌈chunk/128⌉·128] int8, then hmid
+// [R][8·rows_cta] f32), and down reads hq from L2. The down sums keep their
+// order: each chunk's term f32(acc)·hs_c, added in chunk order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -158,18 +171,20 @@ __device__ __forceinline__ void transpose4(const int4* rows, int q, int (&out)[4
 
 // gate/up: the 16-byte pieces of k-blocks kb0 .. kb0+KU-1 a thread feeds its
 // A fragments from: gate rows g and g+8, up rows g and g+8 of the warp's tile
+// (rows of the tile at or past `live` — past the chunk — load as zeros)
 __device__ __forceinline__ void gu_load(int4 (&v)[KU][4], const int8_t* gate_tile,
                                         const int8_t* up_tile, int H, int kb0, int nkb, int g,
-                                        int t) {
+                                        int t, int live) {
+    const int4 zero = make_int4(0, 0, 0, 0);
 #pragma unroll
     for (int u = 0; u < KU; ++u) {
         const int kb = kb0 + u;
         if (kb < nkb) {
             const size_t o = (size_t)g * H + kb * 64 + 16 * t, o8 = o + (size_t)8 * H;
-            v[u][0] = __ldcs(reinterpret_cast<const int4*>(gate_tile + o));
-            v[u][1] = __ldcs(reinterpret_cast<const int4*>(gate_tile + o8));
-            v[u][2] = __ldcs(reinterpret_cast<const int4*>(up_tile + o));
-            v[u][3] = __ldcs(reinterpret_cast<const int4*>(up_tile + o8));
+            v[u][0] = g < live ? __ldcs(reinterpret_cast<const int4*>(gate_tile + o)) : zero;
+            v[u][1] = g + 8 < live ? __ldcs(reinterpret_cast<const int4*>(gate_tile + o8)) : zero;
+            v[u][2] = g < live ? __ldcs(reinterpret_cast<const int4*>(up_tile + o)) : zero;
+            v[u][3] = g + 8 < live ? __ldcs(reinterpret_cast<const int4*>(up_tile + o8)) : zero;
         }
     }
 }
@@ -202,30 +217,38 @@ __device__ __forceinline__ int dn_row(int ks, int e, int t) {
     return 32 * ks + (e < 4 ? 4 * t + e : 16 + 4 * t + e - 4);
 }
 
-// k-steps ks0 .. ks0+KS-1 from device memory into registers
+// k-steps ks0 .. ks0+KS-1 from device memory into registers (rows at or
+// past `live` — past the chunk — as zeros)
 __device__ __forceinline__ void dn_load(int4 (&v)[KS][8], const int8_t* slab, int H, int ks0,
-                                        int nks, int t) {
+                                        int nks, int t, int live) {
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
         const int ks = ks0 + s;
         if (ks < nks) {
 #pragma unroll
-            for (int e = 0; e < 8; ++e)
-                v[s][e] = __ldcs(reinterpret_cast<const int4*>(slab + (size_t)dn_row(ks, e, t) * H));
+            for (int e = 0; e < 8; ++e) {
+                const int row = dn_row(ks, e, t);
+                v[s][e] = row < live
+                              ? __ldcs(reinterpret_cast<const int4*>(slab + (size_t)row * H))
+                              : make_int4(0, 0, 0, 0);
+            }
         }
     }
 }
 
 // product u = (q, h) covers columns 16g + 4q + 2h (as row g of A) and
-// 16g + 4q + 2h + 1 (row g + 8); K = the step's 32 rows, B = hq
+// 16g + 4q + 2h + 1 (row g + 8); K = the step's 32 rows, B = hq (HG: from
+// device memory, null for a padding row)
+template <bool HG>
 __device__ __forceinline__ void dn_mma(const int4 (&v)[KS][8], const int8_t* hq_row, int ks0,
                                        int nks, int t, int (&acc)[8][4]) {
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
         const int ks = ks0 + s;
         if (ks < nks) {
-            const int b0 = *reinterpret_cast<const int*>(hq_row + 32 * ks + 4 * t);
-            const int b1 = *reinterpret_cast<const int*>(hq_row + 32 * ks + 16 + 4 * t);
+            const int* b = reinterpret_cast<const int*>(hq_row + 32 * ks + 4 * t);
+            const int b0 = !HG ? b[0] : hq_row ? __ldcg(b) : 0;
+            const int b1 = !HG ? b[4] : hq_row ? __ldcg(b + 4) : 0;
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
                 int ta[4], tb[4];
@@ -238,23 +261,40 @@ __device__ __forceinline__ void dn_mma(const int4 (&v)[KS][8], const int8_t* hq_
     }
 }
 
+// rows i of the chunk a CTA owns (whole 16-row tiles; the last CTAs' run
+// past the chunk, or hold none of it)
+__host__ __device__ inline int cta_rows(int chunk) {
+    return ((chunk + CLUSTER - 1) / CLUSTER + 15) / 16 * 16;
+}
+
+// hq's codes a row: the chunk rounded up to down's 32-row k-steps
+__host__ __device__ inline int hq_cols(int chunk) { return (chunk + 31) / 32 * 32; }
+
+// the HG slab of a chunk, bytes: hq [R][CLUSTER·rows_cta] int8, hmid [R][CLUSTER·rows_cta] f32
+__host__ __device__ inline size_t hg_slab(int R, int chunk) {
+    return (size_t)5 * R * CLUSTER * cta_rows(chunk);
+}
+
 __host__ __device__ inline int down_parts(int H, int chunk) {
     // row parts of a chunk per 128-column group: enough units for the
     // cluster's 64 warps, each part whole 32-row k-steps
+    const int kc = hq_cols(chunk);
     int p = 1;
-    while (p < CLUSTER && (H / COLS) * p * 2 <= CLUSTER * WARPS && (chunk / (2 * p)) % 32 == 0)
+    while (p < CLUSTER && (H / COLS) * p * 2 <= CLUSTER * WARPS && (kc / (2 * p)) % 32 == 0)
         p *= 2;
     return p;
 }
 
-// xq (not XG), hq, hmid and, where a column group has row parts, their int32 sums
-__host__ __device__ inline size_t smem_bytes(int H, int chunk, bool xg) {
-    return (xg ? 0 : (size_t)NPAD * (H + XQ_PAD)) + (size_t)NPAD * (chunk + HQ_PAD)
-           + sizeof(float) * NPAD * (chunk / CLUSTER)
+// xq (not XG), hq and hmid (not HG) and, where a column group has row
+// parts, their int32 sums (ops/fused_mlp.py:_hq_in_slab mirrors the choice)
+__host__ __device__ inline size_t smem_bytes(int H, int chunk, bool xg, bool hg) {
+    return (xg ? 0 : (size_t)NPAD * (H + XQ_PAD))
+           + (hg ? 0 : (size_t)NPAD * (hq_cols(chunk) + HQ_PAD)
+                           + sizeof(float) * NPAD * cta_rows(chunk))
            + (down_parts(H, chunk) > 1 ? sizeof(int) * WARPS * 32 * 32 : 0);
 }
 
-template <bool XG>
+template <bool XG, bool HG>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS, 1)
 fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
                       const int8_t* __restrict__ gate_t, const float* __restrict__ s_gate,
@@ -270,33 +310,49 @@ fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
     __shared__ int last_cta;
     cg::cluster_group cluster = cg::this_cluster();
     const int c = blockIdx.y, nchunks = gridDim.y;
-    const int xstride = XG ? H : H + XQ_PAD, hstride = chunk + HQ_PAD;
+    const int kc = hq_cols(chunk);                                   // hq's codes a row
+    const int rows_cta = cta_rows(chunk);                            // rows i of a CTA
+    const int xstride = XG ? H : H + XQ_PAD;
+    const int hstride = HG ? CLUSTER * rows_cta : kc + HQ_PAD;
     // [NPAD][H + XQ_PAD] in shared memory, or (XG) [R][H] in the chunk's slab of part
     int8_t* xq_s = XG ? reinterpret_cast<int8_t*>(part + (size_t)c * R * H)
                       : reinterpret_cast<int8_t*>(smem);
-    int8_t* hq_s = reinterpret_cast<int8_t*>(smem) + (XG ? 0 : (size_t)NPAD * xstride);
-    const int rows_cta = chunk / CLUSTER;                            // rows i of a CTA
-    float* hmid_s = reinterpret_cast<float*>(hq_s + (size_t)NPAD * hstride);  // [NPAD][rows_cta]
-    int* dn_red = reinterpret_cast<int*>(hmid_s + NPAD * rows_cta);  // [WARPS][32][32]
+    // hq [NPAD][kc + HQ_PAD] and hmid [NPAD][rows_cta] in shared memory, or
+    // (HG) hq [R][hstride] and hmid [R][hstride] (this CTA's rows at
+    // k·rows_cta) in the chunk's slab past the terms
+    int8_t* hg_slab_p = reinterpret_cast<int8_t*>(part + (size_t)nchunks * R * H)
+                        + (size_t)c * hg_slab(R, chunk);
+    int8_t* hq_s = HG ? hg_slab_p
+                      : reinterpret_cast<int8_t*>(smem) + (XG ? 0 : (size_t)NPAD * xstride);
+    float* hmid_s = HG ? reinterpret_cast<float*>(hg_slab_p + (size_t)R * hstride)
+                       : reinterpret_cast<float*>(hq_s + (size_t)NPAD * hstride);
+    const int hm_stride = HG ? hstride : rows_cta;
+    if (HG) hmid_s += (size_t)blockIdx.x * rows_cta;
+    int* dn_red = reinterpret_cast<int*>(
+        reinterpret_cast<unsigned char*>(smem) + (XG ? 0 : (size_t)NPAD * xstride)
+        + (HG ? 0 : (size_t)NPAD * hstride + sizeof(float) * NPAD * rows_cta));  // [WARPS][32][32]
 
     const int k = (int)cluster.block_rank();  // == blockIdx.x
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
     const int nkb = H / 64;
-    const int ntile = rows_cta / 16;
+    const int live_cta = max(0, min(rows_cta, chunk - k * rows_cta));  // its rows of the chunk
+    const int ntile = (live_cta + 15) / 16;
     const size_t i_cta = (size_t)c * chunk + (size_t)k * rows_cta;
     const int P = down_parts(H, chunk);
-    const int units = (H / COLS) * P, rows_part = chunk / P, nks = rows_part / 32;
+    const int units = (H / COLS) * P, rows_part = kc / P, nks = rows_part / 32;
     auto unit_slab = [&](int u) {  // columns 16g.. of unit u's rows in down
         return down + ((size_t)c * chunk + (u % P) * rows_part) * H + (u / P) * COLS + 16 * g;
     };
+    auto unit_live = [&](int u) { return chunk - (u % P) * rows_part; };  // its rows in the chunk
 
     // the padding rows of the products' B operands are zero
     if (!XG)
         for (int i = tid; i < (NPAD - R) * xstride / 16; i += THREADS)
             reinterpret_cast<int4*>(xq_s + (size_t)R * xstride)[i] = make_int4(0, 0, 0, 0);
-    for (int i = tid; i < (NPAD - R) * hstride / 16; i += THREADS)
-        reinterpret_cast<int4*>(hq_s + (size_t)R * hstride)[i] = make_int4(0, 0, 0, 0);
+    if (!HG)
+        for (int i = tid; i < (NPAD - R) * hstride / 16; i += THREADS)
+            reinterpret_cast<int4*>(hq_s + (size_t)R * hstride)[i] = make_int4(0, 0, 0, 0);
     cluster_arrive();  // this CTA runs: the others may write its shared memory
 
     const int u_first = k * WARPS + warp;  // this warp's first unit of the down product
@@ -305,7 +361,7 @@ fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
     int4 ga[KU][4], gb[KU][4];
     if (warp < ntile)
         gu_load(ga, gate_t + (i_cta + 16 * warp) * H, up_t + (i_cta + 16 * warp) * H, H, 0, nkb,
-                g, t);
+                g, t, live_cta - 16 * warp);
 
     // 1. prologue: CTA r forms row r's xq and xs for the whole cluster
     if (k < R) {
@@ -367,19 +423,20 @@ fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
     for (int tile = warp; tile < ntile; tile += WARPS) {
         const int8_t* gt = gate_t + (i_cta + 16 * tile) * H;
         const int8_t* ut = up_t + (i_cta + 16 * tile) * H;
-        if (tile != warp) gu_load(ga, gt, ut, H, 0, nkb, g, t);
+        const int live = live_cta - 16 * tile;  // the tile's rows inside the chunk
+        if (tile != warp) gu_load(ga, gt, ut, H, 0, nkb, g, t, live);
         int ag[2][4] = {}, au[2][4] = {};
         for (int kb0 = 0; kb0 < nkb; kb0 += 2 * KU) {
-            gu_load(gb, gt, ut, H, kb0 + KU, nkb, g, t);
+            gu_load(gb, gt, ut, H, kb0 + KU, nkb, g, t, live);
             gu_mma<XG>(ga, xq_s, xstride, R, kb0, nkb, g, t, ag, au);
-            gu_load(ga, gt, ut, H, kb0 + 2 * KU, nkb, g, t);
+            gu_load(ga, gt, ut, H, kb0 + 2 * KU, nkb, g, t, live);
             gu_mma<XG>(gb, xq_s, xstride, R, kb0 + KU, nkb, g, t, ag, au);
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {  // d q: row i = g (+8 for q ≥ 2), n = 2t + (q & 1)
             const int n = 2 * t + (q & 1);
             const int il = 16 * tile + g + (q >> 1) * 8;  // the row within the CTA's rows
-            if (n < R) {
+            if (n < R && il < live_cta) {  // a row past the chunk forms no hmid
                 const size_t i = i_cta + il;
                 const float gg = __fmul_rn(__fmul_rn(static_cast<float>(ag[0][q] + ag[1][q]),
                                                      xs_s[n]), s_gate[i]);
@@ -387,7 +444,7 @@ fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
                                                      xs_s[n]), s_up[i]);
                 const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-gg)));
                 const float hm = __fmul_rn(__fmul_rn(sig, gg), uu);
-                hmid_s[n * rows_cta + il] = hm;
+                hmid_s[n * hm_stride + il] = hm;
                 mx[q & 1] = fmaxf(mx[q & 1], fabsf(hm));
             }
         }
@@ -395,7 +452,7 @@ fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
 
     // down's first k-steps past the prefetched ones go out before the requant's barriers
     int4 da[KS][8], db[KS][8];
-    if (u_first < units) dn_load(da, unit_slab(u_first), H, 0, nks, t);
+    if (u_first < units) dn_load(da, unit_slab(u_first), H, 0, nks, t, unit_live(u_first));
 
     // 3. requant: the chunk's max|hmid| per row over the cluster, then hq
 #pragma unroll
@@ -422,19 +479,34 @@ fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
         if (k == 0 && hs_out) hs_out[(size_t)tid * nchunks + c] = hs_s[tid];
     }
     __syncthreads();
+    // every CTA writes its words of hq up to kc, zeros past the chunk (a
+    // CTA with no rows of the chunk too), so down's padding k reads zeros
     const int wpr = rows_cta / 4;  // 4-code words of a row in this CTA
     for (int idx = tid; idx < R * wpr; idx += THREADS) {
         const int n = idx / wpr, w4 = idx - n * wpr;
-        const float* hr = hmid_s + n * rows_cta + 4 * w4;
+        const int col = k * rows_cta + 4 * w4;  // the word's first code in the chunk
+        if (col >= kc) continue;
+        const float* hr = hmid_s + n * hm_stride + 4 * w4;
         unsigned packed = 0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) packed |= (unsigned)(quantize(hr[e], hs_s[n]) & 0xff) << (8 * e);
-        int8_t* dst = hq_s + (size_t)n * hstride + k * rows_cta + 4 * w4;
-        for (int r2 = 0; r2 < CLUSTER; ++r2)
-            *reinterpret_cast<unsigned*>(cluster.map_shared_rank(dst, r2)) = packed;
-        if (hq_out) *reinterpret_cast<unsigned*>(hq_out + (size_t)n * I + i_cta + 4 * w4) = packed;
+        for (int e = 0; e < 4; ++e)
+            if (col + e < chunk) packed |= (unsigned)(quantize(hr[e], hs_s[n]) & 0xff) << (8 * e);
+        int8_t* dst = hq_s + (size_t)n * hstride + col;
+        if (HG)
+            *reinterpret_cast<unsigned*>(dst) = packed;
+        else
+            for (int r2 = 0; r2 < CLUSTER; ++r2)
+                *reinterpret_cast<unsigned*>(cluster.map_shared_rank(dst, r2)) = packed;
+        if (hq_out && col < chunk) {
+            int8_t* o = hq_out + (size_t)n * I + (size_t)c * chunk + col;
+            if (col + 4 <= chunk && reinterpret_cast<uintptr_t>(o) % 4 == 0)
+                *reinterpret_cast<unsigned*>(o) = packed;
+            else
+                for (int e = 0; e < 4 && col + e < chunk; ++e) o[e] = (int8_t)(packed >> (8 * e));
+        }
     }
-    cluster.sync();  // the chunk's hq in every CTA; no shared memory is read remotely after this
+    cluster.sync();  // the chunk's hq in every CTA (HG: in the slab); no shared memory is read
+                     // remotely after this
 
     // 4. down: unit u = (128-column group u / P, row part u % P) of the chunk
     for (int base = 0; base < units; base += CLUSTER * WARPS) {
@@ -444,13 +516,15 @@ fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
         int acc[8][4] = {};
         if (have) {
             const int8_t* slab = unit_slab(u);
-            const int8_t* hq_row = hq_s + (size_t)g * hstride + pp * rows_part;
-            if (base > 0) dn_load(da, slab, H, 0, nks, t);
+            const int live = unit_live(u);
+            const int8_t* hq_row = HG && g >= R ? nullptr
+                                                : hq_s + (size_t)g * hstride + pp * rows_part;
+            if (base > 0) dn_load(da, slab, H, 0, nks, t, live);
             for (int ks0 = 0; ks0 < nks; ks0 += 2 * KS) {
-                dn_load(db, slab, H, ks0 + KS, nks, t);
-                dn_mma(da, hq_row, ks0, nks, t, acc);
-                dn_load(da, slab, H, ks0 + 2 * KS, nks, t);
-                dn_mma(db, hq_row, ks0 + KS, nks, t, acc);
+                dn_load(db, slab, H, ks0 + KS, nks, t, live);
+                dn_mma<HG>(da, hq_row, ks0, nks, t, acc);
+                dn_load(da, slab, H, ks0 + 2 * KS, nks, t, live);
+                dn_mma<HG>(db, hq_row, ks0 + KS, nks, t, acc);
             }
         }
         if (P > 1) {  // the row parts of a column group are warps of this CTA: add them (exact)
@@ -542,29 +616,46 @@ fused_mlp_int8_kernel(const float* __restrict__ x, const float* __restrict__ gn,
 
 extern "C" {
 
+// Whether a call at (R, H, chunk) keeps hq and hmid in device memory (the HG
+// instance), and the bytes of its slab a chunk; part then holds I/chunk of
+// them, 16-byte aligned, after its [I/chunk, R, H] f32 terms.
+int fused_mlp_int8_hq_in_slab(int H, int chunk) {
+    return smem_bytes(H, chunk, false, false) + 2048 > (size_t)SMEM_LIMIT &&
+           smem_bytes(H, chunk, true, false) + 2048 > (size_t)SMEM_LIMIT;
+}
+long long fused_mlp_int8_hg_slab_bytes(int R, int chunk) { return (long long)hg_slab(R, chunk); }
+
 // x [R, H] f32, g [H], gate_t / up_t / down [I, H] int8, s_gate / s_up [I],
 // s_down [H]; scratch: part [I/chunk, R, H] f32 (also xq's rows where they
 // do not fit in shared memory), counters [8] int32 (zero; left zero); out
 // [R, H] f32. xq_out [R, H] int8, xs_out [R], hq_out [R, I] int8 and hs_out
 // [R, I/chunk] f32 receive the codes and scales when not null. One launch
-// on `stream`; returns its CUDA error, or 0. cudaErrorInvalidValue where hq
-// and hmid alone outgrow shared memory: a chunk past 16,384 rows at H ≤ 4,096,
-// past 19,072 wider.
+// on `stream`; returns its CUDA error, or 0. Any chunk ≥ 1 that divides I.
+// Where hq and hmid outgrow shared memory (fused_mlp_int8_hq_in_slab), part
+// holds [I/chunk] slabs of hg_slab(R, chunk) bytes after its terms.
 int fused_mlp_int8_launch(const float* x, const float* g, const int8_t* gate_t,
                           const float* s_gate, const int8_t* up_t, const float* s_up,
                           const int8_t* down, const float* s_down, float* part, int* counters,
                           float* out, int8_t* xq_out, float* xs_out, int8_t* hq_out,
                           float* hs_out, int R, int H, int I, int chunk, float eps,
                           cudaStream_t stream) {
-    if (R < 1 || R > MAX_R || H < 128 || H % 128 || chunk < 128 || chunk % 128 || I <= 0 ||
-        I % chunk)
+    if (R < 1 || R > MAX_R || H < 128 || H % 128 || chunk < 1 || I <= 0 || I % chunk)
         return static_cast<int>(cudaErrorInvalidValue);
-    // xq in shared memory where it fits beside the rest (+ the static arrays), else XG
-    const bool xg = smem_bytes(H, chunk, false) + 2048 > (size_t)SMEM_LIMIT;
-    const size_t need = smem_bytes(H, chunk, xg);
+    // xq, then hq and hmid, in shared memory where they fit beside the rest
+    // (+ the static arrays); else XG, then HG, then both
+    bool xg = false, hg = false;
+    for (int m = 0; m < 4; ++m) {
+        xg = m & 1;
+        hg = m >> 1;
+        if (smem_bytes(H, chunk, xg, hg) + 2048 <= (size_t)SMEM_LIMIT) break;
+    }
+    const size_t need = smem_bytes(H, chunk, xg, hg);
     if (need + 2048 > (size_t)SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = need > (size_t)SMEM_ONE_CTA ? need : (size_t)SMEM_ONE_CTA;
-    const auto kernel = xg ? fused_mlp_int8_kernel<true> : fused_mlp_int8_kernel<false>;
+    const auto kernel = xg ? (hg ? fused_mlp_int8_kernel<true, true>
+                                 : fused_mlp_int8_kernel<true, false>)
+                           : (hg ? fused_mlp_int8_kernel<false, true>
+                                 : fused_mlp_int8_kernel<false, false>);
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);

@@ -1,236 +1,256 @@
 // int8 scan with per-block top-kb, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel crs_tpu/ops/pallas_scan.py:pallas_topk_int8 /
-// _scan_kernel_int8 (with _extract_block_topk). For each query tile and each
-// corpus block of BLOCK_ROWS rows:
-//   acc = q_codes · codes_blockᵀ              (int8 × int8 → int32, __dp4a)
-//   s   = float(acc) · row_scale + bias         (bias 0, or -1e30 for padding
-//                                                and rows the `where` mask drops)
-//   kb times: take the max, then the lowest global id among equal maxima,
-//   emit (score, id), set that entry to -1e30.
+// _scan_kernel_int8 (with _extract_block_topk). For each query tile of
+// QUERY_TILE queries and each corpus block of block_size rows:
+//   acc = q_codes · codes_blockᵀ                (int8 × int8 → int32, exact)
+//   s   = __fadd_rn(__fmul_rn(f32(acc), row_scale), bias)   (bias 0, or
+//         -1e30 for padding and rows the `where` mask drops)
+//   kb times: the max, the lowest global id among equal maxima, that entry
+//   set to -1e30 (it stays a candidate under its id, so a block with no
+//   allowed rows left re-emits its lowest id at -1e30).
 // Partials go to out_s / out_i laid out [nq, nblocks, kb, QUERY_TILE], the
 // JAX kernel's layout. The per-query scale is applied by the caller.
 //
 // What bounds it on an H100: at N = 1,048,576, D = 384, B = 328 the corpus is
 // ~403 MB (~0.12 ms at 3.35 TB/s) and the work 2·B·N·D ≈ 2.6e11 int8
 // operations (~0.13 ms at 1,979 TOPS on the tensor cores), so the bound is
-// about 0.13 ms a batch. This first kernel is simple and right rather than
-// fast: it uses __dp4a on the CUDA cores (no tensor cores) and rereads the
-// corpus once per query tile of QUERY_TILE queries, so it sits far from that
-// bound; the tensor-core (mma/wgmma s8) version is later work.
+// about 0.13 ms a batch. (B is padded to 384, six tiles of 64: the kernel
+// does 17 % more work.)
 //
-// Design: one CUDA block per (corpus block, query tile), 256 threads = 8
-// warps. The query tile's codes pass through shared memory as 32-bit words
-// laid out [word][query], Q_SLICE_WORDS words of each query at a time (so
-// any D fits: a wide corpus is scored slice by slice into the same int32
-// sums); the corpus block streams through shared memory in chunks of
-// KCHUNK_WORDS words per row, laid out [word][row] so that lane l reads
-// rows l, l+32, ... without bank conflicts. Warp w owns queries 8w..8w+7
-// and every lane holds the scores of its 8 rows for those queries in
-// registers, so the whole 8 × 256 score tile of a warp is in registers and
-// the top-kb extraction is kb warp-shuffle arg-max passes per query — no
-// score tile in shared memory. A D that is not a multiple of 16 is read 4
-// bytes (D a multiple of 4) or a byte at a time and zero-filled past D
-// inside the kernel (a zero product
-// adds nothing to an int32 sum), so the corpus is never copied to pad it;
-// the queries arrive padded to the multiple (the wrapper pads them, B × D
-// bytes). The int32 sums are exact up to D = 133,143 (127² per product).
+// Design: the scoring pass is csrc/int8_scan.cuh's, which kernel 7 shares:
+// wgmma m64n256k32 s8 on a TMA-fed ring (any other D through the RAGGED
+// staging), one corpus pass per launch, a CTA scoring its rows against two
+// query tiles. This file adds the epilogue, a running top-kb per (query,
+// block): the int32 dots become scores in place in the accumulator registers
+// (their f32 bits), and block_topk::merge_row folds each 256-row chunk into
+// the query row's list by kb arg-max passes over (chunk ∪ list), a quad of
+// threads holding the row's 256 columns (kernel 2's bf16 epilogue). The list
+// is double-buffered in shared memory; a chunk whose scores all lie at or
+// below the list's kb-th entry leaves it as it is. Any block_size >= 1 is
+// taken: a block is ⌈block_size / 256⌉ chunks from its first row, and the
+// columns of its last chunk past the block's end (rows of the next block,
+// or past the corpus) score -1e30 and never win. A CTA walks SPAN_CHUNKS
+// chunks (whole blocks, at least one) so that its queries' load and its
+// ring's fill are shared by several chunks, and writes each block's list to
+// the partials when the block ends.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_topk.cuh"
+#include "int8_scan.cuh"
+
 namespace {
 
-constexpr int BLOCK_ROWS = 256;   // corpus rows per CUDA block
-constexpr int QUERY_TILE = 64;    // queries per CUDA block
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int Q_PER_WARP = QUERY_TILE / WARPS;   // 8
-constexpr int ROWS_PER_LANE = BLOCK_ROWS / 32;   // 8
-constexpr int KCHUNK_WORDS = 16;                 // 64 bytes of each row per chunk
-constexpr int Q_SLICE_WORDS = 128;               // 512 bytes of each query per slice
-constexpr float NEG_INF = -1e30f;
+using namespace i8scan;
 
-// the dynamic shared memory at width d: a query slice, then a corpus chunk
-__host__ __device__ inline int q_slice_words(int d) {
-    const int dw = (d + 15) / 16 * 4;
-    return dw < Q_SLICE_WORDS ? dw : Q_SLICE_WORDS;
-}
-size_t smem_bytes(int d) {
-    return (size_t)(q_slice_words(d) * QUERY_TILE + KCHUNK_WORDS * BLOCK_ROWS) * sizeof(int);
+constexpr int MAX_KB = 32;
+constexpr int SPAN_CHUNKS = 16;  // chunks a CTA walks: whole blocks, at least one
+constexpr float NEG_INF = block_topk::NEG_INF;
+constexpr unsigned FULL = 0xffffffffu;
+
+// the lists' room: two buffers of [TILE_Q][kb] scores, then ids
+__host__ __device__ inline int lists_bytes(int kb) { return 2 * TILE_Q * kb * 8; }
+
+__host__ __device__ inline RingLayout k1_layout(int d, int kb) {
+    return layout(d, lists_bytes(kb));
 }
 
-// 16 bytes of a corpus row from byte `o` on, zero at or past D: one
-// 16-byte load when D is a multiple of 16 (ALIGN 16), four 4-byte loads
-// when it is a multiple of 4 (ALIGN 4), else byte by byte (ALIGN 1)
-template <int ALIGN>
-__device__ __forceinline__ int4 load16(const int8_t* row, int o, int d) {
-    if (ALIGN == 16) return *reinterpret_cast<const int4*>(row + o);
-    int w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int c0 = o + 4 * i;
-        if (ALIGN == 4) {
-            w[i] = c0 < d ? *reinterpret_cast<const int*>(row + c0) : 0;
-            continue;
-        }
-        uint32_t v = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-            if (c0 + b < d) v |= (uint32_t)(uint8_t)row[c0 + b] << (8 * b);
-        w[i] = (int)v;
-    }
-    return make_int4(w[0], w[1], w[2], w[3]);
+__host__ __device__ inline int chunks_per_block(int block_size) {
+    return (block_size + CHUNK - 1) / CHUNK;
 }
 
-template <int ALIGN>
-__global__ void __launch_bounds__(THREADS, 2)
-int8_scan_topk_kernel(const int8_t* __restrict__ q_codes,     // [nq·QUERY_TILE, ⌈D/16⌉·16]
-                      const int8_t* __restrict__ codes,       // [nblocks·BLOCK_ROWS, D]
-                      const float* __restrict__ row_scale,    // [nblocks·BLOCK_ROWS]
-                      const float* __restrict__ bias,         // [nblocks·BLOCK_ROWS]
-                      float* __restrict__ out_s,              // [nq, nblocks, kb, QUERY_TILE]
-                      int* __restrict__ out_i,
-                      int nblocks, int d, int kb) {
-    extern __shared__ int smem[];
-    const int dq = (d + 15) & ~15;               // the queries' padded width
-    const int dw = dq / 4;                       // 32-bit words per (padded) row
-    int* qs = smem;                                  // [q_slice_words][QUERY_TILE]
-    int* cs = smem + q_slice_words(d) * QUERY_TILE;  // [KCHUNK_WORDS][BLOCK_ROWS]
+__host__ __device__ inline int blocks_per_cta(int block_size) {
+    const int cpb = chunks_per_block(block_size);
+    return cpb >= SPAN_CHUNKS ? 1 : SPAN_CHUNKS / cpb;
+}
 
-    const int blk = blockIdx.x;
-    const int iq = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const long long row0 = (long long)blk * BLOCK_ROWS;
-
-    int acc[Q_PER_WARP][ROWS_PER_LANE];
+template <bool RESIDENT, bool RAGGED>
+__global__ void __launch_bounds__(THREADS, 1)
+int8_scan_topk_kernel(const __grid_constant__ CUtensorMap tm_q,  // [nq·64, dq] int8
+                      const __grid_constant__ CUtensorMap tm_v,  // [N, d] int8 (TMA route)
+                      const int8_t* __restrict__ codes,          // [N, d] (RAGGED route)
+                      const float* __restrict__ row_scale,       // [N]
+                      const float* __restrict__ bias,            // [N]
+                      float* __restrict__ out_s,                 // [nq, nblocks, kb, QUERY_TILE]
+                      int* __restrict__ out_i, int nq, int nblocks, int block_size, int d,
+                      int kb) {
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = fscan::aligned_smem(smem_raw);
+    const RingLayout L = k1_layout(d, kb);
+    // list buffer b (chunk parity): scores [TILE_Q][kb], then ids
+    float* lists = reinterpret_cast<float*>(smem + epilogue_offset(L, d));
+    const int npairs = (nq + 1) / 2;
+    const int pair = blockIdx.x % npairs;
+    const int bpc = blocks_per_cta(block_size);
+    const int blk0 = blockIdx.x / npairs * bpc;
+    const int nblk = min(bpc, nblocks - blk0);
+    const int cpb = chunks_per_block(block_size);
+    // chunk c of the CTA: chunk c % cpb of block blk0 + c / cpb
+    const auto chunk_row = [=](int c) {
+        return (long long)(blk0 + c / cpb) * block_size + (long long)(c % cpb) * CHUNK;
+    };
+    i8_scores<RESIDENT, RAGGED>(
+        &tm_q, &tm_v, codes, (long long)nblocks * block_size, smem, L, pair, chunk_row,
+        nblk * cpb, d, [&](int c, int (&acc)[128], int wg, int t, int qa) {
+            // the chunk's scores, in place: f32(acc)·row_scale + bias, -1e30
+            // at the columns past the block's end
+            const int cb = c % cpb;
+            const int blk = blk0 + c / cpb;
+            const int grow0 = (int)chunk_row(c);
+            const int live = min(CHUNK, block_size - cb * CHUNK);  // the block's columns
+            float m0 = NEG_INF, m1 = NEG_INF;
+            if (live == CHUNK && !(grow0 & 1)) {  // a whole chunk, pairs of rows 8-byte aligned
 #pragma unroll
-    for (int i = 0; i < Q_PER_WARP; ++i)
+                for (int j = 0; j < 32; ++j) {
+                    const int col = grow0 + 8 * j + 2 * t;
+                    const float2 rs = *reinterpret_cast<const float2*>(row_scale + col);
+                    const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+                    const float s0 = __fadd_rn(__fmul_rn((float)acc[4 * j + 0], rs.x), bb.x);
+                    const float s1 = __fadd_rn(__fmul_rn((float)acc[4 * j + 1], rs.y), bb.y);
+                    const float s2 = __fadd_rn(__fmul_rn((float)acc[4 * j + 2], rs.x), bb.x);
+                    const float s3 = __fadd_rn(__fmul_rn((float)acc[4 * j + 3], rs.y), bb.y);
+                    acc[4 * j + 0] = __float_as_int(s0);
+                    acc[4 * j + 1] = __float_as_int(s1);
+                    acc[4 * j + 2] = __float_as_int(s2);
+                    acc[4 * j + 3] = __float_as_int(s3);
+                    m0 = fmaxf(m0, fmaxf(s0, s1));
+                    m1 = fmaxf(m1, fmaxf(s2, s3));
+                }
+            } else {
 #pragma unroll
-        for (int j = 0; j < ROWS_PER_LANE; ++j) acc[i][j] = 0;
-
-    const int8_t* qbase = q_codes + (long long)iq * QUERY_TILE * dq;
-    const int8_t* cbase = codes + row0 * d;
-    for (int q0 = 0; q0 < dw; q0 += q_slice_words(d)) {
-        const int qn = min(q_slice_words(d), dw - q0);   // a multiple of 4
-        const int qsegs = qn / 4;
-        __syncthreads();                               // the previous slice consumed
-        // the query tile's slice → shared memory, 16 bytes per load
-        for (int idx = tid; idx < QUERY_TILE * qsegs; idx += THREADS) {
-            const int q = idx / qsegs, sg = idx % qsegs;
-            const int4 v = *reinterpret_cast<const int4*>(qbase + (long long)q * dq + q0 * 4 + sg * 16);
-            qs[(sg * 4 + 0) * QUERY_TILE + q] = v.x;
-            qs[(sg * 4 + 1) * QUERY_TILE + q] = v.y;
-            qs[(sg * 4 + 2) * QUERY_TILE + q] = v.z;
-            qs[(sg * 4 + 3) * QUERY_TILE + q] = v.w;
-        }
-        for (int kc = 0; kc < qn; kc += KCHUNK_WORDS) {
-            const int nw = min(KCHUNK_WORDS, qn - kc);   // a multiple of 4
-            const int nseg = nw / 4;
-            __syncthreads();                              // previous chunk consumed
-            for (int idx = tid; idx < BLOCK_ROWS * nseg; idx += THREADS) {
-                const int r = idx / nseg, sg = idx % nseg;
-                const int4 v = load16<ALIGN>(cbase + (long long)r * d, (q0 + kc) * 4 + sg * 16, d);
-                cs[(sg * 4 + 0) * BLOCK_ROWS + r] = v.x;
-                cs[(sg * 4 + 1) * BLOCK_ROWS + r] = v.y;
-                cs[(sg * 4 + 2) * BLOCK_ROWS + r] = v.z;
-                cs[(sg * 4 + 3) * BLOCK_ROWS + r] = v.w;
+                for (int j = 0; j < 32; ++j)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int col = 8 * j + 2 * t + e;
+                        float s0 = NEG_INF, s1 = NEG_INF;
+                        if (col < live) {
+                            const float rs = row_scale[grow0 + col];
+                            const float bb = bias[grow0 + col];
+                            s0 = __fadd_rn(__fmul_rn((float)acc[4 * j + e], rs), bb);
+                            s1 = __fadd_rn(__fmul_rn((float)acc[4 * j + 2 + e], rs), bb);
+                        }
+                        acc[4 * j + e] = __float_as_int(s0);
+                        acc[4 * j + 2 + e] = __float_as_int(s1);
+                        m0 = fmaxf(m0, s0);
+                        m1 = fmaxf(m1, s1);
+                    }
             }
-            __syncthreads();
-            for (int w = 0; w < nw; ++w) {
-                int qv[Q_PER_WARP], cv[ROWS_PER_LANE];
+            const bool have = cb > 0;
+            float* os = lists + ((c & 1) ^ 1) * 2 * TILE_Q * kb;  // the list so far
+            float* ns = lists + (c & 1) * 2 * TILE_Q * kb;        // the list with this chunk
+            const int* oi = reinterpret_cast<const int*>(os + TILE_Q * kb);
+            int* ni = reinterpret_cast<int*>(ns + TILE_Q * kb);
+            bool need0 = true, need1 = true;
+            if (have) {
 #pragma unroll
-                for (int i = 0; i < Q_PER_WARP; ++i) qv[i] = qs[(kc + w) * QUERY_TILE + warp * Q_PER_WARP + i];
-#pragma unroll
-                for (int j = 0; j < ROWS_PER_LANE; ++j) cv[j] = cs[w * BLOCK_ROWS + lane + 32 * j];
-#pragma unroll
-                for (int i = 0; i < Q_PER_WARP; ++i)
-#pragma unroll
-                    for (int j = 0; j < ROWS_PER_LANE; ++j) acc[i][j] = __dp4a(qv[i], cv[j], acc[i][j]);
+                for (int off = 1; off < 4; off <<= 1) {
+                    m0 = fmaxf(m0, __shfl_xor_sync(FULL, m0, off));
+                    m1 = fmaxf(m1, __shfl_xor_sync(FULL, m1, off));
+                }
+                need0 = m0 > os[qa * kb + kb - 1];
+                need1 = m1 > os[(qa + 8) * kb + kb - 1];
             }
-        }
-    }
-
-    // scores: round the product, then add the bias (no FMA contraction, so
-    // the value is the one the plain version computes)
-    float s[Q_PER_WARP][ROWS_PER_LANE];
+            const int o0 = qa * kb, o1 = (qa + 8) * kb;
+            const int block_row0 = blk * block_size;
+            if (__any_sync(FULL, need0))
+                block_topk::merge_row<0>(acc, t, grow0, have, os + o0, oi + o0, ns + o0,
+                                         ni + o0, kb, block_row0);
+            else
+                block_topk::copy_list(os + o0, oi + o0, ns + o0, ni + o0, kb, t);
+            if (__any_sync(FULL, need1))
+                block_topk::merge_row<1>(acc, t, grow0, have, os + o1, oi + o1, ns + o1,
+                                         ni + o1, kb, block_row0);
+            else
+                block_topk::copy_list(os + o1, oi + o1, ns + o1, ni + o1, kb, t);
+            __syncwarp();
+            if (cb != cpb - 1) return;
+            // the block is done: the quad writes its two rows' lists
 #pragma unroll
-    for (int j = 0; j < ROWS_PER_LANE; ++j) {
-        const long long row = row0 + lane + 32 * j;
-        const float rs = row_scale[row];
-        const float bi = bias[row];
-#pragma unroll
-        for (int i = 0; i < Q_PER_WARP; ++i)
-            s[i][j] = __fadd_rn(__fmul_rn((float)acc[i][j], rs), bi);
-    }
-
-    // top-kb per query: lane-local (max, lowest row), then a warp arg-max
-#pragma unroll
-    for (int i = 0; i < Q_PER_WARP; ++i) {
-        const int q = warp * Q_PER_WARP + i;
-        for (int p = 0; p < kb; ++p) {
-            float best = s[i][0];
-            int bcol = lane;
-#pragma unroll
-            for (int j = 1; j < ROWS_PER_LANE; ++j) {
-                if (s[i][j] > best) {   // strict: the lower row wins a tie
-                    best = s[i][j];
-                    bcol = lane + 32 * j;
+            for (int r = 0; r < 2; ++r) {
+                const int q = qa + 8 * r;
+                const int tile = pair * 2 + q / QUERY_TILE;
+                if (tile >= nq) continue;
+                for (int p = t; p < kb; p += 4) {
+                    const long long o =
+                        (((long long)tile * nblocks + blk) * kb + p) * QUERY_TILE + q % QUERY_TILE;
+                    out_s[o] = ns[q * kb + p];
+                    out_i[o] = ni[q * kb + p];
                 }
             }
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-                const int oc = __shfl_xor_sync(0xffffffffu, bcol, off);
-                if (ob > best || (ob == best && oc < bcol)) {
-                    best = ob;
-                    bcol = oc;
-                }
-            }
-            if (lane == (bcol & 31)) {
-#pragma unroll
-                for (int j = 0; j < ROWS_PER_LANE; ++j)
-                    if (j == (bcol >> 5)) s[i][j] = NEG_INF;
-            }
-            if (lane == 0) {
-                const long long o = (((long long)iq * nblocks + blk) * kb + p) * QUERY_TILE + q;
-                out_s[o] = best;
-                out_i[o] = (int)(row0 + bcol);
-            }
-        }
-    }
+        });
+}
+
+// ---- launcher -------------------------------------------------------------------
+
+template <bool RESIDENT, bool RAGGED>
+int launch_as(const CUtensorMap& tq, const CUtensorMap& tv, const void* codes,
+              const void* row_scale, const void* bias, void* out_s, void* out_i, int nq,
+              int nblocks, int block_size, int d, int kb, cudaStream_t stream) {
+    const size_t smem = fscan::ring_bytes(k1_layout(d, kb));
+    auto kernel = int8_scan_topk_kernel<RESIDENT, RAGGED>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return refused(err);
+    const int bpc = blocks_per_cta(block_size);
+    const unsigned grid = (unsigned)((nq + 1) / 2) * (unsigned)((nblocks + bpc - 1) / bpc);
+    kernel<<<grid, THREADS, smem, stream>>>(
+        tq, tv, static_cast<const int8_t*>(codes), static_cast<const float*>(row_scale),
+        static_cast<const float*>(bias), static_cast<float*>(out_s), static_cast<int*>(out_i), nq,
+        nblocks, block_size, d, kb);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int int8_scan_topk_block_rows() { return BLOCK_ROWS; }
+int int8_scan_topk_chunk_rows() { return CHUNK; }
 int int8_scan_topk_query_tile() { return QUERY_TILE; }
+int int8_scan_topk_max_kb() { return MAX_KB; }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// The caller checks shapes: q rows = nq·QUERY_TILE of ⌈d/16⌉·16 bytes (zero
-// past d), codes rows = nblocks·BLOCK_ROWS of d bytes, d >= 1,
-// 1 <= kb <= BLOCK_ROWS, 16-byte aligned pointers.
+// Dynamic shared memory of one CTA at (d, kb), and whether the queries stay
+// resident (1) or stream with the corpus (0).
+int int8_scan_topk_smem_bytes(int d, int kb) { return fscan::ring_bytes(k1_layout(d, kb)); }
+int int8_scan_topk_queries_resident(int d, int kb) { return k1_layout(d, kb).a_bytes > 0; }
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 = success),
+// or the CUresult of a failed tensor-map encode. The caller checks shapes:
+// q rows = nq·QUERY_TILE of ⌈d/16⌉·16 bytes (zero past d), codes rows =
+// nblocks·block_size of d bytes, block_size >= 1, d >= 1, 1 <= kb <=
+// MAX_KB, 16-byte aligned pointers.
 int int8_scan_topk_launch(const void* q_codes, const void* codes, const void* row_scale,
                           const void* bias, void* out_s, void* out_i, int nq, int nblocks,
-                          int d, int kb, void* stream) {
-    if (d < 1 || kb < 1 || kb > BLOCK_ROWS) return (int)cudaErrorInvalidValue;
-    auto kernel = d % 16 == 0 ? int8_scan_topk_kernel<16>
-                : d % 4 == 0  ? int8_scan_topk_kernel<4>
-                              : int8_scan_topk_kernel<1>;
-    const size_t smem = smem_bytes(d);
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)nblocks, (unsigned)nq);
-    kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        static_cast<const int8_t*>(q_codes), static_cast<const int8_t*>(codes),
-        static_cast<const float*>(row_scale), static_cast<const float*>(bias),
-        static_cast<float*>(out_s), static_cast<int*>(out_i), nblocks, d, kb);
-    return (int)cudaGetLastError();
+                          int d, int kb, int block_size, void* stream) {
+    if (nq < 1 || nblocks < 1 || block_size < 1 || d < 1 || kb < 1 ||
+        kb > MAX_KB || (long long)nblocks * block_size >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    const RingLayout L = k1_layout(d, kb);
+    if (fscan::ring_bytes(L) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const long long n = (long long)nblocks * block_size;
+    CUtensorMap tq, tv;
+    int err = encode_i8_map(&tq, q_codes, (long long)nq * QUERY_TILE,
+                            (d + Q_MULTIPLE - 1) / Q_MULTIPLE * Q_MULTIPLE, TILE_Q);
+    if (err) return err;
+    const bool rag = ragged(d);
+    if (!rag) {
+        err = encode_i8_map(&tv, codes, n, d, CHUNK);
+        if (err) return err;
+    } else {
+        tv = tq;  // not read: the RAGGED route stages the corpus by cp.async
+    }
+    const bool resident = L.a_bytes > 0;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (resident)
+        return rag ? launch_as<true, true>(tq, tv, codes, row_scale, bias, out_s, out_i, nq,
+                                           nblocks, block_size, d, kb, s)
+                   : launch_as<true, false>(tq, tv, codes, row_scale, bias, out_s, out_i, nq,
+                                            nblocks, block_size, d, kb, s);
+    return rag ? launch_as<false, true>(tq, tv, codes, row_scale, bias, out_s, out_i, nq, nblocks,
+                                        block_size, d, kb, s)
+               : launch_as<false, false>(tq, tv, codes, row_scale, bias, out_s, out_i, nq,
+                                         nblocks, block_size, d, kb, s);
 }
 
 }  // extern "C"

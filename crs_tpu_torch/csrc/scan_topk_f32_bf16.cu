@@ -113,7 +113,7 @@ scan_topk_f32_kernel(const float* __restrict__ q,      // [nq·QUERY_TILE, d]
 
     // each scored chunk: bias, then each query's merge by its warp
     f32_scores<RAGGED>(q, vecs, fsmem, nq, pair, blk, block_size, d,
-                       [&](int c, float (&acc)[8][8]) {
+                       (long long)nblocks * block_size, [&](int c, float (&acc)[8][8]) {
         const int grow0 = blk * block_size + c * CHUNK;
         const float4 bb0 = *reinterpret_cast<const float4*>(bias + grow0 + 4 * lane);
         const float4 bb1 = *reinterpret_cast<const float4*>(bias + grow0 + HALF + 4 * lane);
@@ -158,87 +158,6 @@ __host__ __device__ inline int lists_bytes(int kb) { return 2 * TILE_Q * kb * 8;
 
 __host__ __device__ inline RingLayout bf16_layout(int d, int kb) {
     return ring_layout(d, lists_bytes(kb));
-}
-
-// One query row's merge (quad-cooperative): the quad's 4 threads hold its
-// 256 chunk scores, thread t columns 8j + 2t + e in d[4j + 2R + e]; the old
-// list [kb] is read, the new one written (by thread 0 of the quad).
-template <int R>
-__device__ __forceinline__ void merge_row(float (&d)[128], int t, int grow0, bool have_list,
-                                          const float* os, const int* oi, float* ns, int* ni,
-                                          int kb, int block_row0) {
-    // this thread's best remaining (value, column): columns ascend with
-    // (j, e), so a strict > keeps the lowest
-    auto local_best = [&](float& bv, int& bc) {
-        bv = d[2 * R];
-        bc = 2 * t;
-#pragma unroll
-        for (int j = 0; j < 32; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const float v = d[4 * j + 2 * R + e];
-                if (v > bv) {
-                    bv = v;
-                    bc = 8 * j + 2 * t + e;
-                }
-            }
-    };
-    auto quad_best = [&](float& bv, int& bc) {
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-            const float ov = __shfl_xor_sync(FULL, bv, off);
-            const int oc = __shfl_xor_sync(FULL, bc, off);
-            if (ov > bv || (ov == bv && oc < bc)) {
-                bv = ov;
-                bc = oc;
-            }
-        }
-    };
-    float cv;
-    int cc;
-    local_best(cv, cc);
-    quad_best(cv, cc);
-    int ptr = 0;
-    for (int p = 0; p < kb; ++p) {
-        // the list's next entry wins a tie (its id is lower); past every
-        // score above -1e30, each row of the block is at -1e30 and the
-        // lowest, the block's first, is emitted
-        const float lv = have_list ? os[ptr] : NEG_INF;
-        const bool from_list = lv > NEG_INF && (lv >= cv || cv <= NEG_INF);
-        const bool from_chunk = !from_list && cv > NEG_INF;
-        if (t == 0) {
-            ns[p] = from_list ? lv : from_chunk ? cv : NEG_INF;
-            ni[p] = from_list ? oi[ptr] : from_chunk ? grow0 + cc : block_row0;
-        }
-        if (from_list) ++ptr;
-        if (from_chunk && ((cc >> 1) & 3) == t) {  // the owner sets the entry to -1e30
-            const int slot = 4 * (cc >> 3) + 2 * R + (cc & 1);
-#pragma unroll
-            for (int k = 0; k < 32; ++k)
-#pragma unroll
-                for (int e = 0; e < 2; ++e)
-                    if (4 * k + 2 * R + e == slot) d[4 * k + 2 * R + e] = NEG_INF;
-        }
-        if (__any_sync(FULL, from_chunk)) {  // the next chunk candidate (shuffles need the warp)
-            float nv;
-            int nc;
-            local_best(nv, nc);
-            quad_best(nv, nc);
-            if (from_chunk) {
-                cv = nv;
-                cc = nc;
-            }
-        }
-    }
-}
-
-// A quad's list copied unchanged into the new buffer (a chunk that cannot change it).
-__device__ __forceinline__ void copy_list(const float* os, const int* oi, float* ns, int* ni,
-                                          int kb, int t) {
-    for (int p = t; p < kb; p += 4) {
-        ns[p] = os[p];
-        ni[p] = oi[p];
-    }
 }
 
 template <bool RESIDENT>
@@ -290,15 +209,15 @@ scan_topk_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,  // [nq·64, d] 
             }
             const int o0 = qa * kb, o1 = (qa + 8) * kb;
             if (__any_sync(FULL, need0))
-                merge_row<0>(acc, t, grow0, have, os + o0, oi + o0, ns + o0, ni + o0, kb,
-                             block_row0);
+                block_topk::merge_row<0>(acc, t, grow0, have, os + o0, oi + o0, ns + o0,
+                                         ni + o0, kb, block_row0);
             else
-                copy_list(os + o0, oi + o0, ns + o0, ni + o0, kb, t);
+                block_topk::copy_list(os + o0, oi + o0, ns + o0, ni + o0, kb, t);
             if (__any_sync(FULL, need1))
-                merge_row<1>(acc, t, grow0, have, os + o1, oi + o1, ns + o1, ni + o1, kb,
-                             block_row0);
+                block_topk::merge_row<1>(acc, t, grow0, have, os + o1, oi + o1, ns + o1,
+                                         ni + o1, kb, block_row0);
             else
-                copy_list(os + o1, oi + o1, ns + o1, ni + o1, kb, t);
+                block_topk::copy_list(os + o1, oi + o1, ns + o1, ni + o1, kb, t);
             __syncwarp();
         });
     if (!consumer) return;

@@ -17,7 +17,7 @@ int8 with their per-I scales as [I / chunk, chunk]; down in its stored
 
 :func:`fused_mlp_int8` is the wrapper of the CUDA kernel in
 ``csrc/fused_mlp_int8.cu``: one launch a call, a thread-block cluster of 8
-CTAs per chunk of I. On a CUDA tensor it launches the kernel or raises; on
+CTAs per chunk of I, at any chunk that divides I. On a CUDA tensor it launches the kernel or raises; on
 a CPU tensor it runs :func:`emulate_fused_mlp_int8`, the plain torch version
 beside it. Both can return the int8 codes and scales they
 formed (``return_codes``), which is how the card's check holds one against
@@ -28,6 +28,7 @@ one code by a step.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -49,6 +50,10 @@ _SOURCE = "fused_mlp_int8.cu"
 _LAUNCHER = "fused_mlp_int8_launch"
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))  # XLA's x / 127 under jit
 CLUSTER = 8  # CTAs of one chunk's thread-block cluster (csrc/fused_mlp_int8.cu)
+# the kernel library's own plan of what outgrows shared memory: whether a
+# call keeps hq and hmid in device memory, and the bytes of its slab a chunk
+_HQ_IN_SLAB = "fused_mlp_int8_hq_in_slab"
+_HG_SLAB_BYTES = "fused_mlp_int8_hg_slab_bytes"
 
 
 class FusedMLPCodes(NamedTuple):
@@ -124,9 +129,20 @@ def emulate_fused_mlp_int8(x, norm_scale, gate_t, s_gate2, up_t, s_up2, down, s_
     return out
 
 
+def _part_floats(lib, b: int, h: int, inter: int, chunk: int) -> int:
+    """``part``'s f32 elements: the chunks' [B, H] terms of y, then, where
+    the kernel keeps hq and hmid in device memory (its HG instance), a slab
+    a chunk of the size the kernel library gives."""
+    nchunks = inter // chunk
+    slab = getattr(lib, _HG_SLAB_BYTES)(b, chunk) // 4 if getattr(lib, _HQ_IN_SLAB)(h, chunk) else 0
+    return nchunks * (b * h + slab)
+
+
 def _load():
     return load_library(_SOURCE, {_LAUNCHER: [ARG_PTR] * 15 + [ARG_INT] * 4 + [ARG_FLOAT]
-                                  + [ARG_PTR]})
+                                  + [ARG_PTR], _HQ_IN_SLAB: [ARG_INT] * 2,
+                                  _HG_SLAB_BYTES: [ARG_INT] * 2},
+                        {_HG_SLAB_BYTES: ctypes.c_longlong})
 
 
 def fused_mlp_int8(x, norm_scale, gate_t, s_gate2, up_t, s_up2, down, s_down,
@@ -145,9 +161,9 @@ def fused_mlp_int8(x, norm_scale, gate_t, s_gate2, up_t, s_up2, down, s_down,
     inter = gate_t.shape[0]
     if not 1 <= b <= MAX_ROWS:
         raise ValueError(f"the kernel takes 1..{MAX_ROWS} rows, got {b}")
-    if h % 128 or chunk % 128 or inter % chunk or inter == 0:
-        raise ValueError(f"H ({h}) and the chunk ({chunk}) must be multiples of 128 and I "
-                         f"({inter}) a multiple of the chunk")
+    if h % 128 or chunk < 1 or inter % chunk or inter == 0:
+        raise ValueError(f"H ({h}) must be a multiple of 128 and I ({inter}) a positive "
+                         f"multiple of the chunk ({chunk})")
     nchunks = inter // chunk
     for name, t, shape in (("gate_t", gate_t, (inter, h)), ("up_t", up_t, (inter, h)),
                            ("down", down, (inter, h)), ("s_gate2", s_gate2, (nchunks, chunk)),
@@ -161,10 +177,12 @@ def fused_mlp_int8(x, norm_scale, gate_t, s_gate2, up_t, s_up2, down, s_down,
                    ("gate_t", gate_t, torch.int8), ("s_gate2", s_gate2, torch.float32),
                    ("up_t", up_t, torch.int8), ("s_up2", s_up2, torch.float32),
                    ("down", down, torch.int8), ("s_down", s_down, torch.float32))
+    lib = _load()
     stream = stream_handle(dev)
-    # each chunk's term of y (f32, [chunks, B, H]) and the ranks' counters,
-    # which the last CTA of each rank reads and resets
-    part = scratch(dev, stream, "mlp_part", nchunks * b * h, torch.float32)
+    # each chunk's term of y (f32, [chunks, B, H]; past shared memory also
+    # each chunk's hq and hmid) and the ranks' counters, which the last CTA
+    # of each rank reads and resets
+    part = scratch(dev, stream, "mlp_part", _part_floats(lib, b, h, inter, chunk), torch.float32)
     counters = scratch(dev, stream, "mlp_counters", CLUSTER, torch.int32, zero=True)
     out = torch.empty((b, h), dtype=torch.float32, device=dev)
     codes = None
@@ -174,7 +192,7 @@ def fused_mlp_int8(x, norm_scale, gate_t, s_gate2, up_t, s_up2, down, s_down,
                               torch.empty((b, inter), dtype=torch.int8, device=dev),
                               torch.empty((b, nchunks), dtype=torch.float32, device=dev))
     code_ptrs = [t.data_ptr() for t in codes] if codes else [None] * 4
-    launch(STATS, "fused_mlp_int8", getattr(_load(), _LAUNCHER),
+    launch(STATS, "fused_mlp_int8", getattr(lib, _LAUNCHER),
            xf.data_ptr(), gf.data_ptr(), gate_t.data_ptr(), s_gate2.data_ptr(), up_t.data_ptr(),
            s_up2.data_ptr(), down.data_ptr(), s_down.data_ptr(), part.data_ptr(),
            counters.data_ptr(), out.data_ptr(), *code_ptrs, b, h, inter, chunk, float(eps),

@@ -12,7 +12,7 @@ and stream and grown when a call needs more (:func:`scratch`).
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -40,9 +40,11 @@ class KernelStats:
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def load_library(source: str, launchers: Dict[str, Sequence]) -> ctypes.CDLL:
+def load_library(source: str, launchers: Dict[str, Sequence],
+                 restypes: Optional[Dict[str, type]] = None) -> ctypes.CDLL:
     """The built library of ``source`` (one of ``_build.CUDA_SOURCES``) with
-    each launcher of ``launchers`` {name: argument types} typed."""
+    each function of ``launchers`` {name: argument types} typed; it returns
+    an int unless ``restypes`` names its type."""
     lib = _libs.get(source)
     if lib is None:
         from .._build import build_cuda
@@ -50,7 +52,8 @@ def load_library(source: str, launchers: Dict[str, Sequence]) -> ctypes.CDLL:
         lib = ctypes.CDLL(build_cuda(source).path)
         for name, argtypes in launchers.items():
             fn = getattr(lib, name)
-            fn.restype, fn.argtypes = ctypes.c_int, list(argtypes)
+            fn.restype = (restypes or {}).get(name, ctypes.c_int)
+            fn.argtypes = list(argtypes)
         _libs[source] = lib
     return lib
 

@@ -49,12 +49,12 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .launch import KernelStats, check_operands, launch, stream_handle
+from .launch import KernelStats, check_operands, launch, scratch, stream_handle
 from .quant import _int8_topk_dense, int8_dot, int8_rowdot, scalar_quantize
 from .topk import NEG_INF, blockwise_topk, topk_stable
 
 __all__ = [
-    "BLOCK_ROWS", "QUERY_TILE", "FLOAT_QUERY_TILE", "ADC_QUERY_TILE", "CHUNK_ROWS", "STATS",
+    "QUERY_TILE", "FLOAT_QUERY_TILE", "ADC_QUERY_TILE", "CHUNK_ROWS", "STATS",
     "scan_topk_int8", "scan_topk", "scan_topk_residual_pq_adc", "scan_topk_pq_adc",
     "scan_topk_residual_pq_adc_luts", "scan_topk_pq_adc_luts",
     "scan_topk_residual_pq_adc_sorted", "scan_topk_residual_pq_adc_sorted_luts",
@@ -67,30 +67,31 @@ __all__ = [
     "plan_sorted_coarse_windows", "build_kernels",
 ]
 
-# Kernel 1's tile: BLOCK_ROWS corpus rows × QUERY_TILE queries per CUDA
-# block (compile-time constants of csrc/int8_scan_topk.cu, checked at load).
-BLOCK_ROWS = 256
+# A CUDA block walks its corpus rows CHUNK_ROWS at a time, keeping a running
+# top-kb (kb ≤ MAX_KB) per query. Kernels 2 and 3/5 take any block_size that
+# is a multiple of CHUNK_ROWS; kernel 1 takes any block_size (the columns of
+# a block's last chunk past its end score -1e30). Kernel 1's partials are in
+# tiles of QUERY_TILE queries (compile-time constants of the sources,
+# checked at load).
 QUERY_TILE = 64
-# Kernels 2 and 3/5 take any block_size that is a multiple of CHUNK_ROWS:
-# a CUDA block walks its corpus block CHUNK_ROWS rows at a time, keeping a
-# running top-kb (kb ≤ MAX_KB) per query.
 CHUNK_ROWS = 256
 MAX_KB = 32
 FLOAT_QUERY_TILE = 64
 ADC_QUERY_TILE = 8
-# the corpus widths the kernels take: kernel 1 and kernel 2's fp32 any D
-# (they zero-fill past D themselves), kernel 2's bf16 a multiple of 8 (TMA's
-# 16-byte row stride), to which scan_topk zero-pads a bf16 corpus (exact: a
-# zero product adds nothing to an f32 sum). Kernel 1's queries arrive padded
-# to a multiple of 16 (its wrapper pads them).
+# the corpus widths the kernels take: kernels 1 and 7 and kernel 2's fp32
+# any D (they read the corpus as it is), kernel 2's bf16 a multiple of 8
+# (TMA's 16-byte row stride), to which scan_topk zero-pads a bf16 corpus
+# (exact: a zero product adds nothing to an f32 sum). The int8 kernels'
+# queries arrive padded to a multiple of 16 (their wrappers pad them).
 _INT8_Q_MULTIPLE = 16
 _FLOAT_D_MULTIPLE = {torch.float32: 1, torch.bfloat16: 8}
-# Kernels 6 and 7 (segment max): partials in tiles of 64 queries (a kernel 6
-# CUDA block scores two tiles, a kernel 7 block one), CHUNK_ROWS rows a
-# step, at most MAX_SEGMENTS 128-row segments per corpus block.
+# Kernels 6 and 7 (segment max): partials in tiles of 64 queries (a CUDA
+# block scores two tiles), CHUNK_ROWS rows a step, any block of whole
+# 128-row segments; up to MAX_SMEM_SEGMENTS segments a block the segment
+# winners stay in shared memory, past that in a device scratch.
 SEGMAX_QUERY_TILE = 64
 SEGMENT_ROWS = 128
-MAX_SEGMENTS = 32
+MAX_SMEM_SEGMENTS = 64
 _INT_BIG = 2**31 - 1
 
 KernelOut = Tuple[torch.Tensor, torch.Tensor]
@@ -112,20 +113,21 @@ STATS = ScanStats()
 # kernel → (its source in csrc/, the argument types of its ``<kernel>_launch``)
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _KERNELS = {
-    "int8_scan_topk": ("int8_scan_topk.cu", [_P] * 6 + [_I] * 4 + [_P]),
+    "int8_scan_topk": ("int8_scan_topk.cu", [_P] * 6 + [_I] * 5 + [_P]),
     "scan_topk_f32": ("scan_topk_f32_bf16.cu", [_P] * 5 + [_I] * 5 + [_P]),
     "scan_topk_bf16": ("scan_topk_f32_bf16.cu", [_P] * 5 + [_I] * 5 + [_P]),
     "adc_scan_topk_residual": ("pq_adc_scan_topk.cu", [_P] * 6 + [_I] * 11 + [_P]),
     "adc_scan_topk_plain": ("pq_adc_scan_topk.cu", [_P] * 6 + [_I] * 11 + [_P]),
     "adc_scan_topk_sorted": ("pq_adc_scan_topk.cu", [_P] * 7 + [_I] * 12 + [_P]),
-    "segmax_scan_topk_f32": ("segmax_scan_topk.cu", [_P] * 6 + [_I] * 6 + [_P]),
-    "segmax_scan_topk_bf16": ("segmax_scan_topk.cu", [_P] * 6 + [_I] * 6 + [_P]),
-    "segmax_scan_topk_int8": ("segmax_scan_topk.cu", [_P] * 6 + [_I] * 6 + [_P]),
+    "segmax_scan_topk_f32": ("segmax_scan_topk.cu", [_P] * 7 + [_I] * 6 + [_P]),
+    "segmax_scan_topk_bf16": ("segmax_scan_topk.cu", [_P] * 7 + [_I] * 6 + [_P]),
+    "segmax_scan_topk_int8": ("segmax_scan_topk.cu", [_P] * 7 + [_I] * 6 + [_P]),
 }
 # each source's tile constants, checked against this module's at load
 _TILES = {
-    "int8_scan_topk.cu": (("int8_scan_topk_block_rows", BLOCK_ROWS),
-                          ("int8_scan_topk_query_tile", QUERY_TILE)),
+    "int8_scan_topk.cu": (("int8_scan_topk_chunk_rows", CHUNK_ROWS),
+                          ("int8_scan_topk_query_tile", QUERY_TILE),
+                          ("int8_scan_topk_max_kb", MAX_KB)),
     "scan_topk_f32_bf16.cu": (("scan_topk_float_chunk_rows", CHUNK_ROWS),
                               ("scan_topk_float_query_tile", FLOAT_QUERY_TILE),
                               ("scan_topk_float_max_kb", MAX_KB)),
@@ -135,7 +137,7 @@ _TILES = {
     "segmax_scan_topk.cu": (("segmax_scan_topk_chunk_rows", CHUNK_ROWS),
                             ("segmax_scan_topk_query_tile", SEGMAX_QUERY_TILE),
                             ("segmax_scan_topk_segment_rows", SEGMENT_ROWS),
-                            ("segmax_scan_topk_max_segments", MAX_SEGMENTS)),
+                            ("segmax_scan_topk_max_smem_segments", MAX_SMEM_SEGMENTS)),
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -211,9 +213,10 @@ def _block_topk_plain(score_fn: Callable[[int, int], torch.Tensor], bp: int, n_r
     return out_s, out_i
 
 
-def _check_block_shape(n_rows: int, bias: torch.Tensor, block_size: int, kb: int) -> None:
-    if block_size % CHUNK_ROWS or block_size <= 0:
-        raise ValueError(f"block_size must be a positive multiple of {CHUNK_ROWS}, got {block_size}")
+def _check_block_shape(n_rows: int, bias: torch.Tensor, block_size: int, kb: int,
+                       multiple: int = CHUNK_ROWS) -> None:
+    if block_size % multiple or block_size <= 0:
+        raise ValueError(f"block_size must be a positive multiple of {multiple}, got {block_size}")
     if n_rows % block_size or n_rows >= _INT_BIG or bias.shape != (n_rows,):
         raise ValueError("corpus rows must be a multiple of block_size, with one bias per row")
     if not 1 <= kb <= MAX_KB:
@@ -236,7 +239,7 @@ def block_topk_int8_plain(
     row_scale: torch.Tensor,  # [nblocks·block_size] f32
     bias: torch.Tensor,  # [nblocks·block_size] f32: 0 allowed, -1e30 padding/masked
     kb: int,
-    block_size: int = BLOCK_ROWS,
+    block_size: int = CHUNK_ROWS,
 ) -> KernelOut:
     """Per (query, block): s = float(q·c) · row_scale + bias, then the
     extraction — ``_scan_kernel_int8`` with ``_extract_block_topk``.
@@ -255,7 +258,7 @@ def block_topk_int8(
     row_scale: torch.Tensor,
     bias: torch.Tensor,
     kb: int,
-    block_size: int = BLOCK_ROWS,
+    block_size: int = CHUNK_ROWS,
 ) -> KernelOut:
     """The kernel's wrapper: same signature and result as
     :func:`block_topk_int8_plain`. CPU tensors take the plain version; CUDA
@@ -266,27 +269,24 @@ def block_topk_int8(
     d = codes.shape[1]
     _check_operands(dev, ("q_codes", q_codes, torch.int8), ("codes", codes, torch.int8),
                     ("row_scale", row_scale, torch.float32), ("bias", bias, torch.float32))
-    if block_size != BLOCK_ROWS:
-        raise ValueError(f"the CUDA kernel scans blocks of {BLOCK_ROWS} rows, got {block_size}")
     if q_codes.dim() != 2 or q_codes.shape[1] != d or q_codes.shape[0] % QUERY_TILE:
         raise ValueError(f"q_codes must be [m·{QUERY_TILE}, {d}], got {tuple(q_codes.shape)}")
-    n_rows = codes.shape[0]
-    if n_rows % BLOCK_ROWS or n_rows >= _INT_BIG or row_scale.shape != (n_rows,) \
-            or bias.shape != (n_rows,):
-        raise ValueError("codes rows must be a multiple of BLOCK_ROWS, with scale/bias per row")
     if d < 1:
         raise ValueError("the corpus must have at least one dimension")
-    if not 1 <= kb <= BLOCK_ROWS:
-        raise ValueError(f"kb must be in [1, {BLOCK_ROWS}], got {kb}")
+    n_rows = codes.shape[0]
+    _check_block_shape(n_rows, bias, block_size, kb, multiple=1)
+    if row_scale.shape != (n_rows,):
+        raise ValueError("one row scale per corpus row")
     nq = q_codes.shape[0] // QUERY_TILE
-    nblocks = n_rows // BLOCK_ROWS
-    # the kernel reads the queries in 16-byte words and zero-fills the corpus
-    # past D itself: only the [B, D] queries are padded here
+    nblocks = n_rows // block_size
+    # the kernel reads the corpus as it is (any D) and the queries by TMA in
+    # 16-byte words: only the [B, D] queries are padded here
     q_codes = _pad_cols(q_codes, _INT8_Q_MULTIPLE).contiguous()
     out_s, out_i = _partials(nq, nblocks, kb, QUERY_TILE, dev)
     launch(STATS, "int8_scan_topk", _load_lib().int8_scan_topk_launch,
            q_codes.data_ptr(), codes.data_ptr(), row_scale.data_ptr(), bias.data_ptr(),
-           out_s.data_ptr(), out_i.data_ptr(), nq, nblocks, d, kb, _stream_handle(dev))
+           out_s.data_ptr(), out_i.data_ptr(), nq, nblocks, d, kb, block_size,
+           _stream_handle(dev))
     return out_s, out_i
 
 
@@ -694,16 +694,28 @@ def _check_segmax_shape(q, vecs, kseg: int, block_size: int, dim_multiple: int) 
     n_rows, d = vecs.shape
     if q.dim() != 2 or q.shape[1] != d or q.shape[0] % SEGMAX_QUERY_TILE:
         raise ValueError(f"queries must be [m·{SEGMAX_QUERY_TILE}, {d}], got {tuple(q.shape)}")
-    if d % dim_multiple or not dim_multiple <= d <= 4096:
-        raise ValueError(f"D must be a multiple of {dim_multiple} in [{dim_multiple}, 4096], "
-                         f"got {d}")
-    if block_size % CHUNK_ROWS or not 0 < block_size <= MAX_SEGMENTS * SEGMENT_ROWS:
-        raise ValueError(f"the segment-max kernels take blocks of a multiple of {CHUNK_ROWS} "
-                         f"rows up to {MAX_SEGMENTS * SEGMENT_ROWS}, got {block_size}")
+    if d < 1 or d % dim_multiple:
+        raise ValueError(f"D must be a positive multiple of {dim_multiple}, got {d}")
+    if block_size % SEGMENT_ROWS or block_size <= 0:
+        raise ValueError(f"the segment-max kernels take blocks of whole {SEGMENT_ROWS}-row "
+                         f"segments, got {block_size}")
     if n_rows % block_size or n_rows >= _INT_BIG:
         raise ValueError("corpus rows must be a multiple of block_size")
     if not 1 <= kseg <= block_size // SEGMENT_ROWS:
         raise ValueError(f"kseg must be in [1, {block_size // SEGMENT_ROWS}], got {kseg}")
+
+
+def _segment_scratch(dev, nq: int, nblocks: int, block_size: int) -> int:
+    """The segment winners' device room when a block has more than
+    MAX_SMEM_SEGMENTS segments ([CUDA blocks][nseg][128] f32 + int32), else
+    0: the kernel keeps them in shared memory."""
+    nseg = block_size // SEGMENT_ROWS
+    if nseg <= MAX_SMEM_SEGMENTS:
+        return 0
+    ctas = (nq + 1) // 2 * nblocks
+    buf = scratch(dev, _stream_handle(dev), "segmax_segments", ctas * nseg * 2 * 2 * QUERY_TILE,
+                  torch.float32)
+    return buf.data_ptr()
 
 
 def block_topk_segmax(
@@ -722,13 +734,14 @@ def block_topk_segmax(
     if vecs.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the segment-max scan takes f32 or bf16 vectors, got {vecs.dtype}")
     _check_operands(dev, ("q", q, vecs.dtype), ("vectors", vecs, vecs.dtype))
-    _check_segmax_shape(q, vecs, kseg, block_size, 32)
+    _check_segmax_shape(q, vecs, kseg, block_size, _FLOAT_D_MULTIPLE[vecs.dtype])
     nq = q.shape[0] // SEGMAX_QUERY_TILE
     nblocks = vecs.shape[0] // block_size
     out_s, out_i = _partials(nq, nblocks, kseg, SEGMAX_QUERY_TILE, dev)
     kernel = "segmax_scan_topk_f32" if vecs.dtype == torch.float32 else "segmax_scan_topk_bf16"
     _launch(kernel, "segmax_scan_topk.cu", q.data_ptr(), vecs.data_ptr(), q.data_ptr(),
-            vecs.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), nq, nblocks, block_size,
+            vecs.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            _segment_scratch(dev, nq, nblocks, block_size), nq, nblocks, block_size,
             vecs.shape[1], kseg, int(valid_n), _stream_handle(dev))
     return out_s, out_i
 
@@ -751,18 +764,19 @@ def block_topk_segmax_int8(
     dev = codes.device
     _check_operands(dev, ("q_codes", q_codes, torch.int8), ("q_scale", q_scale, torch.float32),
                     ("codes", codes, torch.int8), ("row_scale", row_scale, torch.float32))
-    _check_segmax_shape(q_codes, codes, kseg, block_size, 16)
+    _check_segmax_shape(q_codes, codes, kseg, block_size, 1)
     if q_scale.shape != (q_codes.shape[0],) or row_scale.shape != (codes.shape[0],):
         raise ValueError("one scale per query and per corpus row")
     nq = q_codes.shape[0] // SEGMAX_QUERY_TILE
     nblocks = codes.shape[0] // block_size
+    # the corpus is read as it is (any D); the queries by TMA, padded here
+    q_codes = _pad_cols(q_codes, _INT8_Q_MULTIPLE).contiguous()
     out_s, out_i = _partials(nq, nblocks, kseg, SEGMAX_QUERY_TILE, dev)
     _launch("segmax_scan_topk_int8", "segmax_scan_topk.cu", q_codes.data_ptr(),
             codes.data_ptr(), q_scale.data_ptr(), row_scale.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), nq, nblocks, block_size, codes.shape[1], kseg, int(valid_n),
-            _stream_handle(dev))
+            out_i.data_ptr(), _segment_scratch(dev, nq, nblocks, block_size), nq, nblocks,
+            block_size, codes.shape[1], kseg, int(valid_n), _stream_handle(dev))
     return out_s, out_i
-
 
 
 # -- host side (plain torch, mirrors crs_tpu.ops.pallas_scan) -----------------
@@ -1005,14 +1019,16 @@ def scan_topk_int8(
     queries: torch.Tensor,  # [B, D] f32 (quantized here)
     k: int,
     valid_n: Union[int, torch.Tensor],
-    block_size: int = BLOCK_ROWS,
+    block_size: int = 4096,
     kb: int = 0,
     row_mask: Optional[torch.Tensor] = None,  # [N] bool — metadata `where` filter
     repair: int = 256,
 ) -> KernelOut:
-    """Int8 scan top-k with ``int8_topk``'s quantized-score semantics,
-    exact for any kb (ceilings + targeted repair + fallback). Returns
-    (scores [B, k] f32, ids [B, k] int64)."""
+    """Int8 scan top-k (``pallas_topk_int8``) with ``int8_topk``'s
+    quantized-score semantics, exact for any kb (ceilings + targeted repair
+    + fallback). Rows are padded to whole blocks only (a store's already
+    are: no copy); kernel 1 takes any block_size. Returns (scores [B, k]
+    f32, ids [B, k] int64)."""
     b_real = queries.shape[0]
     dev = codes.device
     q_codes, q_scales = scalar_quantize(queries)
@@ -1339,8 +1355,10 @@ def scan_topk_segmax(
     repair or fallback. Returns (scores [B, k] f32, ids [B, k] int64)."""
     b_real = queries.shape[0]
     kseg = min(k, block_size // SEGMENT_ROWS)
-    q = _pad_rows(queries.to(vectors.dtype), SEGMAX_QUERY_TILE).contiguous()
-    vecs = _pad_rows(vectors, block_size).contiguous()
+    # bf16: D zero-padded to TMA's multiple of 8, as scan_topk pads it
+    d_multiple = _FLOAT_D_MULTIPLE.get(vectors.dtype, 1)
+    q = _pad_cols(_pad_rows(queries.to(vectors.dtype), SEGMAX_QUERY_TILE), d_multiple).contiguous()
+    vecs = _pad_cols(_pad_rows(vectors, block_size), d_multiple).contiguous()
     out_s, out_i = block_topk_segmax(q, vecs, valid_n, kseg, block_size)
     return _finalize(out_s, out_i, b_real, k)
 

@@ -450,7 +450,8 @@ class VectorStore:
         if self.format == "int8":
             if self._scan_here(self._codes.shape[0]):
                 cand_k = min(max(self.rescore_k, k), self.n)
-                _, cand = scan_topk_int8(self._codes, self._scales, q, cand_k, self.n)
+                _, cand = scan_topk_int8(self._codes, self._scales, q, cand_k, self.n,
+                                         self.block_size)
                 return _rescore(self._codes, self._scales, q, cand, k, self.n)
             return int8_topk(self._codes, self._scales, q, k, self.n,
                              rescore_k=max(self.rescore_k, k))

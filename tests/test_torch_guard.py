@@ -235,8 +235,66 @@ def test_wrapper_counts_a_launch(fake_card, monkeypatch):
     out_s, out_i = fake_card.block_topk_int8(*_card_operands(kb=3))
     assert fake_card.STATS.launches == before + 1
     assert out_s.shape == (1, 2, 3, 64) and out_i.dtype == torch.int32
-    q, codes, rs, bias, out_s_ptr, out_i_ptr, nq, nblocks, d, kb, stream = lib.calls[0]
-    assert (nq, nblocks, d, kb) == (1, 2, 64, 3)
+    q, codes, rs, bias, out_s_ptr, out_i_ptr, nq, nblocks, d, kb, block_size, stream = \
+        lib.calls[0]
+    assert (nq, nblocks, d, kb, block_size) == (1, 2, 64, 3, 256)
+
+
+@pytest.mark.parametrize("block_size", [1, 128, 640, 1000, 512, 1024, 4096])
+def test_kernel_1_launches_any_block(fake_card, monkeypatch, block_size):
+    """Kernel 1 takes any block_size (it scanned 256-row blocks only until
+    its wgmma redesign; a block's last chunk masks the columns past the
+    block's end): the launcher receives the block and the partials have one
+    entry per block."""
+    lib = _FakeLib(0)
+    monkeypatch.setattr(fake_card, "_load_lib", lambda: lib)
+    fake_card.STATS.reset()
+    rows = 8 * block_size
+    q, codes, rs, bias, kb = _card_operands(rows=rows)
+    out_s, _ = fake_card.block_topk_int8(q, codes, rs, bias, kb, block_size=block_size)
+    assert fake_card.STATS.by_kernel == {"int8_scan_topk": 1}
+    assert out_s.shape == (1, 8, 2, 64)
+    assert lib.calls[0][6:11] == (1, 8, 64, 2, block_size)
+
+
+@pytest.mark.parametrize("block_size", [128, 640])
+def test_int8_store_launches_kernel_1_on_its_own_blocks(monkeypatch, block_size):
+    """An int8 store of any block_size reaches kernel 1 on its own blocks:
+    the store passes its block_size to ``scan_topk_int8``, which scans its
+    codes as they are (whole blocks already: no padded copy), and the
+    wrapper launches at that block. The launch is faked on meta copies of
+    the operands; the plain version gives the partials, and the store's
+    results equal its dense route's."""
+    from crs_tpu_torch.ops import scan
+    from crs_tpu_torch.rag.index import VectorStore
+
+    lib = _FakeLib(0)
+    monkeypatch.setattr(scan, "_load_lib", lambda: lib)
+    monkeypatch.setattr(scan, "_stream_handle", lambda device: 0)
+    wrapper, plain = scan.block_topk_int8, scan.block_topk_int8_plain
+    seen = []
+
+    def launch_then_plain(q_codes, codes, row_scale, bias, kb, bs):
+        seen.append((codes.data_ptr(), bs))
+        meta = [torch.empty(t.shape, dtype=t.dtype, device="meta")
+                for t in (q_codes, codes, row_scale, bias)]
+        wrapper(*meta, kb, bs)
+        return plain(q_codes, codes, row_scale, bias, kb, bs)
+
+    monkeypatch.setattr(scan, "block_topk_int8", launch_then_plain)
+    rng = torch.Generator().manual_seed(block_size)
+    emb = torch.nn.functional.normalize(torch.randn((1500, 16), generator=rng), dim=1)
+    store = VectorStore({"format": "int8", "block_size": block_size}, device="cpu")
+    store.add([f"t{i}" for i in range(1500)], emb)
+    dense = store.search_batch(emb[:5], top_k=4)
+    monkeypatch.setattr(VectorStore, "_scan_here", lambda self, rows: True)
+    scan.STATS.reset()
+    got = store.search_batch(emb[:5], top_k=4)
+    assert seen and all(at == (store._codes.data_ptr(), block_size) for at in seen)
+    assert scan.STATS.by_kernel == {"int8_scan_topk": len(seen)}
+    nblocks = store._codes.shape[0] // block_size
+    assert lib.calls[0][6:11] == (1, nblocks, 16, lib.calls[0][9], block_size)
+    assert torch.equal(got[1], dense[1]) and torch.allclose(got[0], dense[0])
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rows", "dim", "kb", "block_size", "contiguous"])
@@ -252,8 +310,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fake_card, monkeypatch, b
         q = q[:, :40].contiguous()
     elif bad == "kb":
         kb = 0
-    elif bad == "block_size":
-        kwargs["block_size"] = 512
+    elif bad == "block_size":  # no rows a block (any positive block is taken)
+        kwargs["block_size"] = 0
     else:
         codes = torch.empty((64, 512), dtype=torch.int8, device="meta").T
     with pytest.raises(ValueError):
@@ -263,10 +321,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fake_card, monkeypatch, b
 # -- the float and ADC kernels' wrappers ----------------------------------------
 
 class _FakeKernels:
-    """Stands in for a loaded kernel library: records each launcher's calls."""
+    """Stands in for a loaded kernel library: records each launcher's calls.
+    The fused MLP's plan says what the kernel's says at H 128: hq and hmid
+    leave shared memory past a chunk of 16,384, for a slab of 5·R·8·rows
+    bytes a chunk (rows = ⌈chunk / 8⌉ in whole 16-row tiles)."""
 
     def __init__(self, err):
         self.err, self.calls = err, []
+
+    @staticmethod
+    def fused_mlp_int8_hq_in_slab(h, chunk):
+        return int(chunk > 16384)
+
+    @staticmethod
+    def fused_mlp_int8_hg_slab_bytes(r, chunk):
+        return 5 * r * 8 * ((-(-chunk // 8) + 15) // 16 * 16)
 
     def __getattr__(self, name):
         if not name.endswith("_launch"):
@@ -432,7 +501,7 @@ def test_sorted_wrapper_rejects_what_the_kernel_does_not_take(fake_kernels, monk
         fake_kernels.block_topk_adc_sorted(*args)
 
 
-@pytest.mark.parametrize("bad", ["kseg", "block_size", "big_block", "dim", "queries", "dtype"])
+@pytest.mark.parametrize("bad", ["kseg", "block_size", "rows", "queries", "dtype"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 def test_segmax_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monkeypatch, dtype,
                                                              bad):
@@ -441,16 +510,12 @@ def test_segmax_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monke
     iv, ik, ib = (2, 5, 6) if dtype == torch.int8 else (1, 3, 4)
     if bad == "kseg":  # more picks than a block of 512 has segments
         args[ik] = 5
-    elif bad == "block_size":
-        args[ib] = 384
-    elif bad == "big_block":  # more than MAX_SEGMENTS = 32 segments
-        args[ib] = 8192
-        args[iv] = torch.empty((8192, 64), dtype=dtype, device="meta")
+    elif bad == "block_size":  # not whole 128-row segments
+        args[ib] = 320
+    elif bad == "rows":  # the corpus is not whole blocks
+        args[iv] = torch.empty((1000, 64), dtype=dtype, device="meta")
         if dtype == torch.int8:
-            args[3] = torch.empty((8192,), device="meta")
-    elif bad == "dim":
-        args[0] = torch.empty((fake_kernels.SEGMAX_QUERY_TILE, 40), dtype=dtype, device="meta")
-        args[iv] = torch.empty((1024, 40), dtype=dtype, device="meta")
+            args[3] = torch.empty((1000,), device="meta")
     elif bad == "queries":
         args[0] = torch.empty((fake_kernels.SEGMAX_QUERY_TILE + 1, 64), dtype=dtype,
                               device="meta")
@@ -462,18 +527,85 @@ def test_segmax_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monke
         fn(*args)
 
 
-def _c_launchers(source: str) -> dict:
-    """{launcher: its parameters as "P" (pointer), "I" (int), "F" (float)}
-    from the ``extern "C"`` launchers of a CUDA source."""
+def test_segmax_bf16_wrapper_rejects_a_width_off_tma_s_multiple(fake_kernels, monkeypatch):
+    """The one width refusal left: bf16 D off 8 (TMA's 16-byte row stride);
+    ``scan_topk_segmax`` zero-pads a bf16 corpus to it, as ``scan_topk``."""
+    monkeypatch.setattr(fake_kernels, "_load_kernel_lib", lambda source: _FakeKernels(0))
+    q = torch.empty((fake_kernels.SEGMAX_QUERY_TILE, 100), dtype=torch.bfloat16, device="meta")
+    vecs = torch.empty((1024, 100), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        fake_kernels.block_topk_segmax(q, vecs, 1000, 2, 512)
+
+
+# the shapes the segment-max wrappers refused until kernels 6 and 7 took any
+# D and any block of whole segments: (rows, D, block_size)
+SEGMAX_ONCE_REFUSED = {"block_size": (1536, 64, 384), "big_block": (8192, 64, 8192),
+                       "dim": (1024, 40, 512), "dim_100": (1024, 100, 512),
+                       "dim_4104": (1024, 4104, 512), "block_16384": (16384, 64, 16384)}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMAX_ONCE_REFUSED))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["fp32", "bf16", "int8"])
+def test_segmax_wrappers_launch_what_they_once_refused(fake_kernels, monkeypatch, dtype, case):
+    """Each shape launches its kernel once (counted) with the arguments the C
+    launcher takes; past 64 segments a block the winners get a device
+    scratch of [CUDA blocks][segments][128] f32 + int32 (block 16,384, 128
+    segments), below it none (0: shared memory)."""
+    lib = _FakeKernels(0)
+    monkeypatch.setattr(fake_kernels, "_load_kernel_lib", lambda source: lib)
+    asked = []
+    real = fake_kernels.scratch
+    monkeypatch.setattr(fake_kernels, "scratch",
+                        lambda dev, stream, name, numel, dtype, zero=False:
+                        asked.append((name, numel)) or real(dev, stream, name, numel, dtype, zero))
+    rows, d, block_size = SEGMAX_ONCE_REFUSED[case]
+    if dtype == torch.bfloat16:
+        d = -(-d // 8) * 8  # scan_topk_segmax's zero padding
+    tile = fake_kernels.SEGMAX_QUERY_TILE
+    q = torch.empty((2 * tile, d), dtype=dtype, device="meta")
+    vecs = torch.empty((rows, d), dtype=dtype, device="meta")
+    fake_kernels.STATS.reset()
+    if dtype == torch.int8:
+        out_s, _ = fake_kernels.block_topk_segmax_int8(
+            q, torch.empty((2 * tile,), device="meta"), vecs, torch.empty((rows,), device="meta"),
+            rows - 5, 3, block_size)
+        kernel = "segmax_scan_topk_int8"
+    else:
+        out_s, _ = fake_kernels.block_topk_segmax(q, vecs, rows - 5, 3, block_size)
+        kernel = "segmax_scan_topk_f32" if dtype == torch.float32 else "segmax_scan_topk_bf16"
+    nblocks = rows // block_size
+    assert fake_kernels.STATS.by_kernel == {kernel: 1}
+    assert out_s.shape == (2, nblocks, 3, tile)
+    name, args = lib.calls[0]
+    assert name == kernel + "_launch"
+    assert args[7:13] == (2, nblocks, block_size, d, 3, rows - 5)
+    nseg = block_size // 128
+    if nseg > fake_kernels.MAX_SMEM_SEGMENTS:
+        assert asked == [("segmax_segments", nblocks * nseg * 256)]  # one CUDA block: 2 tiles
+    else:
+        assert asked == [] and args[6] == 0
+
+
+def _c_functions(source: str) -> dict:
+    """{function: (its return type, its parameters as "P" (pointer), "I"
+    (int), "F" (float))} from the ``extern "C"`` functions of a CUDA source."""
     import re
 
     text = (REPO / "crs_tpu_torch" / "csrc" / source).read_text()
     text = text[text.index('extern "C"'):]
     kinds = {}
-    for name, params in re.findall(r"int\s+(\w+_launch)\s*\(([^)]*)\)", text):
-        kinds[name] = ["P" if "*" in p or "cudaStream_t" in p else "F" if "float" in p else "I"
-                       for p in params.split(",")]
+    for ret, name, params in re.findall(r'(?:^|extern "C" )(int|long long)\s+(\w+)\s*\(([^)]*)\)',
+                                        text, re.MULTILINE):
+        kinds[name] = (ret, ["P" if "*" in p or "cudaStream_t" in p else "F" if "float" in p
+                             else "I" for p in params.split(",") if p.strip()])
     return kinds
+
+
+def _c_launchers(source: str) -> dict:
+    """{launcher: its parameters} of a CUDA source's ``*_launch`` functions."""
+    return {name: params for name, (_, params) in _c_functions(source).items()
+            if name.endswith("_launch")}
 
 
 def test_scan_launcher_types_match_the_c_signatures():
@@ -550,17 +682,20 @@ def test_generator_launcher_types_match_the_c_signatures(monkeypatch):
     from crs_tpu_torch.ops import decode_attention, fused_mlp, qgemm
 
     kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+    returns = {ctypes.c_int: "int", ctypes.c_longlong: "long long"}
     seen = {}
     for mod in (qgemm, decode_attention, fused_mlp):
-        monkeypatch.setattr(mod, "load_library",
-                            lambda source, launchers: seen.setdefault(source, launchers))
+        monkeypatch.setattr(mod, "load_library", lambda source, launchers, restypes=None:
+                            seen.setdefault(source, (launchers, restypes or {})))
         mod._load()
     assert set(seen) == {"q4_matmul.cu", "decode_attention_int8.cu", "fused_mlp_int8.cu"}
-    for source, launchers in seen.items():
-        c_side = _c_launchers(source)
+    for source, (launchers, restypes) in seen.items():
+        c_side = _c_functions(source)
         assert set(launchers) <= set(c_side), source
         for name, argtypes in launchers.items():
-            assert [kind[t] for t in argtypes] == c_side[name], name
+            ret, params = c_side[name]
+            assert [kind[t] for t in argtypes] == params, name
+            assert returns[restypes.get(name, ctypes.c_int)] == ret, name
 
 
 def _gen_call(mods, which, **kw):
@@ -722,7 +857,8 @@ def fake_mlp_kernel(monkeypatch):
 @pytest.mark.parametrize("err", [1, 700])
 def test_fused_mlp_wrapper_raises_when_launch_fails(fake_mlp_kernel, monkeypatch, err):
     lib = _FakeKernels(err)
-    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: lib)
+    monkeypatch.setattr(fake_mlp_kernel, "load_library",
+                        lambda source, launchers, restypes=None: lib)
     before = dict(fake_mlp_kernel.STATS.by_kernel)
     with pytest.raises(RuntimeError, match=f"CUDA error {err}"):
         fake_mlp_kernel.fused_mlp_int8(*_mlp_operands(), chunk=128)
@@ -731,7 +867,7 @@ def test_fused_mlp_wrapper_raises_when_launch_fails(fake_mlp_kernel, monkeypatch
 
 
 def test_fused_mlp_wrapper_raises_without_a_card(fake_mlp_kernel, monkeypatch):
-    def no_nvcc(source, launchers):
+    def no_nvcc(source, launchers, restypes=None):
         raise RuntimeError(f"compiler for {source} not found")
 
     monkeypatch.setattr(fake_mlp_kernel, "load_library", no_nvcc)
@@ -742,7 +878,8 @@ def test_fused_mlp_wrapper_raises_without_a_card(fake_mlp_kernel, monkeypatch):
 @pytest.mark.parametrize("chunk", [128, 256])
 def test_fused_mlp_wrapper_counts_a_launch(fake_mlp_kernel, monkeypatch, chunk):
     lib = _FakeKernels(0)
-    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: lib)
+    monkeypatch.setattr(fake_mlp_kernel, "load_library",
+                        lambda source, launchers, restypes=None: lib)
     fake_mlp_kernel.STATS.reset()
     out, codes = fake_mlp_kernel.fused_mlp_int8(*_mlp_operands(b=3, chunk=chunk), chunk=chunk,
                                                 return_codes=True)
@@ -760,7 +897,8 @@ def test_fused_mlp_is_one_launch_on_what_the_kernel_reads(fake_mlp_kernel, monke
     of y ([chunks, B, H] f32) and the 8 ranks' counters (zeroed once) are all
     it is given; the codes' buffers only with ``return_codes``."""
     lib = _FakeKernels(0)
-    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: lib)
+    monkeypatch.setattr(fake_mlp_kernel, "load_library",
+                        lambda source, launchers, restypes=None: lib)
     asked = []
     real = fake_mlp_kernel.scratch
     monkeypatch.setattr(fake_mlp_kernel, "scratch",
@@ -792,7 +930,8 @@ def test_fused_mlp_launches_every_gated_width(fake_mlp_kernel, monkeypatch, h, b
     from crs_tpu_torch.ops.fused_mlp import fused_mlp_supported
 
     lib = _FakeKernels(0)
-    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: lib)
+    monkeypatch.setattr(fake_mlp_kernel, "load_library",
+                        lambda source, launchers, restypes=None: lib)
     asked = {}
     real = fake_mlp_kernel.scratch
     monkeypatch.setattr(fake_mlp_kernel, "scratch",
@@ -810,10 +949,46 @@ def test_fused_mlp_launches_every_gated_width(fake_mlp_kernel, monkeypatch, h, b
     assert dtype == torch.float32 and numel == inter // chunk * b * h  # a slab of B·H f32 a chunk
 
 
+@pytest.mark.parametrize("chunk", [32, 40, 64, 96, 24576])
+@pytest.mark.parametrize("b", [1, 8])
+def test_fused_mlp_launches_every_gated_chunk(fake_mlp_kernel, monkeypatch, chunk, b):
+    """Every chunk that ``fused_mlp_supported`` admits reaches the one
+    launch (the kernel once took multiples of 128 up to 16,384 only): off
+    128 a CTA's last tile runs past the chunk and is masked; past what
+    shared memory holds (24,576 rows at H 128) the kernel keeps each chunk's
+    hq [B][8·rows] int8 and hmid [B][8·rows] f32 in a slab of ``part`` after
+    the terms, rows = ⌈chunk / 8⌉ in whole 16-row tiles (``chip_smoke.py``'s
+    faults phase runs chunks 64, 96 and 24,576 on the card)."""
+    from crs_tpu_torch.ops.fused_mlp import fused_mlp_supported
+
+    lib = _FakeKernels(0)
+    monkeypatch.setattr(fake_mlp_kernel, "load_library",
+                        lambda source, launchers, restypes=None: lib)
+    asked = {}
+    real = fake_mlp_kernel.scratch
+    monkeypatch.setattr(fake_mlp_kernel, "scratch",
+                        lambda dev, stream, name, numel, dtype, zero=False:
+                        asked.setdefault(name, (numel, dtype))
+                        and real(dev, stream, name, numel, dtype, zero))
+    h, inter = 128, 2 * chunk
+    assert fused_mlp_supported(b, h, inter, chunk)
+    fake_mlp_kernel.STATS.reset()
+    out = fake_mlp_kernel.fused_mlp_int8(*_mlp_operands(b=b, h=h, inter=inter, chunk=chunk),
+                                         chunk=chunk)
+    assert out.shape == (b, h)
+    assert fake_mlp_kernel.STATS.by_kernel == {"fused_mlp_int8": 1}
+    assert [c[0] for c in lib.calls] == ["fused_mlp_int8_launch"]
+    assert lib.calls[0][1][15:19] == (b, h, inter, chunk)
+    rows = (-(-chunk // 8) + 15) // 16 * 16
+    slab = 5 * b * 8 * rows // 4 if chunk > 16384 else 0
+    assert asked["mlp_part"] == (2 * (b * h + slab), torch.float32)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "rows", "hidden", "chunk", "shape", "contiguous"])
 def test_fused_mlp_wrapper_rejects_what_the_kernel_does_not_take(fake_mlp_kernel, monkeypatch,
                                                                  bad):
-    monkeypatch.setattr(fake_mlp_kernel, "load_library", lambda source, launchers: _FakeKernels(0))
+    monkeypatch.setattr(fake_mlp_kernel, "load_library",
+                        lambda source, launchers, restypes=None: _FakeKernels(0))
     ops = list(_mlp_operands())
     chunk = 128
     if bad == "dtype":
