@@ -87,7 +87,10 @@ the largest difference); any failure raises and exits non-zero:
                         S 139,264; kernel 11 at chunks 64, 96, 40, 16,512 and
                         24,576; kernels 6 and 7 at D 40 / 100 / 4,104 and blocks
                         of 384, 8,192 and 16,384 rows; kernel 1 at blocks of 512
-                        to 8,192 rows; the cost of a ragged D at 1M rows;
+                        to 8,192 rows; kernels 2 (fp32, bf16) and 3 to 5 at
+                        blocks of 128, 384 and 640 rows (ADC bit for bit) and
+                        fp32 and pq stores of 128- and 640-row blocks, each on
+                        its kernel; the cost of a ragged D at 1M rows;
 11. bench             — the bench.py slice on the held-out corpus: chunk, hashed
                         encoder, int8 store, retrieve_batch_fused over 328 queries,
                         checked against the standard (host-rerank) retrieve;
@@ -119,12 +122,31 @@ the largest difference); any failure raises and exits non-zero:
                         kernel, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
-16. rag               — RAGPipeline (hashed embedding, int8 store) over the
-                        held-out corpus with the nf4 model: query() with
-                        config.json's generation values (sampled), ms per query
-                        split into retrieve and generate, chunks checked
-                        against the same pipeline on the CPU;
-17. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
+16. rag               — RAGPipeline (config.json's lexical embedding, fitted on
+                        the card; int8 store) over the held-out corpus with the
+                        nf4 model: query() with config.json's generation values
+                        (sampled), ms per query split into retrieve and
+                        generate, chunks checked against a CPU pipeline on the
+                        card's saved index and state, doc·query scores against
+                        a CPU pipeline's own fit (within 1e-4);
+17. lexical           — config.json's lexical encoder at full width (131,072
+                        features, 384 dims) fitted on 131,072 synthetic chunks
+                        of config.json's 240 words,
+                        config.json's int8 store, a retrieve batch of 328
+                        queries through kernel 1: fit seconds by stage, index
+                        and query embed times; embeddings against a CPU encoder
+                        on the card's saved state, ids against the plain scan;
+18. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
+                        chunks at batch 32 into config.json's int8 store, a
+                        search through kernel 1; embeddings and the search
+                        against the CPU;
+19. cli               — ``python -m crs_tpu_torch`` on the card on copies of
+                        config.json: --no-model --query on a copy of vector_db/,
+                        --index of the held-out corpus into its own directory
+                        and a query on it, then the command line's main in this
+                        process on the lexical phase's index through kernel 1;
+                        vector_db/ unchanged;
+20. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
                         from the seed, loaded once: unfused, fuse_projections
                         and fused_mlp, greedy generate_batch of 32 tokens at
                         batch 1 and 8 (kernel 11: 32 launches per decode step in
@@ -132,7 +154,7 @@ the largest difference); any failure raises and exits non-zero:
                         logits identical with fuse_projections, within 5e-2 of
                         unfused with fused_mlp; one kv_bits 8 batch-8 decode
                         through kernels 10 and 11 against the plain versions;
-18. calibrated        — the gptq and awq types of the small config loaded on the
+21. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
                         reconstruction error against plain rounding, 16 tokens.
 
@@ -148,6 +170,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import math
 import os
 import subprocess
@@ -697,10 +720,13 @@ def phase_kernel_f32_bf16(ph: Phase, dev, seed: int, rows: int, build_logs: dict
 
     lib = _load_kernel_lib("scan_topk_f32_bf16.cu")  # ctypes calls return int by default
     build = ptxas_report(build_logs.get("scan_topk_f32_bf16.cu", ""),
-                         {"scan_topk_f32_kernelILb0E": "f32",
-                          "scan_topk_f32_kernelILb1E": "f32_ragged",
-                          "scan_topk_bf16_kernelILb1E": "bf16_resident",
-                          "scan_topk_bf16_kernelILb0E": "bf16_streamed"})
+                         {"scan_topk_f32_kernelILb0ELb0E": "f32",
+                          "scan_topk_f32_kernelILb1ELb0E": "f32_ragged",
+                          "scan_topk_f32_kernelILb1ELb1E": "f32_masked",
+                          "scan_topk_bf16_kernelILb1ELb0E": "bf16_resident",
+                          "scan_topk_bf16_kernelILb0ELb0E": "bf16_streamed",
+                          "scan_topk_bf16_kernelILb1ELb1E": "bf16_resident_masked",
+                          "scan_topk_bf16_kernelILb0ELb1E": "bf16_streamed_masked"})
     build["dynamic_smem_at_main_shape"] = {"f32": lib.scan_topk_float_smem_bytes(0, DIM, SCAN_KB),
                                            "bf16": lib.scan_topk_float_smem_bytes(1, DIM, SCAN_KB)}
     build["bf16_queries_resident_at_main_shape"] = bool(
@@ -847,11 +873,13 @@ def adc_case(rng, n: int, d: int, b: int, m: int, c: int):
     return cl, lut, torch.from_numpy(ext), plut, torch.from_numpy(codes)
 
 
-ADC_INSTANCES = {"adc_scan_topk_skew_kernelILi1E": "residual_skew",
-                 "adc_scan_topk_skew_kernelILi0E": "plain_skew",
-                 "adc_scan_topk_skew_kernelILi2E": "sorted_skew",
-                 "adc_scan_topk_kernelILi1ELi8ELb0E": "residual_qt8",
-                 "adc_scan_topk_kernelILi0ELi8ELb0E": "plain_qt8"}
+ADC_INSTANCES = {"adc_scan_topk_skew_kernelILi1ELb0E": "residual_skew",
+                 "adc_scan_topk_skew_kernelILi0ELb0E": "plain_skew",
+                 "adc_scan_topk_skew_kernelILi2ELb0E": "sorted_skew",
+                 "adc_scan_topk_skew_kernelILi1ELb1E": "residual_skew_masked",
+                 "adc_scan_topk_kernelILi1ELi8ELb0ELb0E": "residual_qt8",
+                 "adc_scan_topk_kernelILi1ELi8ELb0ELb1E": "residual_qt8_masked",
+                 "adc_scan_topk_kernelILi0ELi8ELb0ELb0E": "plain_qt8"}
 
 
 def occupancy(registers: int, threads: int, smem: int) -> dict:
@@ -1804,6 +1832,16 @@ FAULT_INT8_BLOCKS = {
     "block24_d112": (4800, 112, 64, 24, 32),
 }
 FAULT_INT8_STORE_BLOCKS = (128, 640)  # int8 stores whose blocks are off kernel 1's chunk
+# kernels 2 to 5 on blocks off their 256-row chunk (a block's last chunk part
+# masked), over rows that are whole blocks of each, name → block_size; the
+# ADC kernels at config.json's table (M 48, K 256: the skewed main path),
+# M 64 (4 queries a CUDA block) and M 320 (the LUTs staged in slices)
+FAULT_OFF_CHUNK_BLOCKS = (128, 384, 640)
+FAULT_OFF_CHUNK_ROWS = 7680
+FAULT_OFF_CHUNK_ADC = ((48, True), (64, True), (320, True), (48, False))
+FAULT_OFF_CHUNK_STORES = (128, 640)  # fp32 and pq stores of these blocks
+FAULT_OFF_CHUNK_PQ = {"format": "pq", "pq_subspaces": 48, "pq_iters": 8,
+                      "pq_coarse_clusters": 256, "pq_opq_iters": 1, "rescore_k": 64}
 RAGGED_COST_ROWS = 1 << 20  # the main path's corpus rows, for the cost of a D off the multiple
 
 
@@ -1977,6 +2015,75 @@ def fault_int8_blocks(dev, seed: int) -> dict:
     return out
 
 
+def fault_off_chunk_blocks(dev, seed: int) -> dict:
+    """Kernels 2 to 5 at FAULT_OFF_CHUNK_BLOCKS against their plain versions
+    (ADC bit for bit, float within FLOAT_RTOL), a whole masked block (its
+    emissions: -1e30 at its first row), a masked tail, exact ties, each
+    launch counted."""
+    import torch
+
+    from crs_tpu_torch.ops import scan
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 27)
+    rows, out = FAULT_OFF_CHUNK_ROWS, {}
+
+    def counted(kernel, fn):
+        before = scan.STATS.by_kernel.get(kernel, 0)
+        got = fn()
+        if scan.STATS.by_kernel.get(kernel, 0) - before != 1:
+            raise AssertionError(f"faults off-chunk {kernel}: not one launch")
+        return got
+
+    for bs in FAULT_OFF_CHUNK_BLOCKS:
+        for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            qq, v, bias = float_edge_operands(g, dev, dtype, rows, DIM, 130, bs, (1,))
+            kernel = "scan_topk_f32" if name == "fp32" else "scan_topk_bf16"
+            got = counted(kernel, lambda: scan.block_topk_float(qq, v, bias, 4, bs))
+            err = check_float_ranked(got, scan.block_topk_float_plain(qq, v, bias, 5, bs),
+                                     FLOAT_RTOL[name], dim=2)
+            if not (bool((got[0][:, 1] == -1e30).all()) and bool((got[1][:, 1] == bs).all())):
+                raise AssertionError(f"faults off-chunk {name} block {bs}: a masked block's "
+                                     f"emissions are not (-1e30, its first row)")
+            out[f"{name}_block{bs}"] = {"kernel": kernel, "max_abs_err": err}
+        for m, residual in FAULT_OFF_CHUNK_ADC:
+            nq, c = 16, 512
+            lut = (torch.randn((nq, m, 256), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+            codes = torch.randint(0, 256, (rows, m + (2 if residual else 0)), generator=g,
+                                  device=dev, dtype=torch.int32).to(torch.uint8)
+            codes[100:140] = codes[0:40]  # exact ties
+            bias = torch.zeros(rows, device=dev)
+            bias[bs:2 * bs] = -1e30
+            bias[-300:] = -1e30
+            extra = ()
+            if residual:
+                codes[:, 0] = torch.randint(0, c // 256, (rows,), generator=g, device=dev,
+                                            dtype=torch.int32).to(torch.uint8)
+                extra = (torch.randn((nq, c), generator=g, device=dev).to(torch.bfloat16),
+                         (torch.randn((nq, c), generator=g, device=dev) * 1e-3).to(torch.bfloat16))
+            kind = "residual" if residual else "plain"
+            got = counted(f"adc_scan_topk_{kind}",
+                          lambda: scan.block_topk_adc(lut, codes, bias, 4, bs, *extra))
+            check_bits(got, scan.block_topk_adc_plain(lut, codes, bias, 4, bs, *extra),
+                       f"faults off-chunk ADC M={m} {kind} block {bs}")
+            out[f"adc_{kind}_m{m}_block{bs}"] = {"kernel": f"adc_scan_topk_{kind}",
+                                                 "plan": scan.adc_layout(m, 256, residual)._asdict(),
+                                                 "max_abs_err": 0.0}
+            if residual and m == 48:  # kernel 4: the same rows under a two-window plan
+                group = 2
+                wide = [torch.nn.functional.pad(t, (0, 256)) for t in extra]
+                wbase = torch.randint(0, 2, (rows // bs // group,), generator=g, device=dev,
+                                      dtype=torch.int32)
+                got = counted("adc_scan_topk_sorted", lambda: scan.block_topk_adc_sorted(
+                    lut, codes, bias, 4, bs, *wide, wbase, group))
+                check_bits(got, scan.block_topk_adc_sorted_plain(lut, codes, bias, 4, bs, *wide,
+                                                                 wbase, group),
+                           f"faults off-chunk sorted ADC block {bs}")
+                out[f"adc_sorted_m{m}_block{bs}"] = {"kernel": "adc_scan_topk_sorted",
+                                                     "max_abs_err": 0.0}
+    return out
+
+
 def fault_ragged_cost(dev, seed: int) -> dict:
     """What a D off the kernels' multiple costs a search at the main path's
     1,048,576 rows, B = 328, k = 64: a ragged D against the aligned D above
@@ -2037,8 +2144,10 @@ def phase_faults(ph: Phase, dev, seed: int) -> dict:
     kernel 10 at head dims to 1024, G to 16 and S past 128 chunks; kernel
     11 at H to 32,768 and at FAULT_MLP_CHUNKS; kernels 6 and 7 at
     FAULT_SEGMAX; kernel 1 at FAULT_INT8_BLOCKS and under int8 stores of
-    FAULT_INT8_STORE_BLOCKS rows a block; what a ragged D costs a search
-    and kernel 1 at 1M rows."""
+    FAULT_INT8_STORE_BLOCKS rows a block; kernels 2 to 5 at
+    FAULT_OFF_CHUNK_BLOCKS and under fp32 and pq stores of
+    FAULT_OFF_CHUNK_STORES rows a block; what a ragged D costs a search and
+    kernel 1 at 1M rows."""
     import tempfile
 
     import numpy as np
@@ -2094,6 +2203,23 @@ def phase_faults(ph: Phase, dev, seed: int) -> dict:
     out["pq_sorted_m64"] = fault_search("pq_sorted M=64", card_s, cpu_s, q.to(dev),
                                         FLOAT_RTOL["fp32"], "adc_scan_topk_sorted")
     del card, cpu, card_s, cpu_s
+    for bs in FAULT_OFF_CHUNK_STORES:  # kernels 2 and 3 on the stores' own blocks
+        cfg = {"format": "fp32", "block_size": bs, "rescore_k": 64}
+        card, cpu = VectorStore(cfg, device=dev), VectorStore(cfg, device="cpu")
+        card.create_index(texts, emb)
+        cpu.create_index(texts, emb)
+        out[f"fp32_store_block{bs}"] = fault_search(f"fp32 block {bs}", card, cpu, q.to(dev),
+                                                    FLOAT_RTOL["fp32"], "scan_topk_f32")
+        cfg = {**FAULT_OFF_CHUNK_PQ, "block_size": bs}
+        card = VectorStore(cfg, device=dev)
+        card.create_index(texts, emb)
+        with tempfile.TemporaryDirectory() as tmp:
+            card.save(tmp)
+            cpu = VectorStore(cfg, device="cpu")
+            cpu.load(tmp)
+        out[f"pq_store_block{bs}"] = fault_search(f"pq block {bs}", card, cpu, q.to(dev),
+                                                  FLOAT_RTOL["fp32"], "adc_scan_topk_residual")
+        del card, cpu
     out["adc_wide_kernels"] = fault_adc_wide(dev, seed)
 
     prompts = rag_prompts(1)
@@ -2153,6 +2279,7 @@ def phase_faults(ph: Phase, dev, seed: int) -> dict:
     out["fused_mlp_chunks"] = fault_mlp_wide(dev, seed, FAULT_MLP_CHUNKS)
     out["segmax_widths_and_blocks"] = fault_segmax_wide(dev, seed)
     out["int8_scan_blocks"] = fault_int8_blocks(dev, seed)
+    out["float_adc_blocks_off_chunk"] = fault_off_chunk_blocks(dev, seed)
     out["ragged_d_cost"] = fault_ragged_cost(dev, seed)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2620,6 +2747,55 @@ def synthetic_corpus(rng, rows: int, n_topics: int = 1024, topic_words: int = 48
     return texts, queries
 
 
+def prose_chunks(rng, rows: int, words: int):
+    """Chunks of ``words`` words (config.json's chunk_size: 240) with the
+    statistics of prose, over synthetic_corpus's 1,024 topics: each chunk
+    has one topic, and about a quarter of its words are that topic's terms
+    (one stem per topic with one of 48 endings, as a paper's terms share
+    roots); the rest are drawn from a background vocabulary of 16,384
+    pseudo-words, Zipf-like (rank r with weight
+    1 / (r + 2.7)^1.1; the frequent ones short, ~6 letters a word in all).
+    A chunk then holds ~160 distinct words, and with bigrams and char
+    3/4-grams ~1,900 lexical features (seed 30: a few percent past the
+    encoder's 2,048, whose extra features it drops in CSR order), as a
+    chunk of prose does. Queries: 8 terms of one topic, as
+    synthetic_corpus's."""
+    import numpy as np
+
+    n_topics, topic_words, background, topic_share = 1024, 48, 16384, 0.25
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+
+    def pseudo_words(n: int, lo: int, hi: int) -> list:
+        lens = rng.integers(lo, hi + 1, n).tolist()
+        chars = letters[rng.integers(0, 26, (n, hi))].tolist()
+        return ["".join(c[:k]) for c, k in zip(chars, lens)]
+
+    stems = pseudo_words(n_topics, 4, 6)
+    endings = pseudo_words(topic_words, 1, 5)
+    # frequent words are short (2 letters at the head, ~9 in the tail)
+    lens = np.clip(np.log2(np.arange(background) + 2) * 0.6 + 1.5
+                   + rng.normal(0, 1, background), 2, 12).astype(int).tolist()
+    chars = letters[rng.integers(0, 26, (background, 12))].tolist()
+    vocab = ["".join(c[:k]) for c, k in zip(chars, lens)] + [s + e for s in stems
+                                                             for e in endings]
+    cdf = np.cumsum(1.0 / (np.arange(background) + 2.7) ** 1.1)
+    cdf /= cdf[-1]
+    topic = rng.integers(0, n_topics, rows)
+    texts = []
+    for r0 in range(0, rows, 8192):  # bounded host memory
+        n = min(8192, rows - r0)
+        ids = np.minimum(np.searchsorted(cdf, rng.random((n, words))), background - 1)
+        term = background + topic[r0:r0 + n, None] * topic_words + rng.integers(
+            0, topic_words, (n, words))
+        ids = np.where(rng.random((n, words)) < topic_share, term, ids)
+        texts += [" ".join([vocab[i] for i in row]) for row in ids.tolist()]
+    q_topic = rng.integers(0, n_topics, BATCH)
+    q_words = background + q_topic[:, None] * topic_words + rng.integers(
+        0, topic_words, (BATCH, 8))
+    queries = [" ".join([vocab[i] for i in row]) for row in q_words.tolist()]
+    return texts, queries
+
+
 def phase_full(ph: Phase, dev, seed: int, rows: int, max_err: float, shared: dict) -> dict:
     """The main path: a 1,048,576-row int8 store, retrieve_batch_fused at
     batch 328 through kernel 1 (counted), the host's and the device's share
@@ -2894,13 +3070,16 @@ def phase_formats(ph: Phase, dev, shared: dict) -> dict:
 
 
 GEN_CONFIG = "1b"
-GEN_NEW_TOKENS = 64
+GEN_NEW_TOKENS = 32  # halved from 64 to keep the whole run inside its time limit
 GEN_BATCHES = (1, 8)
 GEN_LOGITS_RTOL = 5e-2  # ‖kernels − plain‖₂ / ‖plain‖₂ of the first decode step's logits
 Q4_LAUNCHES_PER_STEP_1B = 16 * 7 + 1  # every linear layer and the lm_head
 ATTN_LAUNCHES_PER_STEP_1B = 16
 CONFIG_JSON = os.path.join(REPO, "config.json")
 RAG_QUESTIONS = 2  # rag queries: each samples up to 256 tokens, a retry included
+# two lexical fits of one corpus (the card's, the CPU's) share each step but
+# the f32 Gram's and projection's sum orders and each eigenvector's sign
+RAG_FIT_SCORE_TOL = 1e-4
 
 
 def rag_prompts(n: int):
@@ -2950,11 +3129,11 @@ def clone_cache(cache):
 def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
     """The 1b model as int4 and as nf4 with an int8 KV cache, random init
     from the seed, through create_model_interface: greedy generate_batch at
-    batch 1 and 8 on RAG-sized prompts, 64 new tokens (the main path: every
+    batch 1 and 8 on RAG-sized prompts, 32 new tokens (the main path: every
     decode step's linear layers through kernel 8 or 9, its attention through
     kernel 10); prefill and decode times; the first decode step's logits
     through the kernels against the plain versions; greedy-token agreement
-    with the plain versions over the 64 steps (reported, not gated)."""
+    with the plain versions over the 32 steps (reported, not gated)."""
     import torch
 
     from crs_tpu_torch.models import create_model_interface, params_num_bytes
@@ -3034,7 +3213,7 @@ def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
             if not rel <= GEN_LOGITS_RTOL or not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{kind} B={b}: first-step logits differ from the plain "
                                      f"versions by {rel} (relative L2, limit {GEN_LOGITS_RTOL})")
-            # greedy tokens over the 64 steps, kernels and plain versions
+            # greedy tokens over the 32 steps, kernels and plain versions
             sp = SamplingParams(max_new_tokens=GEN_NEW_TOKENS, eos_id=-1, pad_id=0)
             g = torch.Generator(device=dev)
             tk, _ = generate_tokens(params, cfg, ids, mask, g, sp)
@@ -3349,26 +3528,38 @@ def phase_calibrated(ph: Phase, dev, seed: int) -> dict:
 
 
 def phase_rag(ph: Phase, dev, seed: int, shared: dict) -> dict:
-    """RAGPipeline (hashed embedding, int8 store, bench.py's retrieval and
-    config.json's chunking and generation values) over the held-out corpus with the nf4 1b model of the
-    generate phase: query() on held-out questions, sampling through a
-    torch.Generator; ms per query split into retrieve and generate; the
-    retrieved chunks checked against the same pipeline on the CPU."""
-    import torch
+    """RAGPipeline (config.json's lexical embedding, int8 store, bench.py's
+    retrieval and config.json's chunking and generation values) over the
+    held-out corpus with the nf4 1b model of the generate phase: the
+    embedder fits on the card (its Gram and projection products on CUDA
+    tensors); query() on held-out questions, sampling through a
+    torch.Generator; ms per query split into retrieve and generate. The
+    retrieved chunks are checked against a CPU pipeline that loads the
+    card's saved index and fitted state (only the projection's sum order
+    differs: ids equal), and the card's doc·query scores against a CPU
+    pipeline that fits on its own (within RAG_FIT_SCORE_TOL)."""
+    import tempfile
+
+    import numpy as np
 
     from crs_tpu_torch.rag import RAGPipeline
 
     with open(CONFIG_JSON) as f:
         rag_cfg = json.load(f)["rag"]
-    cfg = {"chunking": rag_cfg["chunking"],
-           "embedding": {"backend": "hashed", "embedding_dim": DIM},
+    cfg = {"chunking": rag_cfg["chunking"], "embedding": rag_cfg["embedding"],
            "vector_store": {**rag_cfg["vector_store"], "format": "int8", "persist_directory": None},
            "retrieval": BENCH_RETRIEVER, "generation": rag_cfg["generation"]}
     model = shared["nf4_model"]
-    pipe = RAGPipeline(cfg, device=dev).setup(model)
-    pipe.index_documents(CORPUS)
-    ref = RAGPipeline(cfg, device="cpu").setup()
-    ref.index_documents(CORPUS)
+    with tempfile.TemporaryDirectory() as tmp:
+        card_cfg = {**cfg, "vector_store": {**cfg["vector_store"], "persist_directory": tmp}}
+        pipe = RAGPipeline(card_cfg, device=dev).setup(model)
+        pipe.index_documents(CORPUS)
+        fit = pipe.embedder.encoder.fit_report
+        if not fit_on(fit, dev):
+            raise AssertionError(f"rag: the lexical fit's products ran on {fit}, not {dev}")
+        loaded = RAGPipeline(card_cfg, device="cpu").setup()  # the card's index and state
+    own = RAGPipeline(cfg, device="cpu").setup()  # the CPU's own fit
+    own.index_documents(CORPUS)
     with open(QA) as f:
         questions = [x["question"] for x in json.load(f)][:RAG_QUESTIONS]
     pipe.retrieve(questions[0])  # warm-up
@@ -3392,21 +3583,365 @@ def phase_rag(ph: Phase, dev, seed: int, shared: dict) -> dict:
         chunks = pipe.retrieve(q)
         sync(dev)
         retrieve_ms = (time.perf_counter() - t0) * 1e3
-        want = [c["id"] for c in ref.retrieve(q)]
+        want = [c["id"] for c in loaded.retrieve(q)]
         if [c["id"] for c in res["chunks"]] != want or [c["id"] for c in chunks] != want:
             raise AssertionError(f"rag: {q!r} retrieved {[c['id'] for c in res['chunks']]}, "
-                                 f"the CPU pipeline {want}")
+                                 f"the CPU pipeline on the card's state {want}")
         if not want or not isinstance(res["answer"], str):
             raise AssertionError(f"rag: {q!r} got no context ({want}) or no answer")
         per_query.append({"question": q, "ms": total_ms, "retrieve_ms": retrieve_ms,
                           "generate_ms": total_ms - retrieve_ms, "chunks": want,
                           "answer_chars": len(res["answer"])})
+    # the card's fit against the CPU's own: doc·query scores of every chunk
+    with open(QA) as f:
+        all_q = [x["question"] for x in json.load(f)]
+    docs = pipe.store.documents
+    if own.store.documents != docs:
+        raise AssertionError("rag: the CPU pipeline chunked the corpus differently")
+
+    def scores(p):
+        d = p.embedder.embed(docs).cpu().double().numpy()
+        return d @ p.embedder.embed(all_q, is_query=True).cpu().double().numpy().T
+
+    fit_diff = float(np.abs(scores(pipe) - scores(own)).max())
+    if not fit_diff <= RAG_FIT_SCORE_TOL:
+        raise AssertionError(f"rag: doc·query scores of the card's fit differ from the CPU's "
+                             f"own fit by {fit_diff} (limit {RAG_FIT_SCORE_TOL})")
     out = {"chunks_indexed": pipe.store.n, "queries": per_query,
            "ms_per_query": sum(r["ms"] for r in per_query) / len(per_query),
            "retrieve_ms_per_query": sum(r["retrieve_ms"] for r in per_query) / len(per_query),
            "generate_ms_per_query": sum(r["generate_ms"] for r in per_query) / len(per_query),
            "main_path_launches": counts, "generation": cfg["generation"],
-           "compared": "retrieved chunk ids equal the CPU pipeline's"}
+           "embedding": cfg["embedding"]["backend"], "fit": fit,
+           "vs_cpu_on_card_state": "retrieved chunk ids equal (the card's index and fitted "
+                                   "state loaded on the CPU)",
+           "vs_cpu_own_fit": {"questions": len(all_q), "chunks": len(docs),
+                              "max_score_diff": fit_diff, "limit": RAG_FIT_SCORE_TOL}}
+    ph.info.update(out)
+    return out
+
+
+LEXICAL_ROWS = 1 << 17  # chunks of the lexical phase (halved from 2^18 for the time limit)
+LEXICAL_SAMPLE = 2048  # chunks held against the CPU encoder
+EMBED_ATOL = 1e-5  # one projection (or one encoder) on the card and the CPU: f32 sum orders
+
+
+def fit_on(fit: dict, dev) -> bool:
+    """The lexical fit's Gram and projection products ran on ``dev``'s kind."""
+    import torch
+
+    return all(torch.device(fit[k]).type == dev.type for k in ("device", "projection_device"))
+
+
+def config_json_rag() -> dict:
+    with open(CONFIG_JSON) as f:
+        return json.load(f)["rag"]
+
+
+def phase_lexical(ph: Phase, dev, seed: int, shared: dict) -> dict:
+    """config.json's lexical encoder at full width (131,072 features, 384
+    dims, char n-grams, BM25 k1 0.6, 4 expansion terms, 2,048 fit docs) over
+    LEXICAL_ROWS synthetic chunks of config.json's length (prose_chunks:
+    240 words, ~1,900 features each) into config.json's int8 store (block
+    1,024), then a retrieve batch of 328 queries with config.json's
+    retrieval values through kernel 1 (counted): fit seconds by stage, index
+    embed seconds, query embed ms; the card's chunk (a sample) and query
+    embeddings against a CPU encoder that loads the card's saved state, and
+    the retrieved ids against the same store's plain scan. The index and
+    state stay in a temporary directory for the cli phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.ops import scan
+    from crs_tpu_torch.rag import ContextRetriever, EmbeddingModel, VectorStore
+    from crs_tpu_torch.rag.hashed_features import featurize_batch_counts
+
+    rag = config_json_rag()
+    rng = np.random.default_rng(seed + 30)
+    t0 = time.perf_counter()
+    texts, queries = prose_chunks(rng, LEXICAL_ROWS, rag["chunking"]["chunk_size"])
+    texts_s = time.perf_counter() - t0
+    em = EmbeddingModel(rag["embedding"], device=dev)
+    t0 = time.perf_counter()
+    em.fit(texts)
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    fit = em.encoder.fit_report
+    if not fit_on(fit, dev):
+        raise AssertionError(f"lexical: the fit's products ran on {fit}, not {dev}")
+    t0 = time.perf_counter()
+    emb = em.embed_chunks(texts)
+    sync(dev)
+    embed_s = time.perf_counter() - t0
+    store = VectorStore({**rag["vector_store"], "persist_directory": None}, device=dev)
+    t0 = time.perf_counter()
+    store.create_index(texts, emb)
+    sync(dev)
+    index_s = time.perf_counter() - t0
+    retr = ContextRetriever(store, em, rag["retrieval"])
+    retr.retrieve_batch(queries)  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    em.embed(queries, is_query=True)
+    sync(dev)
+    query_embed_ms = (time.perf_counter() - t0) * 1e3
+    # the main path: counts to 0 just before, read just after
+    reset_counts()
+    t0 = time.perf_counter()
+    results = retr.retrieve_batch(queries)
+    sync(dev)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(scan.STATS.by_kernel)
+    if launches.get("int8_scan_topk", 0) < 1:
+        raise AssertionError(f"lexical: kernel 1 did not launch ({launches})")
+    with plain_kernels():
+        plain = retr.retrieve_batch(queries)
+    ids = [[c["id"] for c in r] for r in results]
+    if ids != [[c["id"] for c in r] for r in plain]:
+        raise AssertionError("lexical: the retrieved ids differ from the store's plain scan")
+    answered = sum(1 for r in ids if r)
+    if answered < len(queries) // 2:
+        raise AssertionError(f"lexical: only {answered} of {len(queries)} queries got context")
+    shared["lexical_question"] = next(q for q, r in zip(queries, ids) if r) + "?"
+
+    # the card's embeddings against the CPU encoder on the card's saved state
+    tmp = tempfile.mkdtemp(prefix="lexical_index_")
+    shared["lexical_dir"] = tmp
+    t0 = time.perf_counter()
+    store.save(tmp)
+    em.save_state(tmp)
+    save_s = time.perf_counter() - t0
+    cpu = EmbeddingModel(rag["embedding"], device="cpu")
+    if not cpu.load_state(tmp):
+        raise AssertionError("lexical: the CPU encoder found no saved state")
+    sample = np.linspace(0, LEXICAL_ROWS - 1, LEXICAL_SAMPLE).astype(int)
+    _, _, offsets = featurize_batch_counts([texts[i] for i in sample], em.encoder.num_features,
+                                           em.encoder.char_ngrams)
+    nnz = np.diff(offsets)
+    kmax = em.encoder._NNZ_BUCKETS[-1]
+    chunk_err = float((cpu.embed_chunks([texts[i] for i in sample])
+                       - emb[torch.from_numpy(sample).to(dev)].cpu()).abs().max())
+    query_err = float((cpu.embed(queries, is_query=True)
+                       - em.embed(queries, is_query=True).cpu()).abs().max())
+    if not max(chunk_err, query_err) <= EMBED_ATOL:
+        raise AssertionError(f"lexical: card embeddings differ from the CPU's on the card's "
+                             f"state by {chunk_err} (chunks) / {query_err} (queries)")
+    out = {"rows": store.n, "features": em.encoder.num_features, "dim": em.encoder.dim,
+           "chunk_words": rag["chunking"]["chunk_size"], "texts_s": texts_s,
+           "features_per_chunk": {"sample": LEXICAL_SAMPLE, "mean": float(nnz.mean()),
+                                  "max": int(nnz.max()), "bucket_max": kmax,
+                                  "share_past_bucket": float((nnz > kmax).mean())},
+           "fit_s": fit_s, "fit_stages_s": fit["seconds"], "fit_basis_docs": fit["basis_docs"],
+           "expansion_words": len(em.encoder._exp_map),
+           "index_embed_s": embed_s, "index_store_s": index_s, "save_s": save_s,
+           "query_embed_ms": query_embed_ms,
+           "query_embed_ms_per_query": query_embed_ms / len(queries), "batch": len(queries),
+           "retrieve_batch_ms": batch_ms, "ms_per_query": batch_ms / len(queries),
+           "answered": answered, "main_path_launches": launches,
+           "vs_plain_scan": "retrieved ids equal",
+           "vs_cpu_on_card_state": {"chunks": LEXICAL_SAMPLE, "chunk_max_abs": chunk_err,
+                                    "query_max_abs": query_err, "limit": EMBED_ATOL}}
+    ph.info.update(out)
+    return out
+
+
+MINILM_ROWS = 4096  # chunks the full-width MiniLM embeds (4 blocks: kernel 1's route)
+MINILM_SAMPLE = 256  # chunks held against the CPU (~62,000 tokens)
+
+
+def phase_minilm(ph: Phase, dev, seed: int) -> dict:
+    """The MiniLM-L6 encoder at full width (384, 12 heads, 1,536, vocab
+    30,522, random init from the seed, the hash tokenizer) embeds
+    MINILM_ROWS chunks of config.json's length (prose_chunks: 240 words,
+    ~242 tokens of config.json's max_length 256) at batch 32 into config.json's int8 store; a search
+    of 64 queries through kernel 1 (counted). Held against the CPU: the
+    embeddings of a sample of chunks and of the queries (the same weights,
+    within EMBED_ATOL), and the search's ids and scores against the same
+    embeddings in a CPU store."""
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.ops import scan
+    from crs_tpu_torch.rag import EmbeddingModel, VectorStore
+
+    rag = config_json_rag()
+    cfg = {**rag["embedding"], "backend": "minilm", "seed": seed}
+    rng = np.random.default_rng(seed + 31)
+    texts, queries = prose_chunks(rng, MINILM_ROWS, rag["chunking"]["chunk_size"])
+    queries = queries[:64]
+    t0 = time.perf_counter()
+    em = EmbeddingModel(cfg, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    em.embed(texts[:64])  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    emb = em.embed_chunks(texts)
+    sync(dev)
+    embed_s = time.perf_counter() - t0
+    store = VectorStore({**rag["vector_store"], "persist_directory": None}, device=dev)
+    store.create_index(texts, emb)
+    q = em.embed(queries)
+    reset_counts()
+    got = store.search_batch(q, top_k=FAULT_K)
+    sync(dev)
+    launches = dict(scan.STATS.by_kernel)
+    if launches.get("int8_scan_topk", 0) < 1:
+        raise AssertionError(f"minilm: kernel 1 did not launch ({launches})")
+    cpu = EmbeddingModel(cfg, device="cpu")
+    chunk_err = float((cpu.embed_chunks(texts[:MINILM_SAMPLE]) - emb[:MINILM_SAMPLE].cpu())
+                      .abs().max())
+    query_err = float((cpu.embed(queries) - q.cpu()).abs().max())
+    if not max(chunk_err, query_err) <= EMBED_ATOL:
+        raise AssertionError(f"minilm: card embeddings differ from the CPU's by {chunk_err} "
+                             f"(chunks) / {query_err} (queries)")
+    cpu_store = VectorStore({**rag["vector_store"], "persist_directory": None}, device="cpu")
+    cpu_store.create_index(texts, emb.cpu())
+    search_err = check_float_ranked(got, cpu_store.search_batch(q.cpu(), top_k=FAULT_K + 1),
+                                    FLOAT_RTOL["fp32"], dim=1)
+    tokens = sum(min(len(em.tokenizer.encode(t)), em.max_length) for t in texts)
+    out = {"rows": store.n, "hidden": em.encoder.cfg.hidden_size,
+           "layers": em.encoder.cfg.num_layers, "vocab": em.encoder.cfg.vocab_size,
+           "batch_size": em.batch_size, "init_s": init_s, "embed_s": embed_s,
+           "chunks_per_s": MINILM_ROWS / embed_s, "tokens": tokens,
+           "tokens_per_chunk": tokens / MINILM_ROWS, "tokens_per_s": tokens / embed_s,
+           "main_path_launches": launches,
+           "vs_cpu": {"chunks": MINILM_SAMPLE, "chunk_max_abs": chunk_err,
+                      "query_max_abs": query_err, "limit": EMBED_ATOL,
+                      "search_max_abs": search_err}}
+    ph.info.update(out)
+    return out
+
+
+CLI_QUERY = "What is GPTQ?"
+CLI_TIMEOUT_S = 300
+CLI_NEW_TOKENS = 8  # the model child's max_new_tokens (config.json: 256)
+
+
+def tree_digest(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for root, dirs, files in sorted(os.walk(path)):
+        dirs.sort()
+        for name in sorted(files):
+            full = os.path.join(root, name)
+            h.update(os.path.relpath(full, path).encode())
+            with open(full, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def cli_config(tmp: str, name: str, persist: str, max_new_tokens: int = 0) -> str:
+    """A copy of config.json in ``tmp`` that persists to ``persist`` (and
+    generates at most ``max_new_tokens`` tokens, when given)."""
+    with open(CONFIG_JSON) as f:
+        cfg = json.load(f)
+    cfg["rag"]["vector_store"]["persist_directory"] = persist
+    if max_new_tokens:
+        cfg["rag"]["generation"]["max_new_tokens"] = max_new_tokens
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def run_cli(args, what: str) -> tuple:
+    """``python -m crs_tpu_torch`` in a child process on the card; returns
+    (seconds, standard output). The child ends within CLI_TIMEOUT_S or is
+    killed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "crs_tpu_torch", *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {what}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    return time.perf_counter() - t0, proc.stdout
+
+
+def chunk_lines(out: str) -> list:
+    return [line for line in out.splitlines() if line.startswith("  [")]
+
+
+def phase_cli(ph: Phase, dev, shared: dict) -> dict:
+    """``python -m crs_tpu_torch``, the port's command line, on the card
+    with copies of config.json pointed at temporary directories (vector_db/
+    itself is never written: its digest is checked): ``--no-model --query``
+    on a copy of vector_db/ must print chunks; ``--query`` with config.json's
+    model (int8 small, random init, through create_model_interface; at most
+    CLI_NEW_TOKENS new tokens) must print chunks and an answer; ``--index`` of the held-out
+    corpus writes its index into its own directory only, and ``--query`` on
+    it prints chunks; then ``main`` in this process answers a query on the
+    lexical phase's 131,072-chunk index through kernel 1 (counted)."""
+    import io
+    import shutil
+    import tempfile
+
+    from crs_tpu_torch.__main__ import main as cli_main
+    from crs_tpu_torch.ops import scan
+
+    if "lexical_dir" not in shared:
+        raise AssertionError("cli: needs the lexical phase's index (run it first)")
+    vdb = os.path.join(REPO, "vector_db")
+    before = tree_digest(vdb)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(vdb, os.path.join(tmp, "vdb"))
+        cfg = cli_config(tmp, "vdb", os.path.join(tmp, "vdb"))
+        secs, stdout = run_cli(["--config", cfg, "--no-model", "--query", CLI_QUERY], "query")
+        lines = chunk_lines(stdout)
+        if not lines:
+            raise AssertionError(f"cli: --query printed no chunks: {stdout[-1000:]}")
+        out["vector_db_query"] = {"seconds": secs, "chunks": lines}
+        cfg = cli_config(tmp, "vdb_model", os.path.join(tmp, "vdb"), CLI_NEW_TOKENS)
+        secs, stdout = run_cli(["--config", cfg, "--query", CLI_QUERY], "model query")
+        answer = [line for line in stdout.splitlines() if line.startswith("answer: ")]
+        if not chunk_lines(stdout) or len(answer) != 1:
+            raise AssertionError(f"cli: --query with the model printed no chunks or no "
+                                 f"answer: {stdout[-1000:]}")
+        out["vector_db_model_query"] = {"seconds": secs, "max_new_tokens": CLI_NEW_TOKENS,
+                                        "chunks": chunk_lines(stdout), "answer": answer[0]}
+        index_dir = os.path.join(tmp, "heldout")
+        cfg = cli_config(tmp, "heldout", index_dir)
+        secs, stdout = run_cli(["--config", cfg, "--no-model", "--index", CORPUS], "index")
+        written = sorted(os.listdir(tmp))
+        if written != ["heldout", "heldout.json", "vdb", "vdb.json", "vdb_model.json"] or \
+                sorted(os.listdir(index_dir)) != ["index_arrays.npz", "index_meta.json",
+                                                  "lexical_state.npz"]:
+            raise AssertionError(f"cli: --index wrote {written} / {os.listdir(index_dir)}")
+        q_secs, q_out = run_cli(["--config", cfg, "--no-model", "--query", CLI_QUERY], "query")
+        if not chunk_lines(q_out):
+            raise AssertionError(f"cli: --query on the new index printed no chunks")
+        out["heldout_index"] = {"seconds": secs, "printed": stdout.strip().splitlines()[-1],
+                                "query_seconds": q_secs, "chunks": chunk_lines(q_out)}
+        big = cli_config(tmp, "lexical", shared["lexical_dir"])
+        question = shared["lexical_question"]
+        buf = io.StringIO()
+        root = logging.getLogger()
+        saved = (list(root.handlers), root.level)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(["--config", big, "--no-model", "--query", question,
+                               "--device", dev.type])
+            sync(dev)
+        finally:  # main configures the root logger: put this script's back
+            root.handlers[:] = saved[0]
+            root.setLevel(saved[1])
+        secs = time.perf_counter() - t0
+        launches = dict(scan.STATS.by_kernel)
+        if rc != 0 or launches.get("int8_scan_topk", 0) < 1 or not chunk_lines(buf.getvalue()):
+            raise AssertionError(f"cli: main on the lexical index: rc {rc}, launches "
+                                 f"{launches}, output {buf.getvalue()[-1000:]}")
+        out["lexical_index_query"] = {"seconds_with_load": secs, "question": question,
+                                      "main_path_launches": launches,
+                                      "chunks": chunk_lines(buf.getvalue())}
+    shutil.rmtree(shared.pop("lexical_dir"), ignore_errors=True)
+    if tree_digest(vdb) != before:
+        raise AssertionError("cli: vector_db/ changed")
+    out["vector_db_unchanged"] = True
     ph.info.update(out)
     return out
 
@@ -3482,7 +4017,8 @@ def kernel_table(res: dict) -> list:
 
 ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted_adc",
               "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "faults",
-              "bench", "full", "formats", "add", "generate", "rag", "generate_7b", "calibrated")
+              "bench", "full", "formats", "add", "generate", "rag", "lexical", "minilm", "cli",
+              "generate_7b", "calibrated")
 
 
 def main(argv=None) -> int:
@@ -3536,13 +4072,22 @@ def main(argv=None) -> int:
         "add": lambda ph: phase_add(ph, dev, args.seed, shared),
         "generate": lambda ph: phase_generate(ph, dev, args.seed, shared),
         "rag": lambda ph: phase_rag(ph, dev, args.seed, shared),
+        "lexical": lambda ph: phase_lexical(ph, dev, args.seed, shared),
+        "minilm": lambda ph: phase_minilm(ph, dev, args.seed),
+        "cli": lambda ph: phase_cli(ph, dev, shared),
         "generate_7b": lambda ph: phase_generate_7b(ph, dev, args.seed),
         "calibrated": lambda ph: phase_calibrated(ph, dev, args.seed),
     }
-    for name in ALL_PHASES:
-        if name in phases:
-            with Phase(name) as ph:
-                res[name] = steps[name](ph)
+    try:
+        for name in ALL_PHASES:
+            if name in phases:
+                with Phase(name) as ph:
+                    res[name] = steps[name](ph)
+    finally:  # the lexical phase's index, when the cli phase did not remove it
+        if "lexical_dir" in shared:
+            import shutil
+
+            shutil.rmtree(shared.pop("lexical_dir"), ignore_errors=True)
     emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 3)})
     if set(phases) != set(ALL_PHASES):
         print("chip_smoke: a subset of the phases ran; no kernel table, no result",

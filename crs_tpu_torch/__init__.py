@@ -1,8 +1,10 @@
 """crs_tpu_torch: the PyTorch/CUDA port of ``crs_tpu``.
 
-Ported so far: the batched RAG retrieve (hashed query embedding; fp32,
-bf16, int8 or PQ store; scan → rerank → MMR, with pseudo-relevance
-feedback), the text layer with PDF input, and the generator (the quantized
+Ported so far: the batched RAG retrieve (hashed, lexical LSA or MiniLM
+embedding; fp32, bf16, int8 or PQ store; scan → rerank → MMR, with
+pseudo-relevance feedback), the text layer with PDF input, config,
+logging and the command line (``python -m crs_tpu_torch``), and the
+generator (the quantized
 causal LM with prefill and int8-KV decode, fused projections and the fused
 int8 MLP, GPTQ / AWQ calibration, local Hugging Face checkpoints, sampling,
 the model interface, answer generation and the RAG pipeline) on an NVIDIA

@@ -9,7 +9,11 @@
 //   s = ((0 + hi[cid]) + lo[cid])      (RESIDUAL and SORTED; s = 0 in PLAIN)
 //   s = s + lut[m][code_m]  for m = 0 .. M-1, in order
 //   s = s + bias            (0, or -1e30 for padding and `where`-masked rows)
-// then the per-block top-kb of block_topk.cuh. The tables arrive rounded as
+// then the per-block top-kb of block_topk.cuh. Any block_size >= 1 is taken
+// (as kernel 1's): a block is ⌈block_size / 256⌉ chunks from its first row,
+// and the rows of its last chunk past the block's end (the next block's, or
+// past the corpus: staged as zeros) score -1e30 and never enter the block's
+// top-kb (every id of the block is lower than theirs). The tables arrive rounded as
 // the TPU kernels round them: the residual LUT in bf16, the coarse LUT as a
 // hi+lo bf16 pair (one 32-bit word per (query, coarse id), hi in the low
 // half). The Pallas kernels add the same values as one-hot matrix products,
@@ -144,6 +148,20 @@ __host__ __device__ inline size_t adc_smem(int qt, int m, int ms, int kc, int co
     return (size_t)qt * ms * kc * 2 + round16(code_bytes) + (size_t)qt * CHUNK * 4;
 }
 
+// `bytes` bytes of rows from `src` → shared memory at `dst`, zeros up to
+// `room` bytes (a chunk's rows past the block's end, or past the corpus):
+// 16-byte words when the source is aligned and the chunk whole, else bytes.
+__device__ __forceinline__ void stage_rows(unsigned char* dst, const uint8_t* src, int bytes,
+                                           int room, int tid) {
+    if (bytes == room && !(reinterpret_cast<uintptr_t>(src) & 15)) {
+        const uint4* s4 = reinterpret_cast<const uint4*>(src);
+        uint4* d4 = reinterpret_cast<uint4*>(dst);
+        for (int idx = tid; idx < room / 16; idx += THREADS) d4[idx] = s4[idx];
+    } else {
+        for (int idx = tid; idx < room; idx += THREADS) dst[idx] = idx < bytes ? src[idx] : 0;
+    }
+}
+
 // entries [e0, e1) of the query tile's [m·kc] LUT entries (16 bytes, 8
 // queries) → shared memory from 0, the QT values of queries q0.. of each
 template <int QT>
@@ -156,7 +174,9 @@ __device__ __forceinline__ void load_lut(typename Entry<QT>::T* dst, const unsig
 
 // MODE, QT queries per CUDA block, SLICED: the LUTs and codes staged `ms`
 // subspaces at a time per chunk (else all M, the LUTs once per run).
-template <int MODE, int QT, bool SLICED>
+// MASKED: block_size is not a multiple of CHUNK (a block's last chunk is
+// masked past its end); blocks of whole chunks take the unmasked instance.
+template <int MODE, int QT, bool SLICED, bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1)
 adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUERY_TILE]
                      const uint32_t* __restrict__ hilo,      // [nq, c, QUERY_TILE] (not PLAIN)
@@ -197,19 +217,26 @@ adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUER
         int li = 0;
         for (int c0 = 0; c0 < block_size; c0 += CHUNK) {
             const long long row0 = (long long)blk * block_size + c0;
+            // the block's rows in this chunk; this thread's row is the block's
+            const int live = MASKED ? min(CHUNK, block_size - c0) : CHUNK;
+            const bool mine = !MASKED || tid < live;
             const uint8_t* rowp = codes + (row0 + tid) * cols;  // this thread's row
             if (!SLICED) {
                 __syncthreads();  // LUT loaded / previous chunk's codes and scores consumed
-                const uint4* src = reinterpret_cast<const uint4*>(codes + row0 * cols);
-                uint4* dst = reinterpret_cast<uint4*>(codes_s);
-                for (int idx = tid; idx < CHUNK * cols / 16; idx += THREADS) dst[idx] = src[idx];
+                if (MASKED) {
+                    stage_rows(codes_s, codes + row0 * cols, live * cols, CHUNK * cols, tid);
+                } else {
+                    const uint4* src = reinterpret_cast<const uint4*>(codes + row0 * cols);
+                    uint4* dst = reinterpret_cast<uint4*>(codes_s);
+                    for (int idx = tid; idx < CHUNK * cols / 16; idx += THREADS) dst[idx] = src[idx];
+                }
                 __syncthreads();
             }
             float s[QT];
             int cid = 0;
-            if (COARSE) {
+            if (COARSE) {  // a row past the block reads id 0: its score is dropped below
                 const unsigned char* cb = SLICED ? rowp : codes_s + tid * cols;
-                cid = ((int)cb[0] << 8) | (int)cb[1];
+                cid = MASKED && SLICED && !mine ? 0 : ((int)cb[0] << 8) | (int)cb[1];
             }
             // SORTED: an id outside the tile's window has no coarse term
             const bool in_window = MODE != SORTED || ((unsigned)(cid - win) < 512u && cid < c);
@@ -242,7 +269,8 @@ adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUER
                     load_lut<QT>(lut_s, tile_lut, m0 * kc, m1 * kc, q0, tid);
                     for (int idx = tid; idx < CHUNK * w; idx += THREADS) {
                         const int r = idx / w, j = idx - r * w;
-                        codes_s[r * ms + j] = codes[(row0 + r) * cols + off + m0 + j];
+                        codes_s[r * ms + j] =
+                            !MASKED || r < live ? codes[(row0 + r) * cols + off + m0 + j] : 0;
                     }
                     __syncthreads();
                 }
@@ -254,9 +282,11 @@ adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUER
                     for (int qq = 0; qq < QT; ++qq) s[qq] = __fadd_rn(s[qq], r[qq]);
                 }
             }
-            const float b = bias[row0 + tid];
+            // -1e30 past the block's end: those rows never enter its top-kb
+            const float b = mine ? bias[row0 + tid] : block_topk::NEG_INF;
 #pragma unroll
-            for (int qq = 0; qq < QT; ++qq) sc[qq * CHUNK + tid] = __fadd_rn(s[qq], b);
+            for (int qq = 0; qq < QT; ++qq)
+                sc[qq * CHUNK + tid] = mine ? __fadd_rn(s[qq], b) : block_topk::NEG_INF;
             __syncthreads();
 
             if (warp < QT) {
@@ -275,18 +305,18 @@ adc_scan_topk_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUER
     }
 }
 
-template <int MODE, int QT, bool SLICED>
+template <int MODE, int QT, bool SLICED, bool MASKED>
 int launch_as(const void* lut, const void* hilo, const void* codes, const void* bias,
               void* out_s, void* out_i, const void* wbase, int nq, int nblocks, int block_size,
               int grid_x, int m, int kc, int c, int kb, int group, int ms, size_t smem,
               void* stream) {
-    cudaError_t err = cudaFuncSetAttribute(adc_scan_topk_kernel<MODE, QT, SLICED>,
+    cudaError_t err = cudaFuncSetAttribute(adc_scan_topk_kernel<MODE, QT, SLICED, MASKED>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int per_cta = (nblocks + grid_x - 1) / grid_x;
     const dim3 grid((unsigned)((nblocks + per_cta - 1) / per_cta),
                     (unsigned)nq * (QUERY_TILE / QT));
-    adc_scan_topk_kernel<MODE, QT, SLICED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+    adc_scan_topk_kernel<MODE, QT, SLICED, MASKED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         static_cast<const __nv_bfloat16*>(lut), static_cast<const uint32_t*>(hilo),
         static_cast<const uint8_t*>(codes), static_cast<const float*>(bias),
         static_cast<float*>(out_s), static_cast<int*>(out_i), static_cast<const int*>(wbase),
@@ -360,7 +390,9 @@ __device__ __forceinline__ void skew_gather_group(uint4 (&e)[8], const uint32_t*
         skew_gather<true>(e, row_words, sh, lut_s, lane_lut, mp, m, lag, g);
 }
 
-template <int MODE>
+// MASKED: block_size is not a multiple of CHUNK (a block's last chunk is
+// masked past its end). The main path's blocks take the unmasked instance.
+template <int MODE, bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1)
 adc_scan_topk_skew_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc, QUERY_TILE]
                           const uint32_t* __restrict__ hilo,      // [nq, c, QUERY_TILE] (not PLAIN)
@@ -394,22 +426,38 @@ adc_scan_topk_skew_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc,
 
     const int blk_begin = blockIdx.x * blocks_per_cta;
     const int blk_end = min(nblocks, blk_begin + blocks_per_cta);
-    const long long row_begin = (long long)blk_begin * block_size;
-    const int per_block = block_size / CHUNK;
+    // a block is ⌈block_size / CHUNK⌉ chunks from its first row; chunk ci of
+    // the run is chunk ci % per_block of block blk_begin + ci / per_block
+    const int per_block = MASKED ? (block_size + CHUNK - 1) / CHUNK : block_size / CHUNK;
     const int nch = (blk_end - blk_begin) * per_block;
-    auto stage_codes = [&](int ci) {  // chunk ci's rows → buffer ci & 1 (rows are contiguous)
-        const uint4* src = reinterpret_cast<const uint4*>(codes + (row_begin + (long long)ci * CHUNK) * cols);
+    auto chunk_row = [&](int ci) {
+        return MASKED ? (long long)(blk_begin + ci / per_block) * block_size
+                            + (long long)(ci % per_block) * CHUNK
+                      : (long long)blk_begin * block_size + (long long)ci * CHUNK;
+    };
+    auto chunk_live = [&](int ci) {
+        return MASKED ? min(CHUNK, block_size - (ci % per_block) * CHUNK) : CHUNK;
+    };
+    auto stage_codes = [&](int ci) {  // chunk ci's rows → buffer ci & 1
+        const uint8_t* src = codes + chunk_row(ci) * cols;
         unsigned char* dst = codes_s + (ci & 1) * stage;
-        for (int w = tid; w < CHUNK * cols / 16; w += THREADS) cp_async16(dst + 16 * w, src + w);
+        const int live = chunk_live(ci);
+        if (!MASKED || (live == CHUNK && !(reinterpret_cast<uintptr_t>(src) & 15))) {
+            const uint4* s4 = reinterpret_cast<const uint4*>(src);
+            for (int w = tid; w < CHUNK * cols / 16; w += THREADS) cp_async16(dst + 16 * w, s4 + w);
+        } else {  // a block's last chunk (zeros past its end) or rows off 16 bytes: plain copies
+            stage_rows(dst, src, live * cols, CHUNK * cols, tid);
+        }
         cp_async_commit();
     };
     stage_codes(0);
     float ls = block_topk::NEG_INF;
     int li = 0;
     for (int ci = 0; ci < nch; ++ci) {
-        const long long row0 = row_begin + (long long)ci * CHUNK;
+        const long long row0 = chunk_row(ci);
         const int blk = blk_begin + ci / per_block;
         const int c0 = (ci % per_block) * CHUNK;
+        const bool mine = !MASKED || tid < chunk_live(ci);  // this thread's row is the block's
         if (ci + 1 < nch) {
             stage_codes(ci + 1);  // its buffer's chunk (ci − 1) was scored before the last barrier
             cp_async_wait<1>();
@@ -433,7 +481,8 @@ adc_scan_topk_skew_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc,
                 cw2 = __ldg(e + 1);
             }
         }
-        const float bv = bias[row0 + tid];
+        // -1e30 past the block's end: those rows never enter its top-kb
+        const float bv = mine ? bias[row0 + tid] : block_topk::NEG_INF;
         const int a = tid * cols + off - lag;  // this lane's row from byte off − lag
         const uint32_t* row_words = reinterpret_cast<const uint32_t*>(buf) + (a >> 2);
         const int sh = (a & 3) * 8;
@@ -459,7 +508,8 @@ adc_scan_topk_skew_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc,
             if (g + 1 < ngroups) skew_add(eb, s);
         }
 #pragma unroll
-        for (int q = 0; q < QUERY_TILE; ++q) sc[q * CHUNK + tid] = __fadd_rn(s[q], bv);
+        for (int q = 0; q < QUERY_TILE; ++q)
+            sc[q * CHUNK + tid] = mine ? __fadd_rn(s[q], bv) : block_topk::NEG_INF;
         __syncthreads();
 
         float v[ROWS_PER_LANE];
@@ -472,7 +522,7 @@ adc_scan_topk_skew_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc,
         // below the list's last entry, every row of the chunk loses every pass
         if (c0 == 0 || __any_sync(block_topk::FULL, top >= __shfl_sync(block_topk::FULL, ls, kb - 1)))
             block_topk::merge_chunk<ROWS_PER_LANE>(v, (int)row0, c0 > 0, ls, li, kb, lane);
-        if (c0 + CHUNK == block_size && lane < kb) {
+        if ((MASKED ? ci % per_block == per_block - 1 : c0 + CHUNK == block_size) && lane < kb) {
             const long long o = (((long long)iq * nblocks + blk) * kb + lane) * QUERY_TILE + warp;
             out_s[o] = ls;
             out_i[o] = li;
@@ -480,17 +530,17 @@ adc_scan_topk_skew_kernel(const __nv_bfloat16* __restrict__ lut,  // [nq, m, kc,
     }
 }
 
-template <int MODE>
+template <int MODE, bool MASKED>
 int launch_skew(const void* lut, const void* hilo, const void* codes, const void* bias,
                 void* out_s, void* out_i, const void* wbase, int nq, int nblocks,
                 int block_size, int grid_x, int m, int kc, int c, int kb, int group,
                 size_t smem, void* stream) {
-    cudaError_t err = cudaFuncSetAttribute(adc_scan_topk_skew_kernel<MODE>,
+    cudaError_t err = cudaFuncSetAttribute(adc_scan_topk_skew_kernel<MODE, MASKED>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int per_cta = (nblocks + grid_x - 1) / grid_x;
     const dim3 grid((unsigned)((nblocks + per_cta - 1) / per_cta), (unsigned)nq);
-    adc_scan_topk_skew_kernel<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+    adc_scan_topk_skew_kernel<MODE, MASKED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         static_cast<const __nv_bfloat16*>(lut), static_cast<const uint32_t*>(hilo),
         static_cast<const uint8_t*>(codes), static_cast<const float*>(bias),
         static_cast<float*>(out_s), static_cast<int*>(out_i), static_cast<const int*>(wbase),
@@ -506,7 +556,8 @@ template <int MODE>
 int launch(const void* lut, const void* hilo, const void* codes, const void* bias, void* out_s,
            void* out_i, const void* wbase, int nq, int nblocks, int block_size, int grid_x,
            int m, int kc, int c, int kb, int group, int qt, int ms, int skew, void* stream) {
-    if (m < 1 || kc < 1 || kc > 256 || kb < 1 || kb > MAX_KB) return (int)cudaErrorInvalidValue;
+    if (m < 1 || kc < 1 || kc > 256 || kb < 1 || kb > MAX_KB || block_size < 1)
+        return (int)cudaErrorInvalidValue;
     if ((qt != 8 && qt != 4 && qt != 2 && qt != 1) || ms < 1 || ms > m
         || (ms < m && qt != QUERY_TILE) || (skew && (qt != QUERY_TILE || ms != m)))
         return (int)cudaErrorInvalidValue;
@@ -514,11 +565,21 @@ int launch(const void* lut, const void* hilo, const void* codes, const void* bia
     const size_t smem = skew ? skew_smem(m, kc, cols) : adc_smem(qt, m, ms, kc, cols);
     if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
 #define ADC_LAUNCH(QT, SLICED)                                                                   \
-    launch_as<MODE, QT, SLICED>(lut, hilo, codes, bias, out_s, out_i, wbase, nq, nblocks,        \
-                                block_size, grid_x, m, kc, c, kb, group, ms, smem, stream)
+    (block_size % CHUNK                                                                          \
+         ? launch_as<MODE, QT, SLICED, true>(lut, hilo, codes, bias, out_s, out_i, wbase, nq,    \
+                                             nblocks, block_size, grid_x, m, kc, c, kb, group,   \
+                                             ms, smem, stream)                                   \
+         : launch_as<MODE, QT, SLICED, false>(lut, hilo, codes, bias, out_s, out_i, wbase, nq,   \
+                                              nblocks, block_size, grid_x, m, kc, c, kb, group,  \
+                                              ms, smem, stream))
     if (skew)
-        return launch_skew<MODE>(lut, hilo, codes, bias, out_s, out_i, wbase, nq, nblocks,
-                                 block_size, grid_x, m, kc, c, kb, group, smem, stream);
+        return block_size % CHUNK
+                   ? launch_skew<MODE, true>(lut, hilo, codes, bias, out_s, out_i, wbase, nq,
+                                             nblocks, block_size, grid_x, m, kc, c, kb, group,
+                                             smem, stream)
+                   : launch_skew<MODE, false>(lut, hilo, codes, bias, out_s, out_i, wbase, nq,
+                                              nblocks, block_size, grid_x, m, kc, c, kb, group,
+                                              smem, stream);
     if (ms < m) return ADC_LAUNCH(8, true);
     switch (qt) {
         case 8: return ADC_LAUNCH(8, false);
@@ -540,7 +601,7 @@ int adc_scan_topk_threads() { return THREADS; }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // The caller checks shapes: LUT rows = nq·QUERY_TILE, code rows =
-// nblocks·block_size, block_size % CHUNK == 0, kc <= 256, c <= 65536,
+// nblocks·block_size, block_size >= 1, kc <= 256, c <= 65536,
 // 1 <= kb <= MAX_KB, 16-byte aligned pointers. grid_x = CUDA blocks wanted
 // along the corpus (per query tile, or per part of one when QT < 8); qt,
 // ms, skew: the plan (launch above).

@@ -43,6 +43,12 @@
 // least as high and their ids lower), so a warp whose queries all see such
 // a chunk leaves their lists as they are.
 //
+// Any block_size >= 1 is taken (as kernel 1's, csrc/int8_scan_topk.cu): a
+// block is ⌈block_size / 256⌉ chunks from its first row, and the columns of
+// its last chunk past the block's end (rows of the next block, or past the
+// corpus, which the passes zero-fill) score -1e30 and never enter the
+// block's top-kb (every id of the block is lower than theirs).
+//
 // F32: a scored chunk gets its bias and is merged per query by the warp
 // that owns it (block_topk.cuh, each lane's 8 row ids passed through);
 // lanes < kb hold the list during the merge.
@@ -94,7 +100,10 @@ __device__ __forceinline__ void write_lists(const float* ls, const int* li, int 
 
 size_t f32_smem_bytes(int kb) { return (size_t)F_PIPE_FLOATS * 4 + (size_t)TILE_Q * kb * 8; }
 
-template <bool RAGGED>
+// MASKED: block_size is not a multiple of CHUNK (a block's last chunk is
+// masked past its end; implies RAGGED). The main path's blocks take the
+// unmasked instance, whose epilogue has no mask to evaluate.
+template <bool RAGGED, bool MASKED>
 __global__ void __launch_bounds__(F_THREADS, 1)
 scan_topk_f32_kernel(const float* __restrict__ q,      // [nq·QUERY_TILE, d]
                      const float* __restrict__ vecs,   // [nblocks·block_size, d]
@@ -115,9 +124,19 @@ scan_topk_f32_kernel(const float* __restrict__ q,      // [nq·QUERY_TILE, d]
     f32_scores<RAGGED>(q, vecs, fsmem, nq, pair, blk, block_size, d,
                        (long long)nblocks * block_size, [&](int c, float (&acc)[8][8]) {
         const int grow0 = blk * block_size + c * CHUNK;
-        const float4 bb0 = *reinterpret_cast<const float4*>(bias + grow0 + 4 * lane);
-        const float4 bb1 = *reinterpret_cast<const float4*>(bias + grow0 + HALF + 4 * lane);
-        const float bv[8] = {bb0.x, bb0.y, bb0.z, bb0.w, bb1.x, bb1.y, bb1.z, bb1.w};
+        const int live = min(CHUNK, block_size - c * CHUNK);  // the block's columns
+        // bias, or -1e30 at the columns past the block's end (which then never win)
+        float bv[8];
+        if (!MASKED || (live == CHUNK && !(grow0 & 3))) {  // a whole chunk, 16-byte aligned
+            const float4 bb0 = *reinterpret_cast<const float4*>(bias + grow0 + 4 * lane);
+            const float4 bb1 = *reinterpret_cast<const float4*>(bias + grow0 + HALF + 4 * lane);
+            bv[0] = bb0.x; bv[1] = bb0.y; bv[2] = bb0.z; bv[3] = bb0.w;
+            bv[4] = bb1.x; bv[5] = bb1.y; bv[6] = bb1.z; bv[7] = bb1.w;
+        } else {
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+                bv[j] = f32_row(lane, j) < live ? bias[grow0 + f32_row(lane, j)] : NEG_INF;
+        }
         const auto row_of = [=](int j) { return grow0 + f32_row(lane, j); };
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
@@ -125,7 +144,7 @@ scan_topk_f32_kernel(const float* __restrict__ q,      // [nq·QUERY_TILE, d]
             float m = NEG_INF;
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-                s[j] = __fadd_rn(acc[i][j], bv[j]);
+                s[j] = __fadd_rn(acc[i][j], bv[j]);  // -1e30 past the block: |q·v| ≪ 1e22
                 m = fmaxf(m, s[j]);
             }
             const int ql = warp * 8 + i;
@@ -160,7 +179,7 @@ __host__ __device__ inline RingLayout bf16_layout(int d, int kb) {
     return ring_layout(d, lists_bytes(kb));
 }
 
-template <bool RESIDENT>
+template <bool RESIDENT, bool MASKED>  // MASKED: as the f32 kernel's
 __global__ void __launch_bounds__(B_THREADS, 1)
 scan_topk_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,  // [nq·64, d] bf16, box 64 × 128
                       const __grid_constant__ CUtensorMap tm_v,  // [N, d] bf16, box 64 × 256
@@ -181,16 +200,36 @@ scan_topk_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,  // [nq·64, d] 
         [&](int c, float (&acc)[128], int wg, int t, int qa) {
             // the chunk's scores + bias, straight from the accumulators
             const int grow0 = block_row0 + c * CHUNK;
+            const int live = min(CHUNK, block_size - c * CHUNK);  // the block's columns
             float m0 = NEG_INF, m1 = NEG_INF;
+            if (!MASKED || (live == CHUNK && !(grow0 & 1))) {  // whole, pairs 8-byte aligned
 #pragma unroll
-            for (int j = 0; j < 32; ++j) {
-                const float2 bb = *reinterpret_cast<const float2*>(bias + grow0 + 8 * j + 2 * t);
-                acc[4 * j + 0] = __fadd_rn(acc[4 * j + 0], bb.x);
-                acc[4 * j + 1] = __fadd_rn(acc[4 * j + 1], bb.y);
-                acc[4 * j + 2] = __fadd_rn(acc[4 * j + 2], bb.x);
-                acc[4 * j + 3] = __fadd_rn(acc[4 * j + 3], bb.y);
-                m0 = fmaxf(m0, fmaxf(acc[4 * j + 0], acc[4 * j + 1]));
-                m1 = fmaxf(m1, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+                for (int j = 0; j < 32; ++j) {
+                    const float2 bb = *reinterpret_cast<const float2*>(bias + grow0 + 8 * j + 2 * t);
+                    acc[4 * j + 0] = __fadd_rn(acc[4 * j + 0], bb.x);
+                    acc[4 * j + 1] = __fadd_rn(acc[4 * j + 1], bb.y);
+                    acc[4 * j + 2] = __fadd_rn(acc[4 * j + 2], bb.x);
+                    acc[4 * j + 3] = __fadd_rn(acc[4 * j + 3], bb.y);
+                    m0 = fmaxf(m0, fmaxf(acc[4 * j + 0], acc[4 * j + 1]));
+                    m1 = fmaxf(m1, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+                }
+            } else {  // -1e30 at the columns past the block's end: they never win
+#pragma unroll
+                for (int j = 0; j < 32; ++j)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int col = 8 * j + 2 * t + e;
+                        float s0 = NEG_INF, s1 = NEG_INF;
+                        if (col < live) {
+                            const float bb = bias[grow0 + col];
+                            s0 = __fadd_rn(acc[4 * j + e], bb);
+                            s1 = __fadd_rn(acc[4 * j + 2 + e], bb);
+                        }
+                        acc[4 * j + e] = s0;
+                        acc[4 * j + 2 + e] = s1;
+                        m0 = fmaxf(m0, s0);
+                        m1 = fmaxf(m1, s1);
+                    }
             }
             const bool have = c > 0;
             float* os = lists + ((c & 1) ^ 1) * 2 * TILE_Q * kb;  // the list so far
@@ -222,7 +261,7 @@ scan_topk_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,  // [nq·64, d] 
         });
     if (!consumer) return;
     asm volatile("bar.sync 1, %0;\n" ::"n"(B_CONSUMERS * 128) : "memory");
-    const int nchunks = block_size / CHUNK;
+    const int nchunks = (block_size + CHUNK - 1) / CHUNK;
     const float* fs = lists + ((nchunks - 1) & 1) * 2 * TILE_Q * kb;
     write_lists(fs, reinterpret_cast<const int*>(fs + TILE_Q * kb), threadIdx.x,
                 B_CONSUMERS * 128, pair, nq, nblocks, blk, kb, out_s, out_i);
@@ -231,8 +270,7 @@ scan_topk_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,  // [nq·64, d] 
 // ---- launchers ------------------------------------------------------------------
 
 bool shape_ok(int nq, int nblocks, int block_size, int kb, int d) {
-    return nq >= 1 && nblocks >= 1 && block_size >= CHUNK && block_size % CHUNK == 0 &&
-           kb >= 1 && kb <= MAX_KB && d >= 1 &&
+    return nq >= 1 && nblocks >= 1 && block_size >= 1 && kb >= 1 && kb <= MAX_KB && d >= 1 &&
            (long long)nblocks * block_size < (1LL << 31);
 }
 
@@ -240,7 +278,10 @@ int launch_f32(const void* q, const void* vecs, const void* bias, void* out_s, v
                int nq, int nblocks, int block_size, int kb, int d, cudaStream_t stream) {
     if (!shape_ok(nq, nblocks, block_size, kb, d)) return (int)cudaErrorInvalidValue;
     const size_t smem = f32_smem_bytes(kb);
-    auto kernel = d % F_KC ? scan_topk_f32_kernel<true> : scan_topk_f32_kernel<false>;
+    // RAGGED: a slice past D, or a block's last chunk past the corpus, is zero-filled
+    auto kernel = block_size % CHUNK ? scan_topk_f32_kernel<true, true>
+                  : d % F_KC         ? scan_topk_f32_kernel<true, false>
+                                     : scan_topk_f32_kernel<false, false>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return refused(err);
@@ -251,17 +292,17 @@ int launch_f32(const void* q, const void* vecs, const void* bias, void* out_s, v
     return (int)cudaGetLastError();
 }
 
-template <bool RESIDENT>
+template <bool RESIDENT, bool MASKED>
 int launch_bf16_as(const CUtensorMap& tq, const CUtensorMap& tv, const void* bias, void* out_s,
                    void* out_i, int nq, int nblocks, int block_size, int kb, int d,
                    cudaStream_t stream) {
     const size_t smem = ring_bytes(bf16_layout(d, kb));
     if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(scan_topk_bf16_kernel<RESIDENT>,
+    cudaError_t err = cudaFuncSetAttribute(scan_topk_bf16_kernel<RESIDENT, MASKED>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return refused(err);
     const unsigned grid = (unsigned)((nq + 1) / 2) * (unsigned)nblocks;
-    scan_topk_bf16_kernel<RESIDENT><<<grid, B_THREADS, smem, stream>>>(
+    scan_topk_bf16_kernel<RESIDENT, MASKED><<<grid, B_THREADS, smem, stream>>>(
         tq, tv, static_cast<const float*>(bias), static_cast<float*>(out_s),
         static_cast<int*>(out_i), nq, nblocks, block_size, d, kb);
     return (int)cudaGetLastError();
@@ -275,11 +316,12 @@ int launch_bf16(const void* q, const void* vecs, const void* bias, void* out_s, 
     if (err) return err;
     err = encode_bf16_map(&tv, vecs, (long long)nblocks * block_size, d, CHUNK);
     if (err) return err;
-    if (bf16_layout(d, kb).a_bytes > 0)
-        return launch_bf16_as<true>(tq, tv, bias, out_s, out_i, nq, nblocks, block_size, kb, d,
-                                    stream);
-    return launch_bf16_as<false>(tq, tv, bias, out_s, out_i, nq, nblocks, block_size, kb, d,
-                                 stream);
+    const bool resident = bf16_layout(d, kb).a_bytes > 0;
+#define BF16_LAUNCH(RES, MASK)                                                                   \
+    launch_bf16_as<RES, MASK>(tq, tv, bias, out_s, out_i, nq, nblocks, block_size, kb, d, stream)
+    if (block_size % CHUNK) return resident ? BF16_LAUNCH(true, true) : BF16_LAUNCH(false, true);
+    return resident ? BF16_LAUNCH(true, false) : BF16_LAUNCH(false, false);
+#undef BF16_LAUNCH
 }
 
 }  // namespace
@@ -301,7 +343,7 @@ int scan_topk_float_bf16_queries_resident(int d, int kb) {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success),
 // or for bf16 the CUresult of a failed tensor-map encode. q rows =
-// nq·QUERY_TILE, vector rows = nblocks·block_size, block_size % CHUNK == 0,
+// nq·QUERY_TILE, vector rows = nblocks·block_size, block_size >= 1,
 // 1 <= kb <= MAX_KB, d >= 1 (bf16: d % 8 == 0), 16-byte aligned
 // pointers; scores must be ≥ -1e30.
 int scan_topk_f32_launch(const void* q, const void* vecs, const void* bias, void* out_s,

@@ -68,10 +68,10 @@ __all__ = [
 ]
 
 # A CUDA block walks its corpus rows CHUNK_ROWS at a time, keeping a running
-# top-kb (kb ≤ MAX_KB) per query. Kernels 2 and 3/5 take any block_size that
-# is a multiple of CHUNK_ROWS; kernel 1 takes any block_size (the columns of
-# a block's last chunk past its end score -1e30). Kernel 1's partials are in
-# tiles of QUERY_TILE queries (compile-time constants of the sources,
+# top-kb (kb ≤ MAX_KB) per query. Kernels 1 to 5 take any block_size: a
+# block is ⌈block_size / CHUNK_ROWS⌉ chunks from its first row, and the
+# columns of its last chunk past its end score -1e30. Kernel 1's partials
+# are in tiles of QUERY_TILE queries (compile-time constants of the sources,
 # checked at load).
 QUERY_TILE = 64
 CHUNK_ROWS = 256
@@ -213,10 +213,9 @@ def _block_topk_plain(score_fn: Callable[[int, int], torch.Tensor], bp: int, n_r
     return out_s, out_i
 
 
-def _check_block_shape(n_rows: int, bias: torch.Tensor, block_size: int, kb: int,
-                       multiple: int = CHUNK_ROWS) -> None:
-    if block_size % multiple or block_size <= 0:
-        raise ValueError(f"block_size must be a positive multiple of {multiple}, got {block_size}")
+def _check_block_shape(n_rows: int, bias: torch.Tensor, block_size: int, kb: int) -> None:
+    if block_size <= 0:
+        raise ValueError(f"block_size must be positive, got {block_size}")
     if n_rows % block_size or n_rows >= _INT_BIG or bias.shape != (n_rows,):
         raise ValueError("corpus rows must be a multiple of block_size, with one bias per row")
     if not 1 <= kb <= MAX_KB:
@@ -274,7 +273,7 @@ def block_topk_int8(
     if d < 1:
         raise ValueError("the corpus must have at least one dimension")
     n_rows = codes.shape[0]
-    _check_block_shape(n_rows, bias, block_size, kb, multiple=1)
+    _check_block_shape(n_rows, bias, block_size, kb)
     if row_scale.shape != (n_rows,):
         raise ValueError("one row scale per corpus row")
     nq = q_codes.shape[0] // QUERY_TILE

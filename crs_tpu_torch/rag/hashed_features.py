@@ -163,23 +163,43 @@ def _count_batch_py(texts: Sequence[str], num_features: int, char_ngrams: bool,
     return _csr([_count_py(t, num_features, char_ngrams, word_grams) for t in texts])
 
 
+_NATIVE_PIECE_BYTES = 1 << 24  # text bytes a featurize_batch_ex call takes
+_NATIVE_MAX_OUT = (1 << 31) - 1  # its output capacity and count are C ints
+
+
 def _native_batch(lib, texts: Sequence[str], num_features: int, mode: int,
                   per_char: int):
-    """One ``featurize_batch_ex`` call; None when the output buffer overflowed."""
+    """``featurize_batch_ex`` over runs of texts of at most
+    _NATIVE_PIECE_BYTES bytes (one text at least), so that each call's
+    output capacity fits its C int; the pieces' CSR rows concatenated.
+    None when a buffer overflowed."""
     encoded = [t.encode("utf-8") for t in texts]
-    blob = b"".join(encoded)
-    text_offsets = np.zeros(len(texts) + 1, np.int64)
-    np.cumsum([len(e) for e in encoded], out=text_offsets[1:])
-    cap = max(per_char * len(blob) + 16 * len(texts) + 256, 1024)
-    out_idx = np.zeros(cap, np.int64)
-    out_w = np.zeros(cap, np.float32)
+    cum = np.zeros(len(texts) + 1, np.int64)
+    np.cumsum([len(e) for e in encoded], out=cum[1:])
     out_off = np.zeros(len(texts) + 1, np.int64)
-    n = lib.featurize_batch_ex(
-        blob, text_offsets, len(texts), num_features, mode, out_idx, out_w, out_off, cap
-    )
-    if n < 0:
-        return None
-    return out_idx[:n].copy(), out_w[:n].copy(), out_off
+    idx_parts, w_parts = [np.zeros(0, np.int64)], [np.zeros(0, np.float32)]
+    start = 0
+    while start < len(texts):
+        end = int(np.searchsorted(cum, cum[start] + _NATIVE_PIECE_BYTES, side="right")) - 1
+        end = min(max(end, start + 1), len(texts))
+        blob = b"".join(encoded[start:end])
+        cap = max(per_char * len(blob) + 16 * (end - start) + 256, 1024)
+        if cap > _NATIVE_MAX_OUT:
+            return None
+        out_idx = np.zeros(cap, np.int64)
+        out_w = np.zeros(cap, np.float32)
+        off = np.zeros(end - start + 1, np.int64)
+        n = lib.featurize_batch_ex(
+            blob, cum[start:end + 1] - cum[start], end - start, num_features, mode,
+            out_idx, out_w, off, cap
+        )
+        if n < 0:
+            return None
+        idx_parts.append(out_idx[:n].copy())
+        w_parts.append(out_w[:n].copy())
+        out_off[start + 1:end + 1] = off[1:] + out_off[start]
+        start = end
+    return np.concatenate(idx_parts), np.concatenate(w_parts), out_off
 
 
 # -- public API ---------------------------------------------------------------

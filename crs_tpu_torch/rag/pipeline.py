@@ -6,8 +6,10 @@ ContextRetriever → RAGGenerator from the config's sections: ``setup``,
 ``retrieve``, ``retrieve_batch``, ``validate_retrieval``,
 ``generate_answer``, ``query`` (one retrieve, reused for the context) and
 ``get_stats``. The store, the embedder and the model run on the pipeline's
-device. ``evaluate`` comes with the evaluation slice; the ``lexical`` and
-``minilm`` embedding backends raise, as the port's ``EmbeddingModel`` does.
+device. A persisted index carries the lexical backend's fitted state
+(``lexical_state.npz`` beside it): ``setup`` reloads it, and
+``index_documents`` fits the embedder on the chunks and saves it there.
+``evaluate`` comes with the evaluation slice.
 """
 
 from __future__ import annotations

@@ -96,7 +96,7 @@ class ContextRetriever:
         fetch_k = min(
             self.rerank_fetch_mult * k if (self.rerank or use_mmr) else k, self.store.n
         )
-        q_emb = self.embedder.embed(list(queries)).to(self.store.device)
+        q_emb = self.embedder.embed(list(queries), is_query=True).to(self.store.device)
         if self.prf_beta > 0:
             q_emb = self._prf_requery(q_emb, where)
         if where:
@@ -227,7 +227,7 @@ class ContextRetriever:
             self.rerank_fetch_mult * k if (self.rerank or self.diversity_penalty > 0) else k,
             store.n,
         )
-        q_emb = self.embedder.embed(list(queries)).to(dev)
+        q_emb = self.embedder.embed(list(queries), is_query=True).to(dev)
         q_tok_np, q_inv_np = self._query_token_ids(queries)
         q_tok, q_inv = torch.from_numpy(q_tok_np).to(dev), torch.from_numpy(q_inv_np).to(dev)
         if where:

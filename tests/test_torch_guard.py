@@ -62,6 +62,9 @@ def _entry_points():
     return {
         "resolve_device": lambda dev: resolve_device(dev),
         "EmbeddingModel": lambda dev: EmbeddingModel({"backend": "hashed", "embedding_dim": 16}, device=dev),
+        "EmbeddingModel_lexical": lambda dev: EmbeddingModel(
+            {"backend": "lexical", "embedding_dim": 16, "num_features": 64}, device=dev),
+        "EmbeddingModel_minilm": lambda dev: EmbeddingModel({"backend": "minilm"}, device=dev),
         "HashedEncoder": lambda dev: HashedEncoder(dim=16, num_features=64, device=dev),
         "VectorStore": lambda dev: VectorStore({"format": "int8"}, device=dev),
         "VectorStore_fp32": lambda dev: VectorStore({"format": "fp32"}, device=dev),
@@ -86,7 +89,8 @@ def _entry_points():
     }
 
 
-ENTRY_POINTS = ["resolve_device", "EmbeddingModel", "HashedEncoder", "VectorStore",
+ENTRY_POINTS = ["resolve_device", "EmbeddingModel", "EmbeddingModel_lexical",
+                "EmbeddingModel_minilm", "HashedEncoder", "VectorStore",
                 "VectorStore_fp32", "VectorStore_bf16", "VectorStore_pq", "VectorStore_pq_sorted",
                 "TorchModel",
                 "create_model_interface", "RAGPipeline", "create_model_interface_gptq",
@@ -112,9 +116,11 @@ def test_unported_options_raise():
     from crs_tpu_torch.rag.index import VectorStore
     from crs_tpu_torch.rag.retrieval import ContextRetriever
 
-    for backend in ("lexical", "minilm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EmbeddingModel({"backend": backend}, device="cpu")
+    for backend in ("lexical", "minilm"):  # ported: both build and embed
+        em = EmbeddingModel({"backend": backend, "embedding_dim": 384, "num_features": 1024},
+                            device="cpu")
+        emb = em.embed(["what is gptq?", "pruning removes weights"], is_query=True)
+        assert emb.shape == (2, 384) and torch.allclose(emb.norm(dim=1), torch.ones(2))
     sorted_store = VectorStore({"format": "pq", "pq_sorted": True}, device="cpu")  # ported
     assert sorted_store.pq_sorted
     with pytest.raises(ValueError):
@@ -134,10 +140,11 @@ def test_unported_options_raise():
 
 
 def test_unported_model_options_raise(tmp_path):
-    """What still raises — log-likelihoods, the lexical / minilm backends,
-    ``evaluate`` — and that the options ported since now load: the
-    calibrated types, the two serving flags (not together), and a Hugging
-    Face directory (one without weights refuses to fall back to random init)."""
+    """What still raises — log-likelihoods, ``evaluate`` — and that the
+    options ported since now load: the calibrated types, the two serving
+    flags (not together), a Hugging Face directory (one without weights
+    refuses to fall back to random init), and pipelines on the lexical and
+    minilm embedding backends."""
     import json
 
     from crs_tpu_torch.models import TorchModel, create_model_interface
@@ -167,8 +174,12 @@ def test_unported_model_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="evaluation"):
         model.get_loglikelihood("a", "b")
     for backend in ("lexical", "minilm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RAGPipeline({"embedding": {"backend": backend}}, device="cpu").setup()
+        pipe = RAGPipeline({"embedding": {"backend": backend, "num_features": 1024},
+                            "vector_store": {"format": "int8"}}, device="cpu").setup()
+        assert pipe.embedder.backend == backend
+        pipe.index_documents(["Quantization maps weights to low precision integers. " * 8,
+                              "Pruning removes unimportant weights from the network. " * 8])
+        assert pipe.store.n > 0 and pipe.retrieve("what is quantization?", top_k=1)
     pipe = RAGPipeline({"embedding": {"backend": "hashed", "embedding_dim": 16}}, device="cpu")
     with pytest.raises(NotImplementedError, match="evaluation"):
         pipe.setup().evaluate([{"question": "q"}])
@@ -466,8 +477,8 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monkeypa
         args[1], args[2] = args[1][:700], args[2][:700]
     elif bad == "kb":
         args[3] = 33
-    elif bad == "block_size":
-        args[4] = 300
+    elif bad == "block_size":  # no rows a block (any positive block is taken)
+        args[4] = 0
     elif bad == "dim":  # float: a bf16 D off TMA's 8; adc: codes not M+2 wide
         if family == "float":
             args[:3] = _float_operands(torch.bfloat16, d=100)[:3]
@@ -479,6 +490,36 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(fake_kernels, monkeypa
     fn = fake_kernels.block_topk_float if family == "float" else fake_kernels.block_topk_adc
     with pytest.raises(ValueError):
         fn(*args)
+
+
+@pytest.mark.parametrize("block_size", [1, 128, 300, 384, 640, 1000])
+@pytest.mark.parametrize("which", ["float_f32", "float_bf16", "adc_residual", "adc_plain",
+                                   "adc_sorted"])
+def test_float_and_adc_wrappers_launch_blocks_off_the_chunk(fake_kernels, monkeypatch, which,
+                                                            block_size):
+    """Kernels 2 to 5 take any block_size (they took whole 256-row chunks
+    only until a block's last chunk was masked past its end, as kernel 1's):
+    the launcher receives the block, and the partials have one entry per
+    block."""
+    lib = _FakeKernels(0)
+    monkeypatch.setattr(fake_kernels, "_load_kernel_lib", lambda source: lib)
+    fake_kernels.STATS.reset()
+    rows = 4 * block_size
+    if which.startswith("float"):
+        dtype = torch.float32 if which == "float_f32" else torch.bfloat16
+        args = list(_float_operands(dtype=dtype, rows=rows))
+        fn, at = fake_kernels.block_topk_float, 7
+    elif which == "adc_sorted":
+        args = list(_sorted_operands(rows=rows, tiles=2))
+        fn, at = fake_kernels.block_topk_adc_sorted, 9
+    else:
+        args = list(_adc_operands(residual=which == "adc_residual", rows=rows))
+        fn, at = fake_kernels.block_topk_adc, 8
+    args[4] = block_size
+    out_s, _ = fn(*args)
+    assert fake_kernels.STATS.by_kernel == {KERNEL_CALLS[which]: 1}
+    assert out_s.shape[1] == 4
+    assert lib.calls[0][1][at - 1:at + 1] == (4, block_size)
 
 
 @pytest.mark.parametrize("bad", ["group", "wbase", "width", "rows", "kb", "dtype"])

@@ -209,3 +209,162 @@ def test_scan_topk_int8_on_crs_tpu_s_blocks(block_size, d):
     assert [set(r) for r in got_i.tolist()] == [set(r) for r in dense_i.tolist()]
     np.testing.assert_allclose(got_s.numpy(), dense_s.numpy(), rtol=1e-6, atol=0)
     assert got_i.max() < valid_n and mask[got_i.numpy()].all()
+
+
+# -- kernels 2 to 5: crs_tpu's blocks off the 256-row chunk ----------------------
+
+OFF_CHUNK_BLOCKS = [128, 384, 640]
+
+
+@pytest.mark.parametrize("block_size", OFF_CHUNK_BLOCKS)
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_float_scan_on_blocks_off_the_chunk(dtype, block_size):
+    """Kernel 2's route at blocks that are not whole 256-row chunks, with a
+    `where` mask, exact ties and padding rows: ``pallas_topk``'s ids and
+    scores (the float tolerances above)."""
+    from crs_tpu.ops.pallas_scan import pallas_topk
+    from crs_tpu_torch.ops.scan import scan_topk
+
+    rng = np.random.default_rng(block_size + (dtype == "bf16"))
+    n, d, b, k = 2600, 48, 9, 12
+    x = _unit(rng, n, d)
+    x[1500:1520] = x[0:20]  # exact ties across blocks
+    q = x[:b] + 0.05 * rng.standard_normal((b, d)).astype(np.float32)
+    mask = rng.random(n) < 0.7
+    valid_n = n - 31
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    ref = pallas_topk(jnp.asarray(x, jdt), jnp.asarray(q), k, valid_n, block_size=block_size,
+                      row_mask=jnp.asarray(mask))
+    got = scan_topk(_t(x).to(tdt), _t(q), k, valid_n, block_size=block_size, row_mask=_t(mask))
+    _assert_ranked_close(got, ref, 1e-5 if dtype == "fp32" else 1e-2)
+    assert got[1].max() < valid_n and mask[got[1].numpy()].all()
+
+
+def _adc_tables(rng, d, m, kc, c):
+    rot = np.linalg.qr(rng.standard_normal((d, d)))[0].astype(np.float32)
+    coarse = (rng.standard_normal((c, d)) * 0.3).astype(np.float32)
+    cents = (rng.standard_normal((m, kc, d // m)) * 0.1).astype(np.float32)
+    return rot, coarse, cents
+
+
+def _jax_luts(q, rot, coarse, cents):
+    """The LUT products exactly as the JAX wrappers compute them."""
+    qr = jnp.dot(jnp.asarray(q), jnp.asarray(rot), preferred_element_type=jnp.float32)
+    cl = jnp.dot(qr, jnp.asarray(coarse).T, preferred_element_type=jnp.float32)
+    m = cents.shape[0]
+    sub = qr.reshape(q.shape[0], m, q.shape[1] // m)
+    lut = jnp.einsum("bmd,mkd->bmk", sub, jnp.asarray(cents), preferred_element_type=jnp.float32)
+    plain = jnp.einsum("bmd,mkd->bmk", jnp.asarray(q).reshape(sub.shape), jnp.asarray(cents),
+                       preferred_element_type=jnp.float32)
+    return np.asarray(cl), np.asarray(lut), np.asarray(plain)
+
+
+@pytest.mark.parametrize("block_size", OFF_CHUNK_BLOCKS)
+@pytest.mark.parametrize("residual", [True, False], ids=["residual", "plain"])
+def test_adc_scans_on_blocks_off_the_chunk_bit_for_bit(residual, block_size):
+    """Kernels 3 and 5's route at blocks off the 256-row chunk, given JAX's
+    LUTs: ``pallas_topk_residual_pq_adc`` / ``pallas_topk_pq_adc``'s ids and
+    scores bit for bit, a repair included (k past kb)."""
+    from crs_tpu.ops.pallas_scan import pallas_topk_pq_adc, pallas_topk_residual_pq_adc
+    from crs_tpu_torch.ops.scan import scan_topk_pq_adc_luts, scan_topk_residual_pq_adc_luts
+
+    rng = np.random.default_rng(40 + block_size)
+    n, d, b, m, kc, c, k = 2600, 32, 9, 8, 16, 256, 24
+    rot, coarse, cents = _adc_tables(rng, d, m, kc, c)
+    ext = np.concatenate([np.zeros((n, 1)), rng.integers(0, c, (n, 1)),
+                          rng.integers(0, kc, (n, m))], 1).astype(np.uint8)
+    ext[1800:1900] = ext[0:100]  # exactly tied scores
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    mask = rng.random(n) < 0.7
+    valid_n = n - 17
+    cl, lut, plut = _jax_luts(q, rot, coarse, cents)
+    if residual:
+        ref = pallas_topk_residual_pq_adc(
+            *(jnp.asarray(a) for a in (rot, coarse, cents, ext, q)), k, valid_n,
+            block_size=block_size, row_mask=jnp.asarray(mask))
+        got = scan_topk_residual_pq_adc_luts(_t(cl), _t(lut), _t(ext), k, valid_n,
+                                             block_size=block_size, row_mask=_t(mask))
+    else:
+        codes = ext[:, 2:].copy()
+        ref = pallas_topk_pq_adc(jnp.asarray(cents), jnp.asarray(codes), jnp.asarray(q), k,
+                                 valid_n, block_size=block_size, row_mask=jnp.asarray(mask))
+        got = scan_topk_pq_adc_luts(_t(plut), _t(codes), k, valid_n, block_size=block_size,
+                                    row_mask=_t(mask))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+
+
+@pytest.mark.parametrize("block_size", OFF_CHUNK_BLOCKS)
+def test_sorted_adc_on_blocks_off_the_chunk_bit_for_bit(block_size):
+    """Kernel 4's route at blocks off the 256-row chunk: the plan, the
+    group and ``pallas_topk_residual_pq_adc_sorted``'s ids and scores bit
+    for bit, given JAX's LUTs."""
+    from crs_tpu.ops.pallas_scan import (
+        adc_auto_group as jax_group, pallas_topk_residual_pq_adc_sorted,
+        plan_sorted_coarse_windows as jax_plan,
+    )
+    from crs_tpu.ops.pq import sort_codes_by_coarse
+    from crs_tpu_torch.ops.scan import (
+        adc_auto_group, plan_sorted_coarse_windows, scan_topk_residual_pq_adc_sorted_luts,
+    )
+
+    rng = np.random.default_rng(60 + block_size)
+    n, d, b, m, kc, c, k = 2600, 32, 5, 8, 16, 256, 8
+    rot, coarse, cents = _adc_tables(rng, d, m, kc, c)
+    ext = np.concatenate([np.zeros((n, 1)), rng.integers(0, c, (n, 1)),
+                          rng.integers(0, kc, (n, m))], 1).astype(np.uint8)
+    sorted_ext, _, counts = sort_codes_by_coarse(ext, c)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    group = adc_auto_group(n, b, block_size, m + 2)
+    assert group == jax_group(n, b, block_size, m + 2)
+    wbase = plan_sorted_coarse_windows(counts, n, block_size, group)
+    np.testing.assert_array_equal(wbase, jax_plan(counts, n, block_size, group))
+    cl, lut, _ = _jax_luts(q, rot, coarse, cents)
+    ref = pallas_topk_residual_pq_adc_sorted(
+        *(jnp.asarray(a) for a in (rot, coarse, cents, sorted_ext)), jnp.asarray(wbase),
+        jnp.asarray(q), k, n, block_size=block_size, group=group)
+    got = scan_topk_residual_pq_adc_sorted_luts(_t(cl), _t(lut), _t(sorted_ext), wbase, k, n,
+                                                block_size=block_size, group=group)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+
+
+@pytest.mark.parametrize("block_size", [128, 640])
+@pytest.mark.parametrize("fmt", ["fp32", "bf16", "pq"])
+def test_stores_on_blocks_off_the_chunk_like_crs_tpu(monkeypatch, tmp_path, fmt, block_size):
+    """fp32, bf16 and pq stores of 128- and 640-row blocks take the kernels'
+    route, as on the card (at ≥ 4 blocks), at their own block_size, and give
+    ``crs_tpu``'s ids (the pq state trained by ``crs_tpu``, loaded here)."""
+    from crs_tpu.rag.index import VectorStore as JStore
+    from crs_tpu_torch.ops import scan
+    from crs_tpu_torch.rag.index import VectorStore
+
+    seen = []
+    for name in ("block_topk_float_plain", "block_topk_adc_plain"):
+        plain = getattr(scan, name)
+        monkeypatch.setattr(scan, name, lambda *a, _p=plain, **kw: seen.append(a[4]) or _p(*a, **kw))
+    rng = np.random.default_rng(block_size)
+    n, d = 2600, 32
+    centers = rng.standard_normal((20, d)).astype(np.float32)
+    x = centers[rng.integers(0, 20, n)] + 0.5 * rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.choice(n, 6, replace=False)] + 0.05 * rng.standard_normal((6, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    cfg = {"format": fmt, "block_size": block_size, "rescore_k": 32, "pq_subspaces": 8,
+           "pq_clusters": 16, "pq_iters": 2, "pq_opq_iters": 1, "pq_coarse_clusters": 256}
+    texts = [f"doc {i}" for i in range(n)]
+    jstore = JStore(cfg)
+    jstore.create_index(texts, x)
+    store = VectorStore(dict(cfg), device="cpu")
+    monkeypatch.setattr(store, "_scan_here", lambda rows: rows >= 4 * store.block_size)
+    if fmt == "pq":
+        jstore.save(str(tmp_path))
+        store.load(str(tmp_path))
+    else:
+        store.create_index(texts, torch.from_numpy(x))
+    s, i = store.search_batch(torch.from_numpy(q.astype(np.float32)), top_k=5)
+    ref_s, ref_i = (np.asarray(a) for a in jstore.search_batch(q, top_k=5))
+    assert seen and set(seen) == {block_size}
+    np.testing.assert_array_equal(i.numpy(), ref_i)
+    rtol = 1e-2 if fmt == "bf16" else 0.0
+    assert np.all(np.abs(s.numpy() - ref_s) <= 1e-5 + rtol * (1 + np.abs(ref_s)))

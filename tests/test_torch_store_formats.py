@@ -69,7 +69,7 @@ class _PortFixedEmbed:
     def __init__(self, q):
         self.q = q
 
-    def embed(self, queries):
+    def embed(self, queries, is_query=False):
         return torch.from_numpy(self.q[[int(s.split()[1]) for s in queries]].copy())
 
 
