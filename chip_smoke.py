@@ -122,31 +122,45 @@ the largest difference); any failure raises and exits non-zero:
                         kernel, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
-16. rag               — RAGPipeline (config.json's lexical embedding, fitted on
+16. evaluate          — the evaluation slice: (a) EvaluationRunner.run_all() (the
+                        efficiency, performance and retrieval benchmarks) over the
+                        generate phase's 1b int4 model and a RAGPipeline with
+                        config.json's rag section on the held-out corpus and
+                        questions (efficiency warm-up 1, 3 runs, 32 tokens, batches
+                        1 and 8; perplexity at 1,024 tokens; the corpus_qa_mc task;
+                        32 generated tokens): no errors, the five files, the
+                        headline metrics, the H100's spec row and power limit,
+                        kernels 8 and 10 counted; (b) config.json's small int8
+                        model on the card and on the CPU: log-likelihoods per
+                        scored token and is_greedy outside ties, perplexity, and
+                        the retrieval benchmark's metrics over one saved index;
+                        (c) python -m crs_tpu_torch --eval-performance
+                        --eval-retrieval as a child on a copy of config.json;
+17. rag               — RAGPipeline (config.json's lexical embedding, fitted on
                         the card; int8 store) over the held-out corpus with the
                         nf4 model: query() with config.json's generation values
                         (sampled), ms per query split into retrieve and
                         generate, chunks checked against a CPU pipeline on the
                         card's saved index and state, doc·query scores against
                         a CPU pipeline's own fit (within 1e-4);
-17. lexical           — config.json's lexical encoder at full width (131,072
-                        features, 384 dims) fitted on 131,072 synthetic chunks
+18. lexical           — config.json's lexical encoder at full width (131,072
+                        features, 384 dims) fitted on 65,536 synthetic chunks
                         of config.json's 240 words,
                         config.json's int8 store, a retrieve batch of 328
                         queries through kernel 1: fit seconds by stage, index
                         and query embed times; embeddings against a CPU encoder
                         on the card's saved state, ids against the plain scan;
-18. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
+19. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
                         chunks at batch 32 into config.json's int8 store, a
                         search through kernel 1; embeddings and the search
                         against the CPU;
-19. cli               — ``python -m crs_tpu_torch`` on the card on copies of
+20. cli               — ``python -m crs_tpu_torch`` on the card on copies of
                         config.json: --no-model --query on a copy of vector_db/,
                         --index of the held-out corpus into its own directory
                         and a query on it, then the command line's main in this
                         process on the lexical phase's index through kernel 1;
                         vector_db/ unchanged;
-20. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
+21. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
                         from the seed, loaded once: unfused, fuse_projections
                         and fused_mlp, greedy generate_batch of 32 tokens at
                         batch 1 and 8 (kernel 11: 32 launches per decode step in
@@ -154,7 +168,7 @@ the largest difference); any failure raises and exits non-zero:
                         logits identical with fuse_projections, within 5e-2 of
                         unfused with fused_mlp; one kv_bits 8 batch-8 decode
                         through kernels 10 and 11 against the plain versions;
-21. calibrated        — the gptq and awq types of the small config loaded on the
+22. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
                         reconstruction error against plain rounding, 16 tokens.
 
@@ -3237,10 +3251,8 @@ def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
             }
             del cache, start, state
         out[kind] = info
-        if kind == "nf4":
-            shared["nf4_model"] = model
-        else:
-            del model, params
+        shared[f"{kind}_model"] = model  # nf4: the rag phase's; int4: the evaluate phase's
+        del params
         torch.cuda.empty_cache()
     out["main_path_launches"] = launches
     out["note"] = ("decode_ms_per_token: CUDA events over 16 decode steps (host work included); "
@@ -3248,6 +3260,350 @@ def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
                    "device ms by kernel; "
                    "prefill_ms: host clock around one prefill; generate_ms: one greedy "
                    "generate_batch of 64 tokens, prefill included")
+    ph.info.update(out)
+    return out
+
+
+EVAL_EFFICIENCY = {"num_warmup": 1, "num_runs": 3, "max_new_tokens": 32, "batch_sizes": [1, 8]}
+EVAL_PPL_MAX_LENGTH = 1024
+EVAL_NEW_TOKENS = 32  # generation's max_new_tokens (config.json: 96)
+EVAL_CPU_CONFIG = "small"  # config.json's model config, scored on the card and on the CPU
+# |card − CPU| of a log-likelihood, per scored token: bf16 sums in other orders flip int8
+# activation codes (logits up to 0.13 apart); measured 5.0e-3 over the task's pairs and
+# 9.8e-3 / 1.52e-2 over the CPU's / the card's greedy chains (NVIDIA H100 80GB HBM3)
+EVAL_NLL_TOL = 3e-2
+EVAL_PPL_RTOL = 1e-2  # |card / CPU − 1| of the perplexity
+EVAL_SCORE_ATOL = 1e-5  # retrieval scores' mean and spread, card against CPU (f32 sum orders)
+EVAL_CLI_NEW_TOKENS = 16
+EVAL_CHAIN_STEPS = 8  # tokens of each greedy chain of the is_greedy check
+EVAL_FILES = ["comprehensive_results.json", "efficiency_results.json",
+              "performance_results.json", "retrieval_results.json", "summary.json"]
+EVAL_HEADLINE = ("latency_ms_per_token", "ttft_ms", "throughput_tokens_per_sec",
+                 "device_memory_peak_mb", "prefill_mfu_percent", "perplexity",
+                 "average_accuracy", "f1_score", "avg_retrieval_time_ms")
+EVAL_TIMING_WORDS = ("time", "qps", "tokens_per_sec", "speedup")
+EVAL_SCORE_KEYS = ("avg_retrieval_score", "retrieval_consistency")
+
+
+def smi_power_limit_w() -> float:
+    """The card's power limit in watts, as nvidia-smi reads it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(smi.stdout.strip().splitlines()[0])
+
+
+def eval_config_copy(tmp: str) -> str:
+    """A copy of config.json for the command line's evaluation: its model
+    (small, int8, random init), its rag section persisting into ``tmp``, at
+    most EVAL_CLI_NEW_TOKENS new tokens, the held-out QA file and corpus as
+    the evaluation's questions, corpus, perplexity text and MC task."""
+    with open(CONFIG_JSON) as f:
+        cfg = json.load(f)
+    cfg["rag"]["vector_store"]["persist_directory"] = os.path.join(tmp, "cli_index")
+    cfg["rag"]["generation"]["max_new_tokens"] = EVAL_CLI_NEW_TOKENS
+    ev = cfg["evaluation"]
+    ev["performance"]["perplexity"].update(dataset_path=CORPUS, max_length=EVAL_PPL_MAX_LENGTH)
+    ev["performance"]["tasks"]["corpus_qa_mc"]["qa_path"] = QA
+    ev["retrieval"].update(test_questions_file=QA, corpus_file=CORPUS)
+    path = os.path.join(tmp, "eval_config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def scored_positions(tokenizer, context: str, continuation: str):
+    """(full ids, the logit rows that score the continuation)."""
+    ctx, full = tokenizer.encode(context), tokenizer.encode(context + continuation)
+    return full, list(range(max(len(ctx), 1) - 1, len(full) - 1))
+
+
+def outside_tie(ref_logits, got_logits) -> bool:
+    """Whether no argmax of these logit rows can differ between two
+    computations: every row's top-2 margin in ``ref_logits`` exceeds twice
+    the largest |got − ref| over the rows."""
+    import numpy as np
+
+    d = float(np.abs(got_logits - ref_logits).max())
+    top2 = np.sort(ref_logits, axis=-1)[:, -2:]
+    return float((top2[:, 1] - top2[:, 0]).min()) > 2 * d
+
+
+def greedy_chain_check(card_m, cpu_m, contexts) -> dict:
+    """is_greedy where it is True: each context continued by EVAL_CHAIN_STEPS
+    tokens of one model's own argmax chain (built on the CPU, then on the
+    card), scored by ``_sequence_logprob`` on both (token ids, so no text
+    round trip). The chain model's flag must be True in every chain without an
+    exact tie in its own logits, and False with the chain's last token
+    changed; the other model's the same wherever ``outside_tie`` holds for
+    the chain's steps. The sums agree within EVAL_NLL_TOL a token."""
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.models.model_interface import _sequence_logprob
+
+    def score(model, arr, mask, starts):
+        lp, greedy = _sequence_logprob(
+            model.params, model.cfg, torch.from_numpy(arr).to(model.device),
+            torch.from_numpy(mask).to(model.device), torch.from_numpy(starts).to(model.device))
+        return lp.cpu().numpy(), greedy.cpu().numpy()
+
+    out = {"chains": len(contexts), "steps": EVAL_CHAIN_STEPS}
+    for name, source, other in (("cpu_built", cpu_m, card_m), ("card_built", card_m, cpu_m)):
+        chains = []
+        for ctx in contexts:
+            ids = source.tokenizer.encode(ctx)
+            start = len(ids)
+            for _ in range(EVAL_CHAIN_STEPS):
+                ids.append(int(source.forward_device(np.asarray([ids]))[0, -1].argmax()))
+            chains.append((ids, start))
+        blen = max(len(ids) for ids, _ in chains)
+        arr = np.zeros((len(chains), blen), np.int64)
+        mask = np.zeros((len(chains), blen), bool)
+        for row, (ids, _) in enumerate(chains):
+            arr[row, :len(ids)], mask[row, :len(ids)] = ids, True
+        starts = np.asarray([st for _, st in chains])
+        steps = [list(range(st - 1, len(ids) - 1)) for ids, st in chains]
+        own_logits = source.forward_device(arr).cpu().numpy()
+        other_logits = other.forward_device(arr).cpu().numpy()
+        own = np.asarray([outside_tie(own_logits[r, ps], own_logits[r, ps])
+                          for r, ps in enumerate(steps)])
+        cross = np.asarray([outside_tie(own_logits[r, ps], other_logits[r, ps])
+                            for r, ps in enumerate(steps)])
+        bad = arr.copy()
+        for row, (ids, _) in enumerate(chains):
+            bad[row, len(ids) - 1] = (ids[-1] + 1) % source.cfg.vocab_size
+        (own_lp, own_g), (other_lp, other_g) = (score(m, arr, mask, starts)
+                                                for m in (source, other))
+        (_, own_bad), (_, other_bad) = (score(m, bad, mask, starts) for m in (source, other))
+        per_token = float(np.abs(own_lp - other_lp).max()) / EVAL_CHAIN_STEPS
+        if not (own_g[own].all() and other_g[cross].all()) or own_bad[own].any() \
+                or other_bad[cross].any() or not per_token <= EVAL_NLL_TOL:
+            raise AssertionError(
+                f"evaluate: {name} greedy chains: flags {own_g.tolist()} / {other_g.tolist()}, "
+                f"untied {own.tolist()}, outside ties {cross.tolist()}, changed "
+                f"{own_bad.tolist()} / {other_bad.tolist()}, {per_token} a token")
+        out[name] = {"untied": int(own.sum()), "source_true": int(own_g.sum()),
+                     "outside_ties": int(cross.sum()), "other_true": int(other_g.sum()),
+                     "logit_max_diff": float(max(np.abs(other_logits[r, ps] - own_logits[r, ps])
+                                                 .max() for r, ps in enumerate(steps))),
+                     "max_nll_diff_per_token": per_token}
+    return out
+
+
+def phase_evaluate(ph: Phase, dev, seed: int, shared: dict) -> dict:
+    """The evaluation slice on the card, three parts.
+
+    (a) EvaluationRunner.run_all() — the efficiency, performance and
+    retrieval benchmarks — over the generate phase's 1b int4 model (int8 KV
+    cache, random init from the seed) and a RAGPipeline with config.json's
+    rag section (lexical embedding, int8 store; EVAL_NEW_TOKENS new tokens)
+    indexed from the held-out corpus, the held-out questions, at
+    EVAL_EFFICIENCY, perplexity over the held-out corpus at
+    EVAL_PPL_MAX_LENGTH and the corpus_qa_mc task built from the held-out
+    QA file. errors must be {}, the five files written, the headline
+    metrics not null, device_memory_peak_mb the run's own (the peak reset
+    just before it) and above what was held before it, the metadata's
+    device the H100, its spec row "h100",
+    device_tdp_w the card's power limit, and kernels 8 and 10 launched
+    (counts to 0 just before the run, read just after).
+    (b) config.json's small int8 model, the same seeded weights on the card
+    and on the CPU: get_loglikelihood_batch_scored over the task's pairs
+    (within EVAL_NLL_TOL a scored token; is_greedy equal wherever
+    outside_tie holds for the scored positions), the greedy-chain check of
+    is_greedy (greedy_chain_check) and the
+    perplexity (the same tokens, within EVAL_PPL_RTOL); the retrieval
+    benchmark on the card and on the CPU over (a)'s saved index: every
+    metric but timings equal, the scores' mean and spread within
+    EVAL_SCORE_ATOL.
+    (c) python -m crs_tpu_torch --eval-performance --eval-retrieval in a
+    child process on a copy of config.json (its small model, the held-out
+    files): exit 0, four files, a summary with no errors."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.evaluation import EvaluationRunner
+    from crs_tpu_torch.evaluation.efficiency.device_specs import DEVICE_SPECS, get_device_specs
+    from crs_tpu_torch.evaluation.performance.perplexity import PerplexityEvaluator
+    from crs_tpu_torch.evaluation.performance.tasks import build_corpus_qa_task
+    from crs_tpu_torch.evaluation.retrieval.benchmark import RetrievalBenchmark
+    from crs_tpu_torch.models import create_model_interface
+    from crs_tpu_torch.rag import RAGPipeline
+
+    out = {"model": {"config": GEN_CONFIG, "kind": "int4", "kv_bits": 8}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        # -- (a) the runner over the 1b int4 model and config.json's pipeline
+        model = shared.pop("int4_model", None)
+        if model is None:
+            model = create_model_interface("int4", {"config": GEN_CONFIG, "kv_bits": 8,
+                                                    "seed": seed}, device=dev)
+            model.load()
+        rag = config_json_rag()
+        rag = {**rag, "vector_store": {**rag["vector_store"],
+                                       "persist_directory": os.path.join(tmp, "index")},
+               "generation": {**rag["generation"], "max_new_tokens": EVAL_NEW_TOKENS}}
+        pipe = RAGPipeline(rag, device=dev).setup(model)
+        t0 = time.perf_counter()
+        pipe.index_documents(CORPUS)
+        out["index_s"] = time.perf_counter() - t0
+        task = build_corpus_qa_task(QA)
+        mc_path = os.path.join(tmp, "corpus_qa_mc.json")
+        with open(mc_path, "w") as f:
+            json.dump(task.items, f)
+        with open(QA) as f:
+            questions = json.load(f)
+        cfg = {"efficiency": EVAL_EFFICIENCY,
+               "performance": {"perplexity": {"dataset_path": CORPUS,
+                                              "max_length": EVAL_PPL_MAX_LENGTH},
+                               "tasks": {"corpus_qa_mc": {"enabled": True,
+                                                          "dataset_path": mc_path}}},
+               "retrieval": {"test_questions": questions}}
+        results = os.path.join(tmp, "results")
+        # the port reads the peak since the process started; reset here, so
+        # that device_memory_peak_mb is the evaluation's own
+        memory = {}
+        if dev.type == "cuda":
+            memory = {"process_peak_before_mb": torch.cuda.max_memory_allocated(dev) / 1e6,
+                      "allocated_before_mb": torch.cuda.memory_allocated(dev) / 1e6}
+            torch.cuda.reset_peak_memory_stats(dev)
+        # the main path: counts to 0 just before, read just after
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        res = EvaluationRunner(model, pipe, cfg, results).run_all()
+        sync(dev)
+        run_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        summary = res.get_summary()
+        if res.errors:
+            raise AssertionError(f"evaluate: the runner's errors: {res.errors}")
+        if sorted(os.listdir(results)) != EVAL_FILES:
+            raise AssertionError(f"evaluate: the runner wrote {sorted(os.listdir(results))}")
+        missing = [k for k in EVAL_HEADLINE if summary.get(k) is None]
+        if missing:
+            raise AssertionError(f"evaluate: headline metrics missing: {missing} ({summary})")
+        if counts.get("q4_matmul", 0) < 1 or counts.get("decode_attention_int8", 0) < 1:
+            raise AssertionError(f"evaluate: kernels 8 and 10 did not both launch: {counts}")
+        if dev.type == "cuda":
+            memory["evaluation_peak_mb"] = summary["device_memory_peak_mb"]
+            if not summary["device_memory_peak_mb"] > memory["allocated_before_mb"]:
+                raise AssertionError(f"evaluate: device_memory_peak_mb "
+                                     f"{summary['device_memory_peak_mb']} is not above the "
+                                     f"memory held before the run ({memory})")
+        eff = res.efficiency
+        spec = get_device_specs(eff["device"])
+        card = {"metadata_device": res.metadata.get("device"),
+                "backend": res.metadata.get("backend"), "efficiency_device": eff["device"],
+                "spec_matched": spec["matched"], "device_tdp_w": eff.get("device_tdp_w")}
+        if dev.type == "cuda":
+            limit = smi_power_limit_w()
+            card["power_limit_w"] = limit
+            row = {k: spec[k] for k in DEVICE_SPECS["h100"]}
+            if "h100" not in str(card["metadata_device"]).lower() or card["backend"] != "cuda":
+                raise AssertionError(f"evaluate: the metadata names {card}")
+            if not spec["matched"] or row != DEVICE_SPECS["h100"]:
+                raise AssertionError(f"evaluate: {eff['device']!r} matched {spec}, not h100's row")
+            if eff.get("device_tdp_w") != limit:
+                raise AssertionError(f"evaluate: device_tdp_w {eff.get('device_tdp_w')} is not "
+                                     f"the card's power limit {limit} W")
+        out["runner"] = {
+            "seconds": run_s, "timing_s": res.timing, "summary": summary,
+            "main_path_launches": counts, "card": card, "memory": memory,
+            "efficiency": {k: eff.get(k) for k in (
+                "prefill_ms", "decode_ms_per_token", "batch_throughput",
+                "batch_throughput_best_tokens_per_sec", "mfu_percent", "mfu_batched_percent",
+                "prefill_tflops_achieved", "prefill_tokens_per_sec", "hbm_gbps_achieved",
+                "device_memory_in_use_mb", "model_size_gb", "bits_per_param",
+                "energy_per_token_mj")},
+            "performance": {k: res.performance.get(k) for k in (
+                "avg_nll", "num_samples", "num_tokens", "tasks")},
+            "retrieval": {k: res.retrieval.get(k) for k in (
+                "num_questions", "avg_rag_generation_time_ms", "avg_no_rag_generation_time_ms",
+                "rag_tokens_per_sec", "exact_match", "rouge1", "context_sufficiency",
+                "context_precision", "avg_chunks_retrieved")}}
+        del pipe, model
+        torch.cuda.empty_cache()
+
+        # -- (b) scoring and retrieval metrics, card against CPU
+        small = {"config": EVAL_CPU_CONFIG, "seed": seed}
+        card_m = create_model_interface("int8", small, device=dev)
+        cpu_m = create_model_interface("int8", small, device="cpu")
+        card_m.load()
+        cpu_m.load()
+        pairs = [(it["query"], " " + c.lstrip()) for it in task.items for c in it["choices"]]
+        t0 = time.perf_counter()
+        got = card_m.get_loglikelihood_batch_scored(pairs)
+        card_score_s = time.perf_counter() - t0
+        ref = cpu_m.get_loglikelihood_batch_scored(pairs)
+        worst, compared = 0.0, 0
+        for (c, x), (gl, gg), (rl, rg) in zip(pairs, got, ref):
+            full, rows = scored_positions(cpu_m.tokenizer, c, x)
+            per_token = abs(gl - rl) / max(len(rows), 1)
+            worst = max(worst, per_token)
+            if not per_token <= EVAL_NLL_TOL:
+                raise AssertionError(f"evaluate: {c!r}+{x!r} scored {gl} on the card, {rl} on "
+                                     f"the CPU ({per_token} a token, limit {EVAL_NLL_TOL})")
+            if rows and outside_tie(cpu_m.forward(np.asarray([full]))[0][rows],
+                                    card_m.forward(np.asarray([full]))[0][rows]):
+                compared += 1
+                if gg != rg:
+                    raise AssertionError(f"evaluate: is_greedy {gg} on the card, {rg} on the "
+                                         f"CPU for {c!r}+{x!r}, outside a tie")
+        chains = greedy_chain_check(card_m, cpu_m, [it["query"] for it in task.items])
+        ppl_cfg = {"dataset_path": CORPUS, "max_length": EVAL_PPL_MAX_LENGTH}
+        ppl_card = PerplexityEvaluator(card_m, ppl_cfg).calculate()
+        ppl_cpu = PerplexityEvaluator(cpu_m, ppl_cfg).calculate()
+        ppl_rel = abs(ppl_card["perplexity"] / ppl_cpu["perplexity"] - 1)
+        if ppl_card["num_tokens"] != ppl_cpu["num_tokens"] or not ppl_rel <= EVAL_PPL_RTOL:
+            raise AssertionError(f"evaluate: perplexity {ppl_card} on the card, {ppl_cpu} on "
+                                 f"the CPU (limit {EVAL_PPL_RTOL})")
+        del card_m, cpu_m
+        torch.cuda.empty_cache()
+        rb_cfg = {"test_questions": questions, "compare_no_rag": False}
+        card_rb = RetrievalBenchmark(RAGPipeline(rag, device=dev).setup(), rb_cfg).run_all()
+        cpu_rb = RetrievalBenchmark(RAGPipeline(rag, device="cpu").setup(), rb_cfg).run_all()
+
+        def untimed(m):
+            return {k: v for k, v in m.items() if not any(w in k for w in EVAL_TIMING_WORDS)}
+
+        gm, cm = untimed(card_rb.metrics), untimed(cpu_rb.metrics)
+        score_diff = max(abs(gm[k] - cm[k]) for k in EVAL_SCORE_KEYS)
+        if set(gm) != set(cm) or any(gm[k] != cm[k] for k in cm if k not in EVAL_SCORE_KEYS) \
+                or not score_diff <= EVAL_SCORE_ATOL:
+            raise AssertionError(f"evaluate: retrieval metrics on the card {gm}, on the CPU {cm}")
+        out["vs_cpu"] = {
+            "model": EVAL_CPU_CONFIG, "pairs": len(pairs), "card_scoring_s": card_score_s,
+            "max_nll_diff_per_token": worst, "limit": EVAL_NLL_TOL,
+            "is_greedy_equal_outside_ties": compared, "greedy_chains": chains,
+            "perplexity_card": ppl_card["perplexity"], "perplexity_cpu": ppl_cpu["perplexity"],
+            "perplexity_rel_diff": ppl_rel, "perplexity_tokens": ppl_card["num_tokens"],
+            "perplexity_limit": EVAL_PPL_RTOL, "retrieval_score_diff": score_diff,
+            "retrieval_score_limit": EVAL_SCORE_ATOL,
+            "retrieval_metrics_equal": sorted(k for k in cm if k not in EVAL_SCORE_KEYS)}
+
+        # -- (c) the command line's evaluation, in a child process
+        cli_results = os.path.join(tmp, "cli_results")
+        cpu_rehearsal = ["--device", "cpu"] if dev.type == "cpu" else []  # the card: the default
+        secs, stdout = run_cli(["--config", eval_config_copy(tmp), "--eval-performance",
+                                "--eval-retrieval", "--output-dir", cli_results,
+                                *cpu_rehearsal], "evaluate")
+        cli_summary = json.loads(stdout[stdout.index("{"):])
+        written = sorted(os.listdir(cli_results))
+        want = [f for f in EVAL_FILES if f != "efficiency_results.json"]
+        if cli_summary.get("errors") != {} or written != want \
+                or cli_summary.get("perplexity") is None or cli_summary.get("f1_score") is None:
+            raise AssertionError(f"evaluate: the command line wrote {written} and printed "
+                                 f"{cli_summary}")
+        out["cli"] = {"seconds": secs, "files": written, "summary": cli_summary}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["note"] = ("runner: one EvaluationRunner.run_all() on the host clock; its efficiency "
+                   "numbers are the benchmark's own (host clock around fenced work); "
+                   "device_memory_peak_mb is the evaluation's own peak (the smoke resets the "
+                   "peak just before run_all; the port never resets it)")
     ph.info.update(out)
     return out
 
@@ -3621,7 +3977,7 @@ def phase_rag(ph: Phase, dev, seed: int, shared: dict) -> dict:
     return out
 
 
-LEXICAL_ROWS = 1 << 17  # chunks of the lexical phase (halved from 2^18 for the time limit)
+LEXICAL_ROWS = 1 << 16  # chunks of the lexical phase (2^18 quartered for the time limit)
 LEXICAL_SAMPLE = 2048  # chunks held against the CPU encoder
 EMBED_ATOL = 1e-5  # one projection (or one encoder) on the card and the CPU: f32 sum orders
 
@@ -3873,7 +4229,7 @@ def phase_cli(ph: Phase, dev, shared: dict) -> dict:
     CLI_NEW_TOKENS new tokens) must print chunks and an answer; ``--index`` of the held-out
     corpus writes its index into its own directory only, and ``--query`` on
     it prints chunks; then ``main`` in this process answers a query on the
-    lexical phase's 131,072-chunk index through kernel 1 (counted)."""
+    lexical phase's 65,536-chunk index through kernel 1 (counted)."""
     import io
     import shutil
     import tempfile
@@ -3992,19 +4348,22 @@ def kernel_table(res: dict) -> list:
         **{k: seg["int8"][k] for k in keys}, "library_ms": None,
         "int_mm_composition_ms": seg["int8"]["int_mm_composition_ms"]})
     gen, q4, attn = res["generate"], res["kernel_q4"], res["kernel_decode_attn"]
+    evaluated = res["evaluate"]["runner"]["main_path_launches"]  # the evaluation's path
     for name, kind, line in (("q4_matmul", "int4", 105), ("nf4_matmul", "nf4", 161)):
         rows.append({
             "name": name, "route": "cuda", "source": "crs_tpu_torch/csrc/q4_matmul.cu",
             "replaces": f"crs_tpu/ops/qgemm.py:{line}",
             "launches": gen["main_path_launches"][kind],
+            "launches_evaluate": evaluated.get(name, 0),
             "max_abs_err": q4[kind]["max_abs_err"], **{k: q4[kind][k] for k in keys},
             "library_ms": None})
     rows.append({
         "name": "decode_attention_int8", "route": "cuda",
         "source": "crs_tpu_torch/csrc/decode_attention_int8.cu",
         "replaces": "crs_tpu/ops/decode_attention.py:69",
-        "launches": gen["main_path_launches"]["attn"], "max_abs_err": attn["max_abs_err"],
-        **{k: attn[k] for k in keys}, "library_ms": None})
+        "launches": gen["main_path_launches"]["attn"],
+        "launches_evaluate": evaluated.get("decode_attention_int8", 0),
+        "max_abs_err": attn["max_abs_err"], **{k: attn[k] for k in keys}, "library_ms": None})
     mlp = res["kernel_fused_mlp"]
     rows.append({
         "name": "fused_mlp_int8", "route": "cuda",
@@ -4017,8 +4376,8 @@ def kernel_table(res: dict) -> list:
 
 ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted_adc",
               "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "faults",
-              "bench", "full", "formats", "add", "generate", "rag", "lexical", "minilm", "cli",
-              "generate_7b", "calibrated")
+              "bench", "full", "formats", "add", "generate", "evaluate", "rag", "lexical",
+              "minilm", "cli", "generate_7b", "calibrated")
 
 
 def main(argv=None) -> int:
@@ -4071,6 +4430,7 @@ def main(argv=None) -> int:
         "formats": lambda ph: phase_formats(ph, dev, shared),
         "add": lambda ph: phase_add(ph, dev, args.seed, shared),
         "generate": lambda ph: phase_generate(ph, dev, args.seed, shared),
+        "evaluate": lambda ph: phase_evaluate(ph, dev, args.seed, shared),
         "rag": lambda ph: phase_rag(ph, dev, args.seed, shared),
         "lexical": lambda ph: phase_lexical(ph, dev, args.seed, shared),
         "minilm": lambda ph: phase_minilm(ph, dev, args.seed),

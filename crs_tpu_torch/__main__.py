@@ -3,20 +3,27 @@
     python -m crs_tpu_torch --config config.json --index doc.pdf
     python -m crs_tpu_torch --config config.json --query "what is quantization?"
     python -m crs_tpu_torch --config config.json --no-model --query "What is GPTQ?"
+    python -m crs_tpu_torch --config config.json --evaluate --output-dir results
+    python -m crs_tpu_torch --eval-efficiency | --eval-performance | --eval-retrieval
 
 Runs on the card unless ``--device cpu``. ``--index`` chunks, embeds and
 stores a document into the config's ``rag.vector_store.persist_directory``
 (the lexical backend's fitted state beside it); ``--query`` loads that
-index and answers, retrieving only when ``should_retrieve`` says so. The
-evaluation flags (``--evaluate``, ``--eval-*``) come with the evaluation
-slice and raise.
+index and answers, retrieving only when ``should_retrieve`` says so.
+``--evaluate`` runs the three benchmarks of the config's ``evaluation``
+section (``--eval-*``: one each) through ``EvaluationRunner``: the test
+questions from ``evaluation.retrieval.test_questions_file``, the store
+indexed from ``evaluation.retrieval.corpus_file`` when it is empty; it
+writes the results into ``--output-dir`` and prints the summary.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
+from pathlib import Path
 
 from .models.model_interface import create_model_interface
 from .rag.pipeline import RAGPipeline
@@ -47,14 +54,12 @@ def main(argv=None) -> int:
     ap.add_argument("--eval-efficiency", action="store_true")
     ap.add_argument("--eval-performance", action="store_true")
     ap.add_argument("--eval-retrieval", action="store_true")
+    ap.add_argument("--output-dir", default="results")
     ap.add_argument("--no-model", action="store_true", help="retrieval-only (skip LLM load)")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.evaluate or args.eval_efficiency or args.eval_performance or args.eval_retrieval:
-        raise NotImplementedError("--evaluate and --eval-* come with the evaluation slice "
-                                  "(ROADMAP: modules to port, evaluation)")
     setup_logging(level=logging.DEBUG if args.verbose else logging.INFO)
     try:
         cfg = ConfigLoader(args.config)
@@ -89,6 +94,31 @@ def main(argv=None) -> int:
         for c in out.get("chunks", []):
             print(f"  [{c['score']:.3f}] p{c['metadata'].get('page_number')}: {c['text'][:100]}")
         print(f"\nanswer: {out['answer']}")
+        return 0
+
+    if args.evaluate or args.eval_efficiency or args.eval_performance or args.eval_retrieval:
+        from .evaluation.runner import EvaluationRunner
+
+        eval_cfg = dict(cfg.get_evaluation_config())
+        qa_file = cfg.get("evaluation.retrieval.test_questions_file")
+        if qa_file and Path(qa_file).exists():
+            from .evaluation.retrieval.benchmark import RetrievalBenchmark
+
+            eval_cfg["retrieval"] = {**eval_cfg.get("retrieval", {}),
+                                     "test_questions": RetrievalBenchmark.load_dataset_file(qa_file)}
+        # the retrieval benchmark needs an index: build it from the
+        # configured corpus when the store is empty (the benchmark raises else)
+        if args.evaluate or args.eval_retrieval:
+            corpus_file = cfg.get("evaluation.retrieval.corpus_file")
+            if pipeline.store.n == 0 and corpus_file and Path(corpus_file).exists():
+                logger.info("indexing evaluation corpus %s", corpus_file)
+                pipeline.index_documents(corpus_file)
+        runner = EvaluationRunner(model=model, pipeline=pipeline, config=eval_cfg,
+                                  output_dir=args.output_dir)
+        res = runner.run_all(run_efficiency=args.evaluate or args.eval_efficiency,
+                             run_performance=args.evaluate or args.eval_performance,
+                             run_retrieval=args.evaluate or args.eval_retrieval)
+        print(json.dumps(res.get_summary(), indent=2, default=str))
         return 0
 
     ap.print_help()

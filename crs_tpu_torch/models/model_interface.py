@@ -18,7 +18,10 @@ it exists, else from deterministic random tokens. (``crs_tpu`` reads a
 fixed corpus path outside the repository, absent wherever the repository's
 tests run, so both packages take the random tokens there.)
 
-Not ported yet, and raising: log-likelihood scoring (the evaluation slice).
+Scoring (``get_loglikelihood``, ``_batch``, ``_batch_scored``) runs
+:func:`_sequence_logprob` on the model's device: two values per row cross
+to the host. ``forward_device`` returns the logits on the device, for
+timing; ``forward`` copies them to the host.
 
 The model runs on the card unless ``device="cpu"`` is passed; without CUDA
 it raises.
@@ -32,7 +35,7 @@ import logging
 import os
 import time
 from abc import ABC, abstractmethod
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,7 +53,7 @@ logger = logging.getLogger(__name__)
 __all__ = ["ModelInterface", "TorchModel", "create_model_interface"]
 
 _BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
-_NOT_PORTED = "(ROADMAP: modules to port)"
+_LSE_ROWS = 1024  # logit rows per log-sum-exp slice: its temporaries stay ~130 MB at V 32,000
 
 
 def _bucket(n: int) -> int:
@@ -58,6 +61,41 @@ def _bucket(n: int) -> int:
         if n <= b:
             return b
     return _BUCKETS[-1]
+
+
+def _sequence_logprob(params, cfg: TransformerConfig, ids: torch.Tensor, mask: torch.Tensor,
+                      start) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row, on the ids' device: (the sum of log p(token | prefix) over
+    the positions ≥ ``start`` [B] or scalar, and whether every one of those
+    tokens is the argmax of its step — lm-eval's ``is_greedy``).
+
+    Each scored position's log-probability is its logit less the
+    log-sum-exp of its row, taken in slices of rows of the logits' own
+    [B·S, V] view: no second [B, S, V] tensor beside the logits. (Position
+    S−1 predicts nothing; it is scored against a dummy target and dropped.)"""
+    with torch.no_grad():
+        logits = forward(params, cfg, ids, mask)
+        b, s, v = logits.shape
+        flat = logits.view(b * s, v)
+        targets = ids[:, 1:]
+        tflat = torch.cat([targets, torch.zeros_like(ids[:, :1])], dim=1).reshape(b * s, 1)
+        lp = torch.empty(b * s, dtype=torch.float32, device=ids.device)
+        greedy = torch.empty(b * s, dtype=targets.dtype, device=ids.device)
+        for r0 in range(0, b * s, _LSE_ROWS):
+            rows = flat[r0:r0 + _LSE_ROWS]
+            top, arg = rows.max(dim=-1, keepdim=True)
+            greedy[r0:r0 + _LSE_ROWS] = arg[:, 0]
+            sums = torch.exp(rows - top).sum(dim=-1)
+            picked = torch.gather(rows, 1, tflat[r0:r0 + _LSE_ROWS])[:, 0]
+            lp[r0:r0 + _LSE_ROWS] = (picked - top[:, 0]) - torch.log(sums)
+        s1 = s - 1
+        lp, greedy = lp.view(b, s)[:, :s1], greedy.view(b, s)[:, :s1]
+        pos = torch.arange(s1, device=ids.device)[None, :]
+        start = torch.as_tensor(start, device=ids.device)
+        start_col = start[:, None] if start.ndim == 1 else start
+        valid = (pos + 1 >= start_col) & mask[:, 1:] & mask[:, :-1]
+        is_greedy = torch.where(valid, greedy == targets, True).all(dim=1)
+        return (lp * valid).sum(dim=1), is_greedy
 
 
 class ModelInterface(ABC):
@@ -70,14 +108,17 @@ class ModelInterface(ABC):
     def generate(self, prompt: str, max_new_tokens: int = 64, **kw) -> str: ...
 
     @abstractmethod
-    def forward(self, input_ids: np.ndarray) -> np.ndarray: ...
+    def get_loglikelihood(self, context: str, continuation: str) -> float: ...
 
-    def get_loglikelihood(self, context: str, continuation: str) -> float:
-        raise NotImplementedError(f"log-likelihood scoring comes with the evaluation slice "
-                                  f"{_NOT_PORTED}")
+    @abstractmethod
+    def forward(self, input_ids: np.ndarray) -> np.ndarray: ...
 
     def get_model_info(self) -> Dict[str, Any]:
         return {}
+
+    def get_lm_eval_model(self):
+        """The lm-eval adapter; needs the ``lm_eval`` package."""
+        raise NotImplementedError("lm_eval adapter requires the lm_eval package")
 
 
 class TorchModel(ModelInterface):
@@ -242,11 +283,65 @@ class TorchModel(ModelInterface):
             out.append(self.tokenizer.decode(toks.tolist()))
         return out
 
-    def forward(self, input_ids: np.ndarray) -> np.ndarray:
+    # -- scoring -------------------------------------------------------------
+    def _score_rows(self, rows: Sequence[Tuple[List[int], List[int]]], group: int):
+        """(context ids, full ids) rows, tail-padded to one bucket in a
+        [group, bucket] batch → (sums, greedy flags) on the host."""
+        blen = _bucket(max(len(full) for _, full in rows))
+        ids = np.full((group, blen), _pad_id(self.tokenizer), np.int64)
+        mask = np.zeros((group, blen), np.bool_)
+        starts = np.zeros((group,), np.int64)
+        for row, (ctx, full) in enumerate(rows):
+            ids[row, :len(full)] = full
+            mask[row, :len(full)] = True
+            starts[row] = max(len(ctx), 1)
+        lp, greedy = _sequence_logprob(
+            self.params, self.cfg, torch.from_numpy(ids).to(self.device),
+            torch.from_numpy(mask).to(self.device), torch.from_numpy(starts).to(self.device))
+        return lp.cpu().numpy(), greedy.cpu().numpy()
+
+    def get_loglikelihood(self, context: str, continuation: str) -> float:
         self._ensure()
-        ids = torch.from_numpy(np.atleast_2d(np.asarray(input_ids, np.int64))).to(self.device)
+        ctx = self.tokenizer.encode(context)
+        full = self.tokenizer.encode(context + continuation)
+        if len(full) - len(ctx) <= 0:
+            return 0.0
+        lp, _ = self._score_rows([(ctx, full)], 1)
+        return float(lp[0])
+
+    def get_loglikelihood_batch(self, pairs: Sequence[Tuple[str, str]]) -> List[float]:
+        """Batched (context, continuation) scoring: one device call per
+        group of 8 pairs of similar length."""
+        return [ll for ll, _ in self.get_loglikelihood_batch_scored(pairs)]
+
+    def get_loglikelihood_batch_scored(
+            self, pairs: Sequence[Tuple[str, str]]) -> List[Tuple[float, bool]]:
+        """Like :meth:`get_loglikelihood_batch`, with lm-eval's
+        ``is_greedy`` beside each sum."""
+        self._ensure()
+        encoded = [(self.tokenizer.encode(c), self.tokenizer.encode(c + x)) for c, x in pairs]
+        out: List[Tuple[float, bool]] = [(0.0, False)] * len(pairs)
+        order = sorted(range(len(pairs)), key=lambda i: len(encoded[i][1]))
+        group = 8
+        for g0 in range(0, len(order), group):
+            idx = order[g0:g0 + group]
+            lp, greedy = self._score_rows([encoded[i] for i in idx], group)
+            for row, i in enumerate(idx):
+                out[i] = (float(lp[row]), bool(greedy[row]))
+        return out
+
+    def forward(self, input_ids: np.ndarray) -> np.ndarray:
+        """Logits [B, S, V] f32 on the host (a copy of :meth:`forward_device`'s)."""
+        return self.forward_device(input_ids).cpu().numpy()
+
+    def forward_device(self, input_ids) -> torch.Tensor:
+        """Logits [B, S, V] f32 on the model's device, not copied to the
+        host: at 1b and 8 × 512 they are 0.5 GB, whose copy would be the
+        prefill time a timing reads. Fence with ``torch.cuda.synchronize``."""
+        self._ensure()
+        ids = torch.as_tensor(np.atleast_2d(np.asarray(input_ids, np.int64)), device=self.device)
         with torch.no_grad():
-            return forward(self.params, self.cfg, ids).cpu().numpy()
+            return forward(self.params, self.cfg, ids)
 
     # -- info ----------------------------------------------------------------
     def get_model_info(self) -> Dict[str, Any]:
@@ -267,6 +362,13 @@ class TorchModel(ModelInterface):
             "fused_projections": self.fuse_projections,
             "fused_mlp": self.fused_mlp,
         }
+
+    def get_lm_eval_model(self):
+        try:
+            from ..evaluation.performance.lm_eval_adapter import TorchLM
+        except ImportError as e:
+            raise NotImplementedError(f"lm_eval not available: {e}")
+        return TorchLM(self)
 
     # -- native checkpoints ---------------------------------------------------
     def save_pretrained(self, path: str) -> None:

@@ -4,12 +4,13 @@ Wires DocumentProcessor → TextChunker → EmbeddingModel → VectorStore →
 ContextRetriever → RAGGenerator from the config's sections: ``setup``,
 ``index_documents`` (a ``.txt`` / ``.md`` path or a list of texts),
 ``retrieve``, ``retrieve_batch``, ``validate_retrieval``,
-``generate_answer``, ``query`` (one retrieve, reused for the context) and
-``get_stats``. The store, the embedder and the model run on the pipeline's
-device. A persisted index carries the lexical backend's fitted state
+``generate_answer``, ``query`` (one retrieve, reused for the context),
+``evaluate`` (one batched retrieve, then batched generation with and
+without the contexts, timed) and ``get_stats``. The store, the embedder
+and the model run on the pipeline's device. A persisted index carries the
+lexical backend's fitted state
 (``lexical_state.npz`` beside it): ``setup`` reloads it, and
 ``index_documents`` fits the embedder on the chunks and saves it there.
-``evaluate`` comes with the evaluation slice.
 """
 
 from __future__ import annotations
@@ -157,9 +158,29 @@ class RAGPipeline:
             out["chunks"] = chunks
         return out
 
-    def evaluate(self, test_questions, compare_no_rag: bool = True):
-        raise NotImplementedError("RAGPipeline.evaluate comes with the evaluation slice "
-                                  "(ROADMAP: modules to port)")
+    def evaluate(self, test_questions: Sequence[Dict[str, Any]],
+                 compare_no_rag: bool = True) -> Dict[str, Any]:
+        """Retrieve every question in one batch, then generate every RAG
+        answer (and, with ``compare_no_rag``, every answer without context)
+        in one batch each; the seconds of each step."""
+        self._require_setup()
+        questions = [q["question"] for q in test_questions]
+        t0 = time.perf_counter()
+        all_chunks = self.retrieve_batch(questions)
+        retrieval_time = time.perf_counter() - t0
+        contexts = [ContextRetriever.context_from_results(c) for c in all_chunks]
+        result: Dict[str, Any] = {"questions": questions, "chunks": all_chunks,
+                                  "contexts": contexts, "retrieval_time_s": retrieval_time}
+        if self.generator is not None:
+            t0 = time.perf_counter()
+            result["rag_answers"] = self.generator.generate_batch(questions, contexts)
+            result["rag_generation_time_s"] = time.perf_counter() - t0
+            if compare_no_rag:
+                t0 = time.perf_counter()
+                result["no_rag_answers"] = self.generator.generate_batch(
+                    questions, [""] * len(questions))
+                result["no_rag_generation_time_s"] = time.perf_counter() - t0
+        return result
 
     # -- stats ----------------------------------------------------------------
     def get_stats(self) -> Dict[str, Any]:

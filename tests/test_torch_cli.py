@@ -209,11 +209,11 @@ def test_cli_index_writes_only_its_directory(tmp_path, capsys, root_logger):
 def test_cli_refuses_what_it_does_not_serve(tmp_path, capsys, root_logger):
     from crs_tpu_torch.__main__ import main, should_retrieve
 
-    for flag in ("--evaluate", "--eval-efficiency", "--eval-performance", "--eval-retrieval"):
-        with pytest.raises(NotImplementedError, match="evaluation"):
-            main([flag, "--device", "cpu"])
-    assert main(["--config", str(tmp_path / "absent.json"), "--device", "cpu"]) == 2
-    assert "config file not found" in capsys.readouterr().err
+    for flag in ("--evaluate", "--eval-efficiency", "--eval-performance", "--eval-retrieval",
+                 "--query"):  # the evaluation flags run since the evaluation slice
+        argv = [flag, "q"] if flag == "--query" else [flag]
+        assert main(argv + ["--config", str(tmp_path / "absent.json"), "--device", "cpu"]) == 2
+        assert "config file not found" in capsys.readouterr().err
     cfg = _config_copy(tmp_path, "empty", tmp_path / "empty_index")
     assert main(["--config", cfg, "--device", "cpu", "--no-model"]) == 1  # nothing to do: help
     rc, out = _run_port(["--config", cfg, "--no-model", "--query", "What is GPTQ?"], capsys)

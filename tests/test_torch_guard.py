@@ -140,8 +140,9 @@ def test_unported_options_raise():
 
 
 def test_unported_model_options_raise(tmp_path):
-    """What still raises — log-likelihoods, ``evaluate`` — and that the
-    options ported since now load: the calibrated types, the two serving
+    """What raised before the evaluation slice — log-likelihoods,
+    ``evaluate`` — now answers (an empty store: no chunks, no generator: no
+    answers), and the options ported since load: the calibrated types, the two serving
     flags (not together), a Hugging Face directory (one without weights
     refuses to fall back to random init), and pipelines on the lexical and
     minilm embedding backends."""
@@ -171,8 +172,8 @@ def test_unported_model_options_raise(tmp_path):
     with pytest.raises(RuntimeError, match="no weights could be loaded"):
         TorchModel({"model_path": str(tmp_path)}, device="cpu").load()
     model = TorchModel({"config": "tiny"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="evaluation"):
-        model.get_loglikelihood("a", "b")
+    ll = model.get_loglikelihood("a", "b")
+    assert isinstance(ll, float) and ll < 0
     for backend in ("lexical", "minilm"):
         pipe = RAGPipeline({"embedding": {"backend": backend, "num_features": 1024},
                             "vector_store": {"format": "int8"}}, device="cpu").setup()
@@ -181,8 +182,8 @@ def test_unported_model_options_raise(tmp_path):
                               "Pruning removes unimportant weights from the network. " * 8])
         assert pipe.store.n > 0 and pipe.retrieve("what is quantization?", top_k=1)
     pipe = RAGPipeline({"embedding": {"backend": "hashed", "embedding_dim": 16}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="evaluation"):
-        pipe.setup().evaluate([{"question": "q"}])
+    out = pipe.setup().evaluate([{"question": "q"}])
+    assert out["chunks"] == [[]] and out["contexts"] == [""] and "rag_answers" not in out
 
 
 class _FakeLib:
