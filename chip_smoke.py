@@ -136,39 +136,57 @@ the largest difference); any failure raises and exits non-zero:
                         the retrieval benchmark's metrics over one saved index;
                         (c) python -m crs_tpu_torch --eval-performance
                         --eval-retrieval as a child on a copy of config.json;
-17. rag               — RAGPipeline (config.json's lexical embedding, fitted on
+17. finetune          — QLoRA on the card: (a) the 1b model with an int4 base and
+                        kv_bits 8 (its own random init), LoRA at config.json's
+                        finetuning values for 2 epochs (3 in config.json) of
+                        SyntheticCodeLoader's 64 samples, the performance
+                        benchmark after each epoch into epoch_N/ (the evaluate
+                        phase's perplexity and QA inputs): median step ms,
+                        tokens/s, a step's peak memory, losses, eval_loss, the
+                        callback's seconds, every checkpoint and result file;
+                        (b) a LoRA'd two-layer 1b slice in int4 and nf4 at 32
+                        rows, forward and backward through kernels 8 / 9
+                        (counted) against their plain versions: logits, adapter
+                        gradients and dx; (c) 16 greedy tokens of the adapted
+                        model (kernels 8 and 10 counted) and merge_lora's logits
+                        against the adapted model's; (d) config.json's small
+                        int8 model, 3 trainer steps on the card and on the CPU
+                        from the same A's and batches: losses and adapters;
+                        (e) the five analysis tools over epoch_0/ and epoch_1/;
+18. rag               — RAGPipeline (config.json's lexical embedding, fitted on
                         the card; int8 store) over the held-out corpus with the
                         nf4 model: query() with config.json's generation values
                         (sampled), ms per query split into retrieve and
                         generate, chunks checked against a CPU pipeline on the
                         card's saved index and state, doc·query scores against
                         a CPU pipeline's own fit (within 1e-4);
-18. lexical           — config.json's lexical encoder at full width (131,072
+19. lexical           — config.json's lexical encoder at full width (131,072
                         features, 384 dims) fitted on 65,536 synthetic chunks
                         of config.json's 240 words,
                         config.json's int8 store, a retrieve batch of 328
                         queries through kernel 1: fit seconds by stage, index
                         and query embed times; embeddings against a CPU encoder
                         on the card's saved state, ids against the plain scan;
-19. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
+20. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
                         chunks at batch 32 into config.json's int8 store, a
                         search through kernel 1; embeddings and the search
                         against the CPU;
-20. cli               — ``python -m crs_tpu_torch`` on the card on copies of
+21. cli               — ``python -m crs_tpu_torch`` on the card on copies of
                         config.json: --no-model --query on a copy of vector_db/,
                         --index of the held-out corpus into its own directory
                         and a query on it, then the command line's main in this
                         process on the lexical phase's index through kernel 1;
                         vector_db/ unchanged;
-21. generate_7b       — mistral-7b as int8 with a bf16 KV cache, random weights
+22. generate_7b       — mistral-7b at full width, its depth cut to 24 layers, as
+                        int8 with a bf16 KV cache, random weights
                         from the seed, loaded once: unfused, fuse_projections
                         and fused_mlp, greedy generate_batch of 32 tokens at
-                        batch 1 and 8 (kernel 11: 32 launches per decode step in
+                        batch 1 and 8 (kernel 11: 24 launches per decode step in
                         the fused_mlp variant, none in the others); first-step
                         logits identical with fuse_projections, within 5e-2 of
                         unfused with fused_mlp; one kv_bits 8 batch-8 decode
                         through kernels 10 and 11 against the plain versions;
-22. calibrated        — the gptq and awq types of the small config loaded on the
+23. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
                         reconstruction error against plain rounding, 16 tokens.
 
@@ -3608,10 +3626,419 @@ def phase_evaluate(ph: Phase, dev, seed: int, shared: dict) -> dict:
     return out
 
 
-GEN7_CONFIG = "mistral-7b"
+FT_CONFIG = "1b"  # QLoRA's shape: the 1b model with an int4 base and an int8 KV cache
+FT_SAMPLES = 64  # SyntheticCodeLoader samples: 58 to train (15 batches of 4), 6 to evaluate
+FT_EPOCHS = 2  # config.json's finetuning.num_epochs is 3: cut for time
+FT_SLICE_LAYERS = 2  # the 1b slice of the gradient check: full width, two layers
+FT_GRAD_SHAPE = (1, 32)  # B × S of the gradient check: 32 rows, kernels 8 / 9's route
+FT_KERNEL_GATE = 1e-5  # |kernel − plain| ≤ 1e-5·Σ|x·w| per product (kernel_q4's gate)
+# adapter gradients and dx, kernel route against plain route: the forwards differ
+# within FT_KERNEL_GATE per product, which moves a bf16 rounding of an
+# activation by one step (2⁻⁸ relative) now and then; the gradients are bf16
+# sums of such terms, so each tensor is held to 2⁻⁴ of its largest entry
+FT_GRAD_RTOL = 2.0 ** -4
+FT_DECODE_TOKENS = 16
+# merge_lora re-rounds each base weight (code × scale) and its delta to bf16, where
+# the kernel reads bf16(level)·bf16(scale): the merged model's next-token logits
+# are held to the generate phase's relative L2 for such re-rounding (crs_tpu's own
+# test allows 6e-2 + 3e-2·|x| elementwise at tiny; the 1b model's went 0.074 past
+# that on an NVIDIA H100 80GB HBM3 at 700 W)
+FT_MERGE_RTOL = GEN_LOGITS_RTOL
+FT_CPU_CONFIG = "small"  # config.json's model (int8), card against the CPU
+FT_CPU_STEPS = 3
+FT_LOSS_TOL = EVAL_NLL_TOL  # nats a token, each step's loss, card against the CPU
+# the adapters after FT_CPU_STEPS, card against the CPU: an Adam step moves an
+# element by at most |m̂ / √v̂| ≤ 1.004 times the rate at these counts
+# (Cauchy-Schwarz over the bf16 moments), and a gradient near 0 may take either
+# sign on the two devices: twice the sum of the rates, and 5 % for the bf16
+# roundings of the rate and of the update
+FT_ADAPTER_RATE_FACTOR = 2.1
+
+
+def finetune_eval_config(tmp: str) -> dict:
+    """The evaluate phase's performance inputs: perplexity over the held-out
+    corpus at EVAL_PPL_MAX_LENGTH tokens and the corpus_qa_mc task built
+    from the held-out QA file."""
+    from crs_tpu_torch.evaluation.performance.tasks import build_corpus_qa_task
+
+    mc_path = os.path.join(tmp, "corpus_qa_mc.json")
+    with open(mc_path, "w") as f:
+        json.dump(build_corpus_qa_task(QA).items, f)
+    return {"performance": {"perplexity": {"dataset_path": CORPUS,
+                                           "max_length": EVAL_PPL_MAX_LENGTH},
+                            "tasks": {"corpus_qa_mc": {"enabled": True,
+                                                       "dataset_path": mc_path}}}}
+
+
+def finetune_config(out_dir: str) -> dict:
+    with open(CONFIG_JSON) as f:
+        cfg = dict(json.load(f)["finetuning"])
+    cfg.update(num_epochs=FT_EPOCHS, output_dir=out_dir)
+    return cfg
+
+
+def adapters_of(params) -> dict:
+    from crs_tpu_torch.finetuning.lora import extract_lora
+
+    return {k: (v["a"].detach().float().cpu(), v["b"].detach().float().cpu())
+            for k, v in extract_lora(params).items()}
+
+
+@contextlib.contextmanager
+def plain_q4_products():
+    """Kernels 8 and 9 replaced by their plain versions inside the same
+    autograd Function (its backward unchanged), on any device."""
+    from crs_tpu_torch.ops import qgemm
+
+    saved = qgemm._product
+    qgemm._product = lambda kind, x2, codes, scales: (
+        qgemm.emulate_q4_matmul if kind == "int4" else qgemm.emulate_nf4_matmul)(x2, codes, scales)
+    try:
+        yield
+    finally:
+        qgemm._product = saved
+
+
+def finetune_grad_check(dev, seed: int) -> dict:
+    """A LoRA'd 1b slice (full width, FT_SLICE_LAYERS layers) in int4 and in
+    nf4 at FT_GRAD_SHAPE: one forward and backward through kernel 8 / 9
+    (launches counted, none in the backward), again through their plain
+    versions on the card; the first product within the kernel's gate, the
+    logits within GEN_LOGITS_RTOL relative L2, each adapter gradient and dx
+    (the gradient at the embedded input) within FT_GRAD_RTOL of its largest
+    entry."""
+    import dataclasses
+
+    import torch
+
+    from crs_tpu_torch.finetuning.lora import add_lora, lora_nodes
+    from crs_tpu_torch.finetuning.trainer import masked_loss
+    from crs_tpu_torch.models.quantized import quantize_params
+    from crs_tpu_torch.models.transformer import CONFIGS, forward, init_params
+    from crs_tpu_torch.ops import qgemm
+
+    cfg = dataclasses.replace(CONFIGS[FT_CONFIG], num_layers=FT_SLICE_LAYERS)
+    dense = init_params(seed, cfg, device=dev)
+    b, s = FT_GRAD_SHAPE
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(dev)
+    mask = torch.ones((b, s), dtype=torch.bool, device=dev)
+    out = {}
+    for kind, bits, name in (("int4", 4, "q4_matmul"), ("nf4", "nf4", "nf4_matmul")):
+        params = add_lora(quantize_params(dense, bits=bits), torch.Generator().manual_seed(seed))
+        with torch.no_grad():  # B = 0 would give A no gradient
+            for node in lora_nodes(params):
+                node.lora_b.copy_(torch.randn(node.lora_b.shape, generator=g).to(dev) * 0.01)
+
+        def run():
+            """One forward and backward → (logits, adapter gradients, dx: the
+            gradient at the embedding rows of the ids)."""
+            params["embed"] = params["embed"].detach().requires_grad_(True)
+            for node in lora_nodes(params):
+                node.lora_a.grad = node.lora_b.grad = None
+            logits = forward(params, cfg, ids, mask)
+            masked_loss(logits, ids, mask).backward()
+            grads = [t.grad.float() for n in lora_nodes(params) for t in (n.lora_a, n.lora_b)]
+            return logits.detach(), grads, params["embed"].grad[ids.unique()].float()
+
+        reset_counts()
+        sync(dev)
+        logits, grads, dx = run()
+        sync(dev)
+        launches = kernel_counts().get(name, 0)
+        want = FT_SLICE_LAYERS * 7 + 1
+        if launches != want:
+            raise AssertionError(f"finetune: {name} launched {launches} times in a forward and "
+                                 f"backward of the slice, expected {want}")
+        with plain_q4_products():
+            reset_counts()
+            p_logits, p_grads, p_dx = run()
+            if kernel_counts().get(name, 0):
+                raise AssertionError(f"finetune: {name} launched through the plain route")
+        # the first product (layer 0's q) against its plain version, the kernel's gate
+        q = params["layers"][0]["attn"]["q"].base
+        x2 = torch.randn((b * s, cfg.hidden_size), generator=g).to(dev, torch.bfloat16)
+        got = getattr(qgemm, name)(x2, q.codes, q.scales)
+        ref = (qgemm.emulate_q4_matmul if kind == "int4" else qgemm.emulate_nf4_matmul)(
+            x2, q.codes, q.scales)
+        w = qgemm.dequantize_f32(kind, q.codes, q.scales).to(torch.bfloat16).float()
+        gate = FT_KERNEL_GATE * (x2.float().abs() @ w.abs())
+        if not bool(((got - ref).abs() <= gate).all()):
+            raise AssertionError(f"finetune: {name} outside its gate on the slice's q product")
+        logit_rel = rel_l2(logits, p_logits)
+        grad_rel = max(float((a - r).abs().max() / r.abs().max().clamp_min(1e-30))
+                       for a, r in zip(grads + [dx], p_grads + [p_dx]))
+        if not logit_rel <= GEN_LOGITS_RTOL or not grad_rel <= FT_GRAD_RTOL:
+            raise AssertionError(f"finetune: {kind} kernel route against plain: logits "
+                                 f"{logit_rel} (limit {GEN_LOGITS_RTOL}), gradients {grad_rel} "
+                                 f"(limit {FT_GRAD_RTOL})")
+        out[kind] = {"launches": launches, "logits_rel_l2": logit_rel,
+                     "max_grad_diff_of_largest": grad_rel, "grad_tensors": len(grads) + 1,
+                     "q_product_max_abs_err": float((got - ref).abs().max())}
+    return out
+
+
+def finetune_vs_cpu(dev, seed: int, train, tmp: str) -> dict:
+    """config.json's model (small, int8) on the card and on the CPU with the
+    same A's (a host generator from the seed) and the same batches:
+    FT_CPU_STEPS trainer steps each; each step's loss within FT_LOSS_TOL,
+    the first step moving nothing (its rate is 0), the adapters after the
+    last step within FT_ADAPTER_RATE_FACTOR times the sum of the rates."""
+    import torch
+
+    from crs_tpu_torch.finetuning import QuantizedModelFinetuner
+    from crs_tpu_torch.models import create_model_interface
+
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        model = create_model_interface("int8", {"config": FT_CPU_CONFIG, "seed": seed},
+                                       device=where)
+        ft = QuantizedModelFinetuner(model, finetune_config(os.path.join(tmp, where.type)))
+        ft.prepare_model()
+        batches = ft.prepare_batches(train)[:FT_CPU_STEPS]
+        ft._opt = ft._build_optimizer(len(batches))
+        start = adapters_of(model.params)
+        t0 = time.perf_counter()
+        losses, rates, after_first = [], [], None
+        for i, batch in enumerate(batches):
+            rates.append(ft._opt.schedule(i))
+            losses.append(ft.train_step(batch))
+            if i == 0:
+                after_first = adapters_of(model.params)
+        runs[where.type] = {"losses": losses, "rates": rates, "start": start,
+                            "after_first": after_first, "end": adapters_of(model.params),
+                            "seconds": time.perf_counter() - t0}
+        del ft, model
+    card, cpu = runs["cuda" if dev.type == "cuda" else "cpu"], runs["cpu"]
+    for run in (card, cpu):
+        moved = max(float((x - y).abs().max()) for k in run["start"]
+                    for x, y in zip(run["start"][k], run["after_first"][k]))
+        if run["rates"][0] != 0.0 or moved != 0.0:
+            raise AssertionError(f"finetune: the first update moved the adapters by {moved} "
+                                 f"(rate {run['rates'][0]})")
+    loss_diff = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+    limit = FT_ADAPTER_RATE_FACTOR * sum(cpu["rates"])
+    diffs = [float((x - y).abs().max()) for k in cpu["end"]
+             for x, y in zip(card["end"][k], cpu["end"][k])]
+    equal = sum(int((x == y).sum()) for k in cpu["end"] for x, y in zip(card["end"][k],
+                                                                        cpu["end"][k]))
+    total = sum(x.numel() for k in cpu["end"] for x in cpu["end"][k])
+    if not loss_diff <= FT_LOSS_TOL or not max(diffs) <= limit:
+        raise AssertionError(f"finetune: card against CPU: losses {card['losses']} / "
+                             f"{cpu['losses']} (limit {FT_LOSS_TOL}), adapters {max(diffs)} "
+                             f"(limit {limit})")
+    return {"model": FT_CPU_CONFIG, "steps": FT_CPU_STEPS, "rates": cpu["rates"],
+            "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+            "max_loss_diff": loss_diff, "loss_limit": FT_LOSS_TOL,
+            "max_adapter_diff": max(diffs), "adapter_limit": limit,
+            "adapter_entries_equal": equal / total, "card_s": card["seconds"],
+            "cpu_s": cpu["seconds"]}
+
+
+def phase_finetune(ph: Phase, dev, seed: int) -> dict:
+    """QLoRA finetuning on the card, five parts.
+
+    (a) Train: the 1b model with an int4 base and kv_bits 8 (random init
+    from the seed, a load of this phase's own), LoRA at config.json's
+    finetuning values (r 16, α 32, lr 2e-4, wd 0.01, B 4, S 256, warmup 10,
+    clip 1.0, save_total_limit 3) but FT_EPOCHS epochs, over
+    SyntheticCodeLoader's FT_SAMPLES samples, the performance benchmark after
+    each epoch (the evaluate phase's perplexity and QA inputs) into
+    epoch_N/: the median step ms, tokens/s, the loss per epoch, eval_loss,
+    a step's peak memory and the callback's seconds; it fails on a
+    non-finite loss, B all zero after training, a missing checkpoint,
+    manifest, evaluation_history.json or train_result.json.
+    (b) finetune_grad_check: gradients through kernels 8 and 9.
+    (c) Decode with the adapter: greedy generate_batch of FT_DECODE_TOKENS
+    tokens at B 1 (kernels 8 and 10 counted, both > 0); merge_lora into a
+    dense model, its next-token logits within FT_MERGE_RTOL relative L2 of
+    the adapted model's.
+    (d) finetune_vs_cpu: the card against the CPU.
+    (e) The analysis tools over epoch_0/ and epoch_1/: ResultsSummary,
+    ResultsComparator (pairs, best model, leaderboard), ResultsExporter's
+    four formats, ReportGenerator's report.html; host seconds and whether
+    matplotlib drew the plots."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.evaluation.comparator import ResultsComparator
+    from crs_tpu_torch.evaluation.export import ResultsExporter
+    from crs_tpu_torch.evaluation.reporter import ReportGenerator
+    from crs_tpu_torch.evaluation.summary import ResultsSummary
+    from crs_tpu_torch.evaluation.visualizer import _mpl
+    from crs_tpu_torch.finetuning import QuantizedModelFinetuner, merge_lora
+    from crs_tpu_torch.finetuning.code_generation import SyntheticCodeLoader
+    from crs_tpu_torch.models import create_model_interface
+    from crs_tpu_torch.models.transformer import forward
+
+    out = {"model": {"config": FT_CONFIG, "kind": "int4", "kv_bits": 8}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
+    try:
+        # -- (a) two epochs of QLoRA training with the evaluation after each
+        model = create_model_interface("int4", {"config": FT_CONFIG, "kv_bits": 8, "seed": seed},
+                                       device=dev)
+        t0 = time.perf_counter()
+        model.load()
+        out["load_s"] = time.perf_counter() - t0
+        train, held = SyntheticCodeLoader({"num_samples": FT_SAMPLES, "seed": seed}).load()
+        ft_dir, eval_dir = os.path.join(tmp, "finetune_out"), os.path.join(tmp, "finetune_eval")
+        ft = QuantizedModelFinetuner(model, finetune_config(ft_dir))
+        ft.prepare_model()
+        callback = ft.setup_evaluation(eval_config=finetune_eval_config(tmp),
+                                       output_dir=eval_dir, benchmarks=("performance",))
+        steps, callback_s = [], []
+        step, on_epoch_end = ft.train_step, callback.on_epoch_end
+
+        def timed_step(batch):
+            held = None
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev) / 1e6
+            sync(dev)
+            t = time.perf_counter()
+            loss = step(batch)  # float(loss) waits for the update
+            ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev) / 1e6 if dev.type == "cuda" else None
+            steps.append((ms, int(batch["mask"].sum()), batch["mask"].size, peak, held))
+            return loss
+
+        def timed_epoch_end(epoch):
+            t = time.perf_counter()
+            entry = on_epoch_end(epoch)
+            callback_s.append(time.perf_counter() - t)
+            return entry
+
+        ft.train_step, callback.on_epoch_end = timed_step, timed_epoch_end
+        reset_counts()
+        t0 = time.perf_counter()
+        result = ft.train(train, held, resume=False)
+        sync(dev)
+        train_s = time.perf_counter() - t0
+        train_launches = kernel_counts()
+        final_dir = ft.save_model()
+        losses = [h["loss"] for h in result["history"]]
+        if not all(math.isfinite(v) for v in losses + [h["eval_loss"] for h in result["history"]]):
+            raise AssertionError(f"finetune: a loss is not finite: {result['history']}")
+        b_max = max(float(b.abs().max()) for _, b in adapters_of(model.params).values())
+        if not b_max > 0:
+            raise AssertionError("finetune: every B is still zero after training")
+        ckpts = sorted(d for d in os.listdir(ft_dir) if d.startswith("checkpoint-"))
+        missing = [p for p in [os.path.join(ft_dir, "train_result.json"),
+                               os.path.join(eval_dir, "evaluation_history.json"),
+                               os.path.join(final_dir, "training_config.json"),
+                               os.path.join(final_dir, "adapters.npz")]
+                   + [os.path.join(ft_dir, c, f) for c in ckpts
+                      for f in ("adapters.npz", "manifest.json")]
+                   + [os.path.join(eval_dir, f"epoch_{e}", "performance_results.json")
+                      for e in range(FT_EPOCHS)] if not os.path.exists(p)]
+        if not ckpts or len(ckpts) > ft.save_total_limit or missing:
+            raise AssertionError(f"finetune: checkpoints {ckpts}, missing files {missing}")
+        step_ms = [s[0] for s in steps]
+        out["train"] = {
+            "samples": {"train": len(train), "eval": len(held)},
+            "batches_per_epoch": len(ft.prepare_batches(train)), "epochs": FT_EPOCHS,
+            "steps": len(steps), "seconds": train_s,
+            "step_ms_median": statistics.median(step_ms), "step_ms_first": step_ms[0],
+            "tokens_per_s": sum(s[1] for s in steps) / (sum(step_ms) / 1e3),
+            "padded_tokens_per_s": sum(s[2] for s in steps) / (sum(step_ms) / 1e3),
+            "step_peak_mb": max(s[3] for s in steps) if dev.type == "cuda" else None,
+            # what the process held when each step began (other phases' state included),
+            # and the most a step added to it
+            "held_before_step_mb": max(s[4] for s in steps) if dev.type == "cuda" else None,
+            "step_own_peak_mb": max(s[3] - s[4] for s in steps) if dev.type == "cuda" else None,
+            "loss_per_epoch": losses, "eval_loss": [h["eval_loss"] for h in result["history"]],
+            "callback_s": callback_s,
+            "perplexity_per_epoch": [e["value"] for e in callback.history],
+            "best_epoch": callback.best_epoch, "max_abs_b": b_max, "checkpoints": ckpts,
+            "main_path_launches": train_launches}
+
+        # -- (b) gradients through kernels 8 and 9
+        out["grad_check"] = finetune_grad_check(dev, seed)
+
+        # -- (c) decode with the adapter, then the merged model
+        prompt = rag_prompts(1)
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        text = model.generate_batch(prompt, FT_DECODE_TOKENS)[0]
+        sync(dev)
+        decode_s = time.perf_counter() - t0
+        decode_launches = kernel_counts()
+        if decode_launches.get("q4_matmul", 0) < 1 or \
+                decode_launches.get("decode_attention_int8", 0) < 1:
+            raise AssertionError(f"finetune: the adapted decode launched {decode_launches}")
+        ids = torch.as_tensor([model.tokenizer.encode("def add_7(x):\n    return")],
+                              device=dev)
+        with torch.no_grad():
+            adapted = forward(model.params, model.cfg, ids)[0, -1]
+            merged = forward(merge_lora(model.params), model.cfg, ids)[0, -1]
+        merge_err = rel_l2(merged, adapted)
+        if not merge_err <= FT_MERGE_RTOL:
+            raise AssertionError(f"finetune: merged logits {merge_err} relative L2 from the "
+                                 f"adapted model's (limit {FT_MERGE_RTOL})")
+        out["decode"] = {"tokens": FT_DECODE_TOKENS, "seconds": decode_s, "text_chars": len(text),
+                         "main_path_launches": decode_launches,
+                         "merged_logits_rel_l2": merge_err, "merged_limit": FT_MERGE_RTOL,
+                         "merged_max_abs_diff": float((merged - adapted).abs().max()),
+                         "merged_same_argmax": bool(merged.argmax() == adapted.argmax())}
+        del model, ft, callback
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- (d) card against CPU
+        out["vs_cpu"] = finetune_vs_cpu(dev, seed, train, tmp)
+
+        # -- (e) the analysis tools over the epoch directories
+        t0 = time.perf_counter()
+        epochs = [os.path.join(eval_dir, f"epoch_{e}") for e in range(FT_EPOCHS)]
+        summary = ResultsSummary(epochs)
+        table = summary.comparison_table(["perplexity", "average_accuracy"])
+        comp = ResultsComparator.from_directories(epochs)
+        pair = comp.compare_two("epoch_0", "epoch_1", ["perplexity", "average_accuracy"])
+        best = comp.best_model("perplexity")
+        board = comp.create_leaderboard({"perplexity": 1.0, "average_accuracy": 1.0})
+        paths = ResultsExporter.from_directories(epochs).export_all(os.path.join(tmp, "export"))
+        report = ReportGenerator.from_directories(epochs).generate(os.path.join(tmp,
+                                                                                "report.html"))
+        tools_s = time.perf_counter() - t0
+        if set(summary.results) != {"epoch_0", "epoch_1"} or not all(
+                os.path.getsize(p) for p in list(paths.values()) + [report]) or best is None:
+            raise AssertionError(f"finetune: the tools read {sorted(summary.results)} and "
+                                 f"wrote {paths}, {report}")
+        with open(report) as f:
+            report_text = f.read()
+        out["tools"] = {"seconds": tools_s, "matplotlib": _mpl() is not None,
+                        "report_plots": report_text.count("data:image/png;base64"),
+                        "table_lines": len(table.splitlines()), "pair": pair,
+                        "best_perplexity": list(best), "leaderboard": board,
+                        "files": sorted(os.path.basename(p) for p in paths.values())}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ph.info.update(out)
+    return out
+
+
+GEN7_BASE = "mistral-7b"
+# its 32 layers cut to 24 (full width) to keep the whole run inside its time limit
+# with the finetune phase: kernel 11 launches per decode step in the fused_mlp variant
+GEN7_LAYERS = 24
+GEN7_CONFIG = f"{GEN7_BASE}-{GEN7_LAYERS}-layers"
 GEN7_NEW_TOKENS = 32
 GEN7_FUSED_LOGITS_RTOL = 5e-2  # fused MLP against unfused: per-chunk hidden scales differ
-GEN7_LAYERS = 32  # kernel 11 launches per decode step in the fused_mlp variant
+
+
+def register_gen7_config() -> None:
+    """GEN7_CONFIG in the model presets: GEN7_BASE at GEN7_LAYERS layers."""
+    import dataclasses
+
+    from crs_tpu_torch.models.transformer import CONFIGS
+
+    CONFIGS.setdefault(GEN7_CONFIG, dataclasses.replace(CONFIGS[GEN7_BASE],
+                                                        num_layers=GEN7_LAYERS))
 
 
 def variant_model(base, flag: str, seed: int, dev, kv_bits: int = 16):
@@ -3651,12 +4078,13 @@ def rel_l2(got, ref) -> float:
 
 
 def phase_generate_7b(ph: Phase, dev, seed: int) -> dict:
-    """mistral-7b as int8 with a bf16 KV cache (config.json's model values at
-    the one preset whose I divides the fused MLP's chunk), random weights
-    from the seed, loaded once through create_model_interface; three
+    """mistral-7b at full width, GEN7_LAYERS of its 32 layers, as int8 with a
+    bf16 KV cache (config.json's model values at the one preset whose I
+    divides the fused MLP's chunk), random weights from the seed, loaded once
+    through create_model_interface; three
     variants — unfused, fuse_projections, fused_mlp — each through greedy
     generate_batch of 32 tokens at batch 1 and 8 on RAG-sized prompts.
-    Kernel 11 must launch 32 times per decode step in the fused_mlp variant
+    Kernel 11 must launch GEN7_LAYERS times per decode step in the fused_mlp variant
     and never in the others; the first decode step's logits must equal the
     unfused ones with fuse_projections and lie within 5e-2 relative L2 of them
     with fused_mlp. Then one kv_bits 8 batch-8 decode through kernels 10 and
@@ -3667,6 +4095,7 @@ def phase_generate_7b(ph: Phase, dev, seed: int) -> dict:
     from crs_tpu_torch.models.transformer import decode_step, init_cache, prefill
 
     prompts = rag_prompts(max(GEN_BATCHES))
+    register_gen7_config()
     base = create_model_interface("int8", {"config": GEN7_CONFIG, "kv_bits": 16, "seed": seed},
                                   device=dev)
     t0 = time.perf_counter()
@@ -4349,12 +4778,17 @@ def kernel_table(res: dict) -> list:
         "int_mm_composition_ms": seg["int8"]["int_mm_composition_ms"]})
     gen, q4, attn = res["generate"], res["kernel_q4"], res["kernel_decode_attn"]
     evaluated = res["evaluate"]["runner"]["main_path_launches"]  # the evaluation's path
+    ft = res["finetune"]  # the finetune path: training, the gradient check, the adapted decode
+    tuned = {k: ft["train"]["main_path_launches"].get(k, 0)
+             + ft["decode"]["main_path_launches"].get(k, 0)
+             for k in ("q4_matmul", "nf4_matmul", "decode_attention_int8")}
     for name, kind, line in (("q4_matmul", "int4", 105), ("nf4_matmul", "nf4", 161)):
+        tuned[name] += ft["grad_check"][kind]["launches"]
         rows.append({
             "name": name, "route": "cuda", "source": "crs_tpu_torch/csrc/q4_matmul.cu",
             "replaces": f"crs_tpu/ops/qgemm.py:{line}",
             "launches": gen["main_path_launches"][kind],
-            "launches_evaluate": evaluated.get(name, 0),
+            "launches_evaluate": evaluated.get(name, 0), "launches_finetune": tuned[name],
             "max_abs_err": q4[kind]["max_abs_err"], **{k: q4[kind][k] for k in keys},
             "library_ms": None})
     rows.append({
@@ -4363,6 +4797,7 @@ def kernel_table(res: dict) -> list:
         "replaces": "crs_tpu/ops/decode_attention.py:69",
         "launches": gen["main_path_launches"]["attn"],
         "launches_evaluate": evaluated.get("decode_attention_int8", 0),
+        "launches_finetune": tuned["decode_attention_int8"],
         "max_abs_err": attn["max_abs_err"], **{k: attn[k] for k in keys}, "library_ms": None})
     mlp = res["kernel_fused_mlp"]
     rows.append({
@@ -4376,8 +4811,8 @@ def kernel_table(res: dict) -> list:
 
 ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted_adc",
               "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "faults",
-              "bench", "full", "formats", "add", "generate", "evaluate", "rag", "lexical",
-              "minilm", "cli", "generate_7b", "calibrated")
+              "bench", "full", "formats", "add", "generate", "evaluate", "finetune", "rag",
+              "lexical", "minilm", "cli", "generate_7b", "calibrated")
 
 
 def main(argv=None) -> int:
@@ -4431,6 +4866,7 @@ def main(argv=None) -> int:
         "add": lambda ph: phase_add(ph, dev, args.seed, shared),
         "generate": lambda ph: phase_generate(ph, dev, args.seed, shared),
         "evaluate": lambda ph: phase_evaluate(ph, dev, args.seed, shared),
+        "finetune": lambda ph: phase_finetune(ph, dev, args.seed),
         "rag": lambda ph: phase_rag(ph, dev, args.seed, shared),
         "lexical": lambda ph: phase_lexical(ph, dev, args.seed, shared),
         "minilm": lambda ph: phase_minilm(ph, dev, args.seed),

@@ -7,7 +7,8 @@ logging and the command line (``python -m crs_tpu_torch``), and the
 generator (the quantized
 causal LM with prefill and int8-KV decode, fused projections and the fused
 int8 MLP, GPTQ / AWQ calibration, local Hugging Face checkpoints, sampling,
-the model interface, answer generation and the RAG pipeline) on an NVIDIA
+the model interface, answer generation and the RAG pipeline), the
+evaluation with its analysis tools, and QLoRA finetuning on an NVIDIA
 H100. Module names mirror ``crs_tpu``'s so each
 counterpart is easy to find; the TPU kernels on these paths are
 hand-written CUDA kernels in ``csrc/``: the scans of

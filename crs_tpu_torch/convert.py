@@ -6,7 +6,7 @@ packages can run on one state: the ``HashedEncoder`` projection, the
 ``VectorStore`` in each format (int8 codes and scales; fp32/bf16 vectors;
 PQ codebooks, rotation, coarse centroids, coarse ids and codes with the
 int8 mirror), the retriever's per-chunk token ids, and a model's params
-tree (numpy arrays, bf16 ones included, and quantized-tensor nodes).
+tree (numpy arrays, bf16 ones included, quantized-tensor and LoRA nodes).
 """
 
 from __future__ import annotations
@@ -39,12 +39,20 @@ def _tensor_from_numpy(a) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, device: Device = "cpu") -> Any:
-    """A ``crs_tpu`` params tree (dicts, lists, arrays given as numpy, and
-    ``QuantizedTensor`` nodes whose codes / scales are arrays) as the port's
-    params on ``device``, bit for bit."""
+    """A ``crs_tpu`` params tree (dicts, lists, arrays given as numpy,
+    ``QuantizedTensor`` nodes whose codes / scales are arrays, and
+    ``LoRAWeight`` nodes: base, A, B, alpha, rank) as the port's params on
+    ``device``, bit for bit; a LoRA node's A and B are leaf tensors that
+    require a gradient, as ``add_lora`` makes them."""
+    from .finetuning.lora import LoRAWeight
     from .models.quantized import QuantizedTensor
 
     dev = torch.device(device)
+    if all(hasattr(tree, a) for a in ("base", "lora_a", "lora_b", "alpha", "rank")):
+        a, b = (_tensor_from_numpy(t).to(dev).requires_grad_(True)
+                for t in (tree.lora_a, tree.lora_b))
+        return LoRAWeight(params_from_numpy(tree.base, dev), a, b, float(tree.alpha),
+                          int(tree.rank))
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

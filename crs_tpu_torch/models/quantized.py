@@ -15,8 +15,14 @@ device, and gives its codes and scales bit for bit. :func:`qmatmul` routes as
 ``crs_tpu`` does: int8 through the exact int8 × int8 product with per-row
 activation quantization; int4 / nf4 at decode-sized row counts through the
 CUDA kernels of ``ops.qgemm`` (their plain versions on the CPU); everything
-else through the dequantized product. The backward pass (the custom VJPs)
-comes with finetuning.
+else through the dequantized product; a :class:`~crs_tpu_torch.finetuning.lora.LoRAWeight`
+adds its adapters' delta to its base's product.
+
+Gradients follow ``crs_tpu``'s custom VJPs: through the int8 route and the
+int4 / NF4 kernels, dx = g·W_dequantᵀ in f32 (``_Int8ActMatmul`` here,
+``ops.qgemm``'s functions for kernels 8 and 9); the codes and scales get
+none. (``round`` in the activation quantizer would otherwise zero every
+gradient through an int8 layer.)
 """
 
 from __future__ import annotations
@@ -146,12 +152,37 @@ def tensor_from_int_codes(vals, scales, bits: int, group_size: int) -> Quantized
     raise ValueError(f"unsupported bits for int-code tensors: {bits}")
 
 
-def _int8_act_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def _int8_act_forward(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Per-row dynamic int8 activations × int8 weight, int32 accumulation,
-    then both scales: ``crs_tpu``'s forward (its VJP comes with finetuning)."""
+    then both scales: ``crs_tpu``'s forward."""
     xs = torch.clamp_min(x2.abs().amax(dim=-1, keepdim=True), 1e-12) * _INV_127
     xq = torch.clamp(torch.round(x2 / xs), -127, 127).to(torch.int8)
     return _int8_product(xq, codes).float() * xs * scales[None, :]
+
+
+class _Int8ActMatmul(torch.autograd.Function):
+    """The int8 route with ``crs_tpu``'s custom VJP: the forward as
+    :func:`_int8_act_forward`; dx = g·(codes·scales)ᵀ in f32; no gradient
+    for the codes and scales."""
+
+    @staticmethod
+    def forward(ctx, x2, codes, scales):
+        ctx.save_for_backward(codes, scales)
+        return _int8_act_forward(x2, codes, scales)
+
+    @staticmethod
+    def backward(ctx, g):
+        codes, scales = ctx.saved_tensors
+        w = codes.float() * scales[None, :]
+        return torch.matmul(g.float(), w.T), None, None
+
+
+def _int8_act_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The int8 route; through :class:`_Int8ActMatmul` when x2 needs a
+    gradient (decode does not pay for the autograd node)."""
+    if torch.is_grad_enabled() and x2.requires_grad:
+        return _Int8ActMatmul.apply(x2, codes, scales)
+    return _int8_act_forward(x2, codes, scales)
 
 
 def qmatmul(x: torch.Tensor, w: Any,
@@ -160,7 +191,12 @@ def qmatmul(x: torch.Tensor, w: Any,
     ``x``'s dtype, routed as ``crs_tpu`` routes it. ``unrounded()`` gives x
     in f32 before its last rounding, where x is the output of an elementwise
     op: XLA fuses that op into the int8 route's f32 convert, so the int8
-    route quantizes ``unrounded()``."""
+    route quantizes ``unrounded()``. A ``LoRAWeight`` adds its adapters'
+    delta (``finetuning.lora.apply_lora_matmul``)."""
+    if type(w).__name__ == "LoRAWeight":  # the finetuning package imports this one
+        from ..finetuning.lora import apply_lora_matmul
+
+        return apply_lora_matmul(x, w, unrounded)
     if isinstance(w, QuantizedTensor):
         if w.bits == 8:
             x2 = (x.float() if unrounded is None else unrounded()).reshape(-1, x.shape[-1])
@@ -208,9 +244,12 @@ def quantize_params(params: Dict[str, Any], bits: Union[int, str] = 8,
 
 
 def params_num_bytes(params: Any) -> int:
-    """Total parameter bytes (packed int4 / nf4 at their stored width)."""
+    """Total parameter bytes (packed int4 / nf4 at their stored width; a
+    LoRA node's base and adapters)."""
     if isinstance(params, QuantizedTensor):
         return params_num_bytes(params.codes) + params_num_bytes(params.scales)
+    if type(params).__name__ == "LoRAWeight":
+        return sum(params_num_bytes(t) for t in (params.base, params.lora_a, params.lora_b))
     if isinstance(params, dict):
         return sum(params_num_bytes(v) for v in params.values())
     if isinstance(params, (list, tuple)):

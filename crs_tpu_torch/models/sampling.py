@@ -71,12 +71,14 @@ def _sample(logits: torch.Tensor, generator: torch.Generator, sp: SamplingParams
     return torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=generator)[:, 0]
 
 
+@torch.no_grad()
 def generate_tokens(params, cfg: TransformerConfig, prompt_ids: torch.Tensor,
                     prompt_mask: torch.Tensor, generator: torch.Generator,
                     sp: SamplingParams) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate from left-padded prompts [B, S] → (tokens [B, max_new_tokens],
     lengths [B]). Tokens after a row's EOS are ``pad_id``; ``lengths``
-    counts the real tokens, the EOS included."""
+    counts the real tokens, the EOS included. No gradient: a LoRA model's
+    adapters require one, the decode kernels are forward-only."""
     b, s = prompt_ids.shape
     dev = prompt_ids.device
     cache = init_cache(cfg, b, s + sp.max_new_tokens, device=dev)

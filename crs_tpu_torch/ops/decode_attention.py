@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .launch import ARG_FLOAT, ARG_INT, ARG_PTR, KernelStats, check_operands, launch, \
-    load_library, scratch, sm_count, stream_handle
+    load_library, refuse_gradients, scratch, sm_count, stream_handle
 
 __all__ = [
     "STATS", "quantize_kv_rows", "decode_attention_supported", "decode_attention_int8",
@@ -138,7 +138,9 @@ def decode_attention_int8(
     """Single-token decode attention → ctx [B, Hkv, G, hd] f32, zero for a
     batch row with no valid slot. CPU tensors take
     :func:`emulate_decode_attention_int8`; CUDA tensors launch
-    ``decode_attention_int8`` or raise."""
+    ``decode_attention_int8`` or raise. Forward-only: raises where an input
+    requires a gradient."""
+    refuse_gradients("decode_attention_int8", q, k_scales, v_scales)
     if k_codes.device.type == "cpu":
         return emulate_decode_attention_int8(q, k_codes, k_scales, v_codes, v_scales, valid)
     dev = k_codes.device

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .launch import ARG_FLOAT, ARG_INT, ARG_PTR, KernelStats, check_operands, launch, \
-    load_library, scratch, stream_handle
+    load_library, refuse_gradients, scratch, stream_handle
 from .quant import int8_product
 
 __all__ = [
@@ -150,7 +150,9 @@ def fused_mlp_int8(x, norm_scale, gate_t, s_gate2, up_t, s_up2, down, s_down,
     """One fused decode MLP block: x [B ≤ 8, H] → x + SwiGLU-MLP(rmsnorm(x))
     [B, H] f32 (and :class:`FusedMLPCodes` with ``return_codes``). CPU
     tensors take :func:`emulate_fused_mlp_int8`; CUDA tensors launch
-    ``fused_mlp_int8`` or raise."""
+    ``fused_mlp_int8`` or raise. Forward-only: raises where an input
+    requires a gradient."""
+    refuse_gradients("fused_mlp_int8", x, norm_scale, s_gate2, s_up2, s_down)
     if gate_t.device.type == "cpu":
         return emulate_fused_mlp_int8(x, norm_scale, gate_t, s_gate2, up_t, s_up2, down, s_down,
                                       chunk, eps, return_codes)

@@ -17,7 +17,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 __all__ = ["KernelStats", "load_library", "stream_handle", "check_operands", "launch",
-           "scratch", "sm_count", "ARG_INT", "ARG_PTR", "ARG_FLOAT"]
+           "scratch", "sm_count", "refuse_gradients", "ARG_INT", "ARG_PTR", "ARG_FLOAT"]
 
 ARG_INT, ARG_PTR, ARG_FLOAT = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 
@@ -35,6 +35,15 @@ class KernelStats:
     def count_launch(self, kernel: str) -> None:
         self.launches += 1
         self.by_kernel[kernel] = self.by_kernel.get(kernel, 0) + 1
+
+
+def refuse_gradients(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where an input needs a gradient: the kernel (and its plain
+    version) is forward-only, as ``crs_tpu``'s Pallas kernel is, and a
+    result with no gradient would quietly cut the backward pass."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} is forward-only: an input requires a gradient "
+                           "(run it under torch.no_grad())")
 
 
 _libs: Dict[str, ctypes.CDLL] = {}

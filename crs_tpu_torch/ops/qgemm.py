@@ -21,7 +21,9 @@ even number of rows. On a CUDA tensor they launch the kernel or raise; on a
 CPU tensor they run :func:`emulate_q4_matmul` / :func:`emulate_nf4_matmul`,
 the plain torch versions beside them (literal mirrors of ``crs_tpu``'s
 emulations). ``qmatmul`` takes them when :func:`q4_pallas_supported` says
-so, exactly where ``crs_tpu`` takes its Pallas kernels.
+so, exactly where ``crs_tpu`` takes its Pallas kernels. Where x needs a
+gradient (a LoRA training step at ≤ 64 rows) the product runs inside a
+``torch.autograd.Function`` whose backward is ``crs_tpu``'s custom VJP.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from .launch import ARG_INT, ARG_PTR, KernelStats, check_operands, launch, load_
 __all__ = [
     "NF4_LEVELS", "STATS", "q4_pallas_supported", "q4_matmul", "nf4_matmul",
     "emulate_q4_matmul", "emulate_nf4_matmul", "Nf4Plan", "nf4_plan", "int4_byte_table",
-    "nf4_byte_table", "NF4_MAX_SPLIT", "NF4_BLOCKS_PER_SM", "NF4_WIDE_N",
+    "nf4_byte_table", "NF4_MAX_SPLIT", "NF4_BLOCKS_PER_SM", "NF4_WIDE_N", "dequantize_f32",
 ]
 
 # bitsandbytes' NF4 codebook: the 16 quantile-optimal levels of a standard
@@ -271,21 +273,58 @@ def _forward(kind: str, x2: torch.Tensor, codes: torch.Tensor, scales: torch.Ten
     return out
 
 
+def _product(kind: str, x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor):
+    """The plain version on a CPU tensor, the kernel on a CUDA tensor."""
+    if codes.device.type == "cpu":
+        return (emulate_q4_matmul if kind == "int4" else emulate_nf4_matmul)(x2, codes, scales)
+    return _forward(kind, x2, codes, scales)
+
+
+def dequantize_f32(kind: str, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The f32 weight [K, N]: sign-extended int4 codes (``kind`` "int4") or
+    NF4 levels ("nf4"), each times its group's scale in f32 (``crs_tpu``'s
+    ``_dequant_w`` / ``_nf4_dequant_w``, which its VJPs use)."""
+    vals = _unpack_int4(codes).float() if kind == "int4" else _unpack_nf4(codes)
+    g = scales.shape[0]
+    return (vals.reshape(g, vals.shape[0] // g, -1) * scales[:, None, :]).reshape(vals.shape)
+
+
+class _Q4Product(torch.autograd.Function):
+    """Kernel 8 / 9 (or its plain version on the CPU) with ``crs_tpu``'s
+    custom VJP: dx = g·W_dequantᵀ in f32, then g's dtype; a plain
+    ``torch.matmul``, as ``crs_tpu`` computes it outside its Pallas kernel.
+    The codes and scales get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, codes, scales, kind):
+        ctx.save_for_backward(codes, scales)
+        ctx.kind = kind
+        return _product(kind, x2, codes, scales)
+
+    @staticmethod
+    def backward(ctx, g):
+        codes, scales = ctx.saved_tensors
+        w = dequantize_f32(ctx.kind, codes, scales)
+        return torch.matmul(g.float(), w.T).to(g.dtype), None, None, None
+
+
+def _matmul(kind: str, x2, codes, scales) -> torch.Tensor:
+    if torch.is_grad_enabled() and x2.requires_grad:
+        return _Q4Product.apply(x2, codes, scales, kind)
+    return _product(kind, x2, codes, scales)
+
+
 def q4_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``x2`` [R, K] @ int4-packed weight (``codes`` [K/2, N] int8,
     ``scales`` [K/group, N] f32) → [R, N] f32. CPU tensors take
     :func:`emulate_q4_matmul`; CUDA tensors launch ``q4_mma_kernel`` with the
-    int4 table or raise."""
-    if codes.device.type == "cpu":
-        return emulate_q4_matmul(x2, codes, scales)
-    return _forward("int4", x2, codes, scales)
+    int4 table or raise. Differentiable in ``x2`` (:class:`_Q4Product`)."""
+    return _matmul("int4", x2, codes, scales)
 
 
 def nf4_matmul(x2: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``x2`` [R, K] @ NF4-packed weight (``codes`` [K/2, N] uint8,
     ``scales`` [K/group, N] f32 absmax) → [R, N] f32. CPU tensors take
     :func:`emulate_nf4_matmul`; CUDA tensors launch ``q4_mma_kernel`` with the
-    NF4 table or raise."""
-    if codes.device.type == "cpu":
-        return emulate_nf4_matmul(x2, codes, scales)
-    return _forward("nf4", x2, codes, scales)
+    NF4 table or raise. Differentiable in ``x2`` (:class:`_Q4Product`)."""
+    return _matmul("nf4", x2, codes, scales)

@@ -3,9 +3,10 @@
 
 Arrays are stored path-keyed in one compressed npz (bf16 as float32 with a
 dtype tag); :class:`~crs_tpu_torch.models.quantized.QuantizedTensor` nodes
-keep their bits, group size and shape in the manifest. Checkpoints written
-by either package load in the other. LoRA nodes raise until finetuning is
-ported.
+keep their bits, group size and shape in the manifest, and
+:class:`~crs_tpu_torch.finetuning.lora.LoRAWeight` nodes their alpha and rank
+(the base, A and B as children). Checkpoints written by either package load
+in the other.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ __all__ = ["save_pytree", "load_pytree"]
 
 
 def save_pytree(path: str, tree: Any) -> None:
-    """Write ``tree`` (dicts, lists, tensors, QuantizedTensor nodes) to
-    ``path.npz`` + ``path.json``."""
+    """Write ``tree`` (dicts, lists, tensors, QuantizedTensor and LoRAWeight
+    nodes) to ``path.npz`` + ``path.json``."""
+    from ..finetuning.lora import LoRAWeight
     from ..models.quantized import QuantizedTensor
 
     arrays: Dict[str, np.ndarray] = {}
@@ -34,6 +36,12 @@ def save_pytree(path: str, tree: Any) -> None:
                                          "group_size": node.group_size, "shape": list(node.shape)}
             visit(f"{prefix}.codes", node.codes)
             visit(f"{prefix}.scales", node.scales)
+        elif isinstance(node, LoRAWeight):
+            manifest["nodes"][prefix] = {"kind": "LoRAWeight", "alpha": node.alpha,
+                                         "rank": node.rank}
+            visit(f"{prefix}.base", node.base)
+            visit(f"{prefix}.lora_a", node.lora_a)
+            visit(f"{prefix}.lora_b", node.lora_b)
         elif isinstance(node, dict):
             manifest["nodes"][prefix] = {"kind": "dict", "keys": list(node.keys())}
             for k, v in node.items():
@@ -58,7 +66,8 @@ def save_pytree(path: str, tree: Any) -> None:
 
 def load_pytree(path: str, device: Optional[Union[str, torch.device]] = "cpu") -> Any:
     """Read a tree written by :func:`save_pytree` or by ``crs_tpu``'s, with
-    its tensors on ``device``."""
+    its tensors on ``device`` (a LoRA node's A and B requiring a gradient)."""
+    from ..finetuning.lora import LoRAWeight
     from ..models.quantized import QuantizedTensor
 
     with open(path + ".json") as f:
@@ -83,9 +92,10 @@ def load_pytree(path: str, device: Optional[Union[str, torch.device]] = "cpu") -
             return QuantizedTensor(build(f"{prefix}.codes"), build(f"{prefix}.scales"),
                                    info["bits"], info["group_size"], tuple(info["shape"]))
         if kind == "LoRAWeight":
-            raise NotImplementedError(
-                "LoRA nodes load once finetuning is ported to crs_tpu_torch "
-                "(ROADMAP: modules to port, finetuning)")
+            return LoRAWeight(build(f"{prefix}.base"),
+                              build(f"{prefix}.lora_a").requires_grad_(True),
+                              build(f"{prefix}.lora_b").requires_grad_(True),
+                              info["alpha"], info["rank"])
         raise ValueError(f"unknown node kind: {kind}")
 
     return build("")

@@ -81,14 +81,43 @@ def test_checkpoints_cross_load(tmp_path, kernel_config):
 
 
 def test_lora_checkpoints_raise(tmp_path):
-    from crs_tpu_torch.utils.checkpoint import load_pytree
+    """LoRA nodes (an int4 and a bf16 base, A, B, alpha, rank) no longer
+    raise: a tree saved by either package loads in the other bit for bit,
+    A and B as leaf tensors that require a gradient."""
+    import jax
 
-    (tmp_path / "m.json").write_text(json.dumps({
-        "nodes": {"": {"kind": "dict", "keys": ["w"]},
-                  "w": {"kind": "LoRAWeight", "alpha": 1.0, "rank": 2}}, "arrays": {}}))
-    np.savez_compressed(tmp_path / "m.npz")
-    with pytest.raises(NotImplementedError, match="finetuning"):
-        load_pytree(str(tmp_path / "m"))
+    from crs_tpu.finetuning.lora import LoRAWeight as JL, add_lora
+    from crs_tpu.models.quantized import quantize_params
+    from crs_tpu.models.transformer import CONFIGS, init_params
+    from crs_tpu.utils.checkpoint import load_pytree as jload, save_pytree as jsave
+
+    from crs_tpu_torch.finetuning.lora import LoRAWeight as TL, adapter_tensors
+    from crs_tpu_torch.models.quantized import QuantizedTensor
+    from crs_tpu_torch.utils.checkpoint import load_pytree, save_pytree
+
+    params = init_params(0, CONFIGS["tiny"])
+    params["layers"][1] = quantize_params({"l": params["layers"][1]}, bits=4)["l"]
+    tree = add_lora(params, jax.random.PRNGKey(2), rank=4, alpha=8.0)
+    rng = np.random.default_rng(5)  # B as if trained: bf16 draws
+    tree = jax.tree.map(lambda n: JL(n.base, n.lora_a, jax.numpy.asarray(
+        rng.standard_normal(n.lora_b.shape) * 0.01, n.lora_b.dtype), n.alpha, n.rank)
+        if isinstance(n, JL) else n, tree, is_leaf=lambda n: isinstance(n, JL))
+    jsave(str(tmp_path / "j"), tree)
+    got = load_pytree(str(tmp_path / "j"))
+    q1, q0 = got["layers"][1]["attn"]["q"], got["layers"][0]["mlp"]["down"]
+    assert isinstance(q1, TL) and isinstance(q1.base, QuantizedTensor) and q1.base.bits == 4
+    assert isinstance(q0, TL) and q0.base.dtype == torch.bfloat16
+    assert (q1.alpha, q1.rank) == (8.0, 4) and len(adapter_tensors(got)) == 28
+    assert all(p.requires_grad and p.is_leaf and p.dtype == torch.bfloat16
+               for p in adapter_tensors(got))
+    save_pytree(str(tmp_path / "t"), got)
+    back = jload(str(tmp_path / "t"))
+    flat_ref = jax.tree_util.tree_flatten_with_path(tree)[0]
+    flat_back = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in flat_back] == [p for p, _ in flat_ref]
+    for (path, a), (_, b) in zip(flat_ref, flat_back):
+        assert a.dtype == b.dtype and np.array_equal(np.asarray(a), np.asarray(b)), path
+    assert back["layers"][1]["attn"]["q"].alpha == 8.0
 
 
 # -- answer generation and the pipeline --------------------------------------
