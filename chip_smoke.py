@@ -113,7 +113,22 @@ the largest difference); any failure raises and exits non-zero:
                         residual pq stores: ms per add, capacity, the int8 store
                         identical to create_index over the same rows, the pq
                         codes against a CPU encode, a `where` search;
-15. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
+15. multi             — multi-device serving and training at world size 1 (a
+                        one-rank NCCL group, every collective called): int8
+                        and bf16 mesh stores over the full phase's 1M
+                        embeddings, search_batch at batch 328, k 3, through
+                        kernels 1 and 2 (counted), ids against the plain
+                        shard body, recall@3 against the fp32 exact top-3
+                        within 0.005 of the unsharded store's, ms per query
+                        beside it; a residual pq mesh store (int8 mirror) at
+                        131,072 rows through kernel 3, bit for bit against
+                        the plain versions; the 1b config in dense bf16 with
+                        kv_bits 8 at (dp, tp) = (1, 1): 32 greedy tokens at
+                        batch 8 equal to the unsharded generate_tokens, kernel
+                        10 16 times a decode step, the first decode step
+                        against the plain version; one AdamW train step at 4 ×
+                        256 tokens, its loss within 1e-3 of the unsharded loss;
+16. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
                         random weights from the seed, through
                         create_model_interface: greedy generate_batch of 64
                         tokens at batch 1 and 8 on RAG-sized prompts, with 113
@@ -122,7 +137,7 @@ the largest difference); any failure raises and exits non-zero:
                         kernel, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
-16. evaluate          — the evaluation slice: (a) EvaluationRunner.run_all() (the
+17. evaluate          — the evaluation slice: (a) EvaluationRunner.run_all() (the
                         efficiency, performance and retrieval benchmarks) over the
                         generate phase's 1b int4 model and a RAGPipeline with
                         config.json's rag section on the held-out corpus and
@@ -136,7 +151,7 @@ the largest difference); any failure raises and exits non-zero:
                         the retrieval benchmark's metrics over one saved index;
                         (c) python -m crs_tpu_torch --eval-performance
                         --eval-retrieval as a child on a copy of config.json;
-17. finetune          — QLoRA on the card: (a) the 1b model with an int4 base and
+18. finetune          — QLoRA on the card: (a) the 1b model with an int4 base and
                         kv_bits 8 (its own random init), LoRA at config.json's
                         finetuning values for 2 epochs (3 in config.json) of
                         SyntheticCodeLoader's 64 samples, the performance
@@ -153,40 +168,40 @@ the largest difference); any failure raises and exits non-zero:
                         int8 model, 3 trainer steps on the card and on the CPU
                         from the same A's and batches: losses and adapters;
                         (e) the five analysis tools over epoch_0/ and epoch_1/;
-18. rag               — RAGPipeline (config.json's lexical embedding, fitted on
+19. rag               — RAGPipeline (config.json's lexical embedding, fitted on
                         the card; int8 store) over the held-out corpus with the
                         nf4 model: query() with config.json's generation values
                         (sampled), ms per query split into retrieve and
                         generate, chunks checked against a CPU pipeline on the
                         card's saved index and state, doc·query scores against
                         a CPU pipeline's own fit (within 1e-4);
-19. lexical           — config.json's lexical encoder at full width (131,072
+20. lexical           — config.json's lexical encoder at full width (131,072
                         features, 384 dims) fitted on 65,536 synthetic chunks
                         of config.json's 240 words,
                         config.json's int8 store, a retrieve batch of 328
                         queries through kernel 1: fit seconds by stage, index
                         and query embed times; embeddings against a CPU encoder
                         on the card's saved state, ids against the plain scan;
-20. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
+21. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
                         chunks at batch 32 into config.json's int8 store, a
                         search through kernel 1; embeddings and the search
                         against the CPU;
-21. cli               — ``python -m crs_tpu_torch`` on the card on copies of
+22. cli               — ``python -m crs_tpu_torch`` on the card on copies of
                         config.json: --no-model --query on a copy of vector_db/,
                         --index of the held-out corpus into its own directory
                         and a query on it, then the command line's main in this
                         process on the lexical phase's index through kernel 1;
                         vector_db/ unchanged;
-22. generate_7b       — mistral-7b at full width, its depth cut to 24 layers, as
+23. generate_7b       — mistral-7b at full width, its depth cut to 16 layers, as
                         int8 with a bf16 KV cache, random weights
                         from the seed, loaded once: unfused, fuse_projections
                         and fused_mlp, greedy generate_batch of 32 tokens at
-                        batch 1 and 8 (kernel 11: 24 launches per decode step in
+                        batch 1 and 8 (kernel 11: 16 launches per decode step in
                         the fused_mlp variant, none in the others); first-step
                         logits identical with fuse_projections, within 5e-2 of
                         unfused with fused_mlp; one kv_bits 8 batch-8 decode
                         through kernels 10 and 11 against the plain versions;
-23. calibrated        — the gptq and awq types of the small config loaded on the
+24. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
                         reconstruction error against plain rounding, 16 tokens.
 
@@ -398,6 +413,13 @@ def partial_inputs(codes, scales, queries, valid_n, row_mask=None, block_size: i
         allowed = allowed & _pad_rows(row_mask, vecs.shape[0])
     bias = torch.where(allowed, 0.0, NEG_INF).float()
     return q_codes, vecs, vs, bias
+
+
+def empty_cache(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def sync(dev) -> None:
@@ -4023,9 +4045,10 @@ def phase_finetune(ph: Phase, dev, seed: int) -> dict:
 
 
 GEN7_BASE = "mistral-7b"
-# its 32 layers cut to 24 (full width) to keep the whole run inside its time limit
-# with the finetune phase: kernel 11 launches per decode step in the fused_mlp variant
-GEN7_LAYERS = 24
+# its 32 layers cut to 16 (full width) to keep the whole run inside its time limit
+# with the finetune and multi phases: kernel 11 launches per decode step in the
+# fused_mlp variant
+GEN7_LAYERS = 16
 GEN7_CONFIG = f"{GEN7_BASE}-{GEN7_LAYERS}-layers"
 GEN7_NEW_TOKENS = 32
 GEN7_FUSED_LOGITS_RTOL = 5e-2  # fused MLP against unfused: per-chunk hidden scales differ
@@ -4731,6 +4754,389 @@ def phase_cli(ph: Phase, dev, shared: dict) -> dict:
     return out
 
 
+MULTI_K = 3
+MULTI_STORES = {"int8": BENCH_STORE, "bf16": dict(CONFIG_STORE, format="bf16")}
+MULTI_KERNEL = {"int8": "int8_scan_topk", "bf16": "scan_topk_bf16"}
+MULTI_RECALL_SLACK = 0.005  # recall@3 of the mesh store within this of the unsharded store's
+MULTI_PQ_ROWS = 1 << 17
+MULTI_PQ_STORE = dict(CONFIG_STORE, format="pq", pq_iters=8, pq_opq_iters=2)
+MULTI_BATCH, MULTI_PROMPT, MULTI_NEW_TOKENS = 8, 64, 32
+MULTI_TRAIN_BATCH, MULTI_TRAIN_SEQ = 4, 256
+MULTI_LOSS_RTOL = 1e-3
+# kernel table row → its count on the mesh path
+MULTI_LAUNCH_KEY = {"int8_scan_topk": "int8_scan_topk", "scan_topk_f32_bf16": "scan_topk_bf16",
+                    "adc_scan_topk_residual": "adc_scan_topk_residual",
+                    "decode_attention_int8": "decode_attention_int8"}
+
+
+def phase_multi(ph: Phase, dev, seed: int, shared: dict) -> dict:
+    """Multi-device serving and training at world size 1 (a one-rank NCCL
+    group; every collective runs): (a) int8 and bf16 mesh stores over the
+    full phase's 1M embeddings, search_batch at batch 328, k 3, through
+    kernels 1 and 2 (counted), ids against the plain shard body on the same
+    tensors, recall@3 against the fp32 exact top-3 beside the unsharded
+    store's, ms per query beside it; (b) a residual pq mesh store with the
+    int8 mirror at 131,072 rows through kernel 3 (counted), bit for bit
+    against the plain versions; (c) the 1b config, dense bf16, kv_bits 8, at
+    (dp, tp) = (1, 1): sharded_generate_tokens, 32 greedy tokens at batch 8
+    equal to the unsharded generate_tokens, kernel 10 16 times a decode step,
+    the first decode step against the plain version; one AdamW
+    make_sharded_train_step at 4 × 256 tokens, its loss within 1e-3 of the
+    unsharded loss. Returns the main path's launches by kernel."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from crs_tpu_torch.finetuning.trainer import masked_loss
+    from crs_tpu_torch.models.sampling import SamplingParams, generate_tokens
+    from crs_tpu_torch.models.sharding import (
+        make_model_mesh, make_sharded_train_step, param_leaves, shard_batch, shard_params,
+        sharded_generate_tokens,
+    )
+    from crs_tpu_torch.models.transformer import (
+        CONFIGS, decode_step, forward, init_cache, init_params, prefill,
+    )
+    from crs_tpu_torch.ops import decode_attention
+    from crs_tpu_torch.ops.scan import STATS
+    from crs_tpu_torch.ops.topk import exact_topk
+    from crs_tpu_torch.parallel import corpus_mesh
+    from crs_tpu_torch.parallel.sharded_index import sharded_topk, sharded_topk_int8
+    from crs_tpu_torch.rag import VectorStore
+
+    texts, queries, emb, em = (shared[k] for k in ("texts", "queries", "emb", "em"))
+    n = emb.shape[0]
+    q_emb = em.embed(queries)
+    exact_ids = exact_topk(emb, q_emb, MULTI_K, n)[1].cpu().tolist()
+
+    def recall(ids) -> float:
+        return sum(len(set(g) & set(e)) for g, e in zip(ids.cpu().tolist(), exact_ids)) / (
+            MULTI_K * len(exact_ids))
+
+    mesh = corpus_mesh(device=dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    out = {"card": smi.stdout.strip().splitlines()[0], "world_size": dist.get_world_size(),
+           "backend": dist.get_backend(), "corpus_mesh": list(mesh.mesh.shape)}
+    launches = {}
+    for fmt, cfg in MULTI_STORES.items():
+        plain_store = VectorStore(cfg, device=dev)
+        plain_store.create_index(texts, emb)
+        unsharded_ms = device_ms(dev, lambda: plain_store.search_batch(q_emb, MULTI_K), iters=5)
+        unsharded_recall = recall(plain_store.search_batch(q_emb, MULTI_K)[1])
+        del plain_store
+        sync(dev)
+        t0 = time.perf_counter()
+        store = VectorStore(cfg, device=dev, mesh=mesh)
+        store.create_index(texts, emb)
+        sync(dev)
+        setup_s = time.perf_counter() - t0
+        res = {}
+
+        def serve():
+            res["got"] = store.search_batch(q_emb, MULTI_K)
+
+        # the main path: counts to 0 just before, read just after
+        reset_counts()
+        mesh_ms = device_ms(dev, serve, iters=5, warmup=1)
+        count = STATS.by_kernel.get(MULTI_KERNEL[fmt], 0)
+        if count == 0:
+            raise AssertionError(f"multi {fmt}: {MULTI_KERNEL[fmt]} never launched: "
+                                 f"{STATS.by_kernel}")
+        launches[MULTI_KERNEL[fmt]] = count
+        got = res["got"]
+        if fmt == "int8":  # the dense per-shard body: kernel 1's route not taken
+            ref = sharded_topk_int8(store._codes, store._scales, q_emb, MULTI_K, n, mesh,
+                                    rescore_k=store.rescore_k, block_size=1 << 30)
+        else:
+            ref = sharded_topk(store._vectors, q_emb, MULTI_K, n, mesh, block_size=1 << 30)
+        err = check_float_ranked(got, ref, FLOAT_RTOL.get(fmt, ID_RTOL), 1)
+        mesh_recall = recall(got[1])
+        if abs(mesh_recall - unsharded_recall) > MULTI_RECALL_SLACK:
+            raise AssertionError(f"multi {fmt}: recall@3 {mesh_recall} against the unsharded "
+                                 f"store's {unsharded_recall}")
+        out[fmt] = {"rows": n, "batch": BATCH, "k": MULTI_K, "setup_s": setup_s,
+                    "ms_per_query": mesh_ms / BATCH, "unsharded_ms_per_query":
+                    unsharded_ms / BATCH, "launches_per_batch": count / 6,
+                    "vs_plain_shard_body_max_abs": err, "recall_at_3_vs_fp32_exact": mesh_recall,
+                    "unsharded_recall_at_3": unsharded_recall,
+                    "memory_bytes": store.memory_bytes()}
+        del store, res, got, ref
+        empty_cache(dev)
+
+    # (b) residual pq with the int8 mirror: kernel 3 on the shard
+    t0 = time.perf_counter()
+    store = VectorStore(MULTI_PQ_STORE, device=dev, mesh=mesh)
+    store.create_index(texts[:MULTI_PQ_ROWS], emb[:MULTI_PQ_ROWS])
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    res = {}
+    pq_ms = device_ms(dev, lambda: res.update(got=store.search_batch(q_emb, MULTI_K)), iters=5)
+    count = STATS.by_kernel.get("adc_scan_topk_residual", 0)
+    if count == 0:
+        raise AssertionError(f"multi pq: kernel 3 never launched: {STATS.by_kernel}")
+    launches["adc_scan_topk_residual"] = count
+    with plain_kernels():
+        ref = store.search_batch(q_emb, MULTI_K)
+    check_bits(res["got"], ref, "multi pq search_batch")
+    out["pq"] = {"rows": MULTI_PQ_ROWS, "setup_s": setup_s, "pq_train_s":
+                 store.build_seconds.get("pq_train"), "ms_per_query": pq_ms / BATCH,
+                 "num_coarse": int(store._rpq.coarse.shape[0]), "vs_plain": "bit-identical",
+                 "memory_bytes": store.memory_bytes()}
+    del store, res, ref
+    empty_cache(dev)
+
+    # (c) the 1b model at (dp, tp) = (1, 1)
+    cfg = dataclasses.replace(CONFIGS[GEN_CONFIG], kv_bits=8)
+    t0 = time.perf_counter()
+    params = init_params(seed, cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    model_mesh = make_model_mesh(device=dev)
+    shard = shard_params(params, model_mesh, cfg)
+    g = torch.Generator().manual_seed(seed + 17)
+    ids = torch.randint(0, cfg.vocab_size, (MULTI_BATCH, MULTI_PROMPT), generator=g).to(dev)
+    mask = torch.ones_like(ids, dtype=torch.bool)
+    mask[1, :MULTI_PROMPT // 4] = False  # a left-padded row
+    sp = SamplingParams(max_new_tokens=MULTI_NEW_TOKENS, eos_id=-1, pad_id=0)
+    gen = torch.Generator(device=dev)
+    ref_tokens, ref_lengths = generate_tokens(params, cfg, ids, mask, gen, sp)
+    sharded_generate_tokens(shard, cfg, ids, mask, gen, SamplingParams(max_new_tokens=2),
+                            model_mesh)  # warm-up
+    reset_counts()  # the main path: counts to 0 just before, read just after
+    sync(dev)
+    t0 = time.perf_counter()
+    tokens, lengths = sharded_generate_tokens(shard, cfg, ids, mask, gen, sp, model_mesh)
+    sync(dev)
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    steps = MULTI_NEW_TOKENS - 1
+    attn = decode_attention.STATS.by_kernel.get("decode_attention_int8", 0)
+    if attn != ATTN_LAUNCHES_PER_STEP_1B * steps:
+        raise AssertionError(f"multi: kernel 10 launched {attn} times in {steps} decode steps")
+    launches["decode_attention_int8"] = attn
+    if not (torch.equal(tokens, ref_tokens) and torch.equal(lengths, ref_lengths)):
+        bad = int((tokens != ref_tokens).sum())
+        raise AssertionError(f"multi: sharded greedy tokens differ from the unsharded at {bad}")
+    # kernel 10 on the local cache against its plain version: the first decode step
+    cache = init_cache(cfg, MULTI_BATCH, MULTI_PROMPT + 2, device=dev, mesh=model_mesh)
+    logits, cache = prefill(shard, cfg, ids, cache, mask, mesh=model_mesh)
+    token = torch.argmax(logits[:, -1], dim=-1)
+    got, _ = decode_step(shard, cfg, token, clone_cache(cache), mesh=model_mesh)
+    with plain_kernels():
+        ref, _ = decode_step(shard, cfg, token, clone_cache(cache), mesh=model_mesh)
+    rel = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref))
+    if not rel <= GEN_LOGITS_RTOL:
+        raise AssertionError(f"multi: first-step logits differ from the plain version by {rel}")
+    del cache, logits, got, ref
+
+    # one AdamW step on (1, 1) against the unsharded loss
+    g = torch.Generator().manual_seed(seed + 18)
+    t_ids = torch.randint(0, cfg.vocab_size, (MULTI_TRAIN_BATCH, MULTI_TRAIN_SEQ), generator=g)
+    t_mask = torch.ones_like(t_ids, dtype=torch.bool)
+    with torch.no_grad():
+        ref_loss = float(masked_loss(forward(params, cfg, t_ids.to(dev), t_mask.to(dev)),
+                                     t_ids.to(dev), t_mask.to(dev)))
+    del params
+    empty_cache(dev)
+    opt = torch.optim.AdamW(param_leaves(shard), lr=1e-4)
+    step = make_sharded_train_step(cfg, model_mesh, opt)
+    b_ids, b_mask = shard_batch(t_ids, t_mask, model_mesh)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(step(shard, b_ids, b_mask))
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    if not abs(loss - ref_loss) <= MULTI_LOSS_RTOL * abs(ref_loss):
+        raise AssertionError(f"multi: sharded loss {loss} against the unsharded {ref_loss}")
+    out["model"] = {"config": GEN_CONFIG, "dtype": "bf16", "kv_bits": 8, "mesh": [1, 1],
+                    "init_s": init_s, "batch": MULTI_BATCH, "prompt_tokens": MULTI_PROMPT,
+                    "new_tokens": MULTI_NEW_TOKENS, "generate_ms": gen_ms,
+                    "tokens_equal_unsharded": True,
+                    "attn_launches_per_decode_step": attn / steps,
+                    "first_step_logits_rel_l2_vs_plain": rel,
+                    "train_tokens": MULTI_TRAIN_BATCH * MULTI_TRAIN_SEQ, "train_step_ms": step_ms,
+                    "train_loss": loss, "unsharded_loss": ref_loss,
+                    "train_peak_bytes": torch.cuda.max_memory_allocated()
+                    if dev.type == "cuda" else None}
+    del shard, opt, step
+    empty_cache(dev)
+    dist.destroy_process_group()
+    out["main_path_launches"] = launches
+    out["note"] = ("ms_per_query: CUDA events over 5 batches of search_batch; generate_ms and "
+                   "train_step_ms: host clock around one call")
+    ph.info.update(out)
+    return launches
+
+
+RANKS_ROWS, RANKS_ADD, RANKS_PQ_ROWS = 1 << 18, 4096, 1 << 17
+RANKS_MODEL = {"vocab_size": 4096, "hidden_size": 1024, "num_layers": 4, "num_heads": 8,
+               "num_kv_heads": 4, "intermediate_size": 2816, "max_seq_len": 1024, "kv_bits": 8}
+RANKS_SGD_ATOL, RANKS_SGD_RTOL = 5e-5, 1e-4  # tests/test_sharding.py's single-device step
+
+
+def phase_ranks(ph: Phase, dev, seed: int) -> dict:
+    """The mesh path across every rank of the launch (``torchrun
+    --nproc-per-node n chip_smoke.py --phases ranks``, after a ``build``
+    call; not among the default phases): each rank builds the same inputs
+    from the seed and holds its result against what it computes unsharded.
+    (a) int8, bf16 and residual pq mesh stores at 262,144 × 384 (pq 131,072
+    rows), batch 328, k 3: kernels 1, 2, 3 launched on every rank, ids
+    against the plain shard body (pq: bit for bit against the plain
+    versions), recall@3 against the fp32 exact top-3 beside the unsharded
+    store's; a bf16 add across a regrow (rows move between ranks) against a
+    fresh mesh store over the same rows, get_vectors against the host rows,
+    save on rank 0 loaded unsharded. (b) an f32 model with hd 128 and
+    kv_bits 8 on make_model_mesh(): greedy tokens equal to the unsharded
+    model's, kernel 10 on each rank's cache, and one SGD step against the
+    unsharded step (the loss, and this rank's lm_head columns)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from crs_tpu_torch.finetuning.trainer import masked_loss
+    from crs_tpu_torch.models.sampling import SamplingParams, generate_tokens
+    from crs_tpu_torch.models.sharding import (
+        make_model_mesh, make_sharded_train_step, param_leaves, shard_batch, shard_params,
+        sharded_generate_tokens,
+    )
+    from crs_tpu_torch.models.transformer import TransformerConfig, forward, init_params
+    from crs_tpu_torch.ops import decode_attention
+    from crs_tpu_torch.ops.scan import STATS
+    from crs_tpu_torch.ops.topk import exact_topk
+    from crs_tpu_torch.parallel import corpus_mesh
+    from crs_tpu_torch.parallel.mesh import mesh_device
+    from crs_tpu_torch.parallel.sharded_index import sharded_topk, sharded_topk_int8
+    from crs_tpu_torch.rag import VectorStore
+
+    mesh = corpus_mesh(device=dev)
+    dev = mesh_device(mesh)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    rng = np.random.default_rng(seed + 31)
+    centers = rng.standard_normal((1024, DIM)).astype(np.float32)
+    x = centers[rng.integers(0, 1024, RANKS_ROWS + RANKS_ADD)]
+    x += 0.3 * rng.standard_normal(x.shape).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.choice(RANKS_ROWS, BATCH, replace=False)] + 0.05 * rng.standard_normal(
+        (BATCH, DIM)).astype(np.float32)
+    q = torch.nn.functional.normalize(torch.from_numpy(q), dim=1).to(dev)
+    emb = torch.from_numpy(x).to(dev)
+    texts = [f"d{i}" for i in range(x.shape[0])]
+    out = {"world_size": world, "backend": dist.get_backend(), "device": str(dev)}
+
+    def recall(ids, n) -> float:
+        exact = exact_topk(emb[:n], q, 3, n)[1].cpu().tolist()
+        return sum(len(set(g) & set(e)) for g, e in zip(ids.cpu().tolist(), exact)) / (3 * BATCH)
+
+    launches = {}
+    for fmt, cfg, kernel, rows in (("int8", BENCH_STORE, "int8_scan_topk", RANKS_ROWS),
+                                   ("bf16", MULTI_STORES["bf16"], "scan_topk_bf16", RANKS_ROWS),
+                                   ("pq", MULTI_PQ_STORE, "adc_scan_topk_residual",
+                                    RANKS_PQ_ROWS)):
+        store = VectorStore(cfg, device=dev, mesh=mesh)
+        store.create_index(texts[:rows], emb[:rows])
+        reset_counts()
+        got = store.search_batch(q, 3)
+        launches[kernel] = STATS.by_kernel.get(kernel, 0)
+        if launches[kernel] != 1:
+            raise AssertionError(f"ranks {fmt}: rank {rank} launched {STATS.by_kernel}")
+        if fmt == "pq":
+            with plain_kernels():
+                check_bits(got, store.search_batch(q, 3), "ranks pq")
+        elif fmt == "int8":
+            check_float_ranked(got, sharded_topk_int8(store._codes, store._scales, q, 3, rows,
+                                                      mesh, rescore_k=store.rescore_k,
+                                                      block_size=1 << 30), ID_RTOL, 1)
+        else:
+            check_float_ranked(got, sharded_topk(store._vectors, q, 3, rows, mesh,
+                                                 block_size=1 << 30), FLOAT_RTOL[fmt], 1)
+        single = VectorStore(cfg, device=dev)
+        single.create_index(texts[:rows], emb[:rows])
+        out[fmt] = {"local_rows": store._padded_rows() // world,
+                    "recall_at_3": recall(got[1], rows),
+                    "unsharded_recall_at_3": recall(single.search_batch(q, 3)[1], rows)}
+        # each shard rescores its own rescore_k candidates (S times as many in all), so
+        # the mesh store's recall may rise above the unsharded store's, never fall
+        if out[fmt]["recall_at_3"] < out[fmt]["unsharded_recall_at_3"] - 0.01:
+            raise AssertionError(f"ranks {fmt}: recall {out[fmt]}")
+        if fmt == "bf16":  # add across a regrow, gathers, save on rank 0
+            before = store._padded_rows()
+            store.add(texts[rows:], emb[rows:])
+            fresh = VectorStore(cfg, device=dev, mesh=mesh)
+            fresh.create_index(texts, emb)
+            check_float_ranked(store.search_batch(q, 3), fresh.search_batch(q, 3),
+                               FLOAT_RTOL[fmt], 1)
+            picks = np.array([0, rows // 2, rows - 1, rows, x.shape[0] - 1])
+            want = torch.from_numpy(x[picks]).to(torch.bfloat16).float().numpy()
+            if not np.array_equal(store.get_vectors(picks), want):
+                raise AssertionError("ranks: get_vectors differs from the host rows")
+            tmp = [tempfile.mkdtemp(prefix="ranks_") if rank == 0 else None]
+            dist.broadcast_object_list(tmp, src=0)
+            store.save(tmp[0])
+            loaded = VectorStore(cfg, device=dev)
+            loaded.load(tmp[0])
+            check_float_ranked(loaded.search_batch(q, 3), fresh.search_batch(q, 3),
+                               FLOAT_RTOL[fmt], 1)
+            dist.barrier()
+            if rank == 0:
+                shutil.rmtree(tmp[0], ignore_errors=True)
+            out[fmt].update(padded_before=before, padded_after=store._padded_rows())
+        del store, single
+        empty_cache(dev)
+
+    # (b) the dp × tp model
+    mm = make_model_mesh(device=dev)
+    cfg = TransformerConfig(**RANKS_MODEL, dtype=torch.float32)
+    params = init_params(seed, cfg, device=dev)
+    shard = shard_params(params, mm, cfg)
+    g = torch.Generator().manual_seed(seed + 32)
+    ids = torch.randint(0, cfg.vocab_size, (8, 48), generator=g).to(dev)
+    mask = torch.ones_like(ids, dtype=torch.bool)
+    mask[3, :10] = False
+    sp = SamplingParams(max_new_tokens=16, eos_id=-1, pad_id=0)
+    gen = torch.Generator(device=dev)
+    ref = generate_tokens(params, cfg, ids, mask, gen, sp)
+    reset_counts()
+    got = sharded_generate_tokens(shard, cfg, ids, mask, gen, sp, mm)
+    attn = decode_attention.STATS.by_kernel.get("decode_attention_int8", 0)
+    launches["decode_attention_int8"] = attn
+    if attn != cfg.num_layers * (sp.max_new_tokens - 1):
+        raise AssertionError(f"ranks: kernel 10 launched {attn} times on rank {rank}")
+    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+        raise AssertionError(f"ranks: sharded tokens differ on rank {rank}")
+    t_ids = torch.randint(0, cfg.vocab_size, (8, 64), generator=g).to(dev)
+    t_mask = torch.ones_like(t_ids, dtype=torch.bool)
+    lm = params["lm_head"].clone().requires_grad_(True)
+    full = dict(params, lm_head=lm)
+    for p in param_leaves(full):
+        p.requires_grad_(True)
+    loss_t = masked_loss(forward(full, cfg, t_ids, t_mask), t_ids, t_mask)
+    loss_t.backward()
+    ref_loss = loss_t.item()
+    step = make_sharded_train_step(cfg, mm, torch.optim.SGD(param_leaves(shard), lr=1e-2))
+    loss = float(step(shard, *shard_batch(t_ids, t_mask, mm)))
+    cols = shard["lm_head"].shape[1]
+    tp_rank = mm.get_local_rank("tp")
+    want = (lm - 1e-2 * lm.grad).detach()[:, tp_rank * cols:(tp_rank + 1) * cols]
+    diff = (shard["lm_head"].detach() - want).abs()
+    if not (abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+            and bool((diff <= RANKS_SGD_ATOL + RANKS_SGD_RTOL * want.abs()).all())):
+        raise AssertionError(f"ranks: SGD step loss {loss} / {ref_loss}, "
+                             f"lm_head diff {float(diff.max())}")
+    out["model"] = {"mesh": [mm.size(0), mm.size(1)], "tokens_equal_unsharded": True,
+                    "attn_launches": attn, "sgd_loss": loss, "unsharded_loss": ref_loss,
+                    "lm_head_max_abs_diff": float(diff.max())}
+    out["launches"] = launches
+    dist.barrier()
+    dist.destroy_process_group()
+    ph.info.update(out, rank=rank)
+    return out
+
+
 def kernel_table(res: dict) -> list:
     """The kernel line: every ported kernel with its launches on its main
     path and its numbers from this run."""
@@ -4806,13 +5212,19 @@ def kernel_table(res: dict) -> list:
         "replaces": "crs_tpu/ops/fused_mlp.py:74",
         "launches": res["generate_7b"]["main_path_launches"], "max_abs_err": mlp["max_abs_err"],
         **{k: mlp[k] for k in keys}, "library_ms": None})
+    multi = res["multi"]  # the mesh path's launches (kernels 1, 2, 3 and 10; 0 elsewhere)
+    for row in rows:
+        row["launches_multi"] = multi.get(MULTI_LAUNCH_KEY.get(row["name"], ""), 0)
     return rows
 
 
 ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted_adc",
               "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "faults",
-              "bench", "full", "formats", "add", "generate", "evaluate", "finetune", "rag",
-              "lexical", "minilm", "cli", "generate_7b", "calibrated")
+              "bench", "full", "formats", "add", "multi", "generate", "evaluate", "finetune",
+              "rag", "lexical", "minilm", "cli", "generate_7b", "calibrated")
+# selectable with --phases, not run by default: the mesh path across every rank of a
+# torchrun launch (after a separate build call)
+EXTRA_PHASES = ("ranks",)
 
 
 def main(argv=None) -> int:
@@ -4823,7 +5235,7 @@ def main(argv=None) -> int:
                          "kernel table and the last line need all of them")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    unknown = set(phases) - set(ALL_PHASES)
+    unknown = set(phases) - set(ALL_PHASES + EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -4864,6 +5276,7 @@ def main(argv=None) -> int:
                                       shared),
         "formats": lambda ph: phase_formats(ph, dev, shared),
         "add": lambda ph: phase_add(ph, dev, args.seed, shared),
+        "multi": lambda ph: phase_multi(ph, dev, args.seed, shared),
         "generate": lambda ph: phase_generate(ph, dev, args.seed, shared),
         "evaluate": lambda ph: phase_evaluate(ph, dev, args.seed, shared),
         "finetune": lambda ph: phase_finetune(ph, dev, args.seed),
@@ -4873,9 +5286,10 @@ def main(argv=None) -> int:
         "cli": lambda ph: phase_cli(ph, dev, shared),
         "generate_7b": lambda ph: phase_generate_7b(ph, dev, args.seed),
         "calibrated": lambda ph: phase_calibrated(ph, dev, args.seed),
+        "ranks": lambda ph: phase_ranks(ph, dev, args.seed),
     }
     try:
-        for name in ALL_PHASES:
+        for name in ALL_PHASES + EXTRA_PHASES:
             if name in phases:
                 with Phase(name) as ph:
                     res[name] = steps[name](ph)

@@ -8,8 +8,9 @@ generator (the quantized
 causal LM with prefill and int8-KV decode, fused projections and the fused
 int8 MLP, GPTQ / AWQ calibration, local Hugging Face checkpoints, sampling,
 the model interface, answer generation and the RAG pipeline), the
-evaluation with its analysis tools, and QLoRA finetuning on an NVIDIA
-H100. Module names mirror ``crs_tpu``'s so each
+evaluation with its analysis tools, QLoRA finetuning, and multi-device
+serving and training over ``torch.distributed`` (``parallel``,
+``models.sharding``) on NVIDIA H100s. Module names mirror ``crs_tpu``'s so each
 counterpart is easy to find; the TPU kernels on these paths are
 hand-written CUDA kernels in ``csrc/``: the scans of
 ``crs_tpu.ops.pallas_scan`` (``pallas_topk_int8``, ``pallas_topk``,

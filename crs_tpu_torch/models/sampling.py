@@ -7,6 +7,14 @@ as a Python loop over ``max_new_tokens`` with the same ``tokens`` /
 ``lengths`` contract. Sampled draws come from a ``torch.Generator`` and
 cannot match ``jax.random``'s; greedy decoding and the filters are
 deterministic and hold to ``crs_tpu``.
+
+With a dp × tp ``mesh`` (``crs_tpu_torch.models.sharding``) the params are
+this rank's shard and the prompts the whole batch, the same on every rank:
+the batch splits over dp when it divides (else every dp rank runs every
+row, and the int8-KV decode takes the emulation, as ``crs_tpu``'s gate
+refuses the batch), each rank keeps its own KV cache, the tp ranks of a dp
+group take the token of their first rank, and the tokens and lengths are
+all-gathered over dp, so every rank returns the whole [B, T].
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 
 from .transformer import TransformerConfig, decode_step, init_cache, prefill, recip32
 
@@ -71,18 +80,44 @@ def _sample(logits: torch.Tensor, generator: torch.Generator, sp: SamplingParams
     return torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=generator)[:, 0]
 
 
+def _dp_rows(mesh, batch: int) -> slice:
+    """This rank's rows of the batch: its dp slice when the batch splits,
+    else every row."""
+    dp = mesh.size(0)
+    if batch % dp:
+        return slice(0, batch)
+    per = batch // dp
+    r = mesh.get_local_rank("dp")
+    return slice(r * per, (r + 1) * per)
+
+
+def _gather_dp(mesh, local: torch.Tensor) -> torch.Tensor:
+    """The whole batch's rows from every dp rank."""
+    group = mesh.get_group("dp")
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, local.contiguous(), group=group)
+    return torch.cat(parts, 0)
+
+
 @torch.no_grad()
 def generate_tokens(params, cfg: TransformerConfig, prompt_ids: torch.Tensor,
                     prompt_mask: torch.Tensor, generator: torch.Generator,
-                    sp: SamplingParams) -> Tuple[torch.Tensor, torch.Tensor]:
+                    sp: SamplingParams, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate from left-padded prompts [B, S] → (tokens [B, max_new_tokens],
     lengths [B]). Tokens after a row's EOS are ``pad_id``; ``lengths``
     counts the real tokens, the EOS included. No gradient: a LoRA model's
-    adapters require one, the decode kernels are forward-only."""
+    adapters require one, the decode kernels are forward-only. ``mesh``:
+    see the module's docstring."""
+    batch = prompt_ids.shape[0]
+    if mesh is not None:
+        mine = _dp_rows(mesh, batch)
+        prompt_ids, prompt_mask = prompt_ids[mine], prompt_mask[mine]
+        tp_group = mesh.get_group("tp")
+        tp_src = dist.get_process_group_ranks(tp_group)[0]
     b, s = prompt_ids.shape
     dev = prompt_ids.device
-    cache = init_cache(cfg, b, s + sp.max_new_tokens, device=dev)
-    logits, cache = prefill(params, cfg, prompt_ids, cache, prompt_mask)
+    cache = init_cache(cfg, b, s + sp.max_new_tokens, device=dev, mesh=mesh)
+    logits, cache = prefill(params, cfg, prompt_ids, cache, prompt_mask, mesh=mesh)
     logits = logits[:, -1, :]
     rows = torch.arange(b, device=dev)
     seen = torch.zeros((b, cfg.vocab_size), dtype=torch.bool, device=dev)
@@ -93,16 +128,22 @@ def generate_tokens(params, cfg: TransformerConfig, prompt_ids: torch.Tensor,
         if sp.repetition_penalty != 1.0:
             logits = _apply_repetition_penalty(logits, seen, sp.repetition_penalty)
         token = _sample(logits, generator, sp)
+        if mesh is not None:  # one draw for the whole tp group
+            token = token.contiguous()
+            dist.broadcast(token, src=tp_src, group=tp_group)
         token = torch.where(done, sp.pad_id, token)
         tokens.append(token)
         was_done.append(done)
         done = done | (token == sp.eos_id)
         seen[rows, token] = True
         if step + 1 < sp.max_new_tokens:  # the last step's logits go unused
-            logits, cache = decode_step(params, cfg, token, cache)
+            logits, cache = decode_step(params, cfg, token, cache, mesh=mesh,
+                                        global_batch=batch)
     if not tokens:
-        return (torch.zeros((b, 0), dtype=torch.long, device=dev),
-                torch.zeros((b,), dtype=torch.long, device=dev))
+        return (torch.zeros((batch, 0), dtype=torch.long, device=dev),
+                torch.zeros((batch,), dtype=torch.long, device=dev))
     tokens_t = torch.stack(tokens, dim=1)
     lengths = (~torch.stack(was_done, dim=1)).sum(dim=1)
+    if mesh is not None and batch % mesh.size(0) == 0:  # the batch was split over dp
+        tokens_t, lengths = _gather_dp(mesh, tokens_t), _gather_dp(mesh, lengths)
     return tokens_t, lengths

@@ -19,6 +19,16 @@ layers, and decode-sized rows then go through the CUDA kernel of
 ``ops.fused_mlp`` (TPU kernel 11). ``forward_captured`` returns each
 layer's linear inputs for the calibrated quantizers (``quant_calib``).
 
+``forward``, ``prefill``, ``decode_step`` and ``init_cache`` take a dp × tp
+``mesh`` (``crs_tpu_torch.models.sharding``): the params are then this
+rank's shard (``shard_params``: heads, the MLP's width and the vocab split
+over tp) and the tensors this rank's batch rows. Column-parallel products
+(q / k / v, gate / up, the LM head) need no communication; the row-parallel
+o and down products sum each rank's product over tp in f32 and round once;
+the vocab-split embedding is a masked lookup summed over tp, and the logits
+are all-gathered over tp. The collectives are autograd-aware
+(``parallel.collectives``).
+
 Arithmetic follows the JAX version as XLA compiles it: bf16 elementwise ops
 round one by one; a division by a constant is a product with the
 constant's float32 reciprocal (``recip32``); and where an f32 convert reads
@@ -38,10 +48,11 @@ import numpy as np
 import torch
 
 from ..ops.decode_attention import (
-    decode_attention_int8, decode_attention_supported, emulate_decode_attention_int8,
-    quantize_kv_rows,
+    decode_attention_int8, decode_attention_shardable, decode_attention_supported,
+    emulate_decode_attention_int8, quantize_kv_rows,
 )
 from ..ops.fused_mlp import fused_mlp_int8, fused_mlp_layout, fused_mlp_supported
+from ..parallel.collectives import copy_to_group, gather_last_dim, reduce_from_group
 from .quantized import QuantizedTensor, qmatmul
 
 Params = Dict[str, Any]
@@ -114,6 +125,57 @@ class QuantKVCache:
     v_scales: torch.Tensor
     mask: torch.Tensor  # [B, S_max] bool
     length: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    """This rank's place on a dp × tp mesh: the tp group and its size."""
+
+    mesh: Any
+    group: Any
+    size: int
+    rank: int
+
+
+def _tp_of(mesh) -> Optional[_TP]:
+    if mesh is None:
+        return None
+    if tuple(mesh.mesh_dim_names) != ("dp", "tp"):
+        raise ValueError(f"a (dp, tp) mesh, got {mesh.mesh_dim_names}")
+    return _TP(mesh, mesh.get_group("tp"), mesh.size(1), mesh.get_local_rank("tp"))
+
+
+def _heads(cfg: "TransformerConfig", tp: Optional[_TP]):
+    """(query heads, kv-heads, head dim) on this rank."""
+    split = 1 if tp is None else tp.size
+    return cfg.num_heads // split, cfg.num_kv_heads // split, cfg.head_dim
+
+
+def _col_in(x: torch.Tensor, tp: Optional[_TP]) -> torch.Tensor:
+    """The input of a column-parallel product (Megatron's f)."""
+    return x if tp is None else copy_to_group(x, tp.group)
+
+
+def _row_product(x: torch.Tensor, w: Any, tp: Optional[_TP], unrounded=None) -> torch.Tensor:
+    """A row-parallel product: each rank's ``qmatmul`` summed over tp in f32
+    and rounded once to x's dtype (on one rank: the product itself)."""
+    out = qmatmul(x, w, unrounded)
+    if tp is None:
+        return out
+    return reduce_from_group(out.float(), tp.group).to(out.dtype)
+
+
+def _embed(params: Params, ids: torch.Tensor, tp: Optional[_TP]) -> torch.Tensor:
+    """The embedding lookup; vocab-split over tp, a masked lookup of this
+    rank's rows summed over tp (each id's row lives on one rank)."""
+    table = params["embed"]
+    if tp is None:
+        return table[ids]
+    rows = table.shape[0]
+    local = ids - tp.rank * rows
+    owned = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].float() * owned[..., None]
+    return reduce_from_group(x, tp.group).to(table.dtype)
 
 
 def recip32(c: float) -> float:
@@ -266,11 +328,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _project_qkv(x: torch.Tensor, p: Params, cfg: TransformerConfig, positions: torch.Tensor,
-                 unrounded=None):
-    """q [B, S, H, hd], k / v [B, S, Hkv, hd], rope on q and k; one product
-    and a split with fused params (:func:`fuse_qkv_params`)."""
+                 unrounded=None, tp: Optional[_TP] = None):
+    """q [B, S, H, hd], k / v [B, S, Hkv, hd] (this rank's heads), rope on
+    q and k; one product and a split with fused params
+    (:func:`fuse_qkv_params`)."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, hkv, hd = _heads(cfg, tp)
+    x = _col_in(x, tp)
     if "qkv" in p:
         qkv = qmatmul(x, p["qkv"], unrounded)
         q = qkv[..., :h * hd].reshape(b, s, h, hd)
@@ -295,14 +359,14 @@ def _gate_up(hmlp: torch.Tensor, mlp: Params, unrounded=None):
 
 def _attention(x, p, cfg: TransformerConfig, positions, cache_kv, cache_len: Optional[int],
                key_valid: Optional[torch.Tensor] = None, unrounded=None,
-               capture: Optional[dict] = None):
+               capture: Optional[dict] = None, tp: Optional[_TP] = None):
     """Attention with an explicit product and softmax (no fused library
     attention). With ``cache_kv`` ([B, S_max, Hkv, hd] each) the new k / v
     rows are written into it at ``cache_len``. ``capture`` records the
     o-projection's input (``o_in``)."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _project_qkv(x, p, cfg, positions, unrounded)
+    h, hkv, hd = _heads(cfg, tp)
+    q, k, v = _project_qkv(x, p, cfg, positions, unrounded, tp)
     if cache_kv is not None:
         ck, cv = cache_kv
         if cache_len + s > ck.shape[1]:
@@ -331,7 +395,7 @@ def _attention(x, p, cfg: TransformerConfig, positions, cache_kv, cache_len: Opt
     ctx = ctx.reshape(b, s, h * hd)
     if capture is not None:
         capture["o_in"] = ctx
-    return qmatmul(ctx, p["o"])
+    return _row_product(ctx, p["o"], tp)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -341,7 +405,8 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp_block_res(x32: torch.Tensor, dtype: torch.dtype, layer: Params,
-                   cfg: TransformerConfig, capture: Optional[dict] = None) -> torch.Tensor:
+                   cfg: TransformerConfig, capture: Optional[dict] = None,
+                   tp: Optional[_TP] = None) -> torch.Tensor:
     """x + MLP(rmsnorm(x)) on the f32 residual stream. Decode-sized rows go
     through the fused MLP kernel when the layer carries its layout
     (:func:`fuse_mlp_params`); the kernel reads the stream rounded to the
@@ -363,18 +428,18 @@ def _mlp_block_res(x32: torch.Tensor, dtype: torch.dtype, layer: Params,
                                  chunk=chunk, eps=cfg.rms_eps)
             return out.reshape(x32.shape).to(dtype).float()
     hmlp, hmlp_unrounded = _norm2(x32, dtype, layer["mlp_norm"]["scale"], cfg.rms_eps)
-    gate_pre, up = _gate_up(hmlp, layer["mlp"], hmlp_unrounded)
+    gate_pre, up = _gate_up(_col_in(hmlp, tp), layer["mlp"], hmlp_unrounded)
     act = silu(gate_pre)
     down_in = act * up
     if capture is not None:
         capture["mlp_in"] = hmlp_unrounded()
         capture["down_in"] = down_in.float()
-    down = qmatmul(down_in, layer["mlp"]["down"], lambda: act.float() * up.float())
+    down = _row_product(down_in, layer["mlp"]["down"], tp, lambda: act.float() * up.float())
     return _residual(x32, dtype, down)
 
 
 def _block(x32, dtype, layer, cfg, positions, cache_kv, cache_len, key_valid=None,
-           capture: Optional[dict] = None):
+           capture: Optional[dict] = None, tp: Optional[_TP] = None):
     """One block on the f32 residual stream ``x32`` (model dtype ``dtype``);
     ``capture`` records each linear input (``attn_in`` before its last
     rounding, as ``mlp_in``; ``o_in``; ``mlp_in``; ``down_in``)."""
@@ -382,8 +447,8 @@ def _block(x32, dtype, layer, cfg, positions, cache_kv, cache_len, key_valid=Non
     if capture is not None:
         capture["attn_in"] = attn_in_unrounded()
     a = _attention(attn_in, layer["attn"], cfg, positions, cache_kv, cache_len, key_valid,
-                   attn_in_unrounded, capture)
-    return _mlp_block_res(_residual(x32, dtype, a), dtype, layer, cfg, capture)
+                   attn_in_unrounded, capture, tp)
+    return _mlp_block_res(_residual(x32, dtype, a), dtype, layer, cfg, capture, tp)
 
 
 def _quant_store_rows(kc, ks, vc, vs, k_new, v_new, cache_len: int) -> None:
@@ -399,41 +464,49 @@ def _quant_store_rows(kc, ks, vc, vs, k_new, v_new, cache_len: int) -> None:
 
 
 def _block_kvq_prefill(x32, dtype, layer, cfg, positions, kc, ks, vc, vs, cache_len,
-                       key_valid):
+                       key_valid, tp: Optional[_TP] = None):
     """Prefill through an int8 cache: the cached rows are dequantized into
     the model-dtype attention layout, the new rows are stored quantized."""
     s = x32.shape[1]
     kd = (kc.float() * ks[..., None]).to(dtype).transpose(1, 2).contiguous()
     vd = (vc.float() * vs[..., None]).to(dtype).transpose(1, 2).contiguous()
-    x32 = _block(x32, dtype, layer, cfg, positions, (kd, vd), cache_len, key_valid)
+    x32 = _block(x32, dtype, layer, cfg, positions, (kd, vd), cache_len, key_valid, tp=tp)
     _quant_store_rows(kc, ks, vc, vs, kd[:, cache_len:cache_len + s],
                       vd[:, cache_len:cache_len + s], cache_len)
     return x32
 
 
-def _block_kvq_decode(x32, dtype, layer, cfg, positions, kc, ks, vc, vs, cache_len, valid):
+def _block_kvq_decode(x32, dtype, layer, cfg, positions, kc, ks, vc, vs, cache_len, valid,
+                      tp: Optional[_TP] = None, global_batch: Optional[int] = None):
     """One decode token through the int8-KV attention kernel (its plain
     version where ``crs_tpu`` takes its XLA emulation: hd or S not
-    128-aligned)."""
+    128-aligned, or on a mesh a batch of ``global_batch`` rows or kv-heads
+    that do not split over it)."""
     b = x32.shape[0]
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, hkv, hd = _heads(cfg, tp)
     xn, xn_unrounded = _norm2(x32, dtype, layer["attn_norm"]["scale"], cfg.rms_eps)
-    q, k_new, v_new = _project_qkv(xn, layer["attn"], cfg, positions, xn_unrounded)
+    q, k_new, v_new = _project_qkv(xn, layer["attn"], cfg, positions, xn_unrounded, tp)
     _quant_store_rows(kc, ks, vc, vs, k_new, v_new, cache_len)
     qh = q.reshape(b, hkv, h // hkv, hd)  # head h = kv·group + g
-    if decode_attention_supported(hd, kc.shape[2]):
+    use_kernel = decode_attention_supported(hd, kc.shape[2])
+    if tp is not None:
+        use_kernel = use_kernel and decode_attention_shardable(
+            global_batch, cfg.num_kv_heads, tp.mesh)
+    if use_kernel:  # on a mesh the cache is this rank's shard: the kernel runs on it as is
         ctx = decode_attention_int8(qh, kc, ks, vc, vs, valid)
     else:
         ctx = emulate_decode_attention_int8(qh, kc, ks, vc, vs, valid)
-    a = qmatmul(ctx.reshape(b, 1, h * hd).to(dtype), layer["attn"]["o"])
-    return _mlp_block_res(_residual(x32, dtype, a), dtype, layer, cfg)
+    a = _row_product(ctx.reshape(b, 1, h * hd).to(dtype), layer["attn"]["o"], tp)
+    return _mlp_block_res(_residual(x32, dtype, a), dtype, layer, cfg, tp=tp)
 
 
 def _logits(x32: torch.Tensor, dtype: torch.dtype, params: Params,
-            cfg: TransformerConfig) -> torch.Tensor:
+            cfg: TransformerConfig, tp: Optional[_TP] = None) -> torch.Tensor:
+    """f32 logits over the whole vocabulary (vocab-split over tp: gathered)."""
     x, x_unrounded = _norm2(x32, dtype, params["final_norm"]["scale"], cfg.rms_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return qmatmul(x, head, x_unrounded).float()
+    logits = qmatmul(_col_in(x, tp), head, x_unrounded).float()
+    return logits if tp is None else gather_last_dim(logits, tp.group)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -441,16 +514,18 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward(params: Params, cfg: TransformerConfig, ids: torch.Tensor,
-            attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            attn_mask: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Full-sequence forward (no cache) → logits [B, S, V] f32.
-    ``attn_mask`` [B, S] marks real tokens; pads are masked as keys."""
+    ``attn_mask`` [B, S] marks real tokens; pads are masked as keys. With a
+    dp × tp ``mesh``, ``params`` is this rank's shard and ``ids`` its rows."""
+    tp = _tp_of(mesh)
     b, s = ids.shape
-    x = params["embed"][ids]
+    x = _embed(params, ids, tp)
     dtype, x32 = x.dtype, x.float()
     positions = _positions(b, s, ids.device)
     for layer in params["layers"]:
-        x32 = _block(x32, dtype, layer, cfg, positions, None, None, attn_mask)
-    return _logits(x32, dtype, params, cfg)
+        x32 = _block(x32, dtype, layer, cfg, positions, None, None, attn_mask, tp=tp)
+    return _logits(x32, dtype, params, cfg, tp)
 
 
 def forward_captured(params: Params, cfg: TransformerConfig, ids: torch.Tensor,
@@ -471,12 +546,14 @@ def forward_captured(params: Params, cfg: TransformerConfig, ids: torch.Tensor,
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               device: Optional[Union[str, torch.device]] = "cpu"):
+               device: Optional[Union[str, torch.device]] = "cpu", mesh=None):
     """An empty cache for ``max_len`` tokens (rounded up to 128 for the
-    int8 cache, the decode kernel's alignment)."""
+    int8 cache, the decode kernel's alignment); with a dp × tp ``mesh``
+    ``batch`` is this rank's rows and the cache holds its kv-heads."""
+    _, hkv, _ = _heads(cfg, _tp_of(mesh))
     if cfg.kv_bits == 8:
         s = -(-max_len // 128) * 128
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, s, cfg.head_dim)
+        shape = (cfg.num_layers, batch, hkv, s, cfg.head_dim)
         return QuantKVCache(
             k_codes=torch.zeros(shape, dtype=torch.int8, device=device),
             k_scales=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
@@ -484,19 +561,21 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
             v_scales=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
             mask=torch.zeros((batch, s), dtype=torch.bool, device=device), length=0,
         )
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, max_len, hkv, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    v=torch.zeros(shape, dtype=cfg.dtype, device=device),
                    mask=torch.zeros((batch, max_len), dtype=torch.bool, device=device), length=0)
 
 
 def prefill(params: Params, cfg: TransformerConfig, ids: torch.Tensor, cache,
-            attn_mask: Optional[torch.Tensor] = None):
+            attn_mask: Optional[torch.Tensor] = None, mesh=None):
     """Run the prompt through the model, filling ``cache`` → (logits
     [B, S, V], cache). Prompts are left-padded, ``attn_mask`` marking real
-    tokens; positions count the pads, as in ``crs_tpu``."""
+    tokens; positions count the pads, as in ``crs_tpu``. ``mesh``: as in
+    :func:`forward`."""
+    tp = _tp_of(mesh)
     b, s = ids.shape
-    x = params["embed"][ids]
+    x = _embed(params, ids, tp)
     dtype, x32 = x.dtype, x.float()
     positions = _positions(b, s, ids.device)
     if attn_mask is None:
@@ -507,29 +586,35 @@ def prefill(params: Params, cfg: TransformerConfig, ids: torch.Tensor, cache,
         if isinstance(cache, QuantKVCache):
             x32 = _block_kvq_prefill(x32, dtype, layer, cfg, positions, cache.k_codes[li],
                                      cache.k_scales[li], cache.v_codes[li], cache.v_scales[li],
-                                     start, cache.mask)
+                                     start, cache.mask, tp)
         else:
             x32 = _block(x32, dtype, layer, cfg, positions, (cache.k[li], cache.v[li]), start,
-                         cache.mask)
+                         cache.mask, tp=tp)
     cache.length = start + s
-    return _logits(x32, dtype, params, cfg), cache
+    return _logits(x32, dtype, params, cfg, tp), cache
 
 
-def decode_step(params: Params, cfg: TransformerConfig, token: torch.Tensor, cache):
-    """One decode step: token [B] → (logits [B, V], cache)."""
+def decode_step(params: Params, cfg: TransformerConfig, token: torch.Tensor, cache, mesh=None,
+                global_batch: Optional[int] = None):
+    """One decode step: token [B] → (logits [B, V], cache). ``mesh``: as in
+    :func:`forward`; ``global_batch`` (default: the rows over dp) gates the
+    int8-KV kernel as ``crs_tpu``'s mesh path does."""
+    tp = _tp_of(mesh)
     b = token.shape[0]
+    if tp is not None and global_batch is None:
+        global_batch = b * mesh.size(0)
     pos = cache.length
     positions = torch.full((b, 1), pos, dtype=torch.long, device=token.device)
-    x = params["embed"][token[:, None]]
+    x = _embed(params, token[:, None], tp)
     dtype, x32 = x.dtype, x.float()
     cache.mask[:, pos] = True
     for li, layer in enumerate(params["layers"]):
         if isinstance(cache, QuantKVCache):
             x32 = _block_kvq_decode(x32, dtype, layer, cfg, positions, cache.k_codes[li],
                                     cache.k_scales[li], cache.v_codes[li], cache.v_scales[li],
-                                    pos, cache.mask)
+                                    pos, cache.mask, tp, global_batch)
         else:
             x32 = _block(x32, dtype, layer, cfg, positions, (cache.k[li], cache.v[li]), pos,
-                         cache.mask)
+                         cache.mask, tp=tp)
     cache.length = pos + 1
-    return _logits(x32, dtype, params, cfg)[:, 0, :], cache
+    return _logits(x32, dtype, params, cfg, tp)[:, 0, :], cache

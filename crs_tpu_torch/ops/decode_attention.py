@@ -20,8 +20,14 @@ a row in 512-byte segments), any number of query heads per kv-head (padded
 with zero heads to a built count), any S a multiple of 128. On a CUDA
 tensor it launches them or raises; on a CPU tensor it runs
 :func:`emulate_decode_attention_int8`, the plain torch version beside it (a
-literal mirror of ``crs_tpu``'s emulation). There is no ``mesh`` argument: multi-device serving is not
-ported yet.
+literal mirror of ``crs_tpu``'s emulation).
+
+Under a dp × tp mesh (``crs_tpu_torch.models.sharding``) every rank holds its
+own rows of the batch and its own kv-heads of the cache, so the partition
+``crs_tpu`` gets from ``shard_map`` is the identity here: the kernel runs on
+the local tensors with zero collectives, where
+:func:`decode_attention_shardable` holds (else the caller takes the
+emulation, as ``crs_tpu`` does).
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from .launch import ARG_FLOAT, ARG_INT, ARG_PTR, KernelStats, check_operands, la
     load_library, refuse_gradients, scratch, sm_count, stream_handle
 
 __all__ = [
-    "STATS", "quantize_kv_rows", "decode_attention_supported", "decode_attention_int8",
+    "STATS", "quantize_kv_rows", "decode_attention_supported", "decode_attention_shardable",
+    "decode_attention_int8",
     "emulate_decode_attention_int8", "split_plan", "launch_groups", "KERNEL_GROUPS",
     "ROWS_PER_STEP", "MAX_CHUNK_ROWS", "MAX_CHUNKS",
 ]
@@ -74,6 +81,15 @@ def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def decode_attention_supported(head_dim: int, seq: int) -> bool:
     """``crs_tpu``'s gate for the fused kernel: hd and S 128-aligned."""
     return head_dim % 128 == 0 and seq % 128 == 0
+
+
+def decode_attention_shardable(batch: int, num_kv_heads: int, mesh) -> bool:
+    """``crs_tpu``'s gate for the mesh path: every (dp, tp) cell owns a whole
+    sub-grid of batch rows × kv-heads (``batch`` and ``num_kv_heads`` are
+    the global counts)."""
+    names = mesh.mesh_dim_names
+    return (batch % mesh.size(names.index("dp")) == 0
+            and num_kv_heads % mesh.size(names.index("tp")) == 0)
 
 
 def launch_groups(group: int) -> int:
@@ -134,12 +150,16 @@ def decode_attention_int8(
     v_codes: torch.Tensor,  # [B, Hkv, S, hd] int8
     v_scales: torch.Tensor,  # [B, Hkv, S] f32
     valid: torch.Tensor,  # [B, S] bool / int8: slots holding real tokens
+    mesh=None,  # dp × tp DeviceMesh: the tensors are this rank's shard
 ) -> torch.Tensor:
     """Single-token decode attention → ctx [B, Hkv, G, hd] f32, zero for a
     batch row with no valid slot. CPU tensors take
     :func:`emulate_decode_attention_int8`; CUDA tensors launch
     ``decode_attention_int8`` or raise. Forward-only: raises where an input
-    requires a gradient."""
+    requires a gradient. With ``mesh`` the inputs are this rank's batch rows
+    and kv-heads (the identity partition: no collective)."""
+    if mesh is not None and tuple(mesh.mesh_dim_names) != ("dp", "tp"):
+        raise ValueError(f"a (dp, tp) mesh, got {mesh.mesh_dim_names}")
     refuse_gradients("decode_attention_int8", q, k_scales, v_scales)
     if k_codes.device.type == "cpu":
         return emulate_decode_attention_int8(q, k_codes, k_scales, v_codes, v_scales, valid)

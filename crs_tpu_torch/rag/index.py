@@ -25,7 +25,20 @@ so the two packages agree on one state. Persistence uses the JAX package's
 on-disk format (``index_meta.json`` + ``index_arrays.npz``), so an index
 either package saved loads in the other.
 
-Not ported: the ``mesh`` argument (a store sharded over devices).
+With a ``mesh`` (``crs_tpu_torch.parallel.corpus_mesh``) the store is
+sharded as ``crs_tpu``'s mesh store: each rank keeps its ``per`` rows of
+``shard_corpus``'s layout (the corpus padded to ``block_size``, then to a
+multiple of the mesh size) and searches through
+``crs_tpu_torch.parallel.sharded_index`` (kernels 1, 2 and 3 per shard, an
+all-gather merge). int8 codes and the pq mirror are quantized on the host
+with numpy's true division, pq always trains residual PQ (``pq_residual``
+and ``pq_sorted`` are ignored) with the codebooks replicated on every rank.
+``add`` writes each rank's part of the new rows; a regrow (capacity in
+multiples of ``block_size`` × mesh size) moves rows between ranks through an
+all-gather on the device. Dense rows (MMR, PRF, ``get_vectors``) are summed
+over the group from the rank that owns each row. ``save`` gathers the global
+arrays (``per`` × mesh size rows) and rank 0 writes them; ``load`` keeps
+each rank's slice. Every rank calls every method with the same arguments.
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops.pq import (
@@ -51,6 +65,10 @@ from ..ops.scan import (
     scan_topk_residual_pq_adc, scan_topk_residual_pq_adc_sorted,
 )
 from ..ops.topk import NEG_INF, blockwise_topk, exact_topk, topk_stable
+from ..parallel.mesh import mesh_device
+from ..parallel.sharded_index import (
+    all_gather_rows, shard_corpus, sharded_topk, sharded_topk_int8, sharded_topk_residual_pq,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -93,11 +111,17 @@ class VectorStore:
     _MMAP_SCALES = "mirror_scales.f32"
 
     def __init__(self, config: Optional[Dict[str, Any]] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, mesh=None):
         config = config or {}
         self.format = config.get("format", "fp32")
         _check_format(self.format)
         self.device = resolve_device(device)
+        # a 1-D "corpus" DeviceMesh: rows shard over its ranks (None: one device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for a store on {self.device}")
+            self.device = mesh_device(mesh)
         self.block_size = int(config.get("block_size", 4096))
         self.persist_directory = config.get("persist_directory")
         self.rescore_k = int(config.get("rescore_k", 64))
@@ -240,6 +264,9 @@ class VectorStore:
         takes a ``torch.Generator`` seeded with ``seed`` and its seconds go
         to ``build_seconds["pq_train"]``."""
         self.build_seconds = {}
+        if self.mesh is not None:
+            self._build_mesh_arrays(padded)
+            return
         if self.format in _FLOAT_DTYPES:
             self._vectors = padded.to(_FLOAT_DTYPES[self.format])
             return
@@ -249,9 +276,7 @@ class VectorStore:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
         valid = padded[: self.n] if self.n > 0 else padded
-        m = min(self.pq_subspaces, self.dim)  # largest count ≤ configured dividing the dim
-        while self.dim % m != 0:
-            m -= 1
+        m = self._pq_subspaces()
         eta = self._aniso_eta()
         t0 = time.perf_counter()
         if self.pq_residual:
@@ -274,6 +299,58 @@ class VectorStore:
             self._mirror_set(*_host_quantize(padded.cpu().numpy()))
         self._pq_trained_n = self.n  # the drift baseline of add
 
+    def _pq_subspaces(self) -> int:
+        """The largest subspace count ≤ the configured one that divides the dim."""
+        m = min(self.pq_subspaces, self.dim)
+        while self.dim % m != 0:
+            m -= 1
+        return m
+
+    def _build_mesh_arrays(self, padded: torch.Tensor) -> None:
+        """``crs_tpu``'s mesh branch of ``_build_device_arrays``: int8 codes
+        (and the pq mirror) quantized on the host with numpy's true
+        division; pq trains residual PQ on every rank, keeps rank 0's
+        codebooks, and each rank encodes its own rows (rows past the padded
+        corpus keep zero codes, as ``shard_corpus`` pads them)."""
+        mesh = self.mesh
+        if self.format in _FLOAT_DTYPES:
+            local, _ = shard_corpus(padded.float(), mesh)
+            self._vectors = local.to(_FLOAT_DTYPES[self.format])
+            return
+        if self.format == "int8" or self.pq_rescore != "none":
+            codes_np, scales_np = _host_quantize(padded.cpu().numpy())
+            if self.format == "pq" and self.pq_rescore == "host":
+                self._mirror_set(codes_np, scales_np)
+            else:
+                self._codes, _ = shard_corpus(codes_np, mesh)
+                self._scales, _ = shard_corpus(scales_np, mesh)
+        if self.format == "int8":
+            return
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed)
+        coarse = self.pq_coarse_clusters
+        if coarse == "auto":
+            coarse = min(2048, max(16, self.n // 8))
+        eta = self._aniso_eta()
+        t0 = time.perf_counter()
+        rpq = train_residual_pq(gen, padded[: max(self.n, 1)], self._pq_subspaces(),
+                                self.pq_clusters, int(coarse), self.pq_iters, self.pq_opq_iters,
+                                aniso_eta=eta)
+        group = mesh.get_group()
+        src = dist.get_process_group_ranks(group)[0]
+        for t in (rpq.rotation, rpq.coarse, rpq.codebook.centroids):
+            dist.broadcast(t, src=src, group=group)
+        _sync(self.device)
+        self.build_seconds["pq_train"] = time.perf_counter() - t0
+        self._rpq, self._pq_codebook = rpq, rpq.codebook
+        local, _ = shard_corpus(padded, mesh)
+        cids, codes = residual_pq_encode(rpq, local, eta)
+        per, r = local.shape[0], mesh.get_local_rank()
+        past = torch.arange(r * per, (r + 1) * per, device=self.device) >= padded.shape[0]
+        self._pq_coarse_ids = torch.where(past, 0, cids).to(torch.int32)
+        self._pq_codes = torch.where(past[:, None], 0, codes).to(codes.dtype)
+        self._pq_trained_n = self.n
+
     def _encode_pq(self, rows: torch.Tensor) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """(coarse ids or None, codes) of ``rows`` under the existing codebooks."""
         eta = self._aniso_eta()
@@ -283,9 +360,10 @@ class VectorStore:
                                eta)
 
     def _padded_rows(self) -> int:
+        """Rows of the padded arrays (a mesh store's: over every rank)."""
         for arr in (self._vectors, self._codes, self._pq_codes):
             if arr is not None:
-                return arr.shape[0]
+                return arr.shape[0] * (1 if self.mesh is None else self.mesh.size())
         return 0
 
     def add(self, chunks: Sequence[Any], embeddings: Union[np.ndarray, torch.Tensor]) -> None:
@@ -330,27 +408,40 @@ class VectorStore:
         if end > self._padded_rows():
             self._grow(max(2 * self._padded_rows(), end))
         blk = block.to(self.device)
+        write = self._write_rows
         if self.format in _FLOAT_DTYPES:
-            self._vectors[start:end] = blk.to(self._vectors.dtype)
+            write(self._vectors, start, blk)
             return
         if self.format == "int8":
-            self._codes[start:end], self._scales[start:end] = scalar_quantize(blk)
+            for arr, rows in zip((self._codes, self._scales), scalar_quantize(blk)):
+                write(arr, start, rows)
             return
         cids, codes = self._encode_pq(blk)
         if cids is not None:
-            self._pq_coarse_ids[start:end] = cids
-        self._pq_codes[start:end] = codes
+            write(self._pq_coarse_ids, start, cids)
+        write(self._pq_codes, start, codes)
         self._pq_codes_ext = None  # the scan layouts are stale
         self._pq_sorted_cache = None
         self._pq_wbase = {}
         if self.pq_rescore == "int8":
-            self._codes[start:end], self._scales[start:end] = scalar_quantize(blk)
+            for arr, rows in zip((self._codes, self._scales), scalar_quantize(blk)):
+                write(arr, start, rows)
         elif self.pq_rescore == "host":
             # the mirror is sized on its own: it may be shorter than the arrays
             codes_np, scales_np = _host_quantize(block.numpy())
             self._mirror_grow(end)
             self._codes_host[start:end] = codes_np
             self._scales_host[start:end] = scales_np
+
+    def _write_rows(self, arr: torch.Tensor, start: int, rows: torch.Tensor) -> None:
+        """Global rows [start, start + len(rows)) of a padded array; a mesh
+        store's rank writes the part that falls in its slice."""
+        lo, hi, off = start, start + rows.shape[0], 0
+        if self.mesh is not None:
+            per, r = arr.shape[0], self.mesh.get_local_rank()
+            lo, hi, off = max(lo, r * per), min(hi, (r + 1) * per), r * per
+        if lo < hi:
+            arr[lo - off:hi - off] = rows[lo - start:hi - start].to(arr.dtype)
 
     def _rebuild_from_dense(self, all_emb: torch.Tensor) -> None:
         n = all_emb.shape[0]
@@ -363,30 +454,65 @@ class VectorStore:
 
     def _grow(self, new_capacity: int) -> None:
         """Grow every padded array to ``new_capacity`` rows, rounded up to
-        ``block_size`` (zeros in the new tail), the host mirror included."""
-        cap = -(-new_capacity // self.block_size) * self.block_size
+        ``block_size`` (times the mesh size for a mesh store; zeros in the
+        new tail), the host mirror included. A mesh store's ``per`` grows
+        with it, so rows move between ranks: each rank all-gathers the
+        global array on the device and keeps its new slice."""
+        base = self.block_size
+        if self.mesh is not None:
+            base *= self.mesh.size()
+        cap = -(-new_capacity // base) * base
         old = self._padded_rows()
         if cap <= old:
             return
         for name in ("_vectors", "_codes", "_scales", "_pq_codes", "_pq_coarse_ids"):
             arr = getattr(self, name)
-            if arr is not None:
-                pad = torch.zeros((cap - old,) + tuple(arr.shape[1:]), dtype=arr.dtype,
-                                  device=arr.device)
-                setattr(self, name, torch.cat([arr, pad], 0))
+            if arr is None:
+                continue
+            if self.mesh is not None:
+                arr = all_gather_rows(arr, self.mesh.get_group())
+            pad = torch.zeros((cap - old,) + tuple(arr.shape[1:]), dtype=arr.dtype,
+                              device=arr.device)
+            grown = torch.cat([arr, pad], 0)
+            if self.mesh is not None:
+                grown, _ = shard_corpus(grown, self.mesh)
+            setattr(self, name, grown)
         if self._codes_host is not None:
             self._mirror_grow(cap)
 
     def _dense_vectors(self) -> torch.Tensor:
-        """Every padded row as f32 on the device (dequantized or decoded)."""
-        if self._vectors is not None:
-            return self._vectors.float()
-        if self._codes is not None:
-            return self._codes.float() * self._scales[:, None]
-        if self._codes_host is not None:
+        """Every padded row as f32 on the device (dequantized or decoded;
+        a mesh store's gathered from every rank)."""
+        if self._codes_host is not None and self._vectors is None and self._codes is None:
             return torch.from_numpy(self._codes_host.astype(np.float32)
                                     * self._scales_host[:, None]).to(self.device)
-        return self._pq_reconstruct_rows(torch.arange(self._padded_rows(), device=self.device))
+        local_rows = self._padded_rows()
+        if self.mesh is not None:
+            local_rows //= self.mesh.size()
+        dense = self._local_dense(torch.arange(local_rows, device=self.device))
+        if self.mesh is None:
+            return dense
+        return all_gather_rows(dense, self.mesh.get_group())
+
+    def _local_dense(self, rows: torch.Tensor) -> torch.Tensor:
+        """f32 rows of the arrays this process holds (local indices)."""
+        if self._vectors is not None:
+            return self._vectors[rows].float()
+        if self._codes is not None:
+            return self._codes[rows].float() * self._scales[rows][..., None]
+        return self._pq_reconstruct_rows(rows)
+
+    def _gather_dense(self, rows: torch.Tensor) -> torch.Tensor:
+        """f32 rows by global id. A mesh store's rank decodes the rows it
+        owns and zeros elsewhere; the sum over the group is exact."""
+        if self.mesh is None:
+            return self._local_dense(rows)
+        per = self._padded_rows() // self.mesh.size()
+        local = rows - self.mesh.get_local_rank() * per
+        owned = (local >= 0) & (local < per)
+        out = torch.where(owned[..., None], self._local_dense(local.clamp(0, per - 1)), 0.0)
+        dist.all_reduce(out, group=self.mesh.get_group())
+        return out
 
     def get_vectors(self, row_ids: Any) -> np.ndarray:
         """Dense f32 embeddings of ``row_ids`` (dequantized or decoded)."""
@@ -394,14 +520,7 @@ class VectorStore:
         if self._codes_host is not None and self._vectors is None:
             return self._codes_host[rows_np].astype(np.float32) * \
                 self._scales_host[rows_np][..., None]
-        rows = torch.from_numpy(rows_np).to(self.device)
-        if self._vectors is not None:
-            out = self._vectors[rows].float()
-        elif self._codes is not None:
-            out = self._codes[rows].float() * self._scales[rows][..., None]
-        else:
-            out = self._pq_reconstruct_rows(rows)
-        return out.cpu().numpy()
+        return self._gather_dense(torch.from_numpy(rows_np).to(self.device)).cpu().numpy()
 
     # -- management -----------------------------------------------------------
     def delete_collection(self) -> None:
@@ -441,6 +560,8 @@ class VectorStore:
         """Device-level batched search, no host sync. For pq with the
         host/none rescore modes the result is the ADC ranking."""
         k = min(top_k, self.n)
+        if self.mesh is not None:
+            return self._mesh_search(q, k, max(self.rescore_k, k))
         if self.format in _FLOAT_DTYPES:
             if self._scan_here(self._vectors.shape[0]):
                 return scan_topk(self._vectors, q, k, self.n, self.block_size)
@@ -460,6 +581,23 @@ class VectorStore:
             _, cand = self._pq_adc_candidates(q, cand_k)
             return _rescore(self._codes, self._scales, q, cand, k, self.n)
         return self._pq_adc_candidates(q, k)
+
+    def _mesh_search(self, q: torch.Tensor, k: int, cand_k: int,
+                     row_mask: Optional[torch.Tensor] = None):
+        """The mesh store's scan (``crs_tpu``'s): the format's sharded body
+        with ``rescore_k`` = ``cand_k``; pq rescores against the device
+        mirror in ``pq_rescore="int8"`` mode, else returns the ADC ranking."""
+        if self.format == "pq":
+            mirror = (self._codes, self._scales) if self.pq_rescore == "int8" else (None, None)
+            return sharded_topk_residual_pq(self._rpq, self._residual_ext(), *mirror, q, k,
+                                            self.n, self.mesh, rescore_k=cand_k,
+                                            row_mask=row_mask, block_size=self.block_size)
+        if self.format == "int8":
+            return sharded_topk_int8(self._codes, self._scales, q, k, self.n, self.mesh,
+                                     rescore_k=cand_k, row_mask=row_mask,
+                                     block_size=self.block_size)
+        return sharded_topk(self._vectors, q, k, self.n, self.mesh, row_mask=row_mask,
+                            block_size=self.block_size)
 
     def _pq_adc_candidates(self, q: torch.Tensor, cand_k: int,
                            row_mask: Optional[torch.Tensor] = None):
@@ -545,12 +683,7 @@ class VectorStore:
 
     def gather_vectors_dev(self, rows: torch.Tensor) -> torch.Tensor:
         """Device-level dense-row gather (for MMR and PRF), no host sync."""
-        rows = torch.clamp_min(rows, 0)
-        if self._vectors is not None:
-            return self._vectors[rows].float()
-        if self._codes is not None:
-            return self._codes[rows].float() * self._scales[rows][..., None]
-        return self._pq_reconstruct_rows(rows)
+        return self._gather_dense(torch.clamp_min(rows, 0))
 
     def _pq_reconstruct_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """PQ codes of ``rows`` decoded back to f32 (the stand-in for the
@@ -608,6 +741,10 @@ class VectorStore:
         k_eff = min(k, max(n_allowed, 1))
         mask = torch.from_numpy(mask_np).to(self.device)
         cand_k = min(max(self.rescore_k, k_eff), self.n)
+        if self.mesh is not None:
+            pq_host = self.format == "pq" and self.pq_rescore == "host"
+            s, i = self._mesh_search(q, cand_k if pq_host else k_eff, cand_k, mask)
+            return self._host_rescore(q, s, i, k_eff) if pq_host else (s, i)
         if self.format in _FLOAT_DTYPES:
             return exact_topk(self._vectors, q, k_eff, self.n, row_mask=mask)
         if self.format == "pq" and self.pq_rescore != "int8":
@@ -676,23 +813,35 @@ class VectorStore:
 
     def memory_bytes(self) -> int:
         """Device bytes of the index: vectors or codes, scales, PQ codes and
-        coarse ids, codebooks, rotation and coarse centroids."""
-        arrays = [self._vectors, self._codes, self._scales, self._pq_codes, self._pq_coarse_ids]
+        coarse ids, codebooks, rotation and coarse centroids (a mesh store's
+        row arrays counted over every rank, as ``crs_tpu`` counts its global
+        arrays)."""
+        ranks = 1 if self.mesh is None else self.mesh.size()
+        rows = [self._vectors, self._codes, self._scales, self._pq_codes, self._pq_coarse_ids]
+        tables = []
         if self._pq_codebook is not None:
-            arrays.append(self._pq_codebook.centroids)
+            tables.append(self._pq_codebook.centroids)
         if self._rpq is not None:
-            arrays += [self._rpq.rotation, self._rpq.coarse]
-        return sum(a.numel() * a.element_size() for a in arrays if a is not None)
+            tables += [self._rpq.rotation, self._rpq.coarse]
+        return (ranks * sum(a.numel() * a.element_size() for a in rows if a is not None)
+                + sum(a.numel() * a.element_size() for a in tables))
 
     # -- persistence (the JAX package's format) ------------------------------
     def save(self, directory: str) -> None:
-        os.makedirs(directory, exist_ok=True)
+        """Write the JAX package's format. A mesh store gathers the global
+        arrays on every rank; rank 0 writes them and the others wait."""
         arrays: Dict[str, np.ndarray] = {}
         for name in ("_vectors", "_codes", "_scales", "_pq_codes", "_pq_coarse_ids"):
             arr = getattr(self, name)
             if arr is not None:
+                if self.mesh is not None:
+                    arr = all_gather_rows(arr, self.mesh.get_group())
                 arrays[name.lstrip("_")] = (arr.float() if arr.dtype == torch.bfloat16
                                             else arr).cpu().numpy()
+        if self.mesh is not None and self.mesh.get_local_rank() != 0:
+            dist.barrier(group=self.mesh.get_group())
+            return
+        os.makedirs(directory, exist_ok=True)
         if self._pq_codebook is not None:
             arrays["pq_centroids"] = self._pq_codebook.centroids.cpu().numpy()
         if self._rpq is not None:
@@ -726,6 +875,8 @@ class VectorStore:
         with open(os.path.join(directory, "index_meta.json"), "w") as f:
             json.dump(meta, f)
         logger.info("Saved index (%d vectors) to %s", self.n, directory)
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.get_group())
 
     def load(self, directory: str) -> None:
         with open(os.path.join(directory, "index_meta.json")) as f:
@@ -736,6 +887,13 @@ class VectorStore:
         def tensor(a: np.ndarray, dtype=None) -> torch.Tensor:
             t = torch.from_numpy(np.array(a))  # a writable copy
             return (t if dtype is None else t.to(dtype)).to(dev)
+
+        def rows(a: np.ndarray, dtype=None) -> torch.Tensor:
+            """Row arrays: a mesh store keeps its own slice."""
+            if self.mesh is None:
+                return tensor(a, dtype)
+            t = torch.from_numpy(np.array(a))
+            return shard_corpus(t if dtype is None else t.to(dtype), self.mesh)[0]
 
         with np.load(os.path.join(directory, "index_arrays.npz")) as arrays:
             self._clear()
@@ -758,20 +916,22 @@ class VectorStore:
                                              mode="r+", shape=(mm["rows"], mm["cols"]))
                 self._scales_host = np.memmap(os.path.join(mm["dir"], self._MMAP_SCALES),
                                               np.float32, mode="r+", shape=(mm["rows"],))
+            if self.mesh is not None and "pq_codes" in arrays and "pq_rotation" not in arrays:
+                raise ValueError("a mesh store serves residual PQ; this index holds plain PQ")
             if "vectors" in arrays:
-                self._vectors = tensor(arrays["vectors"], _FLOAT_DTYPES.get(self.format,
-                                                                             torch.float32))
+                self._vectors = rows(arrays["vectors"], torch.float32).to(
+                    _FLOAT_DTYPES.get(self.format, torch.float32))
             if "codes" in arrays:
-                self._codes = tensor(arrays["codes"], torch.int8)
-                self._scales = tensor(arrays["scales"], torch.float32)
+                self._codes = rows(arrays["codes"], torch.int8)
+                self._scales = rows(arrays["scales"], torch.float32)
             if "pq_codes" in arrays:
-                self._pq_codes = tensor(arrays["pq_codes"])  # stored dtype (uint8)
+                self._pq_codes = rows(arrays["pq_codes"])  # stored dtype (uint8)
                 self._pq_codebook = PQCodebook(tensor(arrays["pq_centroids"], torch.float32))
             if "pq_rotation" in arrays:
                 self._rpq = ResidualPQ(rotation=tensor(arrays["pq_rotation"], torch.float32),
                                        coarse=tensor(arrays["pq_coarse"], torch.float32),
                                        codebook=self._pq_codebook)
-                self._pq_coarse_ids = tensor(arrays["pq_coarse_ids"], torch.int32)
+                self._pq_coarse_ids = rows(arrays["pq_coarse_ids"], torch.int32)
             self._pq_trained_n = self.n
         logger.info("Loaded index (%d vectors, %s) from %s", self.n, self.format, directory)
 

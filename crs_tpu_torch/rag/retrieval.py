@@ -212,7 +212,8 @@ class ContextRetriever:
         if self.store.n == 0 or not queries:
             return [[] for _ in queries]
         store = self.store
-        if store.format == "pq" and store._rpq is None:  # as crs_tpu: unfused
+        # as crs_tpu: plain pq and a mesh store take the unfused path
+        if (store.format == "pq" and store._rpq is None) or store.mesh is not None:
             fused_flag, self.fused = self.fused, False  # no recursion back here
             try:
                 return self.retrieve_batch(queries, top_k, where=where)

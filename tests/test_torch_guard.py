@@ -47,9 +47,26 @@ def test_guard_sees_the_port():
     assert _forbidden("jax.numpy") and _forbidden("crs_tpu.rag") and not _forbidden("crs_tpu_torch.ops")
 
 
+def test_guard_sees_the_mesh_modules():
+    """The multi-device modules are among the files the import guard reads."""
+    for rel in ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_index.py",
+                "parallel/collectives.py", "models/sharding.py"):
+        assert REPO / "crs_tpu_torch" / rel in PORT_FILES, rel
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(autouse=True)
+def _no_process_group_left():
+    """A mesh constructor run here makes a one-rank group: end it after the test."""
+    yield
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _entry_points():
@@ -58,8 +75,14 @@ def _entry_points():
     from crs_tpu_torch.models import TorchModel, create_model_interface
     from crs_tpu_torch.rag.index import VectorStore
     from crs_tpu_torch.rag.pipeline import RAGPipeline
+    from crs_tpu_torch.models.sharding import make_model_mesh
+    from crs_tpu_torch.parallel import corpus_mesh
 
     return {
+        "corpus_mesh": lambda dev: corpus_mesh(device=dev),
+        "make_model_mesh": lambda dev: make_model_mesh(device=dev),
+        "VectorStore_mesh": lambda dev: VectorStore({"format": "int8"}, device=dev,
+                                                    mesh=corpus_mesh(device="cpu")),
         "resolve_device": lambda dev: resolve_device(dev),
         "EmbeddingModel": lambda dev: EmbeddingModel({"backend": "hashed", "embedding_dim": 16}, device=dev),
         "EmbeddingModel_lexical": lambda dev: EmbeddingModel(
@@ -95,7 +118,8 @@ ENTRY_POINTS = ["resolve_device", "EmbeddingModel", "EmbeddingModel_lexical",
                 "TorchModel",
                 "create_model_interface", "RAGPipeline", "create_model_interface_gptq",
                 "create_model_interface_awq", "TorchModel_fused_mlp",
-                "TorchModel_fuse_projections", "TorchModel_model_path"]
+                "TorchModel_fuse_projections", "TorchModel_model_path", "corpus_mesh",
+                "make_model_mesh", "VectorStore_mesh"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
