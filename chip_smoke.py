@@ -6,7 +6,7 @@
 Phases, each printed as one JSON line (name, seconds, what was compared and
 the largest difference); any failure raises and exits non-zero:
 
-1. build              — compile the seven CUDA sources (nvcc, sm_90a) and the
+1. build              — compile the eight CUDA sources (nvcc, sm_90a) and the
                         native featurizer (g++), all at once, from the sources here;
 2. kernel             — the int8 scan kernel against its plain torch version:
                         (a) 1,048,576 × 384 random unit vectors, 328 queries, k = 64,
@@ -75,7 +75,21 @@ the largest difference); any failure raises and exits non-zero:
                         codes' effect; device ms, each launch's µs (one
                         launch a call), plain ms, the unfused int8 route's
                         ms, bound;
-10. faults            — ROADMAP §3's repairs at 8,192 rows: hashed stores at D =
+10. gemv              — the decode weight-streaming tools (crs_tpu_torch/tools/):
+                        their three kernels (gemv_probe.cu) against their plain
+                        versions — the int4 probe at bench_q4_kernel's defaults
+                        (R 32, K 2048, N 32000) with g 16, 8 and 4, every
+                        unpack and fold (unfolded bit for bit, fold within
+                        1e-5·Σ|x·w|, random scales so the tiled fold mapping
+                        shows), the q8 GEMV at (R, d) 8/2048, 1/2048, 16/2048
+                        and 8/4096, the row-major GEMV at 8/2048, 1/2048 and
+                        8/4096 — each kernel's device ms with the weights past
+                        the L2, plain and composition ms, bound; then both
+                        tools with every variant at their defaults (CUDA
+                        graphs; ms/chain, GB/s, bound, launches a chain; the
+                        bench_chain_gemv chain is 96 layers of 2048 × 2048)
+                        and kernel 8's q4 chain eagerly beside its graph;
+11. faults            — ROADMAP §3's repairs at 8,192 rows: hashed stores at D =
                         100 and 3072 in fp32, bf16 and int8, residual pq and
                         pq_sorted stores at M = 64, each on its kernel (launch
                         counts) against the same store on the CPU; the ADC
@@ -91,16 +105,17 @@ the largest difference); any failure raises and exits non-zero:
                         blocks of 128, 384 and 640 rows (ADC bit for bit) and
                         fp32 and pq stores of 128- and 640-row blocks, each on
                         its kernel; the cost of a ragged D at 1M rows;
-11. bench             — the bench.py slice on the held-out corpus: chunk, hashed
+12. bench             — the bench.py slice on the held-out corpus: chunk, hashed
                         encoder, int8 store, retrieve_batch_fused over 328 queries,
                         checked against the standard (host-rerank) retrieve;
-12. full              — a 1,048,576-row int8 store built through the port's
+13. full              — a 1,048,576-row int8 store built through the port's
                         encoder from synthetic texts; retrieve_batch_fused at batch
                         328 through the int8 kernel (launch count must rise), timed
                         with CUDA events, plus the kernel's own time and bound;
-13. formats           — the same 1M texts and embeddings in an fp32, a bf16, a
-                        residual pq and a plain pq store (config.json's store
-                        values): retrieve_batch at batch 328 without and with PRF
+14. formats           — the first 524,288 of those texts and embeddings (cut
+                        from 1M in PR 18) in an fp32, a bf16, a residual pq
+                        and a plain pq store (config.json's store values):
+                        retrieve_batch at batch 328 without and with PRF
                         (each format's kernel must launch), a `where`-filtered
                         search, the whole scan route held against its plain
                         version, each pq store built twice from one seed (same
@@ -109,11 +124,12 @@ the largest difference); any failure raises and exits non-zero:
                         over the residual store's state must launch kernel 4
                         (not 3), never take the exact fallback, and return the
                         unsorted store's results;
-14. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
-                        residual pq stores: ms per add, capacity, the int8 store
-                        identical to create_index over the same rows, the pq
+15. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
+                        524,288-row residual pq stores: ms per add, capacity,
+                        the int8 store identical to create_index over the same
+                        rows, the pq
                         codes against a CPU encode, a `where` search;
-15. multi             — multi-device serving and training at world size 1 (a
+16. multi             — multi-device serving and training at world size 1 (a
                         one-rank NCCL group, every collective called): int8
                         and bf16 mesh stores over the full phase's 1M
                         embeddings, search_batch at batch 328, k 3, through
@@ -128,7 +144,7 @@ the largest difference); any failure raises and exits non-zero:
                         10 16 times a decode step, the first decode step
                         against the plain version; one AdamW train step at 4 ×
                         256 tokens, its loss within 1e-3 of the unsharded loss;
-16. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
+17. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
                         random weights from the seed, through
                         create_model_interface: greedy generate_batch of 64
                         tokens at batch 1 and 8 on RAG-sized prompts, with 113
@@ -137,7 +153,7 @@ the largest difference); any failure raises and exits non-zero:
                         kernel, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
-17. evaluate          — the evaluation slice: (a) EvaluationRunner.run_all() (the
+18. evaluate          — the evaluation slice: (a) EvaluationRunner.run_all() (the
                         efficiency, performance and retrieval benchmarks) over the
                         generate phase's 1b int4 model and a RAGPipeline with
                         config.json's rag section on the held-out corpus and
@@ -151,7 +167,7 @@ the largest difference); any failure raises and exits non-zero:
                         the retrieval benchmark's metrics over one saved index;
                         (c) python -m crs_tpu_torch --eval-performance
                         --eval-retrieval as a child on a copy of config.json;
-18. finetune          — QLoRA on the card: (a) the 1b model with an int4 base and
+19. finetune          — QLoRA on the card: (a) the 1b model with an int4 base and
                         kv_bits 8 (its own random init), LoRA at config.json's
                         finetuning values for 2 epochs (3 in config.json) of
                         SyntheticCodeLoader's 64 samples, the performance
@@ -168,31 +184,31 @@ the largest difference); any failure raises and exits non-zero:
                         int8 model, 3 trainer steps on the card and on the CPU
                         from the same A's and batches: losses and adapters;
                         (e) the five analysis tools over epoch_0/ and epoch_1/;
-19. rag               — RAGPipeline (config.json's lexical embedding, fitted on
+20. rag               — RAGPipeline (config.json's lexical embedding, fitted on
                         the card; int8 store) over the held-out corpus with the
                         nf4 model: query() with config.json's generation values
                         (sampled), ms per query split into retrieve and
                         generate, chunks checked against a CPU pipeline on the
                         card's saved index and state, doc·query scores against
                         a CPU pipeline's own fit (within 1e-4);
-20. lexical           — config.json's lexical encoder at full width (131,072
+21. lexical           — config.json's lexical encoder at full width (131,072
                         features, 384 dims) fitted on 65,536 synthetic chunks
                         of config.json's 240 words,
                         config.json's int8 store, a retrieve batch of 328
                         queries through kernel 1: fit seconds by stage, index
                         and query embed times; embeddings against a CPU encoder
                         on the card's saved state, ids against the plain scan;
-21. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
+22. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
                         chunks at batch 32 into config.json's int8 store, a
                         search through kernel 1; embeddings and the search
                         against the CPU;
-22. cli               — ``python -m crs_tpu_torch`` on the card on copies of
+23. cli               — ``python -m crs_tpu_torch`` on the card on copies of
                         config.json: --no-model --query on a copy of vector_db/,
                         --index of the held-out corpus into its own directory
                         and a query on it, then the command line's main in this
                         process on the lexical phase's index through kernel 1;
                         vector_db/ unchanged;
-23. generate_7b       — mistral-7b at full width, its depth cut to 16 layers, as
+24. generate_7b       — mistral-7b at full width, its depth cut to 8 layers, as
                         int8 with a bf16 KV cache, random weights
                         from the seed, loaded once: unfused, fuse_projections
                         and fused_mlp, greedy generate_batch of 32 tokens at
@@ -201,11 +217,11 @@ the largest difference); any failure raises and exits non-zero:
                         logits identical with fuse_projections, within 5e-2 of
                         unfused with fused_mlp; one kv_bits 8 batch-8 decode
                         through kernels 10 and 11 against the plain versions;
-24. calibrated        — the gptq and awq types of the small config loaded on the
+25. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
                         reconstruction error against plain rounding, 16 tokens.
 
-Then the kernel table line (all eleven kernels), the card's name and power
+Then the kernel table line (all fourteen kernels), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA
 it exits 1 and prints no result; ``--phases`` with a subset exits 2 after
 the phases, with no table and no result. It imports nothing of JAX or of
@@ -254,6 +270,10 @@ FORMAT_KERNEL = {"fp32": "scan_topk_f32", "bf16": "scan_topk_bf16",
                  "pq_plain": "adc_scan_topk_plain"}
 SCAN_BLOCK = 1024  # config.json's block_size: the kernels' main-path block
 SCAN_KB = 3  # kb of the pq stores' 64-candidate scan at 1M rows, B = 328
+# the formats phase's stores: the first half of the full phase's rows (cut from
+# FULL_ROWS in PR 18 to keep the whole run inside its time limit: PQ training
+# runs over every row, twice a pq store)
+FORMAT_ROWS = 1 << 19
 PQ_M, PQ_C, PQ_K = 48, 2048, 256
 FLOAT_RTOL = {"fp32": 1e-5, "bf16": 1e-2}
 ID_RTOL = 1e-5  # the f32 sum-order bound: ranks farther apart must agree
@@ -1589,6 +1609,7 @@ ADD_CALL = 4096
 def phase_add(ph: Phase, dev, seed: int, shared: dict) -> dict:
     """VectorStore.add on the card: 65,536 new rows in 4,096-row calls into
     the full phase's 1M int8 store and the formats phase's residual pq store
+    (FORMAT_ROWS)
     (short of the retrain); the int8 store against create_index over the same
     rows; the pq store's new codes against a CPU-side encode with the same
     codebooks; a `where`-filtered search on each grown store."""
@@ -1602,9 +1623,10 @@ def phase_add(ph: Phase, dev, seed: int, shared: dict) -> dict:
     stores = {"int8": shared.pop("int8_store"), "pq": shared.pop("pq_store")}
     new_texts, _ = synthetic_corpus(np.random.default_rng(seed + 10), ADD_ROWS)
     new_emb = em.embed_chunks(new_texts)
-    n0 = stores["int8"].n
-    out = {"rows_added": ADD_ROWS, "rows_per_call": ADD_CALL, "rows_before": n0}
+    n0s = {name: store.n for name, store in stores.items()}
+    out = {"rows_added": ADD_ROWS, "rows_per_call": ADD_CALL, "rows_before": n0s}
     for name, store in stores.items():
+        n0 = n0s[name]
         trained = store._pq_trained_n
         cap0 = store._padded_rows()
         times = []
@@ -1627,7 +1649,7 @@ def phase_add(ph: Phase, dev, seed: int, shared: dict) -> dict:
     scratch = VectorStore(BENCH_STORE, device=dev)
     scratch.create_index(texts + new_texts, torch.cat([emb, new_emb]))
     got, ref = stores["int8"].search_batch(q_emb, top_k=10), scratch.search_batch(q_emb, top_k=10)
-    n = stores["int8"].n
+    n, n0 = stores["int8"].n, n0s["int8"]
     if not (torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
             and torch.equal(stores["int8"]._codes[:n], scratch._codes[:n])):
         raise AssertionError("add int8: search or codes differ from create_index over the rows")
@@ -1637,7 +1659,7 @@ def phase_add(ph: Phase, dev, seed: int, shared: dict) -> dict:
     del scratch
 
     # pq: the new codes against the same codebooks' encode on the CPU
-    pq = stores["pq"]
+    pq, n0 = stores["pq"], n0s["pq"]
     rpq = ResidualPQ(rotation=pq._rpq.rotation.cpu(), coarse=pq._rpq.coarse.cpu(),
                      codebook=PQCodebook(pq._rpq.codebook.centroids.cpu()))
     cid_cpu, codes_cpu = residual_pq_encode(rpq, new_emb.cpu(), pq._aniso_eta())
@@ -1656,8 +1678,9 @@ def phase_add(ph: Phase, dev, seed: int, shared: dict) -> dict:
                       "coarse_id_flips": int((~same_cid).sum())})
 
     # a `where`-filtered search on each grown store: a new row with shard 1
-    j = (1 - n0) % 4
     for name, store in stores.items():
+        n0 = n0s[name]
+        j = (1 - n0) % 4
         store.metadatas = [{"shard": i % 4} for i in range(store.n)]
         res = store.search(new_emb[j], top_k=5, where={"shard": 1})
         if len(res["ids"][0]) != 5 or any(md["shard"] != 1 for md in res["metadatas"][0]) \
@@ -2732,6 +2755,243 @@ def phase_kernel_fused_mlp(ph: Phase, dev, seed: int) -> dict:
     return out
 
 
+# the decode weight-streaming tools (crs_tpu_torch/tools/) and their three kernels
+GEMV_TOL = 1e-5  # |kernel − plain| ≤ GEMV_TOL·Σ|x·w|: f32 sums in another order
+GEMV_Q4_SHAPES = ((32, 2048, 32000, 16), (32, 2048, 32000, 8), (32, 2048, 32000, 4))  # R, K, N, g
+GEMV_Q8_SHAPES = ((8, 2048), (1, 2048), (16, 2048), (8, 4096))  # (R, d): the chain's, and off it
+GEMV_DB_SHAPES = ((8, 2048), (1, 2048), (8, 4096))
+GEMV_CHAIN = {"d": 2048, "layers": 96, "r": 8, "g": 16, "reps": 5, "n1": 1, "n2": 5}  # the defaults
+GEMV_Q4_TOOL = {"r": 32, "k": 2048, "n": 32000, "g": 16}  # bench_q4_kernel's defaults
+GEMV_KERNELS = {"q4_probe_matmul": ("q4_probe_kernel",), "q8_gemv": ("q8_gemv_kernel",),
+                "db_gemv": ("db_gemv_kernel",)}
+
+
+def gemv_check(got, ref, abs_sum, what: str, exact: bool = False) -> dict:
+    """A probe kernel against its plain version: bit for bit (``exact``: the
+    unfolded int4 path, whose f32 operations run in the plain version's
+    order) or within GEMV_TOL·Σ|x·w|."""
+    import torch
+
+    diff = (got.double() - ref.double()).abs()
+    ratio = float((diff / abs_sum.double().clamp_min(1e-30)).max())
+    ok = torch.equal(got, ref) if exact else ratio <= GEMV_TOL
+    if not (ok and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"gemv {what}: kernel differs from the plain version by "
+                             f"{float(diff.max())} ({ratio} of Σ|x·w|)")
+    return {"max_abs_err": float(diff.max()), "err_over_abs_sum": ratio}
+
+
+def gemv_time(dev, fn, copies, kernel: str) -> dict:
+    """Device ms a launch (torch.profiler) with the operands cycled through
+    ``copies`` past the L2 (the chain streams distinct weights), beside the
+    CUDA events' wall ms a call."""
+    it = iter(range(1 << 30))
+
+    def run():
+        fn(*copies[next(it) % len(copies)])
+
+    iters = max(20, len(copies))
+    ms = kernel_device_ms(run, iters, GEMV_KERNELS[kernel])
+    wall = device_ms(dev, run, iters=iters, warmup=3)
+    return {"ms": wall if ms is None else ms, "device_ms": ms, "wall_ms_per_call": wall,
+            "copies": len(copies)}
+
+
+def phase_gemv(ph: Phase, dev, seed: int) -> dict:
+    """The decode weight-streaming tools on the card: (a) the three probe
+    kernels against their plain versions at the tools' default shapes and
+    off them (A at g 16, 8, 4, every unpack and fold; B at R 8, 1, 16 and d
+    4096; C at R 8, 1 and d 4096), each kernel's device ms (weights past
+    the L2), plain and composition ms, bound; (b) both tools with every
+    variant at their defaults through their own functions (CUDA graphs),
+    counts reset before and read after: ms/chain, GB/s, bound and launches
+    a chain; (c) the q4 chain (kernel 8) also eagerly, a launch at a time;
+    (d) one layer of the int8, dq4 and i4native variants under
+    torch.profiler: its device time by kernel."""
+    import numpy as np
+    import torch
+
+    from crs_tpu_torch.ops import gemv_probe as gp
+    from crs_tpu_torch.tools import bench_chain_gemv as bcg
+    from crs_tpu_torch.tools import bench_q4_kernel as bqk
+    from crs_tpu_torch.tools.timing import launch_counts
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 18)
+    out = {"q4_probe_matmul": {}, "q8_gemv": {}, "db_gemv": {}}
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32).to(
+            torch.int8)
+
+    # (a) A: every unpack, unfolded and fold; random scales, so the tiled fold mapping shows
+    for r, k, n, grp in GEMV_Q4_SHAPES:
+        rt, k2 = max(32, -(-r // 32) * 32), k // 2
+        codes = ints(-128, 128, (k2, n))
+        scales = torch.rand((grp, n), generator=g, device=dev) * 0.015 + 0.005
+        xs = torch.rand((rt, 1), generator=g, device=dev) + 0.5
+        xi = (ints(-20, 20, (rt, k2)), ints(-20, 20, (rt, k2)))
+        for var in bqk.VARIANTS[1:]:
+            fold = var.startswith("fold_")
+            unpack = var.split("_")[-1] if fold else var
+            xe, xo = (t.to(torch.bfloat16) for t in xi) if fold else xi
+            got = gp.q4_probe_matmul(xe, xo, xs, codes, scales, unpack=unpack, fold=fold)
+            ref = gp.emulate_q4_probe_matmul(xe, xo, xs, codes, scales, unpack=unpack, fold=fold)
+            if fold:
+                wlo, whi = gp.fold_weights(codes, scales, unpack)
+                abs_sum = (xe.float().abs() @ wlo.float().abs()
+                           + xo.float().abs() @ whi.float().abs()) * xs
+            else:
+                abs_sum = ref.abs()
+            row = gemv_check(got, ref, abs_sum, f"{var} K={k} N={n} g={grp}", exact=not fold)
+            if grp == GEMV_Q4_SHAPES[0][3]:
+                fn = lambda c, s, xe=xe, xo=xo, unpack=unpack, fold=fold: gp.q4_probe_matmul(
+                    xe, xo, xs, c, s, unpack=unpack, fold=fold)
+                row.update(gemv_time(dev, fn, [(codes.clone(), scales.clone()) for _ in
+                                               range(cold_copies(codes.numel()))],
+                                     "q4_probe_matmul"))
+                row["ms_one_matrix"] = kernel_device_ms(lambda: fn(codes, scales), 20,
+                                                        GEMV_KERNELS["q4_probe_matmul"])
+                row["plain_ms"] = device_ms(dev, lambda: gp.emulate_q4_probe_matmul(
+                    xe, xo, xs, codes, scales, unpack=unpack, fold=fold), iters=3)
+                b = bound(codes.numel() + scales.numel() * 4 + 2 * xe.numel() * xe.element_size()
+                          + rt * 4 + rt * n * 4, 2.0 * rt * k * n,
+                          PEAK_BF16_OPS_PER_S if fold else PEAK_INT8_OPS_PER_S)
+                row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+            out["q4_probe_matmul"][f"{var} R={r} K={k} N={n} g={grp}"] = row
+        if grp == GEMV_Q4_SHAPES[0][3]:  # an unpack + per-group int8 products (torch._int_mm)
+            xe, xo = xi
+            gs2 = k2 // grp
+
+            def composition():
+                p = codes.to(torch.int32)
+                lo = torch.bitwise_right_shift(torch.bitwise_left_shift(p, 28), 28).to(torch.int8)
+                hi = torch.bitwise_right_shift(p, 4).to(torch.int8)
+                acc = torch.zeros((rt, n), dtype=torch.float32, device=dev)
+                for gi in range(grp):
+                    rows = slice(gi * gs2, (gi + 1) * gs2)
+                    ints_ = (torch._int_mm(xe[:, rows].contiguous(), lo[rows])
+                             + torch._int_mm(xo[:, rows].contiguous(), hi[rows]))
+                    acc = acc + ints_.float() * scales[gi]
+                return acc * xs
+
+            ref = gp.emulate_q4_probe_matmul(xe, xo, xs, codes, scales)
+            # a yardstick: sums in another order (xs once, not per K-step)
+            gemv_check(composition(), ref, torch.full_like(ref, float(ref.abs().max())),
+                       "the composition")
+            out["q4_probe_library_composition_ms"] = device_ms(dev, composition, iters=5)
+        del codes, xi
+    # B and C at the chain's shapes and off them
+    for r, d in GEMV_Q8_SHAPES:
+        codes = ints(-127, 128, (d, d))
+        scales = torch.full((1, d), 1e-2 / d ** 0.5, device=dev) * (
+            torch.rand((1, d), generator=g, device=dev) + 0.5)
+        x = torch.randn((r, d), generator=g, device=dev)
+        got, ref = gp.q8_gemv(x, codes, scales), gp.emulate_q8_gemv(x, codes, scales)
+        abs_sum = (x.to(torch.bfloat16).float().abs() @ codes.float().abs()) * scales
+        row = gemv_check(got, ref, abs_sum, f"q8 R={r} d={d}")
+        if (r, d) == GEMV_Q8_SHAPES[0]:
+            row.update(gemv_time(dev, lambda c, s: gp.q8_gemv(x, c, s), [
+                (codes.clone(), scales.clone()) for _ in range(cold_copies(codes.numel()))],
+                "q8_gemv"))
+            row["plain_ms"] = device_ms(dev, lambda: gp.emulate_q8_gemv(x, codes, scales), iters=5)
+            row["library_composition_ms"] = device_ms(dev, lambda: torch.matmul(
+                x.to(torch.bfloat16), codes.to(torch.bfloat16)).float() * scales, iters=10)
+            b = bound(d * d + d * 4 + r * d * 2 + r * d * 4, 2.0 * r * d * d, PEAK_BF16_OPS_PER_S)
+            row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                       plan=list(gp.q8_plan(d, d, torch.cuda.get_device_properties(
+                           dev).multi_processor_count)))
+        out["q8_gemv"][f"R={r} d={d}"] = row
+    for r, d in GEMV_DB_SHAPES:
+        codes = ints(-127, 128, (d, d))
+        x = torch.randn((r, d), generator=g, device=dev)
+        scale = 1e-2 / d ** 0.5
+        got, ref = gp.db_gemv(x, codes, scale), gp.emulate_db_gemv(x, codes, scale)
+        abs_sum = (x.to(torch.bfloat16).float().abs() @ codes.float().abs().T) * scale
+        row = gemv_check(got, ref, abs_sum, f"db R={r} d={d}")
+        if (r, d) == GEMV_DB_SHAPES[0]:
+            row.update(gemv_time(dev, lambda c: gp.db_gemv(x, c, scale), [
+                (codes.clone(),) for _ in range(cold_copies(codes.numel()))], "db_gemv"))
+            row["plain_ms"] = device_ms(dev, lambda: gp.emulate_db_gemv(x, codes, scale), iters=5)
+            row["library_composition_ms"] = device_ms(dev, lambda: torch.matmul(
+                x.to(torch.bfloat16), codes.to(torch.bfloat16).T).float() * scale, iters=10)
+            b = bound(d * d + r * d * 2 + r * d * 4, 2.0 * r * d * d, PEAK_BF16_OPS_PER_S)
+            row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        out["db_gemv"][f"R={r} d={d}"] = row
+    del codes
+    empty_cache(dev)
+
+    # (b) the tools, every variant, at their defaults: the main path
+    reset_counts()
+    lines = []
+    t0 = time.perf_counter()
+    chain_res, chain_failed = bcg.run_variants(list(bcg.VARIANTS), device=dev, report=lines.append,
+                                               **GEMV_CHAIN)
+    chain_s = time.perf_counter() - t0
+    empty_cache(dev)
+    t0 = time.perf_counter()
+    q4_res, q4_failed = bqk.run_variants(list(bqk.VARIANTS), device=dev, report=lines.append,
+                                         **GEMV_Q4_TOOL)
+    q4tool_s = time.perf_counter() - t0
+    counted = launch_counts()
+    if chain_failed or q4_failed:
+        raise AssertionError(f"gemv: variants failed: {chain_failed + q4_failed}: {lines}")
+    for name in ("q4_probe_matmul", "q8_gemv", "db_gemv", "q4_matmul"):
+        if counted.get(name, 0) < 1:
+            raise AssertionError(f"gemv: {name} was never launched on the tools' path: {counted}")
+    values = {v: res["value"] for v, res in q4_res.items()}
+    if not all(math.isfinite(v) for v in values.values()) or values["i32"] != values["i16"]:
+        raise AssertionError(f"gemv: bench_q4_kernel's sums {values} (i32 and i16 must agree)")
+    for var, res in chain_res.items():
+        if not math.isfinite(res["ms_per_chain"]) or res["ms_per_chain"] <= 0:
+            raise AssertionError(f"gemv: {var}'s chain took {res['ms_per_chain']} ms")
+    launches = {"q4_probe_matmul": sum(res["launches"].get("q4_probe_matmul", 0)
+                                       for res in q4_res.values()),
+                "q8_gemv": chain_res["q8pallas"]["launches"].get("q8_gemv", 0),
+                "db_gemv": chain_res["pldb"]["launches"].get("db_gemv", 0),
+                "q4_matmul": chain_res["q4"]["launches"].get("q4_matmul", 0)}
+    out["chain"] = {"args": GEMV_CHAIN, "seconds": chain_s, "variants": chain_res}
+    out["q4_tool"] = {"args": GEMV_Q4_TOOL, "seconds": q4tool_s, "variants": q4_res}
+    out["tool_lines"] = lines
+    out["main_path_launches"] = launches
+    out["wrapper_counts"] = counted
+
+    # (c) the q4 chain, a launch at a time (no graph), beside its graph time
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(rng.standard_normal((GEMV_CHAIN["r"], GEMV_CHAIN["d"])).astype(
+        np.float32)).to(dev)
+    step, ws, _ = bcg.draw_variant("q4", rng, GEMV_CHAIN["d"], GEMV_CHAIN["layers"],
+                                   GEMV_CHAIN["r"], GEMV_CHAIN["g"], dev)
+    eager = bcg.timed_chain(step, ws, x0, GEMV_CHAIN["n1"], GEMV_CHAIN["n2"], GEMV_CHAIN["reps"],
+                            graph=False)
+    del ws
+    graph_ms = chain_res["q4"]["ms_per_chain"]
+    out["q4_chain_eager_vs_graph"] = {
+        "eager_ms_per_chain": eager["seconds"] * 1e3, "graph_ms_per_chain": graph_ms,
+        "eager_us_per_layer": eager["seconds"] * 1e6 / GEMV_CHAIN["layers"],
+        "graph_us_per_layer": graph_ms * 1e3 / GEMV_CHAIN["layers"],
+        "kernel_8_bound_us_per_layer": chain_res["q4"]["bound_ms"] * 1e3 / GEMV_CHAIN["layers"]}
+    # (d) what a layer of the composed variants spends on the card, by kernel (one layer)
+    out["step_profiles"] = {}
+    for var in ("int8", "dq4", "i4native"):
+        step, ws, _ = bcg.draw_variant(var, np.random.default_rng(seed), GEMV_CHAIN["d"], 1,
+                                       GEMV_CHAIN["r"], GEMV_CHAIN["g"], dev)
+        w = {k: v[0] for k, v in ws.items()}
+        step(x0, w)
+        sync(dev)
+        out["step_profiles"][var] = device_profile(lambda: step(x0, w),
+                                                   device_ms(dev, lambda: step(x0, w), iters=20))
+    empty_cache(dev)
+    out["note"] = ("kernel ms: device time a launch (torch.profiler), operands cycled through "
+                   "copies past the L2; q4_probe ms_one_matrix: the tool's one-matrix loop (L2 "
+                   "warm); chain ms: CUDA graphs of n1 and n2 repetitions, "
+                   "(t2 − t1)/(n2 − n1); "
+                   "unfolded probe bit for bit, the rest within "
+                   f"{GEMV_TOL}·Σ|x·w|")
+    ph.info.update(out)
+    return out
+
+
 def _questions():
     with open(QA) as f:
         qs = [x["question"] for x in json.load(f)]
@@ -3005,7 +3265,8 @@ def pq_rebuild_identical(store, cfg: dict, texts, emb, dev) -> str:
 
 
 def phase_formats(ph: Phase, dev, shared: dict) -> dict:
-    """The full phase's 1M texts and embeddings in every other store format:
+    """The first FORMAT_ROWS of the full phase's texts and embeddings in every
+    other store format:
     each format's main path (retrieve_batch at batch 328, without and with
     PRF) must launch that format's kernel; returns each kernel's launches."""
     import torch
@@ -3015,6 +3276,7 @@ def phase_formats(ph: Phase, dev, shared: dict) -> dict:
     from crs_tpu_torch.rag import ContextRetriever, VectorStore
 
     texts, queries, emb, em = (shared[k] for k in ("texts", "queries", "emb", "em"))
+    texts, emb = texts[:FORMAT_ROWS], emb[:FORMAT_ROWS]
     n = emb.shape[0]
     q_emb = em.embed(queries)
     exact = exact_topk(emb, q_emb, 3, n)  # the fp32 exact top-3 on the same embeddings
@@ -3162,9 +3424,10 @@ def kernel_counts():
 
 
 def reset_counts() -> None:
-    from crs_tpu_torch.ops import decode_attention, fused_mlp, qgemm, scan
+    from crs_tpu_torch.ops import decode_attention, fused_mlp, gemv_probe, qgemm, scan
 
-    for stats in (scan.STATS, qgemm.STATS, decode_attention.STATS, fused_mlp.STATS):
+    for stats in (scan.STATS, qgemm.STATS, decode_attention.STATS, fused_mlp.STATS,
+                  gemv_probe.STATS):
         stats.reset()
 
 
@@ -4045,10 +4308,10 @@ def phase_finetune(ph: Phase, dev, seed: int) -> dict:
 
 
 GEN7_BASE = "mistral-7b"
-# its 32 layers cut to 16 (full width) to keep the whole run inside its time limit
-# with the finetune and multi phases: kernel 11 launches per decode step in the
-# fused_mlp variant
-GEN7_LAYERS = 16
+# its 32 layers cut (full width) to keep the whole run inside its time limit: to 16
+# for the finetune and multi phases, to 8 for gemv; kernel 11 launches per decode
+# step in the fused_mlp variant
+GEN7_LAYERS = 8
 GEN7_CONFIG = f"{GEN7_BASE}-{GEN7_LAYERS}-layers"
 GEN7_NEW_TOKENS = 32
 GEN7_FUSED_LOGITS_RTOL = 5e-2  # fused MLP against unfused: per-chunk hidden scales differ
@@ -5212,6 +5475,26 @@ def kernel_table(res: dict) -> list:
         "replaces": "crs_tpu/ops/fused_mlp.py:74",
         "launches": res["generate_7b"]["main_path_launches"], "max_abs_err": mlp["max_abs_err"],
         **{k: mlp[k] for k in keys}, "library_ms": None})
+    gemv = res["gemv"]  # the weight-streaming tools' path (CUDA graphs: captured × replays)
+    q4p = gemv["q4_probe_matmul"][f"i32 R={GEMV_Q4_TOOL['r']} K={GEMV_Q4_TOOL['k']} "
+                                  f"N={GEMV_Q4_TOOL['n']} g={GEMV_Q4_TOOL['g']}"]
+    q8, db = gemv["q8_gemv"]["R=8 d=2048"], gemv["db_gemv"]["R=8 d=2048"]
+    for name, line, row, comp in (
+            ("q4_probe_matmul", "tools/bench_q4_kernel.py:36", q4p,
+             gemv["q4_probe_library_composition_ms"]),
+            ("q8_gemv", "tools/bench_chain_gemv.py:152", q8, q8["library_composition_ms"]),
+            ("db_gemv", "tools/bench_chain_gemv.py:209", db, db["library_composition_ms"])):
+        rows.append({
+            "name": name, "route": "cuda", "source": "crs_tpu_torch/csrc/gemv_probe.cu",
+            "replaces": line, "launches": gemv["main_path_launches"][name],
+            "max_abs_err": max(v["max_abs_err"] for v in gemv[name].values()),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_composition_ms": comp, "library_ms": None})
+    rows[-3]["by_variant_ms"] = {k.split()[0]: v["ms"] for k, v in gemv["q4_probe_matmul"].items()
+                                 if "ms" in v}
+    for row in rows:  # kernel 8 on the chain tool's q4 variant
+        if row["name"] == "q4_matmul":
+            row["launches_gemv_tools"] = gemv["main_path_launches"]["q4_matmul"]
     multi = res["multi"]  # the mesh path's launches (kernels 1, 2, 3 and 10; 0 elsewhere)
     for row in rows:
         row["launches_multi"] = multi.get(MULTI_LAUNCH_KEY.get(row["name"], ""), 0)
@@ -5219,9 +5502,9 @@ def kernel_table(res: dict) -> list:
 
 
 ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted_adc",
-              "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "faults",
-              "bench", "full", "formats", "add", "multi", "generate", "evaluate", "finetune",
-              "rag", "lexical", "minilm", "cli", "generate_7b", "calibrated")
+              "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "gemv",
+              "faults", "bench", "full", "formats", "add", "multi", "generate", "evaluate",
+              "finetune", "rag", "lexical", "minilm", "cli", "generate_7b", "calibrated")
 # selectable with --phases, not run by default: the mesh path across every rank of a
 # torchrun launch (after a separate build call)
 EXTRA_PHASES = ("ranks",)
@@ -5269,6 +5552,7 @@ def main(argv=None) -> int:
         "kernel_q4": lambda ph: phase_kernel_q4(ph, dev, args.seed),
         "kernel_decode_attn": lambda ph: phase_kernel_decode_attn(ph, dev, args.seed),
         "kernel_fused_mlp": lambda ph: phase_kernel_fused_mlp(ph, dev, args.seed),
+        "gemv": lambda ph: phase_gemv(ph, dev, args.seed),
         "faults": lambda ph: phase_faults(ph, dev, args.seed),
         "bench": lambda ph: phase_bench(ph, dev),
         "full": lambda ph: phase_full(ph, dev, args.seed, FULL_ROWS,

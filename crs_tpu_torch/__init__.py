@@ -10,13 +10,14 @@ int8 MLP, GPTQ / AWQ calibration, local Hugging Face checkpoints, sampling,
 the model interface, answer generation and the RAG pipeline), the
 evaluation with its analysis tools, QLoRA finetuning, and multi-device
 serving and training over ``torch.distributed`` (``parallel``,
-``models.sharding``) on NVIDIA H100s. Module names mirror ``crs_tpu``'s so each
+``models.sharding``) on NVIDIA H100s, and the decode weight-streaming
+tools of ``tools/`` (``crs_tpu_torch.tools``). Module names mirror ``crs_tpu``'s so each
 counterpart is easy to find; the TPU kernels on these paths are
 hand-written CUDA kernels in ``csrc/``: the scans of
 ``crs_tpu.ops.pallas_scan`` (``pallas_topk_int8``, ``pallas_topk``,
 ``pallas_topk_residual_pq_adc``, ``pallas_topk_pq_adc``), the int4 / NF4
 matmuls of ``crs_tpu.ops.qgemm``, ``crs_tpu.ops.decode_attention`` and
-``crs_tpu.ops.fused_mlp``.
+``crs_tpu.ops.fused_mlp``, and the three Pallas kernels of the tools.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA and without an explicit ``"cpu"`` they raise.

@@ -29,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 # (``lib<stem>.so``), so the nvcc runs can start together.
 CUDA_SOURCES = ("int8_scan_topk.cu", "scan_topk_f32_bf16.cu", "pq_adc_scan_topk.cu",
                 "segmax_scan_topk.cu", "q4_matmul.cu", "decode_attention_int8.cu",
-                "fused_mlp_int8.cu")
+                "fused_mlp_int8.cu", "gemv_probe.cu")
 
 
 def nvcc_path() -> str:

@@ -3,7 +3,8 @@ kernels' wrappers (int8, fp32/bf16, PQ ADC over unsorted and coarse-sorted
 rows, the segment-max pair), ``pq`` the product quantizer,
 ``qgemm`` the int4 / NF4 matmul wrappers, ``decode_attention`` the int8-KV
 decode-attention wrapper, ``fused_mlp`` the fused int8 MLP wrapper,
-``launch`` what they share."""
+``gemv_probe`` the weight-streaming tools' three kernels, ``launch`` what
+they share."""
 
 from .mmr import mmr_select, mmr_select_batch
 from .pq import (

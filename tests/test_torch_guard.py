@@ -693,7 +693,7 @@ def test_build_lists_every_kernel_source():
     assert set(_build.CUDA_SOURCES) == {"int8_scan_topk.cu", "scan_topk_f32_bf16.cu",
                                         "pq_adc_scan_topk.cu", "segmax_scan_topk.cu",
                                         "q4_matmul.cu", "decode_attention_int8.cu",
-                                        "fused_mlp_int8.cu"}
+                                        "fused_mlp_int8.cu", "gemv_probe.cu"}
     on_disk = {p.name for p in (REPO / "crs_tpu_torch" / "csrc").glob("*.cu")}
     assert on_disk == set(_build.CUDA_SOURCES)
     cmd = _build.compile_command("x.cu", "libx.so")
