@@ -78,13 +78,15 @@ the largest difference); any failure raises and exits non-zero:
 10. gemv              — the decode weight-streaming tools (crs_tpu_torch/tools/):
                         their three kernels (gemv_probe.cu) against their plain
                         versions — the int4 probe at bench_q4_kernel's defaults
-                        (R 32, K 2048, N 32000) with g 16, 8 and 4, every
-                        unpack and fold (unfolded bit for bit, fold within
+                        (R 32, K 2048, N 32000) with g 16, 8, 4, 64 and 256,
+                        and at N 32004 (no TMA: 4-byte copies), every unpack
+                        and fold (unfolded bit for bit, fold within
                         1e-5·Σ|x·w|, random scales so the tiled fold mapping
-                        shows), the q8 GEMV at (R, d) 8/2048, 1/2048, 16/2048
-                        and 8/4096, the row-major GEMV at 8/2048, 1/2048 and
-                        8/4096 — each kernel's device ms with the weights past
-                        the L2, plain and composition ms, bound; then both
+                        shows), the q8 GEMV at (R, d) 8/2048, 1/2048, 16/2048,
+                        3/2048, 12/2048 and 8/4096, the row-major GEMV at
+                        8/2048, 1/2048 and 8/4096 — each kernel's device ms
+                        with the weights past the L2, plain and composition
+                        ms, bound; then both
                         tools with every variant at their defaults (CUDA
                         graphs; ms/chain, GB/s, bound, launches a chain; the
                         bench_chain_gemv chain is 96 layers of 2048 × 2048)
@@ -2757,8 +2759,12 @@ def phase_kernel_fused_mlp(ph: Phase, dev, seed: int) -> dict:
 
 # the decode weight-streaming tools (crs_tpu_torch/tools/) and their three kernels
 GEMV_TOL = 1e-5  # |kernel − plain| ≤ GEMV_TOL·Σ|x·w|: f32 sums in another order
-GEMV_Q4_SHAPES = ((32, 2048, 32000, 16), (32, 2048, 32000, 8), (32, 2048, 32000, 4))  # R, K, N, g
-GEMV_Q8_SHAPES = ((8, 2048), (1, 2048), (16, 2048), (8, 4096))  # (R, d): the chain's, and off it
+# (R, K, N, g): the tool's defaults (timed), other groups (16 and 4 packed rows at g 64 and
+# 256: masked products), and an N that is no multiple of 16 (the kernel's cp.async route)
+GEMV_Q4_SHAPES = ((32, 2048, 32000, 16), (32, 2048, 32000, 8), (32, 2048, 32000, 4),
+                  (32, 2048, 32000, 64), (32, 2048, 32000, 256), (32, 2048, 32004, 16))
+GEMV_Q8_SHAPES = ((8, 2048), (1, 2048), (16, 2048), (3, 2048), (12, 2048),
+                  (8, 4096))  # (R, d): the chain's, and off it
 GEMV_DB_SHAPES = ((8, 2048), (1, 2048), (8, 4096))
 GEMV_CHAIN = {"d": 2048, "layers": 96, "r": 8, "g": 16, "reps": 5, "n1": 1, "n2": 5}  # the defaults
 GEMV_Q4_TOOL = {"r": 32, "k": 2048, "n": 32000, "g": 16}  # bench_q4_kernel's defaults
@@ -2800,10 +2806,11 @@ def gemv_time(dev, fn, copies, kernel: str) -> dict:
 def phase_gemv(ph: Phase, dev, seed: int) -> dict:
     """The decode weight-streaming tools on the card: (a) the three probe
     kernels against their plain versions at the tools' default shapes and
-    off them (A at g 16, 8, 4, every unpack and fold; B at R 8, 1, 16 and d
-    4096; C at R 8, 1 and d 4096), each kernel's device ms (weights past
-    the L2), plain and composition ms, bound; (b) both tools with every
-    variant at their defaults through their own functions (CUDA graphs),
+    off them (A at g 16, 8, 4, 64, 256 and N 32004, every unpack and fold;
+    B at R 8, 1, 16, 3, 12 and d 4096; C at R 8, 1 and d 4096), each
+    kernel's device ms (weights past the L2), plain and composition ms,
+    bound; (b) both tools with every variant at their defaults through
+    their own functions (CUDA graphs),
     counts reset before and read after: ms/chain, GB/s, bound and launches
     a chain; (c) the q4 chain (kernel 8) also eagerly, a launch at a time;
     (d) one layer of the int8, dq4 and i4native variants under
@@ -2844,7 +2851,7 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
             else:
                 abs_sum = ref.abs()
             row = gemv_check(got, ref, abs_sum, f"{var} K={k} N={n} g={grp}", exact=not fold)
-            if grp == GEMV_Q4_SHAPES[0][3]:
+            if (r, k, n, grp) == GEMV_Q4_SHAPES[0]:
                 fn = lambda c, s, xe=xe, xo=xo, unpack=unpack, fold=fold: gp.q4_probe_matmul(
                     xe, xo, xs, c, s, unpack=unpack, fold=fold)
                 row.update(gemv_time(dev, fn, [(codes.clone(), scales.clone()) for _ in
@@ -2859,7 +2866,7 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
                           PEAK_BF16_OPS_PER_S if fold else PEAK_INT8_OPS_PER_S)
                 row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
             out["q4_probe_matmul"][f"{var} R={r} K={k} N={n} g={grp}"] = row
-        if grp == GEMV_Q4_SHAPES[0][3]:  # an unpack + per-group int8 products (torch._int_mm)
+        if (r, k, n, grp) == GEMV_Q4_SHAPES[0]:  # an unpack + per-group int8 products (_int_mm)
             xe, xo = xi
             gs2 = k2 // grp
 
@@ -2898,9 +2905,7 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
             row["library_composition_ms"] = device_ms(dev, lambda: torch.matmul(
                 x.to(torch.bfloat16), codes.to(torch.bfloat16)).float() * scales, iters=10)
             b = bound(d * d + d * 4 + r * d * 2 + r * d * 4, 2.0 * r * d * d, PEAK_BF16_OPS_PER_S)
-            row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-                       plan=list(gp.q8_plan(d, d, torch.cuda.get_device_properties(
-                           dev).multi_processor_count)))
+            row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
         out["q8_gemv"][f"R={r} d={d}"] = row
     for r, d in GEMV_DB_SHAPES:
         codes = ints(-127, 128, (d, d))

@@ -18,37 +18,59 @@
 //     pltpu.repeat tiles the step's gpt scale rows, it does not repeat each
 //     one (kernel 8's mapping, the own group's scale, differs).
 // Bound at the tool's defaults (R 32 → rt 32, K 2048, N 32000, g 16): the
-// 32.8 MB of codes and 2 MB of scales at 3.35 TB/s, ≈ 10.4 µs; the codes fit
-// in the 50 MB L2, so the tool's loop over one matrix reads them from there.
-// Design: a block of 4 warps owns 128 columns (a 4-byte word of a packed row
-// per lane, 128 contiguous bytes a warp) and 32 rows (8 a warp); its rows of
-// x are staged in shared memory 128 packed rows at a time and read by the
-// whole warp at once (broadcast). The four warps read the same codes, the
-// three after the first from L1. Unfolded, the lane turns its 4 × 4 bytes
-// (4 packed rows × 4 columns) into one word of 4 k per column (byte
-// permutes) and takes both nibbles at once as 16 × the signed nibble:
-// (w << 4) & 0xF0F0F0F0 and w & 0xF0F0F0F0, each byte an int8, so one
-// __dp4a gives 16 × four products; the group's int32 sum is shifted back by
-// 4 (exact), converted once and scaled with f32 operations that are not
-// contracted, in the Pallas kernel's order. Fold: the lane dequantises its
-// 16 weights per 4 rows (exact f32 product, one bf16 rounding) and sums
-// bf16 x · bf16 w in f32 (each product exact) with FMAs.
+// 32.8 MB of codes, 2 MB of scales and 4 MB of output at 3.35 TB/s, ≈ 11.6
+// µs; the 4.2 G int8 products take 2.1 µs on the tensor cores, so bytes
+// bound it. The codes fit in the 50 MB L2, so the tool's loop over one
+// matrix reads them from there.
+// Design: a block of 8 warps owns 256 columns and 32 rows of x; a warp owns
+// 32 of the columns and all 32 rows (two m16 tiles), so each code byte is
+// loaded and unpacked once a block. The codes (two TMA boxes of 64 packed
+// rows × 128 bytes, 128-byte swizzled) and both halves of x (one box each)
+// stream through a ring of 4 stages, one thread issuing a stage's boxes
+// against an mbarrier, three stages (48 KB of codes) in flight; TMA fills
+// zeros past K/2 and N. Where N % 16, the rows of x or the alignment rule
+// out TMA, 4-byte cp.async copies lay the stage out the same way. x is read
+// with ldmatrix as the A operand. At N 32,000 that is 125 blocks, one wave
+// on 132 SMs. A chunk of 64 rows whose groups (steps) end only at piece
+// edges runs in a straight line, every load first; others piece by piece.
+//   unfolded: mma.sync m16n8k32 s8 with s32 sums. A lane reads a word (4
+//     columns) of 4 packed rows and turns them into a word of 4 k for each
+//     column (byte permutes): the B fragments of 4 n8 tiles whose columns
+//     are interleaved by 4, so a lane's sums are 8 adjacent columns. The
+//     masks (w << 4) & 0xF0F0F0F0 and w & 0xF0F0F0F0 make each byte 16 ×
+//     the signed nibble, an exact int8 (RAW takes the byte whole). A group
+//     shorter than 32 rows, or one that does not start on a 32-row edge,
+//     masks the B words of the other rows to zero. At a group's end the
+//     int32 sum is shifted back by 4 (exact), converted once and scaled
+//     with f32 operations that are not contracted, in the Pallas kernel's
+//     order, then × xs at a step's end: bit for bit the plain version. The
+//     next group's scales are loaded a group ahead. K is not split across
+//     blocks, so that order holds.
+//   fold: mma.sync m16n8k16 bf16 with f32 sums. Each weight is made once a
+//     block in registers: the nibble as a bf16 (128 + (nibble ^ 8), less
+//     136, exact), × the bf16 scale of its row (one rounding, fma.rn.bf16x2
+//     with −0), the scale rows tiled as above; a step that ends inside 16
+//     rows masks the other rows' B words.
 //
 // q8_gemv_kernel replaces tools/bench_chain_gemv.py q8mm / k8 (a W8A16
 // GEMV): x [R, K] bf16 (R ≤ 16), codes [K, N] int8, scales [N] f32 → out
 // [R, N] = Σ_tiles (x_tile · bf16(codes_tile), f32 sums) · scale over K
 // tiles of 512 rows. Bound at d 2048: the 4.19 MB of codes at 3.35 TB/s, ≈
-// 1.25 µs. Design: a block of 8 warps owns 128 columns; a lane loads 16
-// bytes (16 columns) of a row, 8 lanes a row's 128 contiguous bytes, and the
-// block's 32 lanes-groups take every 32nd row of its K slice. Each slice of
-// K lies in one tile or is cut at tile edges into segments; a segment's sums
-// are added over the lanes-groups (shuffles, then the warps in order through
-// shared memory), multiplied by the scale and added to the block's total.
-// K is split into ≤ 8 slices, the blocks of a column slab forming one
-// thread-block cluster: each block stores its totals into the shared memory
-// of the block that owns them, and after one cluster barrier each owner
-// adds them in slice order. Rows run in passes of 8 (R > 8 reads the codes
-// twice, the second time from L1 / L2).
+// 1.25 µs; the 67 MFLOP take 0.07 µs on the tensor cores, so the kernel is
+// bound by how many bytes are in flight. Design: a block of 8 warps owns 16
+// columns and all of K (128 blocks at d 2048), so no sum crosses blocks: a
+// K split over a cluster of blocks spent more on its barriers and exchange
+// than it saved.
+// One thread issues every tile at once where the ring of 4 holds them all:
+// a tile's codes as two TMA boxes of 256 rows × 16 bytes and its x as eight
+// boxes of 16 rows × 64 bf16 (128-byte swizzled; TMA fills the rows past R
+// with zeros). Products on the tensor cores (mma.sync m16n8k16 bf16, f32
+// sums): x is the A operand (16 rows), read with ldmatrix; a lane turns 2
+// columns of 4 rows (16-bit reads, conflict-free at 16-byte rows) into the
+// bf16 pairs of 2 n8 tiles in registers (exact: 128 + the low 7 bits, less
+// 128 or 256 by the sign). A warp owns 64 rows of each tile and keeps its
+// sums in its fragments, × the scale at the tile's end; the block's 8 warps
+// meet in shared memory (R × 16 f32 each), added in warp order.
 //
 // db_gemv_kernel replaces tools/bench_chain_gemv.py dbmm / kdb (a W8A16 GEMV
 // against a row-major weight, streamed through a manual two-slot DMA double
@@ -61,14 +83,13 @@
 // weight row: a lane reads 16 contiguous bytes of it at a time (512 a
 // warp), x from L1, and the warp's sums meet by shuffles.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-namespace cg = cooperative_groups;
+#include "sm90_async.cuh"
 
 namespace {
 
@@ -80,6 +101,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
+// 4 bytes, or 4 zeros when !ok (src is then not read)
+__device__ __forceinline__ void cp_async4_or_zero(uint32_t dst, const void* src, bool ok) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 4 : 0)
+                 : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -89,8 +117,72 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
+// four 8×8 b16 matrices: lanes 0–7 give the rows of the first, 8–15 of the
+// second, ...; register i holds the lane's word of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+
+// d += A·B: A 16×32 s8 (a0: row g, k 4t..; a1: row g+8; a2: row g, k 16+4t..;
+// a3: row g+8), B 32×8 s8 (b0: k 4t.., column g; b1: k 16+4t..), d 16×8 s32
+// (d0, d1: row g, columns 2t, 2t+1; d2, d3: row g+8); g = lane / 4, t = lane % 4
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same for bf16, K 16: a0: row g, k 2t, 2t+1; a1: row g+8; a2: row g,
+// k 8+2t..; a3: row g+8; b0: k 2t, 2t+1 of column g; b1: k 8+2t..; f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a · b + c on bf16 pairs, rounded once
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t d;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+}
+
+constexpr uint32_t BF2_NEG_ONE = 0xBF80BF80u;  // (−1, −1)
+constexpr uint32_t BF2_NEG_ZERO = 0x80008000u;
+constexpr uint32_t BF2_ONE = 0x3F803F80u;
+constexpr uint32_t BF2_M136 = 0xC308C308u;     // (−136, −136)
+
+// bytes 0 and 2 of w (lower first) as exact bf16 int8 values: 128 + the low
+// 7 bits, less 128 + the sign bit (128 or 256)
+__device__ __forceinline__ uint32_t s8_pair_bf16(uint32_t w) {
+    const uint32_t mag = (w & 0x007F007Fu) | 0x43004300u;
+    const uint32_t sgn = (w & 0x00800080u) | 0x43004300u;
+    return fma_bf16x2(sgn, BF2_NEG_ONE, mag);
+}
+
+// the low nibbles of bytes 0 and 2 of w as exact bf16 values in [−8, 7]:
+// 128 + (nibble ^ 8), less 136
+__device__ __forceinline__ uint32_t s4_pair_bf16(uint32_t w) {
+    return fma_bf16x2((w & 0x000F000Fu) ^ 0x43084308u, BF2_ONE, BF2_M136);
+}
+
+// byte c of a (low half) and of b (high half), in bytes 0 and 2
+__device__ __forceinline__ uint32_t pair_bytes(uint32_t a, uint32_t b, int c) {
+    return __byte_perm(a, b, (uint32_t)(c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12)));
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // Sets the dynamic shared memory limit of `kernel` to `bytes` once a
@@ -110,10 +202,43 @@ cudaError_t allow_smem(K kernel, size_t bytes, int& done) {
 
 // -- q4_probe_kernel ---------------------------------------------------------------
 
-constexpr int QP_ROWS = 32;   // rows of x a block owns (8 a warp)
-constexpr int QP_WARPS = 4;
-constexpr int QP_COLS = 128;  // columns a block owns (4 a lane)
-constexpr int QP_CHUNK = 128; // packed rows of x staged at a time
+constexpr int QP_ROWS = 32;                   // rows of x a block owns: two m16 tiles
+constexpr int QP_WARPS = 8;
+constexpr int QP_THREADS = 32 * QP_WARPS;
+constexpr int QP_WCOLS = 32;                  // columns a warp owns: four n8 tiles
+constexpr int QP_COLS = QP_WARPS * QP_WCOLS;  // columns a block owns
+constexpr int QP_KC = 64;                     // packed rows a ring stage holds
+constexpr int QP_STAGES = 4;
+constexpr int QP_BOX = 128;                   // columns of codes a TMA box holds (128 bytes)
+
+// A ring stage, laid out as the TMA boxes land (1024-byte aligned): [codes:
+// two boxes of QP_KC rows × 128 columns, 128-byte swizzled][xe: QP_ROWS rows
+// × QP_KC elements][xo: the same], x 64-byte swizzled (int8, 64-byte rows) or
+// 128-byte swizzled (bf16, 128-byte rows). The cp.async route writes the
+// same layout.
+template <bool FOLD>
+struct QpStage {
+    static constexpr int XB = FOLD ? 2 : 1;          // bytes an element of x
+    static constexpr int X_ROW = QP_KC * XB;         // 64 or 128
+    static constexpr int BOX_BYTES = QP_KC * QP_BOX;
+    static constexpr int CODE_BYTES = 2 * BOX_BYTES;
+    static constexpr int X_BYTES = QP_ROWS * X_ROW;
+    static constexpr int BYTES = CODE_BYTES + 2 * X_BYTES;  // a multiple of 1024
+};
+
+// byte offset of (packed row r, column c) in a stage's codes: 16-byte chunk
+// (c / 16) % 8 of a 128-byte row stored at chunk ((c / 16) % 8) ^ (r % 8)
+__device__ __forceinline__ int qp_code_off(int r, int c) {
+    return (c >> 7) * (QP_KC * QP_BOX) + r * QP_BOX + ((((c >> 4) & 7) ^ (r & 7)) << 4) + (c & 15);
+}
+
+// byte offset of (row r, byte b) in a stage's xe or xo: the TMA swizzle of
+// 64-byte rows (chunk ^ (r / 2) % 4) or 128-byte rows (chunk ^ r % 8)
+template <bool FOLD>
+__device__ __forceinline__ int qp_x_off(int r, int b) {
+    return FOLD ? r * 128 + ((((b >> 4) & 7) ^ (r & 7)) << 4) + (b & 15)
+                : r * 64 + ((((b >> 4) & 3) ^ ((r >> 1) & 3)) << 4) + (b & 15);
+}
 
 // bytes (w0.b, w1.b, w2.b, w3.b) for each byte position b: 4 packed rows of
 // one column, k ascending in the word
@@ -126,249 +251,455 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t (&c)
     c[3] = __byte_perm(hi01, hi23, 0x7632);
 }
 
-template <bool FOLD, bool RAW>
-__global__ void __launch_bounds__(32 * QP_WARPS)
-q4_probe_kernel(const void* __restrict__ xe_, const void* __restrict__ xo_,
+// scales of the fold's packed row j: the step's gpt scale rows tiled
+__device__ __forceinline__ int fold_scale_row(int j, int kt2, int gpt) {
+    const int step = j / kt2;
+    return step * gpt + (j - step * kt2) % gpt;
+}
+
+// Lane (g, t) of warp w: rows g, g+8 of each m16 tile; of n8 tile c, the
+// block column w·32 + 4·g' + c holds tile column g', so the lane's sums are
+// columns w·32 + 8t .. 8t+7 (element e: + 4·(e & 1) + c, row + 8·(e >> 1)).
+// TMA: the codes and x arrive as TMA boxes (one thread issues a stage's
+// four), else by cp.async (4-byte copies where N % 16, the rows of x or the
+// alignment forbid 16-byte ones).
+template <bool FOLD, bool RAW, bool TMA>
+__global__ void __launch_bounds__(QP_THREADS, 1)
+q4_probe_kernel(const __grid_constant__ CUtensorMap tm_codes,  // [K2, N] u8, box 128 × 64
+                const __grid_constant__ CUtensorMap tm_xe,     // [rt, K2], box 64 × 32
+                const __grid_constant__ CUtensorMap tm_xo,
+                const void* __restrict__ xe_, const void* __restrict__ xo_,
                 const float* __restrict__ xs, const uint8_t* __restrict__ codes,
                 const float* __restrict__ scales, float* __restrict__ out, int K2, int N, int gs2,
                 int gpt) {
-    using XT = typename std::conditional<FOLD, __nv_bfloat16, int8_t>::type;
-    __shared__ __align__(16) XT sx[2][QP_ROWS][QP_CHUNK];
-    const XT* xe = static_cast<const XT*>(xe_);
-    const XT* xo = static_cast<const XT*>(xo_);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    using S = QpStage<FOLD>;
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ __align__(8) uint64_t full[QP_STAGES];  // TMA: a stage's bytes have landed
+    uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                               ~(uintptr_t)1023);
+    const uint8_t* xe = static_cast<const uint8_t*>(xe_);
+    const uint8_t* xo = static_cast<const uint8_t*>(xo_);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
     const int row0 = blockIdx.y * QP_ROWS;
-    const int col = blockIdx.x * QP_COLS + 4 * lane;
-    const bool live = col < N;
+    const int bcol = blockIdx.x * QP_COLS;     // the block's first column
+    const int wcol = bcol + warp * QP_WCOLS;   // the warp's
     const int kt2 = gpt * gs2;
+    const int nch = (K2 + QP_KC - 1) / QP_KC;
+    const int slots = min(QP_STAGES, nch);
+    const size_t xrow = (size_t)K2 * S::XB;   // bytes a row of x
 
-    float total[8][4], kacc[8][4];
-    int iacc[8][4];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) total[r][c] = 0.f, kacc[r][c] = 0.f, iacc[r][c] = 0;
-
-    for (int c0 = 0; c0 < K2; c0 += QP_CHUNK) {
-        const int cn = min(QP_CHUNK, K2 - c0);
-        __syncthreads();  // the previous chunk's readers are done
-        for (int i = threadIdx.x; i < QP_ROWS * cn; i += 32 * QP_WARPS) {
-            const int r = i / cn, j = i - r * cn;
-            const size_t src = (size_t)(row0 + r) * K2 + c0 + j;
-            sx[0][r][j] = xe[src];
-            sx[1][r][j] = xo[src];
+    // chunk ch (packed rows 64·ch ..) → its ring slot; zeros past K2 and N
+    auto issue = [&](int ch) {
+        uint8_t* st = smem + (ch % slots) * S::BYTES;
+        const int j0 = ch * QP_KC;
+        if constexpr (TMA) {
+            if (tid == 0) {  // the second box only where it holds a column below N
+                const bool box1 = bcol + QP_BOX < N;
+                const uint32_t bar = sm90::smem_u32(&full[ch % slots]);
+                sm90::mbar_expect_tx(bar, box1 ? S::BYTES : S::BYTES - S::BOX_BYTES);
+                sm90::tma_load_2d(smem_addr(st), &tm_codes, bcol, j0, bar);
+                if (box1)
+                    sm90::tma_load_2d(smem_addr(st + S::BOX_BYTES), &tm_codes, bcol + QP_BOX, j0,
+                                      bar);
+                sm90::tma_load_2d(smem_addr(st + S::CODE_BYTES), &tm_xe, j0, row0, bar);
+                sm90::tma_load_2d(smem_addr(st + S::CODE_BYTES + S::X_BYTES), &tm_xo, j0, row0,
+                                  bar);
+            }
+        } else {
+            const size_t xoff = (size_t)row0 * xrow + (size_t)j0 * S::XB;
+            constexpr int CPR = QP_COLS / 4;        // 4-byte copies a row of codes
+            constexpr int XPR = QP_KC * S::XB / 4;  // ... a row of x
+            for (int i = tid; i < QP_KC * CPR; i += QP_THREADS) {
+                const int r = i / CPR, c = 4 * (i % CPR);
+                const bool ok = j0 + r < K2 && bcol + c < N;
+                cp_async4_or_zero(smem_addr(st + qp_code_off(r, c)),
+                                  ok ? codes + (size_t)(j0 + r) * N + bcol + c : codes, ok);
+            }
+            for (int i = tid; i < 2 * QP_ROWS * XPR; i += QP_THREADS) {
+                const int h = i / (QP_ROWS * XPR), r = (i / XPR) % QP_ROWS, c = 4 * (i % XPR);
+                const bool ok = (size_t)j0 * S::XB + c < xrow;
+                const uint8_t* src = ok ? (h ? xo : xe) + xoff + (size_t)r * xrow + c : xe;
+                const int dst = S::CODE_BYTES + h * S::X_BYTES + qp_x_off<FOLD>(r, c);
+                cp_async4_or_zero(smem_addr(st + dst), src, ok);
+            }
+        }
+    };
+    if constexpr (TMA) {
+        if (tid == 0) {
+            for (int s = 0; s < QP_STAGES; ++s) sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+            asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
         }
         __syncthreads();
-        for (int jj = 0; jj < cn; jj += 4) {
-            const int j = c0 + jj;  // the first of 4 packed rows
-            uint32_t w[4];
+    }
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-                w[q] = live ? __ldg(reinterpret_cast<const unsigned int*>(
-                                  codes + (size_t)(j + q) * N + col))
-                            : 0u;
-            if constexpr (!FOLD) {
-                uint32_t cw[4], lo[4], hi[4];
-                transpose4(w, cw);
+    for (int s = 0; s < QP_STAGES - 1; ++s) {
+        if (s < nch) issue(s);
+        if constexpr (!TMA) cp_async_commit();
+    }
+
+    float xsv[2][2];  // xs of the lane's rows (m16 tile, + 8)
 #pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    lo[c] = RAW ? cw[c] : (cw[c] << 4) & 0xF0F0F0F0u;
-                    hi[c] = RAW ? cw[c] : cw[c] & 0xF0F0F0F0u;
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) xsv[mt][h] = xs[row0 + 16 * mt + g + 8 * h];
+    // unfolded: acc the group's int32 sums, kacc the step's f32 sum; fold:
+    // acc the step's f32 sums
+    using Acc = typename std::conditional<FOLD, float, int>::type;
+    Acc acc[2][4][4];
+    float kacc[2][4][4], total[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                acc[mt][c][e] = 0, kacc[mt][c][e] = 0.f, total[mt][c][e] = 0.f;
+
+    // the step's end: × xs, added in step order
+    auto end_step = [&](float (&sum)[2][4][4]) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    total[mt][c][e] =
+                        __fadd_rn(total[mt][c][e], __fmul_rn(sum[mt][c][e], xsv[mt][e >> 1]));
+                    sum[mt][c][e] = 0.f;
                 }
+    };
+
+    const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 16 * (lane >> 4);
+    const int ccol = warp * QP_WCOLS + 4 * g;  // the lane's 4 code columns in the stage
+    // the stage offsets of the lane's 4 code words of a 16-row group: rows
+    // 4t + q (unfolded) or 2t, 2t + 1, 8 + 2t, 9 + 2t (fold); whole groups of
+    // 8 rows further on keep the swizzle
+    int coff[4];
 #pragma unroll
-                for (int r = 0; r < 8; ++r) {
-                    const int e4 = *reinterpret_cast<const int*>(&sx[0][8 * warp + r][jj]);
-                    const int o4 = *reinterpret_cast<const int*>(&sx[1][8 * warp + r][jj]);
+    for (int q = 0; q < 4; ++q)
+        coff[q] = qp_code_off(FOLD ? 2 * t + (q & 1) + 8 * (q >> 1) : 4 * t + q, ccol);
+    const bool scol_ok = wcol + 4 * g < N;
+    int group_end = gs2, step_end = kt2, grp = 0;
+    // unfolded: the scales of the lane's 8 columns for the current group,
+    // loaded a group ahead of its end
+    float gsc[8];
+    auto load_group_scales = [&](int gi) {
+        const float* sp = scales + (size_t)gi * N + wcol + 8 * t;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 va = wcol + 8 * t < N ? __ldg(reinterpret_cast<const float4*>(sp)) : zero;
+        const float4 vb =
+            wcol + 8 * t + 4 < N ? __ldg(reinterpret_cast<const float4*>(sp + 4)) : zero;
+        gsc[0] = va.x, gsc[1] = va.y, gsc[2] = va.z, gsc[3] = va.w;
+        gsc[4] = vb.x, gsc[5] = vb.y, gsc[6] = vb.z, gsc[7] = vb.w;
+    };
+    if constexpr (!FOLD) load_group_scales(0);
+    // fold: the lane's bf16 scale pairs (rows 2t, 2t+1 | 8+2t, 9+2t of the 16),
+    // the same in every 16-row piece of a step when gpt divides 16
+    uint32_t sb0[4] = {0u, 0u, 0u, 0u}, sb1[4] = {0u, 0u, 0u, 0u};
+    const bool per_step = kt2 % 16 == 0 && 16 % gpt == 0;
+
+    // unfolded: the group's end: its f32 term, in group order; at a step's end × xs
+    auto end_group = [&]() {
+        if constexpr (!FOLD) {
 #pragma unroll
-                    for (int c = 0; c < 4; ++c) {
-                        iacc[r][c] = __dp4a(e4, (int)lo[c], iacc[r][c]);
-                        iacc[r][c] = __dp4a(o4, (int)hi[c], iacc[r][c]);
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float v = (float)(RAW ? acc[mt][c][e] : acc[mt][c][e] >> 4);
+                        kacc[mt][c][e] =
+                            __fadd_rn(kacc[mt][c][e], __fmul_rn(v, gsc[4 * (e & 1) + c]));
+                        acc[mt][c][e] = 0;
                     }
-                }
-                if ((j + 4) % gs2 == 0) {  // the group ends: its f32 term, in group order
-                    float s[4] = {0.f, 0.f, 0.f, 0.f};
-                    if (live) {
-                        const float4 v = __ldg(reinterpret_cast<const float4*>(
-                            scales + (size_t)(j / gs2) * N + col));
-                        s[0] = v.x, s[1] = v.y, s[2] = v.z, s[3] = v.w;
-                    }
+            if (group_end < K2) load_group_scales(grp + 1);
+            ++grp;
+            if (group_end == step_end) {
+                end_step(kacc);
+                step_end += kt2;
+            }
+            group_end += gs2;
+        }
+    };
+    // fold: the bf16 scale pairs of the lane's rows of the 16 at j0
+    auto load_fold_scales = [&](int j0) {
+        float4 sv[4];
 #pragma unroll
-                    for (int r = 0; r < 8; ++r)
+        for (int q = 0; q < 4; ++q) {
+            const int srow = fold_scale_row(min(j0 + 2 * t + (q & 1) + 8 * (q >> 1), K2 - 1),
+                                            kt2, gpt);
+            sv[q] = scol_ok ? __ldg(reinterpret_cast<const float4*>(scales + (size_t)srow * N +
+                                                                    wcol + 4 * g))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        sb0[0] = bf16_pair(sv[0].x, sv[1].x), sb1[0] = bf16_pair(sv[2].x, sv[3].x);
+        sb0[1] = bf16_pair(sv[0].y, sv[1].y), sb1[1] = bf16_pair(sv[2].y, sv[3].y);
+        sb0[2] = bf16_pair(sv[0].z, sv[1].z), sb1[2] = bf16_pair(sv[2].z, sv[3].z);
+        sb0[3] = bf16_pair(sv[0].w, sv[1].w), sb1[3] = bf16_pair(sv[2].w, sv[3].w);
+    };
+    // unfolded: B of the 32 rows whose words are w (rows 4t + q, 16 + 4t + q)
+    auto int4_b = [&](const uint32_t* w, uint32_t (&lo0)[4], uint32_t (&hi0)[4],
+                      uint32_t (&lo1)[4], uint32_t (&hi1)[4]) {
+        uint32_t c0[4], c1[4];
+        transpose4(*reinterpret_cast<const uint32_t(*)[4]>(w), c0);
+        transpose4(*reinterpret_cast<const uint32_t(*)[4]>(w + 4), c1);
 #pragma unroll
-                        for (int c = 0; c < 4; ++c) {
-                            const float v = (float)(RAW ? iacc[r][c] : iacc[r][c] >> 4);
-                            kacc[r][c] = __fadd_rn(kacc[r][c], __fmul_rn(v, s[c]));
-                            iacc[r][c] = 0;
-                        }
-                }
+        for (int c = 0; c < 4; ++c) {
+            lo0[c] = RAW ? c0[c] : (c0[c] << 4) & 0xF0F0F0F0u;
+            hi0[c] = RAW ? c0[c] : c0[c] & 0xF0F0F0F0u;
+            lo1[c] = RAW ? c1[c] : (c1[c] << 4) & 0xF0F0F0F0u;
+            hi1[c] = RAW ? c1[c] : c1[c] & 0xF0F0F0F0u;
+        }
+    };
+    // fold: B of the 16 rows whose words are w (rows 2t, 2t+1, 8+2t, 9+2t):
+    // bf16(nibble · bf16(scale)) of column c
+    auto fold_b = [&](const uint32_t* w, uint32_t (&lo0)[4], uint32_t (&hi0)[4],
+                      uint32_t (&lo1)[4], uint32_t (&hi1)[4]) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const uint32_t p0 = pair_bytes(w[0], w[1], c), p1 = pair_bytes(w[2], w[3], c);
+            if constexpr (RAW) {
+                lo0[c] = hi0[c] = fma_bf16x2(s8_pair_bf16(p0), sb0[c], BF2_NEG_ZERO);
+                lo1[c] = hi1[c] = fma_bf16x2(s8_pair_bf16(p1), sb1[c], BF2_NEG_ZERO);
             } else {
+                lo0[c] = fma_bf16x2(s4_pair_bf16(p0), sb0[c], BF2_NEG_ZERO);
+                hi0[c] = fma_bf16x2(s4_pair_bf16(p0 >> 4), sb0[c], BF2_NEG_ZERO);
+                lo1[c] = fma_bf16x2(s4_pair_bf16(p1), sb1[c], BF2_NEG_ZERO);
+                hi1[c] = fma_bf16x2(s4_pair_bf16(p1 >> 4), sb1[c], BF2_NEG_ZERO);
+            }
+        }
+    };
+    // the products of one piece (32 rows unfolded, 16 fold), B's words masked by m0, m1
+    auto products = [&](const uint32_t (&ae)[2][4], const uint32_t (&ao)[2][4],
+                        const uint32_t (&lo0)[4], const uint32_t (&hi0)[4],
+                        const uint32_t (&lo1)[4], const uint32_t (&hi1)[4], uint32_t m0,
+                        uint32_t m1) {
 #pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const int step = (j + q) / kt2;
-                    // the step's gpt scale rows tiled, not each repeated
-                    const int srow = step * gpt + (j + q - step * kt2) % gpt;
-                    float s[4] = {0.f, 0.f, 0.f, 0.f};
-                    if (live) {
-                        const float4 v =
-                            __ldg(reinterpret_cast<const float4*>(scales + (size_t)srow * N + col));
-                        s[0] = bf16_round(v.x), s[1] = bf16_round(v.y);
-                        s[2] = bf16_round(v.z), s[3] = bf16_round(v.w);
-                    }
-                    float wl[4], wh[4];
+        for (int c = 0; c < 4; ++c)
 #pragma unroll
-                    for (int c = 0; c < 4; ++c) {
-                        const int b = (int)(int8_t)((w[q] >> (8 * c)) & 0xFFu);
-                        const int l = RAW ? b : (int)((uint32_t)b << 28) >> 28;
-                        const int h = RAW ? b : b >> 4;
-                        wl[c] = bf16_round((float)l * s[c]);
-                        wh[c] = bf16_round((float)h * s[c]);
-                    }
-#pragma unroll
-                    for (int r = 0; r < 8; ++r) {
-                        const float e = __bfloat162float(sx[0][8 * warp + r][jj + q]);
-                        const float o = __bfloat162float(sx[1][8 * warp + r][jj + q]);
-#pragma unroll
-                        for (int c = 0; c < 4; ++c)
-                            kacc[r][c] = fmaf(o, wh[c], fmaf(e, wl[c], kacc[r][c]));
-                    }
+            for (int mt = 0; mt < 2; ++mt) {
+                if constexpr (FOLD) {
+                    mma_bf16(acc[mt][c], ae[mt], lo0[c] & m0, lo1[c] & m1);
+                    mma_bf16(acc[mt][c], ao[mt], hi0[c] & m0, hi1[c] & m1);
+                } else {
+                    mma_s8(acc[mt][c], ae[mt], lo0[c] & m0, lo1[c] & m1);
+                    mma_s8(acc[mt][c], ao[mt], hi0[c] & m0, hi1[c] & m1);
                 }
             }
-            if ((j + 4) % kt2 == 0) {  // the K-step ends: × xs, added in step order
+    };
+    constexpr int PIECE = FOLD ? 16 : 32;     // packed rows of one product's K
+    constexpr int PIECES = QP_KC / PIECE;
+    // the stage's A fragments and code words of piece p
+    auto load_piece = [&](const uint8_t* st, int p, uint32_t (&ae)[2][4], uint32_t (&ao)[2][4],
+                          uint32_t* w) {
+        const uint32_t sxe = smem_addr(st + S::CODE_BYTES), sxo = sxe + S::X_BYTES;
 #pragma unroll
-                for (int r = 0; r < 8; ++r) {
-                    const float x_s = xs[row0 + 8 * warp + r];
+        for (int mt = 0; mt < 2; ++mt) {
+            const uint32_t off = qp_x_off<FOLD>(16 * mt + arow, 32 * p + acol);
+            ldsm_x4(ae[mt], sxe + off);
+            ldsm_x4(ao[mt], sxo + off);
+        }
 #pragma unroll
-                    for (int c = 0; c < 4; ++c) {
-                        total[r][c] = __fadd_rn(total[r][c], __fmul_rn(kacc[r][c], x_s));
-                        kacc[r][c] = 0.f;
+        for (int q = 0; q < (FOLD ? 4 : 8); ++q)  // unfolded: rows 4t + q, then 16 + 4t + q
+            w[q] = *reinterpret_cast<const uint32_t*>(
+                st + coff[q & 3] + (PIECE * p + (FOLD ? 0 : 16 * (q >> 2))) * QP_BOX);
+    };
+
+    for (int ch = 0; ch < nch; ++ch) {
+        if constexpr (TMA) sm90::mbar_wait(sm90::smem_u32(&full[ch % slots]), (ch / slots) & 1);
+        else cp_async_wait<QP_STAGES - 2>();  // this thread's copies of chunk ch have landed
+        __syncthreads();  // ... every thread's; chunk ch − 1 is read
+        if (ch + QP_STAGES - 1 < nch) issue(ch + QP_STAGES - 1);
+        if constexpr (!TMA) cp_async_commit();
+        const uint8_t* st = smem + (ch % slots) * S::BYTES;
+        const int c0 = ch * QP_KC;
+        // a whole chunk whose groups (unfolded) or steps (fold) end only at
+        // piece edges: every load first, then the pieces in a straight line
+        if (c0 + QP_KC <= K2 && (FOLD ? kt2 : gs2) % PIECE == 0) {
+            uint32_t ae[PIECES][2][4], ao[PIECES][2][4], w[PIECES][FOLD ? 4 : 8];
+#pragma unroll
+            for (int p = 0; p < PIECES; ++p) load_piece(st, p, ae[p], ao[p], w[p]);
+#pragma unroll
+            for (int p = 0; p < PIECES; ++p) {
+                const int j0 = c0 + PIECE * p;
+                uint32_t lo0[4], hi0[4], lo1[4], hi1[4];
+                if constexpr (FOLD) {
+                    if (!per_step || j0 == step_end - kt2) load_fold_scales(j0);
+                    fold_b(w[p], lo0, hi0, lo1, hi1);
+                } else {
+                    int4_b(w[p], lo0, hi0, lo1, hi1);
+                }
+                products(ae[p], ao[p], lo0, hi0, lo1, hi1, ~0u, ~0u);
+                if constexpr (FOLD) {
+                    if (j0 + PIECE == step_end) {
+                        end_step(acc);
+                        step_end += kt2;
+                    }
+                } else if (j0 + PIECE == group_end) {
+                    end_group();
+                }
+            }
+            continue;
+        }
+        // else piece by piece, each cut where a group (unfolded) or a step
+        // (fold) ends, B's words of the other rows masked out
+        for (int p = 0; p < PIECES; ++p) {
+            const int j0 = c0 + PIECE * p;
+            if (j0 >= K2) break;
+            uint32_t ae[2][4], ao[2][4], w[FOLD ? 4 : 8];
+            load_piece(st, p, ae, ao, w);
+            uint32_t lo0[4], hi0[4], lo1[4], hi1[4];
+            if constexpr (FOLD) {
+                if (!per_step || j0 == step_end - kt2) load_fold_scales(j0);
+                fold_b(w, lo0, hi0, lo1, hi1);
+            } else {
+                int4_b(w, lo0, hi0, lo1, hi1);
+            }
+            // the lane's rows: b0 from j0 + 4t (unfolded) or 2t (fold), b1 PIECE / 2 on
+            const int r0 = j0 + (FOLD ? 2 : 4) * t, r1 = r0 + PIECE / 2;
+            const int end = min(j0 + PIECE, K2);
+            for (int seg = j0; seg < end;) {
+                const int edge = FOLD ? step_end : group_end;
+                const int send = min(end, edge);
+                products(ae, ao, lo0, hi0, lo1, hi1, r0 >= seg && r0 < send ? ~0u : 0u,
+                         r1 >= seg && r1 < send ? ~0u : 0u);
+                if (send == edge) {
+                    if constexpr (FOLD) {
+                        end_step(acc);
+                        step_end += kt2;
+                    } else {
+                        end_group();
                     }
                 }
+                seg = send;
             }
         }
     }
-    if (!live) return;
+
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-        *reinterpret_cast<float4*>(out + (size_t)(row0 + 8 * warp + r) * N + col) =
-            make_float4(total[r][0], total[r][1], total[r][2], total[r][3]);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            float* o = out + (size_t)(row0 + 16 * mt + g + 8 * h) * N + wcol + 8 * t;
+            if (wcol + 8 * t < N)
+                *reinterpret_cast<float4*>(o) =
+                    make_float4(total[mt][0][2 * h], total[mt][1][2 * h], total[mt][2][2 * h],
+                                total[mt][3][2 * h]);
+            if (wcol + 8 * t + 4 < N)
+                *reinterpret_cast<float4*>(o + 4) =
+                    make_float4(total[mt][0][2 * h + 1], total[mt][1][2 * h + 1],
+                                total[mt][2][2 * h + 1], total[mt][3][2 * h + 1]);
+        }
 }
 
 // -- q8_gemv_kernel ----------------------------------------------------------------
 
-constexpr int Q8_THREADS = 256;
-constexpr int Q8_COLS = 128;      // columns a block owns (16 a lane, 8 lanes a row)
-constexpr int Q8_KLANES = 32;     // lanes-groups along K
-constexpr int Q8_TILE = 512;      // k8's K tile
+constexpr int Q8_WARPS = 8;
+constexpr int Q8_THREADS = 32 * Q8_WARPS;
+constexpr int Q8_COLS = 16;        // columns a block owns: two n8 tiles
+constexpr int Q8_TILE = 512;       // k8's K tile, and the rows a ring stage holds (64 a warp)
+constexpr int Q8_BOX_ROWS = 256;   // rows of codes a TMA box holds (the most a box takes)
+constexpr int Q8_STAGES = 4;
 constexpr int Q8_MAX_ROWS = 16;
-constexpr int Q8_MAX_CLUSTER = 8;
+constexpr int Q8_CODE_BYTES = Q8_TILE * Q8_COLS;       // two boxes of 256 rows × 16 bytes
+constexpr int Q8_XBOX = Q8_MAX_ROWS * 128;             // 16 rows × 64 bf16 of x, 128-byte swizzled
+constexpr int Q8_STAGE = Q8_CODE_BYTES + (Q8_TILE / 64) * Q8_XBOX;  // a multiple of 1024
 
-// shared memory: [x slice, k-major: slice_rows × 16 bf16][warp sums: 8 × 8 ×
-// 128 f32][the block's totals: 16 × 128 f32][recv: ksplit × per_owner f32]
-__global__ void __launch_bounds__(Q8_THREADS)
-q8_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
-               const float* __restrict__ scales, float* __restrict__ out, int R, int K, int N,
-               int slice_rows, int ksplit) {
-    extern __shared__ __align__(16) uint8_t smem[];
-    __nv_bfloat16* sxt = reinterpret_cast<__nv_bfloat16*>(smem);
-    float* red = reinterpret_cast<float*>(smem + (size_t)slice_rows * Q8_MAX_ROWS * 2);
-    float* tot = red + 8 * 8 * Q8_COLS;
-    float* recv = tot + Q8_MAX_ROWS * Q8_COLS;
-    const int per_owner = (R * Q8_COLS + ksplit - 1) / ksplit;
-
+// shared memory (from a 1024-byte aligned base): [ring: slots × (codes: 512
+// rows × 16 bytes, x: eight boxes of 16 rows × 64 bf16)][red: 8 warps × R ×
+// 16 f32], slots = min(4, K / 512). The TMA boxes zero x's rows past R.
+// Warp w: rows 64·w .. of each tile, both n8 tiles. Lane (g, t): its sums are
+// x rows g, g+8 and columns 4t .. 4t+3 (n8 tile c holds column 2·g' + c at
+// tile column g').
+__global__ void __launch_bounds__(Q8_THREADS, 2)
+q8_gemv_kernel(const __grid_constant__ CUtensorMap tm_codes,  // [K, N] int8, box 16 × 256
+               const __grid_constant__ CUtensorMap tm_x,      // [R, K] bf16, box 64 × 16
+               const float* __restrict__ scales, float* __restrict__ out, int R, int K, int N) {
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ __align__(8) uint64_t full[Q8_STAGES];
+    uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                               ~(uintptr_t)1023);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int cl = lane & 7;                  // 16-column lane
-    const int kl = warp * 4 + (lane >> 3);    // lanes-group along K
-    const int slab = blockIdx.x, split = blockIdx.y;
-    const int k_begin = split * slice_rows, k_end = min(K, k_begin + slice_rows);
-    const int rows_here = k_end - k_begin;
-    const int col0 = slab * Q8_COLS + 16 * cl;
+    const int g = lane >> 2, t = lane & 3;
+    const int col0 = blockIdx.x * Q8_COLS;
+    const int nch = K / Q8_TILE;
+    const int slots = min(Q8_STAGES, nch);
+    float* red = reinterpret_cast<float*>(smem + (size_t)slots * Q8_STAGE);
 
-    for (int i = tid; i < rows_here * Q8_MAX_ROWS; i += Q8_THREADS) {
-        const int k = i / Q8_MAX_ROWS, r = i - k * Q8_MAX_ROWS;
-        sxt[i] = r < R ? x[(size_t)r * K + k_begin + k] : __float2bfloat16_rn(0.f);
+    auto issue = [&](int ch) {  // one thread: the tile's codes and x as TMA boxes
+        const uint32_t st = smem_addr(smem + (size_t)(ch % slots) * Q8_STAGE);
+        const uint32_t bar = sm90::smem_u32(&full[ch % slots]);
+        const int k0 = ch * Q8_TILE;
+        sm90::mbar_expect_tx(bar, Q8_STAGE);
+        for (int b = 0; b < Q8_TILE / Q8_BOX_ROWS; ++b)
+            sm90::tma_load_2d(st + b * Q8_BOX_ROWS * Q8_COLS, &tm_codes, col0, k0 + b * Q8_BOX_ROWS,
+                              bar);
+        for (int b = 0; b < Q8_TILE / 64; ++b)
+            sm90::tma_load_2d(st + Q8_CODE_BYTES + b * Q8_XBOX, &tm_x, k0 + 64 * b, 0, bar);
+    };
+    // every tile at once when the ring holds them all, else the ring's first three
+    const int pre = nch <= Q8_STAGES ? nch : Q8_STAGES - 1;
+    if (tid == 0) {
+        for (int s = 0; s < Q8_STAGES; ++s) sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        for (int s = 0; s < pre; ++s) issue(s);
     }
-    for (int i = tid; i < R * Q8_COLS; i += Q8_THREADS) tot[i] = 0.f;
-    if (ksplit > 1)  // every block of the cluster has started before any writes into it
-        asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
     __syncthreads();
 
-    for (int r0 = 0; r0 < R; r0 += 8) {
-        for (int seg = k_begin; seg < k_end;) {
-            const int seg_end = min(k_end, (seg / Q8_TILE + 1) * Q8_TILE);
-            float acc[8][16];
+    float sc[4];  // the scales of the lane's 4 columns
+    {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(scales + col0 + 4 * t));
+        sc[0] = v.x, sc[1] = v.y, sc[2] = v.z, sc[3] = v.w;
+    }
+    float wsum[2][4] = {};  // the warp's sums, × the scale tile by tile
+    const int arow = (lane & 7) + 8 * ((lane >> 3) & 1);
+    for (int ch = 0; ch < nch; ++ch) {
+        sm90::mbar_wait(sm90::smem_u32(&full[ch % slots]), (ch / slots) & 1);
+        __syncthreads();  // every thread has read tile ch − 1
+        if (tid == 0 && ch + Q8_STAGES - 1 >= pre && ch + Q8_STAGES - 1 < nch)
+            issue(ch + Q8_STAGES - 1);
+        const uint8_t* st = smem + (size_t)(ch % slots) * Q8_STAGE;
+        float acc[2][4] = {};  // the tile's sums
 #pragma unroll
-            for (int r = 0; r < 8; ++r)
+        for (int step = 0; step < 4; ++step) {
+            const int r0 = 64 * warp + 16 * step;  // the step's 16 rows in the tile
+            const int e = r0 + 8 * (lane >> 4);   // the lane's 8 elements of x for ldmatrix
+            const int xb = 2 * (e & 63);
+            uint32_t a[4];
+            ldsm_x4(a, smem_addr(st + Q8_CODE_BYTES + (e >> 6) * Q8_XBOX + arow * 128 +
+                                 ((((xb >> 4) ^ (arow & 7))) << 4)));
+            // columns 2g, 2g + 1 of rows 2t, 2t + 1, 8 + 2t, 9 + 2t
+            const uint8_t* cr = st + (r0 + 2 * t) * Q8_COLS + 2 * g;
+            const uint32_t w0 = *reinterpret_cast<const uint16_t*>(cr);
+            const uint32_t w1 = *reinterpret_cast<const uint16_t*>(cr + Q8_COLS);
+            const uint32_t w2 = *reinterpret_cast<const uint16_t*>(cr + 8 * Q8_COLS);
+            const uint32_t w3 = *reinterpret_cast<const uint16_t*>(cr + 9 * Q8_COLS);
 #pragma unroll
-                for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
-            for (int k = seg + kl; k < seg_end; k += Q8_KLANES) {
-                const uint4 wv =
-                    __ldg(reinterpret_cast<const uint4*>(codes + (size_t)k * N + col0));
-                const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
-                float wf[16];
-#pragma unroll
-                for (int c = 0; c < 16; ++c)
-                    wf[c] = (float)(int8_t)((ww[c >> 2] >> (8 * (c & 3))) & 0xFFu);
-                const uint4 xv = *reinterpret_cast<const uint4*>(
-                    sxt + (size_t)(k - k_begin) * Q8_MAX_ROWS + r0);
-                const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(&xv);
-#pragma unroll
-                for (int r = 0; r < 8; ++r) {
-                    const float xr = __bfloat162float(xb[r]);
-#pragma unroll
-                    for (int c = 0; c < 16; ++c) acc[r][c] = fmaf(xr, wf[c], acc[r][c]);
-                }
-            }
-            // the segment's sums: over the warp's 4 lanes-groups, then the warps in order
-#pragma unroll
-            for (int r = 0; r < 8; ++r)
-#pragma unroll
-                for (int c = 0; c < 16; ++c) {
-                    float v = acc[r][c];
-                    v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
-                    v += __shfl_xor_sync(0xFFFFFFFFu, v, 16);
-                    acc[r][c] = v;
-                }
-            if (lane < 8) {
-#pragma unroll
-                for (int r = 0; r < 8; ++r)
-#pragma unroll
-                    for (int c = 0; c < 16; ++c)
-                        red[(warp * 8 + r) * Q8_COLS + 16 * cl + c] = acc[r][c];
-            }
-            __syncthreads();
-            for (int i = tid; i < 8 * Q8_COLS; i += Q8_THREADS) {
-                const int r = i / Q8_COLS, c = i - r * Q8_COLS;
-                if (r0 + r >= R) continue;
-                float v = 0.f;
-#pragma unroll
-                for (int w = 0; w < 8; ++w) v += red[(w * 8 + r) * Q8_COLS + c];
-                const float sc = scales[slab * Q8_COLS + c];
-                tot[(r0 + r) * Q8_COLS + c] += v * sc;  // × the scale, added tile by tile
-            }
-            __syncthreads();
-            seg = seg_end;
+            for (int c = 0; c < 2; ++c)
+                mma_bf16(acc[c], a, s8_pair_bf16(pair_bytes(w0, w1, c)),
+                         s8_pair_bf16(pair_bytes(w2, w3, c)));
         }
+#pragma unroll
+        for (int c = 0; c < 2; ++c)  // × the scale, added tile by tile
+#pragma unroll
+            for (int e = 0; e < 4; ++e) wsum[c][e] += acc[c][e] * sc[2 * (e & 1) + c];
     }
 
-    if (ksplit == 1) {
-        for (int i = tid; i < R * Q8_COLS; i += Q8_THREADS)
-            out[(size_t)(i / Q8_COLS) * N + slab * Q8_COLS + i % Q8_COLS] = tot[i];
-        return;
-    }
-    // the slab's K slices are one cluster: each block stores its totals into
-    // the block that owns them (i ≡ owner mod ksplit); after one barrier each
-    // owner adds its totals over the slices, in slice order
-    cg::cluster_group cluster = cg::this_cluster();
-    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    for (int i = tid; i < R * Q8_COLS; i += Q8_THREADS)
-        *cluster.map_shared_rank(recv + split * per_owner + i / ksplit, i % ksplit) = tot[i];
-    cluster.sync();
-    for (int j = tid; j < per_owner; j += Q8_THREADS) {
-        const int i = j * ksplit + split;
-        if (i >= R * Q8_COLS) break;
+    // the block's sum over its 8 warps, in warp order
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int r = g + 8 * (e >> 1);
+            if (r < R) red[(warp * R + r) * Q8_COLS + 4 * t + 2 * (e & 1) + c] = wsum[c][e];
+        }
+    __syncthreads();
+    for (int i = tid; i < R * Q8_COLS; i += Q8_THREADS) {
         float v = 0.f;
-        for (int q = 0; q < ksplit; ++q) v += recv[q * per_owner + j];
-        out[(size_t)(i / Q8_COLS) * N + slab * Q8_COLS + i % Q8_COLS] = v;
+#pragma unroll
+        for (int w = 0; w < Q8_WARPS; ++w) v += red[w * R * Q8_COLS + i];
+        out[(size_t)(i / Q8_COLS) * N + col0 + i % Q8_COLS] = v;
     }
 }
 
@@ -452,69 +783,106 @@ db_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w
 
 int q8_smem_done = 0, db_smem_done = 0;
 
+// a byte [rows, cols] row-major tensor (cols % 16 == 0) as boxes of
+// box_cols × box_rows, swizzled as asked, zeros past its edges. Returns a
+// CUresult.
+int encode_u8_map(CUtensorMap* map, const void* ptr, long long rows, int cols, int box_cols,
+                  int box_rows, CUtensorMapSwizzle swizzle) {
+    const sm90::EncodeTiledFn fn = sm90::encode_tiled();
+    if (!fn) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
+                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <bool FOLD, bool RAW, bool TMA>
+int q4_probe_enqueue(const CUtensorMap& tc, const CUtensorMap& txe, const CUtensorMap& txo,
+                     const void* xe, const void* xo, const float* xs, const uint8_t* codes,
+                     const float* scales, float* out, int rt, int K2, int N, int gs2, int gpt,
+                     cudaStream_t st) {
+    static int smem_done = 0;
+    const int nch = (K2 + QP_KC - 1) / QP_KC;
+    const size_t smem = 1024 + (size_t)(nch < QP_STAGES ? nch : QP_STAGES) * QpStage<FOLD>::BYTES;
+    const cudaError_t e = allow_smem(q4_probe_kernel<FOLD, RAW, TMA>, smem, smem_done);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((N + QP_COLS - 1) / QP_COLS, rt / QP_ROWS);
+    q4_probe_kernel<FOLD, RAW, TMA><<<grid, QP_THREADS, smem, st>>>(
+        tc, txe, txo, xe, xo, xs, codes, scales, out, K2, N, gs2, gpt);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // xe, xo [rt, K2] int8 (fold 0) or bf16 (fold 1); xs [rt] f32; codes [K2, N]
 // bytes; scales [K2 / gs2, N] f32; out [rt, N] f32. rt % 32 == 0, N % 4 ==
 // 0, gs2 % 4 == 0, gs2 · gpt divides K2; raw 1 takes each byte whole (the
-// "none" probe). Returns the CUDA error of the launch.
+// "none" probe). Codes and x arrive by TMA where N and the rows of x are
+// whole 16-byte units and the pointers 16-byte aligned, else by 4-byte
+// cp.async copies. Returns the CUDA error of the launch (or of a tensor
+// map's encoding).
 extern "C" int q4_probe_launch(const void* xe, const void* xo, const void* xs, const void* codes,
                                const void* scales, void* out, int rt, int K2, int N, int gs2,
                                int gpt, int fold, int raw, void* stream) {
     if (rt < QP_ROWS || rt % QP_ROWS || N < 4 || N % 4 || K2 < 4 || gs2 < 4 || gs2 % 4 ||
         gpt < 1 || K2 % (gs2 * gpt))
         return (int)cudaErrorInvalidValue;
-    const dim3 grid((N + QP_COLS - 1) / QP_COLS, rt / QP_ROWS);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const auto* c = static_cast<const uint8_t*>(codes);
     const auto* s = static_cast<const float*>(scales);
     const auto* x_s = static_cast<const float*>(xs);
     auto* o = static_cast<float*>(out);
-#define QP_LAUNCH(FOLD_, RAW_)                                                                 \
-    if (!!fold == FOLD_ && !!raw == RAW_)                                                      \
-        q4_probe_kernel<FOLD_, RAW_><<<grid, 32 * QP_WARPS, 0, st>>>(xe, xo, x_s, c, s, o, K2, N, \
-                                                                    gs2, gpt);
-    QP_LAUNCH(false, false)
-    QP_LAUNCH(false, true)
-    QP_LAUNCH(true, false)
-    QP_LAUNCH(true, true)
+    const uintptr_t align = (uintptr_t)xe | (uintptr_t)xo | (uintptr_t)codes;
+    const bool tma = N % 16 == 0 && (size_t)K2 * (fold ? 2 : 1) % 16 == 0 && align % 16 == 0;
+    CUtensorMap tc = {}, txe = {}, txo = {};
+    if (tma) {
+        int err = sm90::encode_i8_map(&tc, codes, K2, N, QP_KC);
+        if (!err) err = fold ? sm90::encode_bf16_map(&txe, xe, rt, K2, QP_ROWS)
+                             : encode_u8_map(&txe, xe, rt, K2, 64, QP_ROWS,
+                                             CU_TENSOR_MAP_SWIZZLE_64B);
+        if (!err) err = fold ? sm90::encode_bf16_map(&txo, xo, rt, K2, QP_ROWS)
+                             : encode_u8_map(&txo, xo, rt, K2, 64, QP_ROWS,
+                                             CU_TENSOR_MAP_SWIZZLE_64B);
+        if (err) return err;
+    }
+#define QP_LAUNCH(FOLD_, RAW_, TMA_)                                                          \
+    if (!!fold == FOLD_ && !!raw == RAW_ && tma == TMA_)                                      \
+        return q4_probe_enqueue<FOLD_, RAW_, TMA_>(tc, txe, txo, xe, xo, x_s, c, s, o, rt, K2, N, \
+                                                   gs2, gpt, st);
+    QP_LAUNCH(false, false, true)
+    QP_LAUNCH(false, true, true)
+    QP_LAUNCH(true, false, true)
+    QP_LAUNCH(true, true, true)
+    QP_LAUNCH(false, false, false)
+    QP_LAUNCH(false, true, false)
+    QP_LAUNCH(true, false, false)
+    QP_LAUNCH(true, true, false)
 #undef QP_LAUNCH
-    return (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;
 }
 
 // x [R, K] bf16 (R ≤ 16); codes [K, N] int8; scales [N] f32; out [R, N]
-// f32. N % 128 == 0; K is cut into ksplit ≤ 8 slices of slice_rows rows
-// (the last may be shorter, none empty). Returns the CUDA error.
+// f32. K % 512 == 0, N % 16 == 0, 16-byte aligned. Returns the CUDA error
+// (or a tensor map's encoding error).
 extern "C" int q8_gemv_launch(const void* x, const void* codes, const void* scales, void* out,
-                              int R, int K, int N, int slice_rows, int ksplit, void* stream) {
-    if (R < 1 || R > Q8_MAX_ROWS || K < 1 || N < Q8_COLS || N % Q8_COLS || ksplit < 1 ||
-        ksplit > Q8_MAX_CLUSTER || slice_rows < 1 || (long long)ksplit * slice_rows < K ||
-        (long long)(ksplit - 1) * slice_rows >= K)
+                              int R, int K, int N, void* stream) {
+    if (R < 1 || R > Q8_MAX_ROWS || K < Q8_TILE || K % Q8_TILE || N < Q8_COLS || N % Q8_COLS)
         return (int)cudaErrorInvalidValue;
-    const int per_owner = (R * Q8_COLS + ksplit - 1) / ksplit;
-    const size_t smem = (size_t)slice_rows * Q8_MAX_ROWS * 2 +
-                        sizeof(float) * (8 * 8 * Q8_COLS + Q8_MAX_ROWS * Q8_COLS +
-                                         (size_t)ksplit * per_owner);
+    CUtensorMap tc, tx;
+    int err = encode_u8_map(&tc, codes, K, N, Q8_COLS, Q8_BOX_ROWS, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (!err) err = sm90::encode_bf16_map(&tx, x, R, K, Q8_MAX_ROWS);
+    if (err) return err;
+    const int slots = K / Q8_TILE < Q8_STAGES ? K / Q8_TILE : Q8_STAGES;
+    const size_t smem =
+        1024 + (size_t)slots * Q8_STAGE + sizeof(float) * Q8_WARPS * R * Q8_COLS;
     const cudaError_t e = allow_smem(q8_gemv_kernel, smem, q8_smem_done);
     if (e != cudaSuccess) return (int)e;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(N / Q8_COLS, ksplit, 1);
-    cfg.blockDim = dim3(Q8_THREADS, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = ksplit;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    const cudaError_t l = cudaLaunchKernelEx(
-        &cfg, q8_gemv_kernel, static_cast<const __nv_bfloat16*>(x),
-        static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
-        static_cast<float*>(out), R, K, N, slice_rows, ksplit);
-    const cudaError_t last = cudaGetLastError();
-    return (int)(l != cudaSuccess ? l : last);
+    q8_gemv_kernel<<<N / Q8_COLS, Q8_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        tc, tx, static_cast<const float*>(scales), static_cast<float*>(out), R, K, N);
+    return (int)cudaGetLastError();
 }
 
 // x [R, K] bf16 (R ≤ 8); w [N, K] int8; out [R, N] f32 = (x · wᵀ) · scale.

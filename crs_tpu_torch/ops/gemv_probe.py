@@ -18,17 +18,16 @@ tools can capture them in CUDA graphs.
 
 from __future__ import annotations
 
-import math
 from typing import Tuple
 
 import torch
 
 from .launch import ARG_FLOAT, ARG_INT, ARG_PTR, KernelStats, check_operands, launch, \
-    load_library, sm_count, stream_handle
+    load_library, stream_handle
 
 __all__ = [
     "STATS", "KT2_CAP", "UNPACKS", "probe_tiles", "fold_weights", "q4_probe_matmul",
-    "emulate_q4_probe_matmul", "q8_gemv", "emulate_q8_gemv", "q8_plan", "db_gemv",
+    "emulate_q4_probe_matmul", "q8_gemv", "emulate_q8_gemv", "db_gemv",
     "emulate_db_gemv", "Q8_TILE",
 ]
 
@@ -38,14 +37,14 @@ _SOURCE = "gemv_probe.cu"
 KT2_CAP = 512  # bench_q4_kernel.py build_variant's kt2_cap: packed rows a K-step at most
 UNPACKS = ("i32", "i16", "none")  # "i32" and "i16" give the same nibbles
 Q8_TILE = 512  # k8's K tile
-_Q8_COLS, _Q8_MAX_ROWS, _Q8_MAX_SPLIT = 128, 16, 8
+_Q8_MAX_ROWS = 16
 _DB_CHUNK, _DB_MAX_ROWS = 512, 8
 
 
 def _load():
     return load_library(_SOURCE, {
         "q4_probe_launch": [ARG_PTR] * 6 + [ARG_INT] * 7 + [ARG_PTR],
-        "q8_gemv_launch": [ARG_PTR] * 4 + [ARG_INT] * 5 + [ARG_PTR],
+        "q8_gemv_launch": [ARG_PTR] * 4 + [ARG_INT] * 3 + [ARG_PTR],
         "db_gemv_launch": [ARG_PTR] * 3 + [ARG_INT] * 3 + [ARG_FLOAT, ARG_PTR],
     })
 
@@ -190,16 +189,6 @@ def emulate_q8_gemv(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) 
     return out
 
 
-def q8_plan(k: int, n: int, sms: int) -> Tuple[int, int]:
-    """(ksplit, slice_rows) of ``q8_gemv_kernel``: K cut into ≤ 8 slices (a
-    cluster per 128-column slab) so the grid covers about twice the SMs,
-    slices of whole 64-row units, none empty."""
-    slabs = n // _Q8_COLS
-    ksplit = max(1, min(_Q8_MAX_SPLIT, math.ceil(2 * sms / slabs), math.ceil(k / 64)))
-    slice_rows = math.ceil(k / ksplit / 64) * 64
-    return math.ceil(k / slice_rows), slice_rows
-
-
 def q8_gemv(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``bench_chain_gemv.py``'s ``q8mm``: x [R, K] (any float dtype; bf16
     in the product, R ≤ 16) @ int8 codes [K, N] × f32 scales [1, N] → [R, N]
@@ -213,10 +202,9 @@ def q8_gemv(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch
     s = scales.reshape(n)
     check_operands(dev, ("x", xb, torch.bfloat16), ("codes", codes, torch.int8),
                    ("scales", s, torch.float32))
-    ksplit, slice_rows = q8_plan(k, n, sm_count(dev))
     out = torch.empty((r, n), dtype=torch.float32, device=dev)
     launch(STATS, "q8_gemv", _load().q8_gemv_launch, xb.data_ptr(), codes.data_ptr(), s.data_ptr(),
-           out.data_ptr(), r, k, n, slice_rows, ksplit, stream_handle(dev))
+           out.data_ptr(), r, k, n, stream_handle(dev))
     return out
 
 

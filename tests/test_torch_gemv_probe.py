@@ -3,7 +3,10 @@ and their three kernels (``crs_tpu_torch/ops/gemv_probe.py``) against the
 JAX tools ``tools/bench_q4_kernel.py`` and ``tools/bench_chain_gemv.py``.
 
 The JAX kernels run in Pallas interpret mode, as the tools run them off the
-TPU. ``_q4_kernel_var`` is imported from its tool by path; ``k8`` / ``q8mm``
+TPU. Kernels 12 and 13's register arithmetic (byte permutes, bf16 bit
+tricks, the mma fragment layouts) is restated in numpy and held to the
+plain arithmetic exactly, and the variants ``crs_tpu_torch.tools.probe_breakdown``
+compiles must build from the kernels' own source. ``_q4_kernel_var`` is imported from its tool by path; ``k8`` / ``q8mm``
 and ``kdb`` / ``dbmm`` are closures inside ``bench_chain_gemv.main()``, so
 they are restated here from ``tools/bench_chain_gemv.py:150-186,205-260``.
 The port runs its plain versions, which its wrappers take for CPU tensors.
@@ -67,8 +70,11 @@ CPU = torch.device("cpu")
 SUM_RTOL = 1e-5
 Q4_VARIANTS = ["i32", "i16", "none", "fold_i32", "fold_i16"]
 # (R, K, N, g): gpt 8 in one K-step (the tiled fold scale shows), gpt 4 over
-# two K-steps, gpt 1 over two K-steps
-Q4_SHAPES = [(8, 1024, 512, 8), (8, 2048, 512, 8), (8, 2048, 512, 2)]
+# two K-steps, gpt 1 over two K-steps; groups of 16 and 4 packed rows (gs2
+# below the kernel's 32-row products: masked B words), gpt 32 and 128 (a
+# fold scale row that changes within a 16-row piece)
+Q4_SHAPES = [(8, 1024, 512, 8), (8, 2048, 512, 8), (8, 2048, 512, 2), (8, 2048, 512, 64),
+             (8, 2048, 512, 256)]
 
 
 def _split(var):
@@ -297,7 +303,7 @@ def _jax_dbmm(d):
 GEMV_D = 1024  # two K tiles (q8mm) and two weight chunks (dbmm)
 
 
-@pytest.mark.parametrize("r", [8, 1])
+@pytest.mark.parametrize("r", [8, 1, 16, 3])
 def test_q8_gemv_plain_matches_pallas(r):
     from crs_tpu_torch.ops import gemv_probe as gp
 
@@ -332,14 +338,129 @@ def test_db_gemv_plain_matches_pallas(r):
     assert (np.abs(got - want) <= SUM_RTOL * abs_sum).all()
 
 
-@pytest.mark.parametrize("k,n", [(512, 512), (1024, 1024), (2048, 2048), (4096, 4096),
-                                 (1536, 512), (8192, 2048), (2048, 32768)])
-def test_q8_plan_covers_k_in_one_cluster(k, n):
-    from crs_tpu_torch.ops.gemv_probe import q8_plan
+# -- kernels 12 and 13's register arithmetic, mirrored ----------------------------------------
+# csrc/gemv_probe.cu builds the tensor cores' B fragments with byte permutes
+# and bit masks; these tests restate those steps in numpy and hold them to
+# the plain arithmetic.
 
-    ksplit, rows = q8_plan(k, n, 132)
-    assert 1 <= ksplit <= 8 and rows % 64 == 0
-    assert ksplit * rows >= k and (ksplit - 1) * rows < k  # no empty slice
+def _byte_perm(a: int, b: int, sel: int) -> int:
+    """CUDA's __byte_perm (default mode): byte i of the result is byte
+    (sel >> 4i) & 7 of the 8 bytes b:a."""
+    src = (b << 32) | a
+    return sum(((src >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i) for i in range(4))
+
+
+def _bf16_bits_to_float(bits):
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+def _transpose4(w):  # gemv_probe.cu transpose4
+    lo01, lo23 = _byte_perm(w[0], w[1], 0x5140), _byte_perm(w[2], w[3], 0x5140)
+    hi01, hi23 = _byte_perm(w[0], w[1], 0x7362), _byte_perm(w[2], w[3], 0x7362)
+    return [_byte_perm(lo01, lo23, 0x5410), _byte_perm(lo01, lo23, 0x7632),
+            _byte_perm(hi01, hi23, 0x5410), _byte_perm(hi01, hi23, 0x7632)]
+
+
+def _pair_bytes(a, b, c):  # gemv_probe.cu pair_bytes: byte c of a, of b in bytes 0, 2
+    return _byte_perm(a, b, c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12))
+
+
+@pytest.mark.parametrize("trick", ["s8_pair_bf16", "s4_pair_bf16", "sixteen_nibbles",
+                                   "the_source_uses_them"])
+def test_kernel_bit_tricks_are_exact(trick):
+    if trick == "the_source_uses_them":  # the mirrored constants are the kernels'
+        src = (REPO / "crs_tpu_torch" / "csrc" / "gemv_probe.cu").read_text()
+        for lit in ("0x5140", "0x7362", "0x5410", "0x7632", "(c + 4) << 8", "0x007F007Fu",
+                    "0x00800080u", "0x43004300u", "0x000F000Fu", "0x43084308u", "0xC308C308u",
+                    "0xF0F0F0F0u"):
+            assert lit in src, lit
+        return
+    b = np.arange(256, dtype=np.uint32)
+    signed = b.astype(np.uint8).view(np.int8).astype(np.int64)
+    if trick == "s8_pair_bf16":  # (128 + low 7 bits) − (128 or 256): the byte as a bf16
+        mag = _bf16_bits_to_float((b & 0x7F) | 0x4300)
+        sgn = _bf16_bits_to_float((b & 0x80) | 0x4300)
+        assert np.array_equal(mag - sgn, signed)
+    elif trick == "s4_pair_bf16":  # (128 + (nibble ^ 8)) − 136: the signed nibble
+        for nib, want in ((b & 0xF, (signed << 60) >> 60), (b >> 4, signed >> 4)):
+            m = _bf16_bits_to_float((nib ^ 8) | 0x4300)
+            assert np.array_equal(m - 136, want)
+        # × the bf16 scale, one rounding: the plain version's bf16 product
+        rng = np.random.default_rng(0)
+        sc = torch.from_numpy(rng.random(64).astype(np.float32) * 0.02 + 1e-3).to(torch.bfloat16)
+        v = torch.arange(-8, 8, dtype=torch.float64)
+        exact = (v[:, None] * sc.double()[None, :]).float().to(torch.bfloat16)
+        assert torch.equal(exact, v.to(torch.bfloat16)[:, None] * sc[None, :])
+    else:  # (w << 4) & 0xF0, w & 0xF0: 16 × each nibble, as int8
+        lo = ((b << 4) & 0xF0).astype(np.uint8).view(np.int8).astype(np.int64)
+        hi = (b & 0xF0).astype(np.uint8).view(np.int8).astype(np.int64)
+        assert np.array_equal(lo, 16 * ((signed << 60) >> 60))
+        assert np.array_equal(hi, 16 * (signed >> 4))
+        assert np.array_equal(lo >> 4, (signed << 60) >> 60)  # shifted back: exact
+
+
+@pytest.mark.parametrize("form", ["s8_m16n8k32", "bf16_m16n8k16"])
+def test_fragment_layouts_compute_the_product(form):
+    """One warp's 32 columns of one product, from the lanes' code words as
+    the kernels read them: unfolded probe (m16n8k32 s8: a lane reads rows 4t
+    + q and 16 + 4t + q, transposed), fold probe and W8A16 GEMV (m16n8k16:
+    rows 2t, 2t + 1, 8 + 2t, 9 + 2t, paired by byte). B of n8 tile c holds
+    column 4g + c at tile column g; the lane's sums land in columns 8t .. 8t
+    + 7. The mma is the PTX fragment rule: D[m][n] = Σ_k A[m][k]·B[k][n]
+    with B[k][n] from lane (n, k-quad)."""
+    rng = np.random.default_rng(5)
+    k = 32 if form == "s8_m16n8k32" else 16
+    codes = rng.integers(0, 256, (k, 32)).astype(np.uint32)  # a stage's rows × 32 columns
+    a = rng.integers(-20, 20, (16, k))
+
+    def words(r, g):  # the 4-byte word of row r, columns 4g .. 4g + 3
+        return sum(int(codes[r, 4 * g + i]) << (8 * i) for i in range(4))
+
+    def val(byte):  # a code byte as int8
+        return byte - 256 if byte > 127 else byte
+
+    B = np.zeros((4, k, 8), np.int64)  # [n8 tile c, k, tile column g]
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        if form == "s8_m16n8k32":
+            c0 = _transpose4([words(4 * t + q, g) for q in range(4)])
+            c1 = _transpose4([words(16 + 4 * t + q, g) for q in range(4)])
+            for c in range(4):  # b0: k 4t..4t+3, b1: k 16+4t..
+                for i in range(4):
+                    B[c, 4 * t + i, g] = val((c0[c] >> (8 * i)) & 0xFF)
+                    B[c, 16 + 4 * t + i, g] = val((c1[c] >> (8 * i)) & 0xFF)
+        else:
+            w = [words(r, g) for r in (2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t)]
+            for c in range(4):  # b0: k 2t, 2t+1 (low, high half), b1: k 8+2t, 9+2t
+                p0, p1 = _pair_bytes(w[0], w[1], c), _pair_bytes(w[2], w[3], c)
+                B[c, 2 * t, g], B[c, 2 * t + 1, g] = val(p0 & 0xFF), val((p0 >> 16) & 0xFF)
+                B[c, 8 + 2 * t, g], B[c, 9 + 2 * t, g] = val(p1 & 0xFF), val((p1 >> 16) & 0xFF)
+    D = np.einsum("mk,ckn->cmn", a, B)  # each n8 tile's 16 × 8 sums
+    got = np.zeros((16, 32), np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for c in range(4):
+            for e in range(4):  # d0, d1: row g, tile columns 2t, 2t+1; d2, d3: row g + 8
+                row, tcol = g + 8 * (e >> 1), 2 * t + (e & 1)
+                assert 4 * tcol + c == 8 * t + 4 * (e & 1) + c  # the lane's 8 adjacent columns
+                got[row, 4 * tcol + c] = D[c, row, tcol]
+    want = a @ codes.astype(np.uint8).view(np.int8).astype(np.int64)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["whole", "nomma", "copies", "compute", "launch"])
+def test_probe_breakdown_variants_come_from_the_source(name):
+    """crs_tpu_torch.tools.probe_breakdown compiles parts out of the kernels'
+    own source: each variant's anchors hold in it, and a source without
+    them is refused rather than measured."""
+    from crs_tpu_torch.tools.probe_breakdown import variant_source
+
+    src = (REPO / "crs_tpu_torch" / "csrc" / "gemv_probe.cu").read_text()
+    out = variant_source(src, name)
+    assert (out == src) == (name == "whole")
+    if name != "whole":
+        with pytest.raises(ValueError):
+            variant_source(src[:src.index("namespace {")], name)  # the header alone
 
 
 # -- the slice as a whole: the chain --------------------------------------------------------
@@ -510,6 +631,13 @@ def test_tools_raise_without_cuda_unless_cpu_is_asked(no_cuda, tool):
         mod.main(["--device", "cuda"])
 
 
+def test_probe_breakdown_needs_the_card(no_cuda):
+    from crs_tpu_torch.tools import probe_breakdown
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_breakdown.main([])
+
+
 def test_tool_functions_raise_without_cuda(no_cuda):
     from crs_tpu_torch.tools import bench_chain_gemv as bc
     from crs_tpu_torch.tools import bench_q4_kernel as pq
@@ -545,7 +673,6 @@ def fake_card(monkeypatch):
     for name in ("emulate_q4_probe_matmul", "emulate_q8_gemv", "emulate_db_gemv"):
         monkeypatch.setattr(gp, name, plain_must_not_run)
     monkeypatch.setattr(gp, "stream_handle", lambda dev: 0)
-    monkeypatch.setattr(gp, "sm_count", lambda dev: 132)
     return gp
 
 
@@ -580,8 +707,8 @@ def test_wrapper_launches_its_kernel_on_the_card(fake_card, monkeypatch, name):
                                                    4 if name == "q8_gemv" else 6:]
     if name == "q4_probe_matmul":  # rt, K/2, N, gs2, gpt, fold, raw
         assert ints[:7] == [32, 1024, 32000, 64, 8, 0, 1]
-    elif name == "q8_gemv":  # R, K, N, slice_rows, ksplit
-        assert ints[:5] == [8, 2048, 2048, 256, 8]
+    elif name == "q8_gemv":  # R, K, N
+        assert ints[:3] == [8, 2048, 2048]
     else:  # R, K, N
         assert ints[:3] == [8, 2048, 2048]
 
