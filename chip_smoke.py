@@ -84,9 +84,14 @@ the largest difference); any failure raises and exits non-zero:
                         1e-5·Σ|x·w|, random scales so the tiled fold mapping
                         shows), the q8 GEMV at (R, d) 8/2048, 1/2048, 16/2048,
                         3/2048, 12/2048 and 8/4096, the row-major GEMV at
-                        8/2048, 1/2048 and 8/4096 — each kernel's device ms
-                        with the weights past the L2, plain and composition
-                        ms, bound; then both
+                        8/2048, 1/2048, 3/2048, 5/2048, 7/2048, 8/512 (one
+                        chunk), 8/4096 and 8/8192 (its ring) — each kernel's
+                        device ms with the weights past the L2, plain and
+                        composition ms, bound; the one-call library times of
+                        rows 14 (torch._weight_int8pack_mm at 8/2048) and 8
+                        (torch._weight_int4pack_mm at the chain's q4 layer,
+                        beside kernel 8 there), or why the card's torch has
+                        none, each held against the plain version; then both
                         tools with every variant at their defaults (CUDA
                         graphs; ms/chain, GB/s, bound, launches a chain; the
                         bench_chain_gemv chain is 96 layers of 2048 × 2048)
@@ -2765,11 +2770,17 @@ GEMV_Q4_SHAPES = ((32, 2048, 32000, 16), (32, 2048, 32000, 8), (32, 2048, 32000,
                   (32, 2048, 32000, 64), (32, 2048, 32000, 256), (32, 2048, 32004, 16))
 GEMV_Q8_SHAPES = ((8, 2048), (1, 2048), (16, 2048), (3, 2048), (12, 2048),
                   (8, 4096))  # (R, d): the chain's, and off it
-GEMV_DB_SHAPES = ((8, 2048), (1, 2048), (8, 4096))
+# (R, d): the chain's (timed), other rows of x, one chunk of 512, and d 4096 / 8192 (the ring)
+GEMV_DB_SHAPES = ((8, 2048), (1, 2048), (3, 2048), (5, 2048), (7, 2048), (8, 512), (8, 4096),
+                  (8, 8192))
 GEMV_CHAIN = {"d": 2048, "layers": 96, "r": 8, "g": 16, "reps": 5, "n1": 1, "n2": 5}  # the defaults
 GEMV_Q4_TOOL = {"r": 32, "k": 2048, "n": 32000, "g": 16}  # bench_q4_kernel's defaults
 GEMV_KERNELS = {"q4_probe_matmul": ("q4_probe_kernel",), "q8_gemv": ("q8_gemv_kernel",),
-                "db_gemv": ("db_gemv_kernel",)}
+                "db_gemv": ("db_gemv_kernel",), "q4_matmul": ("q4_mma_kernel",)}
+# a library call's bf16 output against the f32 plain version: |lib − plain| ≤
+# GEMV_LIB_TOL·Σ|x·w·s| (the output rounded to bf16, 2⁻⁹ of |out| ≤ Σ; the
+# weights' scale in bf16, 2⁻⁹ of each term)
+GEMV_LIB_TOL = 2.0 ** -8
 
 
 def gemv_check(got, ref, abs_sum, what: str, exact: bool = False) -> dict:
@@ -2803,6 +2814,100 @@ def gemv_time(dev, fn, copies, kernel: str) -> dict:
             "copies": len(copies)}
 
 
+def cuda_op_missing(*ops) -> str:
+    """Why the card's torch cannot run ``aten::<op>`` for every op on a CUDA
+    tensor, or "" when it registers a CUDA kernel for each."""
+    import torch
+
+    for op in ops:
+        if not torch._C._dispatch_has_kernel_for_dispatch_key(f"aten::{op}", "CUDA"):
+            return f"torch {torch.__version__} registers no CUDA kernel for aten::{op}"
+    return ""
+
+
+def library_time(call, args, ref, abs_sum, what: str) -> dict:
+    """One PyTorch call that computes a kernel's function: its bf16 output
+    on ``args[0]`` held against the plain version within
+    GEMV_LIB_TOL·Σ|x·w·s|, then its device ms a call (every kernel it
+    launches, torch.profiler) with the operands cycled through ``args``
+    (copies past the L2, as the kernel is timed). Timed here, used nowhere in
+    the port."""
+    got = call(*args[0])
+    diff = (got.double() - ref.double()).abs()
+    ratio = float((diff / abs_sum.double().clamp_min(1e-30)).max())
+    if not (ratio <= GEMV_LIB_TOL and bool(got.float().isfinite().all())):
+        raise AssertionError(f"gemv: {what} differs from the plain version by {float(diff.max())} "
+                             f"({ratio} of Σ|x·w·s|)")
+    it = iter(range(1 << 30))
+    ms = kernel_device_ms(lambda: call(*args[next(it) % len(args)]), max(20, len(args)),
+                          ("",))  # every device event of the call
+    return {"library_ms": ms, "library_call": what, "library_max_abs_err": float(diff.max()),
+            "library_err_over_abs_sum": ratio}
+
+
+def db_library(dev, x, codes, scale) -> dict:
+    """Row 14's one call: torch._weight_int8pack_mm(bf16 x [R, K], int8 w
+    [N, K], N bf16 scales) → bf16 [R, N]."""
+    import torch
+
+    from crs_tpu_torch.ops import gemv_probe as gp
+
+    what = "torch._weight_int8pack_mm(x bf16 [8, 2048], w int8 [2048, 2048], scales bf16 [2048])"
+    missing = cuda_op_missing("_weight_int8pack_mm")
+    if missing:
+        return {"library_ms": None, "library_note": missing}
+    xb = x.to(torch.bfloat16)
+    sc = torch.full((codes.shape[0],), scale, dtype=torch.bfloat16, device=dev)
+    abs_sum = (xb.float().abs() @ codes.float().abs().T) * scale
+    return library_time(lambda c: torch._weight_int8pack_mm(xb, c, sc),
+                        [(codes.clone(),) for _ in range(cold_copies(codes.numel()))],
+                        gp.emulate_db_gemv(x, codes, scale), abs_sum, what)
+
+
+def q4_library(dev, gen) -> dict:
+    """Row 8 at the chain tool's q4 layer (d 2048, R 8, groups of 128):
+    kernel 8's device ms there (weights past the L2), and the one call
+    torch._weight_int4pack_mm on the same weight — its symmetric codes as
+    unsigned q = s + 8 with zero point 0, packed once by
+    torch._convert_weight_to_int4pack (even k in the high nibble of a byte of
+    the [N, K/2] weight, scales and zeros [K/128, N, 2] bf16)."""
+    import torch
+
+    from crs_tpu_torch.ops import qgemm
+
+    d, r, grp = GEMV_CHAIN["d"], GEMV_CHAIN["r"], GEMV_CHAIN["g"]
+    gs = d // grp
+    codes = torch.randint(-128, 128, (d // 2, d), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    scales = torch.full((grp, d), 1e-2 / d ** 0.5, device=dev) * (
+        torch.rand((grp, d), generator=gen, device=dev) + 0.5)  # random: a wrong group shows
+    x = torch.randn((r, d), generator=gen, device=dev)
+    copies = [(codes.clone(), scales.clone()) for _ in range(cold_copies(codes.numel()))]
+    ref = qgemm.emulate_q4_matmul(x, codes, scales)
+    w = qgemm._unpack_int4(codes).float() * scales.repeat_interleave(gs, 0)
+    xb = x.to(torch.bfloat16)
+    abs_sum = xb.float().abs() @ w.abs()
+    row = gemv_check(qgemm.q4_matmul(x, codes, scales), ref, abs_sum, f"q4 R={r} d={d} g={grp}")
+    row.update(gemv_time(dev, lambda c, s: qgemm.q4_matmul(x, c, s), copies, "q4_matmul"))
+    row["shape"] = {"R": r, "K": d, "N": d, "group": gs}
+    what = (f"torch._weight_int4pack_mm(x bf16 [{r}, {d}], int4pack of [{d}, {d}], {gs}, "
+            f"scales and zeros bf16 [{grp}, {d}, 2])")
+    missing = cuda_op_missing("_convert_weight_to_int4pack", "_weight_int4pack_mm")
+    if missing:
+        return {**row, "library_ms": None, "library_note": missing}
+
+    def pack(c, s):
+        p = c.to(torch.int32) & 0xFF
+        lo, hi = (p & 0xF) ^ 8, ((p >> 4) & 0xF) ^ 8  # k = 2i, 2i + 1 as q = s + 8
+        wp = torch._convert_weight_to_int4pack(((lo << 4) | hi).T.contiguous().to(torch.uint8), 8)
+        return wp, torch.stack([s, torch.zeros_like(s)], dim=2).to(torch.bfloat16).contiguous()
+
+    packed = [pack(c, s) for c, s in copies]
+    lib = library_time(lambda wp, sz: torch._weight_int4pack_mm(xb, wp, gs, sz), packed,
+                       ref, abs_sum, what)
+    return {**row, **lib}
+
+
 def phase_gemv(ph: Phase, dev, seed: int) -> dict:
     """The decode weight-streaming tools on the card: (a) the three probe
     kernels against their plain versions at the tools' default shapes and
@@ -2814,7 +2919,9 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
     counts reset before and read after: ms/chain, GB/s, bound and launches
     a chain; (c) the q4 chain (kernel 8) also eagerly, a launch at a time;
     (d) one layer of the int8, dq4 and i4native variants under
-    torch.profiler: its device time by kernel."""
+    torch.profiler: its device time by kernel. Rows 14 and 8 also get the
+    one PyTorch call that computes their function (:func:`db_library`,
+    :func:`q4_library`)."""
     import numpy as np
     import torch
 
@@ -2826,6 +2933,12 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 18)
     out = {"q4_probe_matmul": {}, "q8_gemv": {}, "db_gemv": {}}
+    part_s, t_part = {}, [time.perf_counter()]  # host seconds of each part of the phase
+
+    def part(name):
+        now = time.perf_counter()
+        part_s[name] = part_s.get(name, 0.0) + now - t_part[0]
+        t_part[0] = now
 
     def ints(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32).to(
@@ -2888,6 +3001,7 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
                        "the composition")
             out["q4_probe_library_composition_ms"] = device_ms(dev, composition, iters=5)
         del codes, xi
+    part("q4_probe")
     # B and C at the chain's shapes and off them
     for r, d in GEMV_Q8_SHAPES:
         codes = ints(-127, 128, (d, d))
@@ -2907,6 +3021,7 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
             b = bound(d * d + d * 4 + r * d * 2 + r * d * 4, 2.0 * r * d * d, PEAK_BF16_OPS_PER_S)
             row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
         out["q8_gemv"][f"R={r} d={d}"] = row
+    part("q8_gemv")
     for r, d in GEMV_DB_SHAPES:
         codes = ints(-127, 128, (d, d))
         x = torch.randn((r, d), generator=g, device=dev)
@@ -2922,9 +3037,15 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
                 x.to(torch.bfloat16), codes.to(torch.bfloat16).T).float() * scale, iters=10)
             b = bound(d * d + r * d * 2 + r * d * 4, 2.0 * r * d * d, PEAK_BF16_OPS_PER_S)
             row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+            part("db_gemv")
+            row.update(db_library(dev, x, codes, scale))
+            part("db_library")
         out["db_gemv"][f"R={r} d={d}"] = row
     del codes
+    part("db_gemv")
+    out["q4_library"] = q4_library(dev, g)  # row 8's one-call library time
     empty_cache(dev)
+    part("q4_library")
 
     # (b) the tools, every variant, at their defaults: the main path
     reset_counts()
@@ -2960,6 +3081,7 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
     out["tool_lines"] = lines
     out["main_path_launches"] = launches
     out["wrapper_counts"] = counted
+    part("tools")
 
     # (c) the q4 chain, a launch at a time (no graph), beside its graph time
     rng = np.random.default_rng(0)
@@ -2976,6 +3098,7 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
         "eager_us_per_layer": eager["seconds"] * 1e6 / GEMV_CHAIN["layers"],
         "graph_us_per_layer": graph_ms * 1e3 / GEMV_CHAIN["layers"],
         "kernel_8_bound_us_per_layer": chain_res["q4"]["bound_ms"] * 1e3 / GEMV_CHAIN["layers"]}
+    part("q4_chain_eager")
     # (d) what a layer of the composed variants spends on the card, by kernel (one layer)
     out["step_profiles"] = {}
     for var in ("int8", "dq4", "i4native"):
@@ -2987,6 +3110,8 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
         out["step_profiles"][var] = device_profile(lambda: step(x0, w),
                                                    device_ms(dev, lambda: step(x0, w), iters=20))
     empty_cache(dev)
+    part("step_profiles")
+    out["part_seconds"] = part_s
     out["note"] = ("kernel ms: device time a launch (torch.profiler), operands cycled through "
                    "copies past the L2; q4_probe ms_one_matrix: the tool's one-matrix loop (L2 "
                    "warm); chain ms: CUDA graphs of n1 and n2 repetitions, "
@@ -5465,6 +5590,10 @@ def kernel_table(res: dict) -> list:
             "launches_evaluate": evaluated.get(name, 0), "launches_finetune": tuned[name],
             "max_abs_err": q4[kind]["max_abs_err"], **{k: q4[kind][k] for k in keys},
             "library_ms": None})
+    lib8 = res["gemv"]["q4_library"]  # row 8's one call, at the chain tool's q4 layer
+    rows[-2].update(library_ms=lib8["library_ms"], library_shape=lib8["shape"],
+                    ms_at_library_shape=lib8["ms"],
+                    library_note=lib8.get("library_note", lib8.get("library_call")))
     rows.append({
         "name": "decode_attention_int8", "route": "cuda",
         "source": "crs_tpu_torch/csrc/decode_attention_int8.cu",
@@ -5494,7 +5623,8 @@ def kernel_table(res: dict) -> list:
             "replaces": line, "launches": gemv["main_path_launches"][name],
             "max_abs_err": max(v["max_abs_err"] for v in gemv[name].values()),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            "library_composition_ms": comp, "library_ms": None})
+            "library_composition_ms": comp, "library_ms": row.get("library_ms")})
+    rows[-1]["library_note"] = db.get("library_note", db.get("library_call"))
     rows[-3]["by_variant_ms"] = {k.split()[0]: v["ms"] for k, v in gemv["q4_probe_matmul"].items()
                                  if "ms" in v}
     for row in rows:  # kernel 8 on the chain tool's q4 variant

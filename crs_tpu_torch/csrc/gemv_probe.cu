@@ -76,12 +76,28 @@
 // against a row-major weight, streamed through a manual two-slot DMA double
 // buffer): x [R, K] bf16 (R ≤ 8), w [N, K] int8 → out [R, N] = (x ·
 // bf16(w)ᵀ, f32 sums) · scale. Bound at d 2048: the 4.19 MB of the weight,
-// ≈ 1.25 µs. Design: a block of 8 warps owns 16 output rows, streamed in
-// two stages of 8 rows (8·K bytes) through a two-slot cp.async ring in
-// shared memory, the counterpart of kdb's two DMA slots and semaphores:
-// the second stage is in flight while the first is summed. A warp sums one
-// weight row: a lane reads 16 contiguous bytes of it at a time (512 a
-// warp), x from L1, and the warp's sums meet by shuffles.
+// ≈ 1.25 µs; the 67 MFLOP take 0.07 µs on the tensor cores, so bytes in
+// flight bound it. Design: a block of 8 warps owns 16 weight rows (one m16
+// tile; 128 blocks at d 2048) or, where N ≥ 4,096 still leaves 128 blocks,
+// 32 (two tiles, halving the x a block reads for each weight byte), and all
+// of K, so no sum crosses blocks. K comes in chunks of 512: the chunk's
+// weight as four TMA boxes of 16 or 32 rows × 128 bytes and its x as eight
+// boxes of 8 rows × 64 bf16 (both 128-byte swizzled; TMA fills x's rows
+// past R with zeros), so x comes into shared memory once a block and no
+// warp reads it from device memory. One thread issues every chunk at once
+// where the ring holds them all (64 KB at d 2048), else a ring runs with
+// all its stages but one in flight: up to 200 KB where the grid is one
+// wave, else 96 KB so that two blocks share an SM. Products on the tensor
+// cores (mma.sync m16n8k16 bf16, f32 sums): the weight is A (16 rows the
+// m16, row-major as stored), x is B (its ≤ 8 rows the n8, whose col layout
+// is x's [R, K] rows). A warp sums 128-wide pieces of K, piece p on warp p
+// mod 8, in two product chains; K is permuted alike in both operands, so a
+// lane reads 16 contiguous bytes of rows g and g + 8 (a word of 4 k a
+// product: bytes 0, 1 its a0 / a1, bytes 2, 3 its a2 / a3, made bf16 by
+// s8_pair_bf16) and x's row g at the same k as 16-byte words (an 8-byte
+// half is b0 / b1); no ldmatrix, and the lanes' chunks are chosen so that
+// every 16-byte read is free of bank conflicts. The 8 warps' sums meet in
+// shared memory, added in warp order, × the scale.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,10 +111,6 @@ namespace {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
 // 4 bytes, or 4 zeros when !ok (src is then not read)
@@ -705,83 +717,142 @@ q8_gemv_kernel(const __grid_constant__ CUtensorMap tm_codes,  // [K, N] int8, bo
 
 // -- db_gemv_kernel ----------------------------------------------------------------
 
-constexpr int DB_THREADS = 256;
-constexpr int DB_STAGE_ROWS = 8;   // weight rows a stage (one a warp)
-constexpr int DB_STAGES = 2;       // stages a block: its 16 output rows
-constexpr int DB_MAX_ROWS = 8;
+constexpr int DB_WARPS = 8;
+constexpr int DB_THREADS = 32 * DB_WARPS;
+constexpr int DB_MAX_ROWS = 8;     // rows of x: the n8 of one product
+constexpr int DB_CHUNK = 512;      // kdb's chunk, and the k a ring stage holds
+constexpr int DB_PIECE = 128;      // k a warp sums at a time: one weight box's width
+constexpr int DB_RING2 = 96 * 1024;    // bytes of ring a block at two blocks an SM
+constexpr int DB_RING1 = 200 * 1024;   // ... at one (a grid of at most 132 blocks)
+constexpr int DB_XBOX = DB_MAX_ROWS * 128;  // 8 rows × 64 bf16 of x
+constexpr int DB_XBYTES = (DB_CHUNK / 64) * DB_XBOX;  // a stage's x: 8 KB
 
-__device__ __forceinline__ void db_issue(uint8_t* slot, const int8_t* w, int row0, int K, int tid) {
-    const int chunks = DB_STAGE_ROWS * K / 16;
-    for (int i = tid; i < chunks; i += DB_THREADS) {
-        const int r = i / (K / 16), c = i - r * (K / 16);
-        cp_async16(smem_addr(slot + (size_t)r * K + 16 * c), w + (size_t)(row0 + r) * K + 16 * c);
-    }
+// a block of MT m16 tiles: 16·MT weight rows
+template <int MT>
+struct DbStage {
+    static constexpr int ROWS = 16 * MT;
+    static constexpr int WBOX = ROWS * DB_PIECE;                // ROWS weight rows × 128 bytes
+    static constexpr int WBYTES = (DB_CHUNK / DB_PIECE) * WBOX;  // a stage's weight
+    static constexpr int BYTES = WBYTES + DB_XBYTES;              // a multiple of 1024
+    static constexpr int MAX_SLOTS = DB_RING1 / BYTES;            // 12 (MT 1) or 8 (MT 2)
+};
+
+// the 4-byte word j of a 16-byte read
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int j) {
+    return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// shared memory: the ring, 2 slots × 8 rows × K bytes
-__global__ void __launch_bounds__(DB_THREADS)
-db_gemv_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-               float* __restrict__ out, int R, int K, int N, float scale) {
-    extern __shared__ __align__(16) uint8_t ring[];
+// shared memory (from a 1024-byte aligned base): the ring, slots × (weight:
+// four boxes of 16·MT rows × 128 bytes; x: eight boxes of 8 rows × 64 bf16),
+// slots ≤ K / 512 stages (the launcher's choice), both 128-byte swizzled
+// (16-byte chunk c of row r at chunk c ^ r % 8). Lane (g, t): its sums are
+// weight rows 16·mt + g and 16·mt + g + 8 of each tile mt, x rows 2t, 2t + 1.
+template <int MT>
+__global__ void __launch_bounds__(DB_THREADS, 2)
+db_gemv_kernel(const __grid_constant__ CUtensorMap tm_w,  // [N, K] int8, box 128 × 16·MT
+               const __grid_constant__ CUtensorMap tm_x,  // [R, K] bf16, box 64 × 8
+               float* __restrict__ out, int R, int K, int N, float scale, int slots) {
+    using S = DbStage<MT>;
+    extern __shared__ uint8_t smem_raw[];
+    __shared__ __align__(8) uint64_t full[S::MAX_SLOTS];
+    __shared__ float red[DB_WARPS][DB_MAX_ROWS][S::ROWS];  // the warps' sums
+    uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                               ~(uintptr_t)1023);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int n0 = blockIdx.x * DB_STAGE_ROWS * DB_STAGES;
-    const size_t slot_bytes = (size_t)DB_STAGE_ROWS * K;
+    const int g = lane >> 2, t = lane & 3;
+    const int n0 = blockIdx.x * S::ROWS;
+    const int nch = K / DB_CHUNK;
+    const bool ring = nch > slots;
 
-    db_issue(ring, w, n0, K, tid);
-    cp_async_commit();
-    for (int st = 0; st < DB_STAGES; ++st) {
-        if (st + 1 < DB_STAGES) {
-            db_issue(ring + ((st + 1) & 1) * slot_bytes, w, n0 + (st + 1) * DB_STAGE_ROWS, K, tid);
-            cp_async_commit();
-            cp_async_wait<1>();  // stage st has landed (this thread's copies)
-        } else {
-            cp_async_wait<0>();
+    auto issue = [&](int ch) {  // one thread: the chunk's weight and x as TMA boxes
+        const uint32_t st = smem_addr(smem + (size_t)(ch % slots) * S::BYTES);
+        const uint32_t bar = sm90::smem_u32(&full[ch % slots]);
+        const int k0 = ch * DB_CHUNK;
+        sm90::mbar_expect_tx(bar, S::BYTES);
+        for (int b = 0; b < DB_CHUNK / DB_PIECE; ++b)
+            sm90::tma_load_2d(st + b * S::WBOX, &tm_w, k0 + b * DB_PIECE, n0, bar);
+        for (int b = 0; b < DB_CHUNK / 64; ++b)
+            sm90::tma_load_2d(st + S::WBYTES + b * DB_XBOX, &tm_x, k0 + 64 * b, 0, bar);
+    };
+    // every chunk at once when the ring holds them all, else all but one slot's
+    const int pre = ring ? slots - 1 : nch;
+    if (tid == 0) {
+        for (int s = 0; s < slots; ++s) sm90::mbar_init(sm90::smem_u32(&full[s]), 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        for (int c = 0; c < pre; ++c) issue(c);
+    }
+    __syncthreads();
+
+    // the lane's reads in a piece: weight chunks 2t + (h ^ (t >> 1)) (h = 0, 1)
+    // of rows g + 8i (1024·i bytes on), and x chunks 4(t & 1) + (q ^ 2(t >> 1))
+    // (q = 0..3) of row g in x box t >> 1: k 32t .. 32t + 31 of the piece in
+    // both, each 8-lane phase of a read on 8 distinct bank groups
+    int woff[2], xoff[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+        woff[h] = g * 128 + (((2 * t + (h ^ (t >> 1))) ^ g) << 4);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+        xoff[q] = S::WBYTES + (t >> 1) * DB_XBOX + g * 128 +
+                  (((4 * (t & 1) + (q ^ (2 * (t >> 1)))) ^ g) << 4);
+    float acc[MT][2][4] = {};  // by tile and by weight read h: independent product chains
+    for (int ch = 0; ch < nch; ++ch) {
+        if (ring) {
+            __syncthreads();  // every warp has read chunk ch − 1: its slot is free
+            if (tid == 0 && ch + slots - 1 < nch) issue(ch + slots - 1);
         }
-        __syncthreads();  // ... and every thread's
-        const uint8_t* row = ring + (st & 1) * slot_bytes + (size_t)warp * K;
-        float acc[DB_MAX_ROWS];
+        if ((ch & 1) != (warp >> 2)) continue;  // piece 4·ch + (warp & 3) is warp p mod 8's
+        sm90::mbar_wait(sm90::smem_u32(&full[ch % slots]), (ch / slots) & 1);  // chunk ch landed
+        const uint8_t* sb = smem + (size_t)(ch % slots) * S::BYTES;
+        // the piece: weight box warp & 3, x boxes 2(warp & 3) and 2(warp & 3) + 1
+        const uint8_t* st = sb + (warp & 3) * S::WBOX;
+        const uint8_t* sx = sb + 2 * (warp & 3) * DB_XBOX;
+        uint4 wv[2][2 * MT], xv[4];
 #pragma unroll
-        for (int r = 0; r < DB_MAX_ROWS; ++r) acc[r] = 0.f;
-        for (int k = 16 * lane; k < K; k += 512) {
-            const uint4 wv = *reinterpret_cast<const uint4*>(row + k);
-            const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
-            float wf[16];
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int c = 0; c < 16; ++c)
-                wf[c] = (float)(int8_t)((ww[c >> 2] >> (8 * (c & 3))) & 0xFFu);
+            for (int i = 0; i < 2 * MT; ++i)
+                wv[h][i] = *reinterpret_cast<const uint4*>(st + woff[h] + 1024 * i);
 #pragma unroll
-            for (int r = 0; r < DB_MAX_ROWS; ++r) {
-                if (r >= R) break;
-                const uint4* xp = reinterpret_cast<const uint4*>(x + (size_t)r * K + k);
-                const uint4 xa = __ldg(xp), xb = __ldg(xp + 1);
-                const __nv_bfloat16* xh0 = reinterpret_cast<const __nv_bfloat16*>(&xa);
-                const __nv_bfloat16* xh1 = reinterpret_cast<const __nv_bfloat16*>(&xb);
-                float a = acc[r];
+        for (int q = 0; q < 4; ++q) xv[q] = *reinterpret_cast<const uint4*>(sx + xoff[q]);
+        // product (mt, h, j): word j of weight read h (k 4j .. 4j + 3 of its
+        // chunk) of rows 16·mt + g, + 8 against the same 4 k of x: read 2h + j / 2,
+        // half j % 2
 #pragma unroll
-                for (int c = 0; c < 8; ++c) a = fmaf(__bfloat162float(xh0[c]), wf[c], a);
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-                for (int c = 0; c < 8; ++c) a = fmaf(__bfloat162float(xh1[c]), wf[8 + c], a);
-                acc[r] = a;
+            for (int j = 0; j < 4; ++j) {
+                const uint4& x4 = xv[2 * h + (j >> 1)];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    const uint32_t a0 = word_of(wv[h][2 * mt], j);
+                    const uint32_t a1 = word_of(wv[h][2 * mt + 1], j);
+                    const uint32_t a[4] = {s8_pair_bf16(__byte_perm(a0, 0, 0x4140)),
+                                           s8_pair_bf16(__byte_perm(a1, 0, 0x4140)),
+                                           s8_pair_bf16(__byte_perm(a0, 0, 0x4342)),
+                                           s8_pair_bf16(__byte_perm(a1, 0, 0x4342))};
+                    mma_bf16(acc[mt][h], a, (j & 1) ? x4.z : x4.x, (j & 1) ? x4.w : x4.y);
+                }
             }
-        }
+    }
+
+    // the block's sum over its 8 warps, in warp order (x rows past R hold zeros)
 #pragma unroll
-        for (int r = 0; r < DB_MAX_ROWS; ++r) {
-            float v = acc[r];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-            for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-            acc[r] = v;
-        }
-        if (lane == 0) {
-            const int n = n0 + st * DB_STAGE_ROWS + warp;
+        for (int e = 0; e < 4; ++e)
+            red[warp][2 * t + (e & 1)][16 * mt + g + 8 * (e >> 1)] = acc[mt][0][e] + acc[mt][1][e];
+    __syncthreads();
+    for (int i = tid; i < R * S::ROWS; i += DB_THREADS) {
+        const int r = i / S::ROWS, m = i % S::ROWS;
+        float v = 0.f;
 #pragma unroll
-            for (int r = 0; r < DB_MAX_ROWS; ++r)
-                if (r < R) out[(size_t)r * N + n] = acc[r] * scale;
-        }
-        __syncthreads();  // the slot is read before it is refilled
+        for (int w = 0; w < DB_WARPS; ++w) v += red[w][r][m];
+        out[(size_t)r * N + n0 + m] = v * scale;
     }
 }
 
-int q8_smem_done = 0, db_smem_done = 0;
+int q8_smem_done = 0;
 
 // a byte [rows, cols] row-major tensor (cols % 16 == 0) as boxes of
 // box_cols × box_rows, swizzled as asked, zeros past its edges. Returns a
@@ -812,6 +883,26 @@ int q4_probe_enqueue(const CUtensorMap& tc, const CUtensorMap& txe, const CUtens
     const dim3 grid((N + QP_COLS - 1) / QP_COLS, rt / QP_ROWS);
     q4_probe_kernel<FOLD, RAW, TMA><<<grid, QP_THREADS, smem, st>>>(
         tc, txe, txo, xe, xo, xs, codes, scales, out, K2, N, gs2, gpt);
+    return (int)cudaGetLastError();
+}
+
+template <int MT>
+int db_gemv_enqueue(const void* x, const void* w, float* out, int R, int K, int N, float scale,
+                    cudaStream_t st) {
+    using S = DbStage<MT>;
+    static int smem_done = 0;
+    CUtensorMap tw, tx;
+    int err = sm90::encode_i8_map(&tw, w, N, K, S::ROWS);
+    if (!err) err = sm90::encode_bf16_map(&tx, x, R, K, DB_MAX_ROWS);
+    if (err) return err;
+    // one block an SM where the grid is one wave, else two: the ring's stages
+    const int most = (N / S::ROWS <= 132 ? DB_RING1 : DB_RING2) / S::BYTES;
+    const int slots = K / DB_CHUNK < most ? K / DB_CHUNK : most;
+    const size_t smem = 1024 + (size_t)slots * S::BYTES;
+    const cudaError_t e = allow_smem(db_gemv_kernel<MT>, smem, smem_done);
+    if (e != cudaSuccess) return (int)e;
+    db_gemv_kernel<MT><<<N / S::ROWS, DB_THREADS, smem, st>>>(tw, tx, out, R, K, N, scale,
+                                                                slots);
     return (int)cudaGetLastError();
 }
 
@@ -886,18 +977,16 @@ extern "C" int q8_gemv_launch(const void* x, const void* codes, const void* scal
 }
 
 // x [R, K] bf16 (R ≤ 8); w [N, K] int8; out [R, N] f32 = (x · wᵀ) · scale.
-// K % 512 == 0, N % 16 == 0. Returns the CUDA error.
+// K % 512 == 0, N % 16 == 0, 16-byte aligned. A block owns 32 weight rows
+// where that still leaves 128 blocks or more (N ≥ 4,096, N % 32 == 0),
+// halving the x it reads for each weight byte; else 16. Returns the CUDA
+// error (or a tensor map's encoding error).
 extern "C" int db_gemv_launch(const void* x, const void* w, void* out, int R, int K, int N,
                               float scale, void* stream) {
-    if (R < 1 || R > DB_MAX_ROWS || K < 512 || K % 512 || N < 16 ||
-        N % (DB_STAGE_ROWS * DB_STAGES))
+    if (R < 1 || R > DB_MAX_ROWS || K < DB_CHUNK || K % DB_CHUNK || N < 16 || N % 16)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = 2 * (size_t)DB_STAGE_ROWS * K;
-    const cudaError_t e = allow_smem(db_gemv_kernel, smem, db_smem_done);
-    if (e != cudaSuccess) return (int)e;
-    db_gemv_kernel<<<N / (DB_STAGE_ROWS * DB_STAGES), DB_THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-        static_cast<float*>(out), R, K, N, scale);
-    return (int)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    float* o = static_cast<float*>(out);
+    if (N % 32 == 0 && N / 32 >= 128) return db_gemv_enqueue<2>(x, w, o, R, K, N, scale, st);
+    return db_gemv_enqueue<1>(x, w, o, R, K, N, scale, st);
 }

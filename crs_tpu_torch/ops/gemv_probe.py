@@ -8,7 +8,8 @@ ports of ``tools/bench_q4_kernel.py`` and ``tools/bench_chain_gemv.py``).
 - :func:`q8_gemv` (``q8_gemv_kernel``): ``bench_chain_gemv.py``'s ``q8mm``
   / ``k8``, a W8A16 GEMV over K tiles of 512 rows;
 - :func:`db_gemv` (``db_gemv_kernel``): its ``dbmm`` / ``kdb``, a W8A16 GEMV
-  against a row-major [N, K] weight, streamed through a two-slot ring.
+  against a row-major [N, K] weight; the weight and x arrive as TMA boxes
+  and the products run on the tensor cores, weight as A and x as B.
 
 Each wrapper runs its plain torch version (``emulate_*`` beside it) on a
 CPU tensor; on a CUDA tensor it launches its kernel from

@@ -1,13 +1,14 @@
-"""Where kernels 12 and 13 of ``csrc/gemv_probe.cu`` (``q4_probe_kernel``,
-``q8_gemv_kernel``) spend their time on the card.
+"""Where kernels 12, 13 and 14 of ``csrc/gemv_probe.cu``
+(``q4_probe_kernel``, ``q8_gemv_kernel``, ``db_gemv_kernel``) spend their
+time on the card.
 
 Each kernel is timed whole and as variants with a part compiled out:
-  nomma    the tensor-core products replaced by integer adds on the same
-           registers (the unpacking and every load stay);
+  nomma    (kernels 12, 14) the tensor-core products replaced by integer
+           adds on the same registers (the unpacking and every load stay);
   copies   each ring stage waited for and released, nothing computed on it;
-  compute  (kernel 13) no loads: the products run on whatever shared
+  compute  (kernels 13, 14) no loads: the products run on whatever shared
            memory holds;
-  launch   (kernel 13) the block returns at once: the launch alone.
+  launch   (kernels 13, 14) the block returns at once: the launch alone.
 The variants are built from the source in the checkout by replacing
 anchored lines (a source that no longer holds an anchor is refused, not
 measured), with the port's nvcc flags, into ``crs_tpu_torch/build/``. Each
@@ -32,7 +33,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-__all__ = ["VARIANTS", "variant_source", "main"]
+__all__ = ["VARIANTS", "KERNEL_VARIANTS", "variant_source", "main"]
 
 _MMA_BEGIN = "__device__ __forceinline__ void mma_s8("
 _MMA_END = "// a · b + c on bf16 pairs"
@@ -57,6 +58,9 @@ _EDITS = {
         ("        float acc[2][4] = {};  // the tile's sums\n",
          "        float acc[2][4] = {};  // the tile's sums\n"
          "        wsum[0][0] += (float)st[tid];\n        continue;\n"),
+        ("        const uint8_t* sb = smem + (size_t)(ch % slots) * S::BYTES;\n",
+         "        const uint8_t* sb = smem + (size_t)(ch % slots) * S::BYTES;\n"
+         "        acc[0][0][0] += (float)sb[tid];\n        continue;\n"),
     ],
     "compute": [
         ("        sm90::mbar_wait(sm90::smem_u32(&full[ch % slots]), (ch / slots) & 1);\n"
@@ -64,16 +68,26 @@ _EDITS = {
          "        __syncthreads();\n"),
         ("        for (int s = 0; s < pre; ++s) issue(s);\n", ""),
         ("            issue(ch + Q8_STAGES - 1);\n", "            ;\n"),
+        ("        sm90::mbar_wait(sm90::smem_u32(&full[ch % slots]), (ch / slots) & 1);  "
+         "// chunk ch landed\n", ""),
+        ("        for (int c = 0; c < pre; ++c) issue(c);\n", ""),
+        ("            if (tid == 0 && ch + slots - 1 < nch) issue(ch + slots - 1);\n", ""),
     ],
     "launch": [
         ("    float* red = reinterpret_cast<float*>(smem + (size_t)slots * Q8_STAGE);\n",
          "    float* red = reinterpret_cast<float*>(smem + (size_t)slots * Q8_STAGE);\n"
          "    if (R > 0) return;\n"),
+        ("    const bool ring = nch > slots;\n",
+         "    const bool ring = nch > slots;\n    if (R > 0) return;\n"),
     ],
 }
 VARIANTS = ("whole", "nomma", "copies", "compute", "launch")
-_Q4_VARIANTS = ("whole", "nomma", "copies")
-_Q8_SHAPES = ((8, 2048), (8, 4096))  # (R, d): the chain tool's, and d 4096
+KERNEL_VARIANTS = {  # the variants timed for each kernel
+    "q4_probe_kernel": ("whole", "nomma", "copies"),
+    "q8_gemv_kernel": ("whole", "copies", "compute", "launch"),
+    "db_gemv_kernel": VARIANTS,
+}
+_GEMV_SHAPES = ((8, 2048), (8, 4096))  # (R, d) of kernels 13, 14: the chain tool's, and d 4096
 _L2_BYTES = 50e6
 
 
@@ -97,7 +111,7 @@ def variant_source(src: str, name: str) -> str:
 
 def _build(name: str):
     from .._build import BUILD_DIR, CSRC_DIR, compile_command
-    from ..ops.launch import ARG_INT, ARG_PTR
+    from ..ops.launch import ARG_FLOAT, ARG_INT, ARG_PTR
 
     out_dir = os.path.join(BUILD_DIR, "probe_breakdown")
     os.makedirs(out_dir, exist_ok=True)
@@ -114,6 +128,7 @@ def _build(name: str):
     lib = ctypes.CDLL(cmd[cmd.index("-o") + 1])
     lib.q4_probe_launch.argtypes = [ARG_PTR] * 6 + [ARG_INT] * 7 + [ARG_PTR]
     lib.q8_gemv_launch.argtypes = [ARG_PTR] * 4 + [ARG_INT] * 3 + [ARG_PTR]
+    lib.db_gemv_launch.argtypes = [ARG_PTR] * 3 + [ARG_INT] * 3 + [ARG_FLOAT, ARG_PTR]
     return lib
 
 
@@ -172,7 +187,7 @@ def _q4_rows(libs, dev, stream) -> Dict[str, Dict[str, float]]:
             raise AssertionError(f"the whole {var} build differs from the port's kernel")
         rows[var] = {name: _device_us(lambda i, lib=libs[name]: call(lib, i),
                                       max(20, len(copies)), "q4_probe_kernel")
-                     for name in _Q4_VARIANTS}
+                     for name in KERNEL_VARIANTS["q4_probe_kernel"]}
     return rows
 
 
@@ -183,7 +198,7 @@ def _q8_rows(libs, dev, stream) -> Dict[str, Dict[str, float]]:
     g = torch.Generator(device=dev)
     g.manual_seed(13)
     rows = {}
-    for r, d in _Q8_SHAPES:
+    for r, d in _GEMV_SHAPES:
         codes = torch.randint(-127, 128, (d, d), generator=g, device=dev,
                               dtype=torch.int32).to(torch.int8)
         sc = torch.full((d,), 1e-2 / d ** 0.5, device=dev)
@@ -200,7 +215,34 @@ def _q8_rows(libs, dev, stream) -> Dict[str, Dict[str, float]]:
             raise AssertionError(f"the whole q8 build differs from the port's kernel at R {r}")
         rows[f"R={r} d={d}"] = {name: _device_us(lambda i, lib=libs[name]: call(lib, i),
                                                  max(20, len(copies)), "q8_gemv_kernel")
-                                for name in VARIANTS if name != "nomma"}
+                                for name in KERNEL_VARIANTS["q8_gemv_kernel"]}
+    return rows
+
+
+def _db_rows(libs, dev, stream) -> Dict[str, Dict[str, float]]:
+    """Kernel 14 at the chain tool's layer (R 8, d 2048) and at d 4096."""
+    from ..ops import gemv_probe as gp
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    rows = {}
+    for r, d in _GEMV_SHAPES:
+        codes = torch.randint(-127, 128, (d, d), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+        x = torch.randn((r, d), generator=g, device=dev).to(torch.bfloat16)
+        scale = 1e-2 / d ** 0.5
+        copies = [codes.clone() for _ in range(max(1, math.ceil(3 * _L2_BYTES / codes.numel())))]
+        out = torch.empty((r, d), device=dev)
+
+        def call(lib, i, x=x, scale=scale, out=out, copies=copies, r=r, d=d):
+            _checked(lib.db_gemv_launch(x.data_ptr(), copies[i % len(copies)].data_ptr(),
+                                        out.data_ptr(), r, d, d, scale, stream), "db_gemv_launch")
+        call(libs["whole"], 0)
+        if not torch.equal(out, gp.db_gemv(x, copies[0], scale)):
+            raise AssertionError(f"the whole db build differs from the port's kernel at R {r}")
+        rows[f"R={r} d={d}"] = {name: _device_us(lambda i, lib=libs[name]: call(lib, i),
+                                                 max(20, len(copies)), "db_gemv_kernel")
+                                for name in KERNEL_VARIANTS["db_gemv_kernel"]}
     return rows
 
 
@@ -216,7 +258,8 @@ def main(argv=None) -> int:
     res = {"device": torch.cuda.get_device_name(dev), "nvidia_smi": smi,
            "unit": "device µs a launch (torch.profiler), weights past the L2",
            "q4_probe_kernel": _q4_rows(libs, dev, stream),
-           "q8_gemv_kernel": _q8_rows(libs, dev, stream)}
+           "q8_gemv_kernel": _q8_rows(libs, dev, stream),
+           "db_gemv_kernel": _db_rows(libs, dev, stream)}
     print(json.dumps(res))
     return 0
 

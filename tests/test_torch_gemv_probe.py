@@ -321,7 +321,7 @@ def test_q8_gemv_plain_matches_pallas(r):
     assert (np.abs(got - want) <= SUM_RTOL * abs_sum).all()
 
 
-@pytest.mark.parametrize("r", [8, 1])
+@pytest.mark.parametrize("r", [8, 1, 3, 5])
 def test_db_gemv_plain_matches_pallas(r):
     from crs_tpu_torch.ops import gemv_probe as gp
 
@@ -372,7 +372,7 @@ def test_kernel_bit_tricks_are_exact(trick):
         src = (REPO / "crs_tpu_torch" / "csrc" / "gemv_probe.cu").read_text()
         for lit in ("0x5140", "0x7362", "0x5410", "0x7632", "(c + 4) << 8", "0x007F007Fu",
                     "0x00800080u", "0x43004300u", "0x000F000Fu", "0x43084308u", "0xC308C308u",
-                    "0xF0F0F0F0u"):
+                    "0xF0F0F0F0u", "0x4140", "0x4342"):
             assert lit in src, lit
         return
     b = np.arange(256, dtype=np.uint32)
@@ -399,7 +399,81 @@ def test_kernel_bit_tricks_are_exact(trick):
         assert np.array_equal(lo >> 4, (signed << 60) >> 60)  # shifted back: exact
 
 
-@pytest.mark.parametrize("form", ["s8_m16n8k32", "bf16_m16n8k16"])
+def _s8_pair_values(w: int):
+    """gemv_probe.cu s8_pair_bf16: bytes 0 and 2 of w as the bf16 pair (low
+    half, high half), 128 + the low 7 bits less 128 + the sign bit's 128."""
+    halves = [w & 0xFFFF, w >> 16]
+    mag = _bf16_bits_to_float([(h & 0x7F) | 0x4300 for h in halves])
+    sgn = _bf16_bits_to_float([(h & 0x80) | 0x4300 for h in halves])
+    return mag - sgn
+
+
+def _db_piece_product(tiles: int):
+    """db_gemv_kernel's piece (16·tiles weight rows × 128 k against 8 rows of
+    x), from a stage laid out as its TMA boxes land (128-byte swizzle:
+    16-byte chunk c of row r at chunk c ^ r % 8; the weight box, then x boxes
+    of 64 bf16) and read as the lanes read it: lane (g, t) takes weight
+    chunks 2t + (h ^ (t >> 1)) of rows g + 8i and x chunks 4(t & 1) + (q ^
+    2(t >> 1)) of row g in x box t >> 1; product (mt, h, j) takes word j of
+    weight read h of rows 16·mt + g, + 8 (bytes 0, 1 → a0 / a1, bytes 2, 3 →
+    a2 / a3) and half j % 2 of x read 2h + j / 2 (b0, b1). Each 8-lane phase
+    of a 16-byte read must hit 8 distinct bank groups."""
+    rng = np.random.default_rng(14)
+    rows = 16 * tiles
+    w = rng.integers(-128, 128, (rows, 128))
+    x = rng.integers(-20, 20, (8, 128))
+    wbytes = rows * 128
+    smem = np.zeros(wbytes + 2 * 1024, np.uint8)
+    for r in range(rows):
+        for c in range(8):
+            dst = r * 128 + ((c ^ (r % 8)) << 4)
+            smem[dst:dst + 16] = w[r, 16 * c:16 * c + 16].astype(np.int8).view(np.uint8)
+    xbits = (x.astype(np.float32).view(np.uint32) >> 16).astype(np.uint16)  # exact bf16
+    for b in range(2):
+        for r in range(8):
+            for c in range(8):
+                dst = wbytes + b * 1024 + r * 128 + ((c ^ r) << 4)
+                smem[dst:dst + 16] = xbits[r, 64 * b + 8 * c:64 * b + 8 * c + 8].view(np.uint8)
+
+    def read16(off):
+        return [int(v) for v in smem[off:off + 16].view("<u4")]
+
+    offs = {}  # (read, lane) → byte offset
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for h in range(2):
+            for i in range(2 * tiles):
+                offs[("w", h, i), lane] = g * 128 + (((2 * t + (h ^ (t >> 1))) ^ g) << 4) + 1024 * i
+        for q in range(4):
+            offs[("x", q), lane] = wbytes + (t >> 1) * 1024 + g * 128 + (
+                ((4 * (t & 1) + (q ^ (2 * (t >> 1)))) ^ g) << 4)
+    for read in {k for k, _ in offs}:
+        for phase in range(4):
+            groups = {(offs[read, lane] >> 4) % 8 for lane in range(8 * phase, 8 * phase + 8)}
+            assert len(groups) == 8, (read, phase)
+    D = np.zeros((rows, 8))
+    for mt in range(tiles):
+        for h in range(2):
+            for j in range(4):
+                A, B = np.zeros((16, 16)), np.zeros((16, 8))
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    a0w = read16(offs[("w", h, 2 * mt), lane])[j]
+                    a1w = read16(offs[("w", h, 2 * mt + 1), lane])[j]
+                    A[g, 2 * t:2 * t + 2] = _s8_pair_values(_byte_perm(a0w, 0, 0x4140))
+                    A[g + 8, 2 * t:2 * t + 2] = _s8_pair_values(_byte_perm(a1w, 0, 0x4140))
+                    A[g, 8 + 2 * t:10 + 2 * t] = _s8_pair_values(_byte_perm(a0w, 0, 0x4342))
+                    A[g + 8, 8 + 2 * t:10 + 2 * t] = _s8_pair_values(_byte_perm(a1w, 0, 0x4342))
+                    x4 = read16(offs[("x", 2 * h + (j >> 1)), lane])
+                    b0, b1 = x4[2 * (j & 1)], x4[2 * (j & 1) + 1]
+                    B[2 * t:2 * t + 2, g] = _bf16_bits_to_float([b0 & 0xFFFF, b0 >> 16])
+                    B[8 + 2 * t:10 + 2 * t, g] = _bf16_bits_to_float([b1 & 0xFFFF, b1 >> 16])
+                D[16 * mt:16 * mt + 16] += A @ B  # the PTX rule: D[m][n] = Σ_k A[m][k]·B[k][n]
+    return D, w @ x.T
+
+
+@pytest.mark.parametrize("form", ["s8_m16n8k32", "bf16_m16n8k16", "db_bf16_m16n8k16",
+                                  "db_bf16_m16n8k16_two_tiles"])
 def test_fragment_layouts_compute_the_product(form):
     """One warp's 32 columns of one product, from the lanes' code words as
     the kernels read them: unfolded probe (m16n8k32 s8: a lane reads rows 4t
@@ -407,7 +481,13 @@ def test_fragment_layouts_compute_the_product(form):
     rows 2t, 2t + 1, 8 + 2t, 9 + 2t, paired by byte). B of n8 tile c holds
     column 4g + c at tile column g; the lane's sums land in columns 8t .. 8t
     + 7. The mma is the PTX fragment rule: D[m][n] = Σ_k A[m][k]·B[k][n]
-    with B[k][n] from lane (n, k-quad)."""
+    with B[k][n] from lane (n, k-quad). The row-major GEMV (db) sums a piece
+    of 128 k with the weight as A and x as B, K permuted alike in both
+    (:func:`_db_piece_product`), with one m16 tile or two (32 weight rows)."""
+    if form.startswith("db_"):
+        got, want = _db_piece_product(2 if form.endswith("two_tiles") else 1)
+        assert np.array_equal(got, want)
+        return
     rng = np.random.default_rng(5)
     k = 32 if form == "s8_m16n8k32" else 16
     codes = rng.integers(0, 256, (k, 32)).astype(np.uint32)  # a stage's rows × 32 columns
@@ -453,7 +533,7 @@ def test_probe_breakdown_variants_come_from_the_source(name):
     """crs_tpu_torch.tools.probe_breakdown compiles parts out of the kernels'
     own source: each variant's anchors hold in it, and a source without
     them is refused rather than measured."""
-    from crs_tpu_torch.tools.probe_breakdown import variant_source
+    from crs_tpu_torch.tools.probe_breakdown import KERNEL_VARIANTS, variant_source
 
     src = (REPO / "crs_tpu_torch" / "csrc" / "gemv_probe.cu").read_text()
     out = variant_source(src, name)
@@ -461,6 +541,16 @@ def test_probe_breakdown_variants_come_from_the_source(name):
     if name != "whole":
         with pytest.raises(ValueError):
             variant_source(src[:src.index("namespace {")], name)  # the header alone
+
+    def body(text, kernel):  # a kernel's section of the source, up to the next one
+        start = text.index(f"// -- {kernel} ")
+        ends = [e for e in (text.find("\n// -- ", start), text.find("}  // namespace", start))
+                if e > 0]
+        return text[start:min(ends)]
+
+    for kernel, names in KERNEL_VARIANTS.items():  # each timed variant edits its kernel
+        if name in names and name not in ("whole", "nomma"):  # nomma edits the mma helpers
+            assert body(out, kernel) != body(src, kernel), kernel
 
 
 # -- the slice as a whole: the chain --------------------------------------------------------
