@@ -96,7 +96,21 @@ the largest difference); any failure raises and exits non-zero:
                         graphs; ms/chain, GB/s, bound, launches a chain; the
                         bench_chain_gemv chain is 96 layers of 2048 × 2048)
                         and kernel 8's q4 chain eagerly beside its graph;
-11. faults            — ROADMAP §3's repairs at 8,192 rows: hashed stores at D =
+11. tools             — the port's serving and scale tools and examples
+                        (crs_tpu_torch/tools/, crs_tpu_torch/examples/), each through
+                        its own main on the card: the quickstart on the repository's
+                        PDF (16-token generations); bench_decode (1b, int4, int8 KV;
+                        16 tokens, 2 runs) at batches 1 and 8; bench_prefill_mfu
+                        (1b, bf16 and int8); bench_fused_mlp over 4 mistral-7b MLP
+                        layers; bench_scale (both engines) at 2M rows;
+                        bench_pq_serving at 2M rows unsorted, then
+                        --sorted-coarse from the
+                        first run's codes cache; the pq_serving example — each exits
+                        0 with its JSON keys, kernels 1, 3, 4, 8, 10 and 11 counted on
+                        their tools; the first scan of each shape held against its
+                        plain version (int8 within 1e-6, ADC bit for bit); the device
+                        ms of bench_scale's padding copy beside its scan at 10M rows;
+12. faults            — ROADMAP §3's repairs at 8,192 rows: hashed stores at D =
                         100 and 3072 in fp32, bf16 and int8, residual pq and
                         pq_sorted stores at M = 64, each on its kernel (launch
                         counts) against the same store on the CPU; the ADC
@@ -112,14 +126,14 @@ the largest difference); any failure raises and exits non-zero:
                         blocks of 128, 384 and 640 rows (ADC bit for bit) and
                         fp32 and pq stores of 128- and 640-row blocks, each on
                         its kernel; the cost of a ragged D at 1M rows;
-12. bench             — the bench.py slice on the held-out corpus: chunk, hashed
+13. bench             — the bench.py slice on the held-out corpus: chunk, hashed
                         encoder, int8 store, retrieve_batch_fused over 328 queries,
                         checked against the standard (host-rerank) retrieve;
-13. full              — a 1,048,576-row int8 store built through the port's
+14. full              — a 1,048,576-row int8 store built through the port's
                         encoder from synthetic texts; retrieve_batch_fused at batch
                         328 through the int8 kernel (launch count must rise), timed
                         with CUDA events, plus the kernel's own time and bound;
-14. formats           — the first 524,288 of those texts and embeddings (cut
+15. formats           — the first 524,288 of those texts and embeddings (cut
                         from 1M in PR 18) in an fp32, a bf16, a residual pq
                         and a plain pq store (config.json's store values):
                         retrieve_batch at batch 328 without and with PRF
@@ -131,12 +145,12 @@ the largest difference); any failure raises and exits non-zero:
                         over the residual store's state must launch kernel 4
                         (not 3), never take the exact fallback, and return the
                         unsorted store's results;
-15. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
+16. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
                         524,288-row residual pq stores: ms per add, capacity,
                         the int8 store identical to create_index over the same
                         rows, the pq
                         codes against a CPU encode, a `where` search;
-16. multi             — multi-device serving and training at world size 1 (a
+17. multi             — multi-device serving and training at world size 1 (a
                         one-rank NCCL group, every collective called): int8
                         and bf16 mesh stores over the full phase's 1M
                         embeddings, search_batch at batch 328, k 3, through
@@ -151,22 +165,22 @@ the largest difference); any failure raises and exits non-zero:
                         10 16 times a decode step, the first decode step
                         against the plain version; one AdamW train step at 4 ×
                         256 tokens, its loss within 1e-3 of the unsharded loss;
-17. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
+18. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
                         random weights from the seed, through
-                        create_model_interface: greedy generate_batch of 64
+                        create_model_interface: greedy generate_batch of 8
                         tokens at batch 1 and 8 on RAG-sized prompts, with 113
                         q4/NF4 and 16 attention launches per decode step;
                         prefill and decode times, the step's device ms by
                         kernel, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
-18. evaluate          — the evaluation slice: (a) EvaluationRunner.run_all() (the
+19. evaluate          — the evaluation slice: (a) EvaluationRunner.run_all() (the
                         efficiency, performance and retrieval benchmarks) over the
                         generate phase's 1b int4 model and a RAGPipeline with
                         config.json's rag section on the held-out corpus and
-                        questions (efficiency warm-up 1, 3 runs, 32 tokens, batches
+                        questions (efficiency warm-up 1, 2 runs, 16 tokens, batches
                         1 and 8; perplexity at 1,024 tokens; the corpus_qa_mc task;
-                        32 generated tokens): no errors, the five files, the
+                        16 generated tokens): no errors, the five files, the
                         headline metrics, the H100's spec row and power limit,
                         kernels 8 and 10 counted; (b) config.json's small int8
                         model on the card and on the CPU: log-likelihoods per
@@ -174,7 +188,7 @@ the largest difference); any failure raises and exits non-zero:
                         the retrieval benchmark's metrics over one saved index;
                         (c) python -m crs_tpu_torch --eval-performance
                         --eval-retrieval as a child on a copy of config.json;
-19. finetune          — QLoRA on the card: (a) the 1b model with an int4 base and
+20. finetune          — QLoRA on the card: (a) the 1b model with an int4 base and
                         kv_bits 8 (its own random init), LoRA at config.json's
                         finetuning values for 2 epochs (3 in config.json) of
                         SyntheticCodeLoader's 64 samples, the performance
@@ -191,31 +205,31 @@ the largest difference); any failure raises and exits non-zero:
                         int8 model, 3 trainer steps on the card and on the CPU
                         from the same A's and batches: losses and adapters;
                         (e) the five analysis tools over epoch_0/ and epoch_1/;
-20. rag               — RAGPipeline (config.json's lexical embedding, fitted on
+21. rag               — RAGPipeline (config.json's lexical embedding, fitted on
                         the card; int8 store) over the held-out corpus with the
                         nf4 model: query() with config.json's generation values
                         (sampled), ms per query split into retrieve and
                         generate, chunks checked against a CPU pipeline on the
                         card's saved index and state, doc·query scores against
                         a CPU pipeline's own fit (within 1e-4);
-21. lexical           — config.json's lexical encoder at full width (131,072
-                        features, 384 dims) fitted on 65,536 synthetic chunks
+22. lexical           — config.json's lexical encoder at full width (131,072
+                        features, 384 dims) fitted on 16,384 synthetic chunks
                         of config.json's 240 words,
                         config.json's int8 store, a retrieve batch of 328
                         queries through kernel 1: fit seconds by stage, index
                         and query embed times; embeddings against a CPU encoder
                         on the card's saved state, ids against the plain scan;
-22. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
+23. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
                         chunks at batch 32 into config.json's int8 store, a
                         search through kernel 1; embeddings and the search
                         against the CPU;
-23. cli               — ``python -m crs_tpu_torch`` on the card on copies of
+24. cli               — ``python -m crs_tpu_torch`` on the card on copies of
                         config.json: --no-model --query on a copy of vector_db/,
                         --index of the held-out corpus into its own directory
                         and a query on it, then the command line's main in this
                         process on the lexical phase's index through kernel 1;
                         vector_db/ unchanged;
-24. generate_7b       — mistral-7b at full width, its depth cut to 8 layers, as
+25. generate_7b       — mistral-7b at full width, its depth cut to 4 layers, as
                         int8 with a bf16 KV cache, random weights
                         from the seed, loaded once: unfused, fuse_projections
                         and fused_mlp, greedy generate_batch of 32 tokens at
@@ -224,7 +238,7 @@ the largest difference); any failure raises and exits non-zero:
                         logits identical with fuse_projections, within 5e-2 of
                         unfused with fused_mlp; one kv_bits 8 batch-8 decode
                         through kernels 10 and 11 against the plain versions;
-25. calibrated        — the gptq and awq types of the small config loaded on the
+26. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
                         reconstruction error against plain rounding, 16 tokens.
 
@@ -3122,6 +3136,267 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
     return out
 
 
+TOOLS_DOCUMENT = os.path.join(REPO, "report", "paper", "figures", "pq_curve_4m.pdf")
+# at batches 1 and 8; 16 tokens and 2 runs where the tool takes 40 and 3 (for time)
+TOOLS_DECODE = ["--config", "1b", "--bits", "4", "--kv-bits", "8", "--n2", "16", "--runs", "2"]
+TOOLS_DECODE_BATCHES = (1, 8)
+TOOLS_PREFILL_TYPES = ("bf16", "int8")
+TOOLS_PQ_ROWS = 2_000_000  # bench_pq_serving's rows here (40M by default: a 15.4 GB mirror)
+TOOLS_SCALE_ROWS = 2_000_000  # bench_scale's rows here (10M by default: a 15 s host draw a run),
+# still not a whole number of its 4,096-row blocks
+TOOLS_FUSED_MLP = ["--layers", "4"]  # 705 MB of int8 weights, 14× the L2 (8 layers by default)
+TOOLS_QUICKSTART_TOKENS = 16  # the quickstart's generations (the default config's 256: ~37 s)
+# each tool's printed JSON keys: the JAX tool's, plus the device and the eager host clock
+TOOLS_KEYS = {
+    "bench_decode": {"config", "bits", "kv_bits", "batch", "prefill", "decode_ms_per_token",
+                     "tokens_per_sec", "t_n1_s", "t_n2_s", "device"},
+    "bench_prefill_mfu": {"prefill_mfu_percent", "prefill_tflops_achieved", "prefill_batch",
+                          "prefill_seq_len", "prefill_tokens_per_sec", "config", "type",
+                          "device"},
+    "bench_fused_mlp": {"xla_int8", "fused", "device"},
+    "bench_scale": {"rows", "dim", "batch", "k", "engine", "block_size", "kb", "scan_ms",
+                    "ms_per_query", "effective_gbps", "host_scan_ms", "device"},
+    "bench_pq_serving": {"rows", "dim", "bytes_per_vec_hbm", "hbm_gb", "scan_ms", "ms_per_query",
+                         "recall_at_k_none", "recall_k_in_cand", "cand", "k", "sorted_coarse",
+                         "host_rescore_ms", "recall_at_k_host", "host_mirror_gb", "host_scan_ms",
+                         "device"},
+}
+# the kernels each run must launch (its counts are read around it)
+TOOLS_KERNELS = {"bench_decode": ("q4_matmul", "decode_attention_int8"),
+                 "bench_fused_mlp": ("fused_mlp_int8",), "bench_scale": ("int8_scan_topk",),
+                 "bench_pq_serving": ("adc_scan_topk_residual",),
+                 "bench_pq_serving_sorted": ("adc_scan_topk_sorted",),
+                 "pq_serving": ("adc_scan_topk_residual",)}
+# kernel table row → its count on the tools' path
+TOOLS_LAUNCH_KEY = {"int8_scan_topk": "int8_scan_topk",
+                    "adc_scan_topk_residual": "adc_scan_topk_residual",
+                    "adc_scan_topk_sorted": "adc_scan_topk_sorted", "q4_matmul": "q4_matmul",
+                    "decode_attention_int8": "decode_attention_int8",
+                    "fused_mlp_int8": "fused_mlp_int8"}
+# the scan shapes the tools' path must hold against the plain versions: bench_scale's (kernel
+# 1; its engines' k 64 and 128 may launch one shape), bench_pq_serving's and the example's
+# (kernel 3), the sorted layout's (4)
+TOOLS_HELD = {"block_topk_int8": 1, "block_topk_adc": 2, "block_topk_adc_sorted": 1}
+TOOLS_PAD_BLOCK = 4096  # bench_scale's block: 10,000,000 rows are not a whole number of them
+
+
+@contextlib.contextmanager
+def scans_held_against_plain(checks: dict):
+    """While open, the first call of each scan kernel's wrapper at each shape
+    is held against its plain version on the same operands (the tool's own
+    data, at its shape): int8 ids identical and scores within 1e-6 relative,
+    ADC bit for bit. The plain versions launch nothing."""
+    from crs_tpu_torch.ops import scan
+
+    pairs = {"block_topk_int8": (scan.block_topk_int8_plain, compare_partials),
+             "block_topk_adc": (scan.block_topk_adc_plain, None),
+             "block_topk_adc_sorted": (scan.block_topk_adc_sorted_plain, None)}
+    originals = {name: getattr(scan, name) for name in pairs}
+
+    def held(name):
+        plain, compare = pairs[name]
+
+        def call(*args, **kwargs):
+            out = originals[name](*args, **kwargs)
+            key = (f"{name} {[tuple(a.shape) for a in args[:2]]} "
+                   f"{[a for a in (*args, *kwargs.values()) if isinstance(a, int)]}")
+            if key not in checks:
+                ref = plain(*args, **kwargs)
+                err = compare(out, ref) if compare else check_bits(out, ref, key)
+                checks[key] = {"max_abs_err": err, "partials": list(out[0].shape)}
+            return out
+
+        return call
+
+    for name in pairs:
+        setattr(scan, name, held(name))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(scan, name, fn)
+
+
+def run_tool(main, argv, what: str, kernels=(), keys=None, **kwargs) -> dict:
+    """``main(argv, **kwargs)`` in this process, its standard output kept: its
+    exit code (must be 0), seconds, the launches by kernel around it (each
+    of ``kernels`` at least once), its printed lines and, given ``keys``, its
+    last line's JSON (exactly those keys)."""
+    import io
+
+    from crs_tpu_torch.tools.timing import launch_counts
+
+    before = launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv, **kwargs)
+    seconds = time.perf_counter() - t0
+    print(f"tools: {what} exited {rc} after {seconds:.1f} s", file=sys.stderr, flush=True)
+    after = launch_counts()
+    launches = {k: v - before.get(k, 0) for k, v in after.items() if v > before.get(k, 0)}
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"tools: {what} exited {rc}: {lines[-5:]}")
+    missing = [k for k in kernels if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"tools: {what} never launched {missing}: {launches}")
+    out = {"argv": argv, "seconds": seconds, "launches": launches}
+    if keys is None:
+        out["lines"] = lines
+        return out
+    last = json.loads(lines[-1])
+    if set(last) != keys:
+        raise AssertionError(f"tools: {what} printed the keys {sorted(last)}, not {sorted(keys)}")
+    out["json"] = last
+    if len(lines) > 1:
+        out["lines"] = lines[:-1]
+    return out
+
+
+def finite_positive(value, what: str) -> None:
+    if not (isinstance(value, (int, float)) and math.isfinite(value) and value > 0):
+        raise AssertionError(f"tools: {what} is {value}")
+
+
+def pad_copy_cost(dev, seed: int) -> dict:
+    """bench_scale's default corpus (10,000,000 × 384 int8 rows, not a whole
+    number of 4,096-row blocks): the device ms of the copy into whole
+    blocks that ``scan_topk_int8`` makes on every call, beside the whole
+    scan's (B 64, k 64) and the scan of the 9,998,336 rows that need no
+    copy (2,441 blocks), each timed by CUDA events; the data drawn on the
+    card."""
+    import torch
+
+    from crs_tpu_torch.ops.scan import _pad_rows, scan_topk_int8
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 21)
+    n, d = 10_000_000, 384
+    codes = torch.randint(-127, 128, (n, d), generator=g, device=dev, dtype=torch.int8)
+    scales = torch.rand((n,), generator=g, device=dev) * (0.5 / 127) + 0.5 / 127
+    q = torch.randn((64, d), generator=g, device=dev)
+    whole = n // TOOLS_PAD_BLOCK * TOOLS_PAD_BLOCK
+    out = {"rows": n, "whole_block_rows": whole, "block": TOOLS_PAD_BLOCK}
+    out["pad_copy_ms"] = device_ms(dev, lambda: _pad_rows(codes, TOOLS_PAD_BLOCK), iters=5)
+    out["scan_ms"] = device_ms(dev, lambda: scan_topk_int8(codes, scales, q, 64, n), iters=5)
+    cw, sw = codes[:whole], scales[:whole]
+    out["scan_ms_whole_blocks"] = device_ms(dev, lambda: scan_topk_int8(cw, sw, q, 64, whole),
+                                            iters=5)
+    out["pad_copy_share"] = out["pad_copy_ms"] / out["scan_ms"]
+    del codes, scales, cw, sw
+    empty_cache(dev)
+    return out
+
+
+def phase_tools(ph: Phase, dev, seed: int) -> dict:
+    """The seven serving and scale scripts of the port on the card, each
+    through its own ``main`` as a user runs it (standard output captured):
+    the quickstart on the repository's PDF (its generations cut to
+    TOOLS_QUICKSTART_TOKENS tokens); bench_decode (1b, int4 weights:
+    kernel 8; int8 KV: kernel 10) at batches 1 and 8 (TOOLS_DECODE's
+    tokens and runs); bench_prefill_mfu (1b, bf16 and int8);
+    bench_fused_mlp at mistral-7b's widths over TOOLS_FUSED_MLP's layers
+    (kernel 11 against the int8 route); bench_scale with both engines
+    (kernel 1) at TOOLS_SCALE_ROWS rows;
+    bench_pq_serving unsorted (kernel 3) and then ``--sorted-coarse``
+    (kernel 4) from the first run's ``--codes-cache`` in a temporary
+    directory, at TOOLS_PQ_ROWS rows; the pq_serving example (kernel 3).
+    Each exits 0 and prints its JSON keys; the launch counts are read
+    around each. The first scan of each shape each tool makes is held
+    against its plain version (``scans_held_against_plain``); and
+    bench_scale's padding copy is timed beside its scan."""
+    import re
+    import tempfile
+
+    from crs_tpu_torch.examples import pq_serving, quickstart
+    from crs_tpu_torch.tools import (bench_decode, bench_fused_mlp, bench_pq_serving,
+                                     bench_prefill_mfu, bench_scale)
+    from crs_tpu_torch.utils.config import DEFAULT_CONFIG
+
+    out, checks = {}, {}
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp, \
+            scans_held_against_plain(checks):
+        generation = DEFAULT_CONFIG["rag"]["generation"]
+        default_tokens = generation["max_new_tokens"]
+        generation["max_new_tokens"] = TOOLS_QUICKSTART_TOKENS
+        try:
+            qs = run_tool(quickstart.main, [TOOLS_DOCUMENT], "quickstart",
+                          results_dir=os.path.join(tmp, "quickstart_results"),
+                          ft_dir=os.path.join(tmp, "quickstart_ft"))
+        finally:
+            generation["max_new_tokens"] = default_tokens
+        text = "\n".join(qs["lines"])
+        indexed = re.search(r"^indexed (\d+) chunks in", text, re.M)
+        loss = re.search(r"^finetune: loss (\S+) after epoch 0", text, re.M)
+        if not (indexed and int(indexed.group(1)) >= 1 and loss
+                and math.isfinite(float(loss.group(1))) and "answer:" in text):
+            raise AssertionError(f"tools: the quickstart printed {qs['lines']}")
+        out["quickstart"] = qs
+        empty_cache(dev)
+        for b in TOOLS_DECODE_BATCHES:
+            run = run_tool(bench_decode.main, TOOLS_DECODE + ["--batch", str(b)],
+                           f"bench_decode batch {b}", TOOLS_KERNELS["bench_decode"],
+                           TOOLS_KEYS["bench_decode"])
+            finite_positive(run["json"]["decode_ms_per_token"], f"bench_decode batch {b}")
+            out[f"bench_decode_b{b}"] = run
+            empty_cache(dev)
+        for kind in TOOLS_PREFILL_TYPES:
+            run = run_tool(bench_prefill_mfu.main, ["--config", "1b", "--type", kind],
+                           f"bench_prefill_mfu {kind}", keys=TOOLS_KEYS["bench_prefill_mfu"])
+            finite_positive(run["json"]["prefill_mfu_percent"], f"prefill MFU {kind}")
+            out[f"bench_prefill_mfu_{kind}"] = run
+            empty_cache(dev)
+        run = run_tool(bench_fused_mlp.main, TOOLS_FUSED_MLP, "bench_fused_mlp",
+                       TOOLS_KERNELS["bench_fused_mlp"], TOOLS_KEYS["bench_fused_mlp"])
+        for step in ("xla_int8", "fused"):
+            finite_positive(run["json"][step]["ms_per_layer"], f"bench_fused_mlp {step}")
+        out["bench_fused_mlp"] = run
+        empty_cache(dev)
+        for engine in ("pallas", "xla"):
+            run = run_tool(bench_scale.main, ["--rows", str(TOOLS_SCALE_ROWS), "--engine", engine],
+                           f"bench_scale {engine}",
+                           TOOLS_KERNELS["bench_scale"], TOOLS_KEYS["bench_scale"])
+            finite_positive(run["json"]["scan_ms"], f"bench_scale {engine}")
+            out[f"bench_scale_{engine}"] = run
+            empty_cache(dev)
+        cache = os.path.join(tmp, "pq_codes.npz")
+        for name, extra in (("bench_pq_serving", []), ("bench_pq_serving_sorted",
+                                                       ["--sorted-coarse"])):
+            run = run_tool(bench_pq_serving.main, ["--rows", str(TOOLS_PQ_ROWS), "--codes-cache",
+                                                   cache, *extra], name, TOOLS_KERNELS[name],
+                           TOOLS_KEYS["bench_pq_serving"])
+            res = run["json"]
+            finite_positive(res["scan_ms"], name)
+            if not 0.0 < res["recall_at_k_host"] <= 1.0 or res["sorted_coarse"] != bool(extra):
+                raise AssertionError(f"tools: {name} printed {res}")
+            out[name] = run
+            empty_cache(dev)
+        a, b = out["bench_pq_serving"]["json"], out["bench_pq_serving_sorted"]["json"]
+        if a["hbm_gb"] != b["hbm_gb"]:
+            raise AssertionError(f"tools: the sorted run's footprint {b} against {a}")
+        run = run_tool(pq_serving.main, [], "pq_serving", TOOLS_KERNELS["pq_serving"])
+        recalls = [float(line.split("recall@10=")[1].split()[0]) for line in run["lines"]]
+        if len(recalls) != 3 or not all(0.0 < r <= 1.0 for r in recalls):
+            raise AssertionError(f"tools: the pq_serving example printed {run['lines']}")
+        out["pq_serving"] = run
+        empty_cache(dev)
+    for name, count in TOOLS_HELD.items():
+        if sum(key.split()[0] == name for key in checks) < count:
+            raise AssertionError(f"tools: fewer than {count} {name} shapes held: {sorted(checks)}")
+    out["scans_held_against_plain"] = checks
+    out["pad_copy"] = pad_copy_cost(dev, seed)
+    counted = {}
+    for run in out.values():
+        for k, v in run.get("launches", {}).items():
+            counted[k] = counted.get(k, 0) + v
+    out["main_path_launches"] = counted
+    out["seconds_by_tool"] = {k: v["seconds"] for k, v in out.items() if "seconds" in v}
+    ph.info.update(out)
+    return out
+
+
 def _questions():
     with open(QA) as f:
         qs = [x["question"] for x in json.load(f)]
@@ -3516,7 +3791,7 @@ def phase_formats(ph: Phase, dev, shared: dict) -> dict:
 
 
 GEN_CONFIG = "1b"
-GEN_NEW_TOKENS = 32  # halved from 64 to keep the whole run inside its time limit
+GEN_NEW_TOKENS = 8  # cut from 64 (32 in PRs 14–20) to keep the whole run inside its time limit
 GEN_BATCHES = (1, 8)
 GEN_LOGITS_RTOL = 5e-2  # ‖kernels − plain‖₂ / ‖plain‖₂ of the first decode step's logits
 Q4_LAUNCHES_PER_STEP_1B = 16 * 7 + 1  # every linear layer and the lm_head
@@ -3576,11 +3851,12 @@ def clone_cache(cache):
 def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
     """The 1b model as int4 and as nf4 with an int8 KV cache, random init
     from the seed, through create_model_interface: greedy generate_batch at
-    batch 1 and 8 on RAG-sized prompts, 32 new tokens (the main path: every
-    decode step's linear layers through kernel 8 or 9, its attention through
-    kernel 10); prefill and decode times; the first decode step's logits
-    through the kernels against the plain versions; greedy-token agreement
-    with the plain versions over the 32 steps (reported, not gated)."""
+    batch 1 and 8 on RAG-sized prompts, GEN_NEW_TOKENS new tokens (the main
+    path: every decode step's linear layers through kernel 8 or 9, its
+    attention through kernel 10); prefill and decode times; the first decode
+    step's logits through the kernels against the plain versions;
+    greedy-token agreement with the plain versions over those steps
+    (reported, not gated)."""
     import torch
 
     from crs_tpu_torch.models import create_model_interface, params_num_bytes
@@ -3660,7 +3936,7 @@ def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
             if not rel <= GEN_LOGITS_RTOL or not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{kind} B={b}: first-step logits differ from the plain "
                                      f"versions by {rel} (relative L2, limit {GEN_LOGITS_RTOL})")
-            # greedy tokens over the 32 steps, kernels and plain versions
+            # greedy tokens over the GEN_NEW_TOKENS steps, kernels and plain versions
             sp = SamplingParams(max_new_tokens=GEN_NEW_TOKENS, eos_id=-1, pad_id=0)
             g = torch.Generator(device=dev)
             tk, _ = generate_tokens(params, cfg, ids, mask, g, sp)
@@ -3697,9 +3973,9 @@ def phase_generate(ph: Phase, dev, seed: int, shared: dict) -> dict:
     return out
 
 
-EVAL_EFFICIENCY = {"num_warmup": 1, "num_runs": 3, "max_new_tokens": 32, "batch_sizes": [1, 8]}
+EVAL_EFFICIENCY = {"num_warmup": 1, "num_runs": 2, "max_new_tokens": 16, "batch_sizes": [1, 8]}
 EVAL_PPL_MAX_LENGTH = 1024
-EVAL_NEW_TOKENS = 32  # generation's max_new_tokens (config.json: 96)
+EVAL_NEW_TOKENS = 16  # generation's max_new_tokens (config.json: 96)
 EVAL_CPU_CONFIG = "small"  # config.json's model config, scored on the card and on the CPU
 # |card − CPU| of a log-likelihood, per scored token: bf16 sums in other orders flip int8
 # activation codes (logits up to 0.13 apart); measured 5.0e-3 over the task's pairs and
@@ -4441,7 +4717,7 @@ GEN7_BASE = "mistral-7b"
 # its 32 layers cut (full width) to keep the whole run inside its time limit: to 16
 # for the finetune and multi phases, to 8 for gemv; kernel 11 launches per decode
 # step in the fused_mlp variant
-GEN7_LAYERS = 8
+GEN7_LAYERS = 4
 GEN7_CONFIG = f"{GEN7_BASE}-{GEN7_LAYERS}-layers"
 GEN7_NEW_TOKENS = 32
 GEN7_FUSED_LOGITS_RTOL = 5e-2  # fused MLP against unfused: per-chunk hidden scales differ
@@ -4822,7 +5098,7 @@ def phase_rag(ph: Phase, dev, seed: int, shared: dict) -> dict:
     return out
 
 
-LEXICAL_ROWS = 1 << 16  # chunks of the lexical phase (2^18 quartered for the time limit)
+LEXICAL_ROWS = 1 << 14  # chunks of the lexical phase (2^18 cut to a sixteenth for the time limit)
 LEXICAL_SAMPLE = 2048  # chunks held against the CPU encoder
 EMBED_ATOL = 1e-5  # one projection (or one encoder) on the card and the CPU: f32 sum orders
 
@@ -5074,7 +5350,7 @@ def phase_cli(ph: Phase, dev, shared: dict) -> dict:
     CLI_NEW_TOKENS new tokens) must print chunks and an answer; ``--index`` of the held-out
     corpus writes its index into its own directory only, and ``--query`` on
     it prints chunks; then ``main`` in this process answers a query on the
-    lexical phase's 65,536-chunk index through kernel 1 (counted)."""
+    lexical phase's LEXICAL_ROWS-chunk index through kernel 1 (counted)."""
     import io
     import shutil
     import tempfile
@@ -5631,14 +5907,16 @@ def kernel_table(res: dict) -> list:
         if row["name"] == "q4_matmul":
             row["launches_gemv_tools"] = gemv["main_path_launches"]["q4_matmul"]
     multi = res["multi"]  # the mesh path's launches (kernels 1, 2, 3 and 10; 0 elsewhere)
+    tools = res["tools"]["main_path_launches"]  # the serving and scale tools' path
     for row in rows:
         row["launches_multi"] = multi.get(MULTI_LAUNCH_KEY.get(row["name"], ""), 0)
+        row["launches_tools"] = tools.get(TOOLS_LAUNCH_KEY.get(row["name"], ""), 0)
     return rows
 
 
 ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted_adc",
               "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "gemv",
-              "faults", "bench", "full", "formats", "add", "multi", "generate", "evaluate",
+              "tools", "faults", "bench", "full", "formats", "add", "multi", "generate", "evaluate",
               "finetune", "rag", "lexical", "minilm", "cli", "generate_7b", "calibrated")
 # selectable with --phases, not run by default: the mesh path across every rank of a
 # torchrun launch (after a separate build call)
@@ -5688,6 +5966,7 @@ def main(argv=None) -> int:
         "kernel_decode_attn": lambda ph: phase_kernel_decode_attn(ph, dev, args.seed),
         "kernel_fused_mlp": lambda ph: phase_kernel_fused_mlp(ph, dev, args.seed),
         "gemv": lambda ph: phase_gemv(ph, dev, args.seed),
+        "tools": lambda ph: phase_tools(ph, dev, args.seed),
         "faults": lambda ph: phase_faults(ph, dev, args.seed),
         "bench": lambda ph: phase_bench(ph, dev),
         "full": lambda ph: phase_full(ph, dev, args.seed, FULL_ROWS,

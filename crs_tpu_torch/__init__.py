@@ -10,8 +10,9 @@ int8 MLP, GPTQ / AWQ calibration, local Hugging Face checkpoints, sampling,
 the model interface, answer generation and the RAG pipeline), the
 evaluation with its analysis tools, QLoRA finetuning, and multi-device
 serving and training over ``torch.distributed`` (``parallel``,
-``models.sharding``) on NVIDIA H100s, and the decode weight-streaming
-tools of ``tools/`` (``crs_tpu_torch.tools``). Module names mirror ``crs_tpu``'s so each
+``models.sharding``) on NVIDIA H100s, the decode weight-streaming, serving
+and scale tools of ``tools/`` (``crs_tpu_torch.tools``) and the two
+``examples/`` (``crs_tpu_torch.examples``). Module names mirror ``crs_tpu``'s so each
 counterpart is easy to find; the TPU kernels on these paths are
 hand-written CUDA kernels in ``csrc/``: the scans of
 ``crs_tpu.ops.pallas_scan`` (``pallas_topk_int8``, ``pallas_topk``,

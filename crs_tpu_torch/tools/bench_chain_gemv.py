@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .timing import GraphedCall
+from .timing import timed_call
 
 __all__ = ["VARIANTS", "PEAK_BYTES_PER_S", "draw_variant", "chain",
            "timed_chain", "run_variants", "main"]
@@ -117,14 +117,14 @@ def chain(step: Step, layers: List[Dict[str, torch.Tensor]], x: torch.Tensor,
 
 def timed_chain(step: Step, ws: Dict[str, torch.Tensor], x0: torch.Tensor, n1: int, n2: int,
                 reps: int, graph: bool = True) -> dict:
-    """Seconds a chain: two :class:`~.timing.GraphedCall` s of n1 and n2
-    repetitions (eager calls without ``graph``), one warm run each, then
+    """Seconds a chain: two :func:`~.timing.timed_call` s of n1 and n2
+    repetitions (CUDA graphs; eager calls without ``graph``), one warm run each, then
     ``reps`` timed runs of each in turns; (median t2 − median t1) / (n2 −
     n1). Also the launches by kernel (captured × replays, and the warm-ups)
     and the launches a chain."""
     num = next(iter(ws.values())).shape[0]
     layers = [{k: v[i] for k, v in ws.items()} for i in range(num)]
-    calls = [GraphedCall(lambda n=n: chain(step, layers, x0, n).sum(), x0.device, graph)
+    calls = [timed_call(lambda n=n: chain(step, layers, x0, n).sum(), x0.device, graph)
              for n in (n1, n2)]
     for c in calls:
         c.run()

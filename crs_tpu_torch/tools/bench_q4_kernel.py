@@ -31,7 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.gemv_probe import probe_tiles, q4_probe_matmul
-from .timing import GraphedCall
+from .timing import timed_call
 
 __all__ = ["VARIANTS", "build_variant", "int8_variant", "time_fn", "run_variants", "main"]
 
@@ -90,7 +90,7 @@ def time_fn(run_one: Callable, args: tuple, iters: int = _LOOP_ITERS):
             cur = cur + 1
         return acc
 
-    call = GraphedCall(looped, dev)
+    call = timed_call(looped, dev)
     value = float(call.run()[1])
     seconds, _ = call.run()
     return seconds / iters, value, dict(call.launches)
