@@ -88,10 +88,13 @@ the largest difference); any failure raises and exits non-zero:
                         chunk), 8/4096 and 8/8192 (its ring) — each kernel's
                         device ms with the weights past the L2, plain and
                         composition ms, bound; the one-call library times of
-                        rows 14 (torch._weight_int8pack_mm at 8/2048) and 8
+                        rows 14 (torch._weight_int8pack_mm at 8/2048), 8
                         (torch._weight_int4pack_mm at the chain's q4 layer,
-                        beside kernel 8 there), or why the card's torch has
-                        none, each held against the plain version; then both
+                        beside kernel 8 there), 13 (torch._weight_int8pack_mm
+                        on the transposed 2048 × 2048 weight at R 8) and 12
+                        (torch._weight_int4pack_mm at R 32, N 32,000), or why
+                        the card's torch has none or refuses the shape, each
+                        held against the plain version; then both
                         tools with every variant at their defaults (CUDA
                         graphs; ms/chain, GB/s, bound, launches a chain; the
                         bench_chain_gemv chain is 96 layers of 2048 × 2048)
@@ -110,7 +113,20 @@ the largest difference); any failure raises and exits non-zero:
                         their tools; the first scan of each shape held against its
                         plain version (int8 within 1e-6, ADC bit for bit); the device
                         ms of bench_scale's padding copy beside its scan at 10M rows;
-12. faults            — ROADMAP §3's repairs at 8,192 rows: hashed stores at D =
+12. quality           — the PQ recall-curve and retrieval-quality tools
+                        (crs_tpu_torch/tools/), each through its own main on
+                        the card: pq_recall_curve at 1M rows × 384 (M 12,
+                        coarse 2048, cands 100, 200, 400) with the pallas
+                        engine (kernel 3), then pallas_sorted (kernel 4) from
+                        the same caches, and one scan of each under
+                        torch.profiler; curve_report on both; plot_pq_curve
+                        where matplotlib is installed (else its refusal);
+                        ir_eval, quality_eval, oracle_bounds, quality_diag and
+                        the three sweeps on the held-out corpus and questions;
+                        the first scan of each shape held against its plain
+                        version (bit for bit); ir_eval, quality_eval and
+                        quality_diag held against their CPU runs;
+13. faults            — ROADMAP §3's repairs at 8,192 rows: hashed stores at D =
                         100 and 3072 in fp32, bf16 and int8, residual pq and
                         pq_sorted stores at M = 64, each on its kernel (launch
                         counts) against the same store on the CPU; the ADC
@@ -126,14 +142,14 @@ the largest difference); any failure raises and exits non-zero:
                         blocks of 128, 384 and 640 rows (ADC bit for bit) and
                         fp32 and pq stores of 128- and 640-row blocks, each on
                         its kernel; the cost of a ragged D at 1M rows;
-13. bench             — the bench.py slice on the held-out corpus: chunk, hashed
+14. bench             — the bench.py slice on the held-out corpus: chunk, hashed
                         encoder, int8 store, retrieve_batch_fused over 328 queries,
                         checked against the standard (host-rerank) retrieve;
-14. full              — a 1,048,576-row int8 store built through the port's
+15. full              — a 1,048,576-row int8 store built through the port's
                         encoder from synthetic texts; retrieve_batch_fused at batch
                         328 through the int8 kernel (launch count must rise), timed
                         with CUDA events, plus the kernel's own time and bound;
-15. formats           — the first 524,288 of those texts and embeddings (cut
+16. formats           — the first 524,288 of those texts and embeddings (cut
                         from 1M in PR 18) in an fp32, a bf16, a residual pq
                         and a plain pq store (config.json's store values):
                         retrieve_batch at batch 328 without and with PRF
@@ -145,12 +161,12 @@ the largest difference); any failure raises and exits non-zero:
                         over the residual store's state must launch kernel 4
                         (not 3), never take the exact fallback, and return the
                         unsorted store's results;
-16. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
+17. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
                         524,288-row residual pq stores: ms per add, capacity,
                         the int8 store identical to create_index over the same
                         rows, the pq
                         codes against a CPU encode, a `where` search;
-17. multi             — multi-device serving and training at world size 1 (a
+18. multi             — multi-device serving and training at world size 1 (a
                         one-rank NCCL group, every collective called): int8
                         and bf16 mesh stores over the full phase's 1M
                         embeddings, search_batch at batch 328, k 3, through
@@ -165,7 +181,7 @@ the largest difference); any failure raises and exits non-zero:
                         10 16 times a decode step, the first decode step
                         against the plain version; one AdamW train step at 4 ×
                         256 tokens, its loss within 1e-3 of the unsharded loss;
-18. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
+19. generate          — the 1b model as int4 and as nf4 with an int8 KV cache,
                         random weights from the seed, through
                         create_model_interface: greedy generate_batch of 8
                         tokens at batch 1 and 8 on RAG-sized prompts, with 113
@@ -174,7 +190,7 @@ the largest difference); any failure raises and exits non-zero:
                         kernel, weight and cache bytes, the
                         first decode step's logits against the plain versions,
                         greedy-token agreement with them;
-19. evaluate          — the evaluation slice: (a) EvaluationRunner.run_all() (the
+20. evaluate          — the evaluation slice: (a) EvaluationRunner.run_all() (the
                         efficiency, performance and retrieval benchmarks) over the
                         generate phase's 1b int4 model and a RAGPipeline with
                         config.json's rag section on the held-out corpus and
@@ -188,7 +204,7 @@ the largest difference); any failure raises and exits non-zero:
                         the retrieval benchmark's metrics over one saved index;
                         (c) python -m crs_tpu_torch --eval-performance
                         --eval-retrieval as a child on a copy of config.json;
-20. finetune          — QLoRA on the card: (a) the 1b model with an int4 base and
+21. finetune          — QLoRA on the card: (a) the 1b model with an int4 base and
                         kv_bits 8 (its own random init), LoRA at config.json's
                         finetuning values for 2 epochs (3 in config.json) of
                         SyntheticCodeLoader's 64 samples, the performance
@@ -205,31 +221,31 @@ the largest difference); any failure raises and exits non-zero:
                         int8 model, 3 trainer steps on the card and on the CPU
                         from the same A's and batches: losses and adapters;
                         (e) the five analysis tools over epoch_0/ and epoch_1/;
-21. rag               — RAGPipeline (config.json's lexical embedding, fitted on
+22. rag               — RAGPipeline (config.json's lexical embedding, fitted on
                         the card; int8 store) over the held-out corpus with the
                         nf4 model: query() with config.json's generation values
                         (sampled), ms per query split into retrieve and
                         generate, chunks checked against a CPU pipeline on the
                         card's saved index and state, doc·query scores against
                         a CPU pipeline's own fit (within 1e-4);
-22. lexical           — config.json's lexical encoder at full width (131,072
+23. lexical           — config.json's lexical encoder at full width (131,072
                         features, 384 dims) fitted on 16,384 synthetic chunks
                         of config.json's 240 words,
                         config.json's int8 store, a retrieve batch of 328
                         queries through kernel 1: fit seconds by stage, index
                         and query embed times; embeddings against a CPU encoder
                         on the card's saved state, ids against the plain scan;
-23. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
+24. minilm            — MiniLM-L6 at full width (random init) embeds 4,096
                         chunks at batch 32 into config.json's int8 store, a
                         search through kernel 1; embeddings and the search
                         against the CPU;
-24. cli               — ``python -m crs_tpu_torch`` on the card on copies of
+25. cli               — ``python -m crs_tpu_torch`` on the card on copies of
                         config.json: --no-model --query on a copy of vector_db/,
                         --index of the held-out corpus into its own directory
                         and a query on it, then the command line's main in this
                         process on the lexical phase's index through kernel 1;
                         vector_db/ unchanged;
-25. generate_7b       — mistral-7b at full width, its depth cut to 4 layers, as
+26. generate_7b       — mistral-7b at full width, its depth cut to 4 layers, as
                         int8 with a bf16 KV cache, random weights
                         from the seed, loaded once: unfused, fuse_projections
                         and fused_mlp, greedy generate_batch of 32 tokens at
@@ -238,7 +254,7 @@ the largest difference); any failure raises and exits non-zero:
                         logits identical with fuse_projections, within 5e-2 of
                         unfused with fused_mlp; one kv_bits 8 batch-8 decode
                         through kernels 10 and 11 against the plain versions;
-26. calibrated        — the gptq and awq types of the small config loaded on the
+27. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
                         reconstruction error against plain rounding, 16 tokens.
 
@@ -253,6 +269,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import logging
 import math
@@ -1786,26 +1803,31 @@ def kernel_device_ms(fn, iters: int, names, tries: int = 3) -> float:
     return None
 
 
-def launch_trace(fn, iters: int, names) -> dict:
+def launch_trace(fn, iters: int, names, tries: int = 3) -> dict:
     """Device µs per call of each kernel whose name holds one of ``names``
     (torch.profiler over ``iters`` calls), its launches per call, and the
     µs from the first launch's start to the last one's end per call (gaps
-    included); {"not measured": reason} without device events."""
+    included); {"not measured": reason} when, in ``tries`` traces, the
+    profiler never recorded a launch for every call (it may drop events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)),
-                 key=lambda e: e.time_range.start)
-    if not evs:
-        return {"not measured": "the profiler recorded no device time"}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)),
+                     key=lambda e: e.time_range.start)
+        if len(evs) >= iters:
+            break
+    else:
+        return {"not measured": f"the profiler recorded {len(evs)} launches of {iters} calls "
+                                f"in each of {tries} traces"}
     import re
 
     per = {}
@@ -2878,13 +2900,27 @@ def db_library(dev, x, codes, scale) -> dict:
                         gp.emulate_db_gemv(x, codes, scale), abs_sum, what)
 
 
+def int4pack(codes, scales):
+    """The int4 weight of [K/2, N] int8 codes (k = 2i in the low nibble of
+    byte i, k = 2i + 1 in the high one, signed) for torch._weight_int4pack_mm:
+    the codes as unsigned q = s + 8 (zero point 0) packed by
+    torch._convert_weight_to_int4pack (even k in the high nibble of a byte of
+    the [N, K/2] weight), and the [groups, N] scales with zeros as
+    [groups, N, 2] bf16."""
+    import torch
+
+    p = codes.to(torch.int32) & 0xFF
+    lo, hi = (p & 0xF) ^ 8, ((p >> 4) & 0xF) ^ 8  # k = 2i, 2i + 1 as q = s + 8
+    wp = torch._convert_weight_to_int4pack(((lo << 4) | hi).T.contiguous().to(torch.uint8), 8)
+    return wp, torch.stack([scales, torch.zeros_like(scales)], dim=2).to(
+        torch.bfloat16).contiguous()
+
+
 def q4_library(dev, gen) -> dict:
     """Row 8 at the chain tool's q4 layer (d 2048, R 8, groups of 128):
     kernel 8's device ms there (weights past the L2), and the one call
-    torch._weight_int4pack_mm on the same weight — its symmetric codes as
-    unsigned q = s + 8 with zero point 0, packed once by
-    torch._convert_weight_to_int4pack (even k in the high nibble of a byte of
-    the [N, K/2] weight, scales and zeros [K/128, N, 2] bf16)."""
+    torch._weight_int4pack_mm on the same weight, packed once by
+    :func:`int4pack`."""
     import torch
 
     from crs_tpu_torch.ops import qgemm
@@ -2909,17 +2945,75 @@ def q4_library(dev, gen) -> dict:
     missing = cuda_op_missing("_convert_weight_to_int4pack", "_weight_int4pack_mm")
     if missing:
         return {**row, "library_ms": None, "library_note": missing}
-
-    def pack(c, s):
-        p = c.to(torch.int32) & 0xFF
-        lo, hi = (p & 0xF) ^ 8, ((p >> 4) & 0xF) ^ 8  # k = 2i, 2i + 1 as q = s + 8
-        wp = torch._convert_weight_to_int4pack(((lo << 4) | hi).T.contiguous().to(torch.uint8), 8)
-        return wp, torch.stack([s, torch.zeros_like(s)], dim=2).to(torch.bfloat16).contiguous()
-
-    packed = [pack(c, s) for c, s in copies]
+    packed = [int4pack(c, s) for c, s in copies]
     lib = library_time(lambda wp, sz: torch._weight_int4pack_mm(xb, wp, gs, sz), packed,
                        ref, abs_sum, what)
     return {**row, **lib}
+
+
+def refused(call, *args) -> dict:
+    """``call(*args)``, or the refusal of a library call in its own words
+    (a RuntimeError: the op takes no such shape on this card)."""
+    try:
+        return call(*args)
+    except RuntimeError as e:
+        return {"library_ms": None, "library_note": f"refused: {str(e).splitlines()[0]}"}
+
+
+def q8_library(dev, x, codes, scales) -> dict:
+    """Row 13's one call at the chain tool's layer: torch._weight_int8pack_mm(bf16 x
+    [R, K], int8 w [N, K], N bf16 scales) → bf16 [R, N], the [K, N] weight of
+    kernel 13 transposed once, outside the timed calls."""
+    import torch
+
+    from crs_tpu_torch.ops import gemv_probe as gp
+
+    r, (k, n) = x.shape[0], codes.shape
+    what = (f"torch._weight_int8pack_mm(x bf16 [{r}, {k}], w int8 [{n}, {k}] (the [{k}, {n}] "
+            f"weight transposed once), scales bf16 [{n}])")
+    missing = cuda_op_missing("_weight_int8pack_mm")
+    if missing:
+        return {"library_ms": None, "library_note": missing}
+    xb = x.to(torch.bfloat16)
+    sc = scales.reshape(-1).to(torch.bfloat16)
+    abs_sum = (xb.float().abs() @ codes.float().abs()) * scales
+    copies = [(codes.T.contiguous(),) for _ in range(cold_copies(codes.numel()))]
+    return refused(library_time, lambda w: torch._weight_int8pack_mm(xb, w, sc), copies,
+                   gp.emulate_q8_gemv(x, codes, scales), abs_sum, what)
+
+
+def q4_probe_library(dev, xe, xo, xs, codes, scales) -> dict:
+    """Row 12's one call at bench_q4_kernel's defaults: torch._weight_int4pack_mm
+    on x = xe and xo interleaved (x[:, 2i] = xe[:, i], x[:, 2i+1] = xo[:, i];
+    small integers, exact in bf16) and the probe's int4 weight (even k in the
+    low nibble of a byte of the [K/2, N] codes) packed once by
+    torch._convert_weight_to_int4pack, per-group scales (K/g rows a group) and
+    zeros. The probe's per-row x scale ``xs`` is left out of the call: it is
+    held against the plain version over ``xs``."""
+    import torch
+
+    from crs_tpu_torch.ops import gemv_probe as gp
+    from crs_tpu_torch.ops import qgemm
+
+    (rt, k2), (grp, n) = xe.shape, scales.shape
+    k = 2 * k2
+    gs = k // grp
+    what = (f"torch._weight_int4pack_mm(x bf16 [{rt}, {k}], int4pack of [{k}, {n}], {gs}, "
+            f"scales and zeros bf16 [{grp}, {n}, 2])")
+    missing = cuda_op_missing("_convert_weight_to_int4pack", "_weight_int4pack_mm")
+    if missing:
+        return {"library_ms": None, "library_note": missing}
+    xb = torch.stack([xe, xo], dim=2).reshape(rt, k).to(torch.bfloat16)
+    ref = gp.emulate_q4_probe_matmul(xe, xo, xs, codes, scales) / xs
+    w = qgemm._unpack_int4(codes).float() * scales.repeat_interleave(gs, 0)
+    abs_sum = xb.float().abs() @ w.abs()
+
+    def timed():
+        packed = [int4pack(codes.clone(), scales) for _ in range(cold_copies(codes.numel()))]
+        return library_time(lambda wp, sz: torch._weight_int4pack_mm(xb, wp, gs, sz), packed,
+                            ref, abs_sum, what)
+
+    return refused(timed)
 
 
 def phase_gemv(ph: Phase, dev, seed: int) -> dict:
@@ -2933,9 +3027,10 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
     counts reset before and read after: ms/chain, GB/s, bound and launches
     a chain; (c) the q4 chain (kernel 8) also eagerly, a launch at a time;
     (d) one layer of the int8, dq4 and i4native variants under
-    torch.profiler: its device time by kernel. Rows 14 and 8 also get the
-    one PyTorch call that computes their function (:func:`db_library`,
-    :func:`q4_library`)."""
+    torch.profiler: its device time by kernel. Rows 14, 8, 13 and 12 also get
+    the one PyTorch call that computes their function (:func:`db_library`,
+    :func:`q4_library`, :func:`q8_library`, :func:`q4_probe_library`), or its
+    refusal."""
     import numpy as np
     import torch
 
@@ -2992,6 +3087,10 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
                           + rt * 4 + rt * n * 4, 2.0 * rt * k * n,
                           PEAK_BF16_OPS_PER_S if fold else PEAK_INT8_OPS_PER_S)
                 row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+                if var == "i32":  # row 12's one call, on the same codes
+                    part("q4_probe")
+                    row.update(q4_probe_library(dev, xe, xo, xs, codes, scales))
+                    part("q4_probe_library")
             out["q4_probe_matmul"][f"{var} R={r} K={k} N={n} g={grp}"] = row
         if (r, k, n, grp) == GEMV_Q4_SHAPES[0]:  # an unpack + per-group int8 products (_int_mm)
             xe, xo = xi
@@ -3034,6 +3133,9 @@ def phase_gemv(ph: Phase, dev, seed: int) -> dict:
                 x.to(torch.bfloat16), codes.to(torch.bfloat16)).float() * scales, iters=10)
             b = bound(d * d + d * 4 + r * d * 2 + r * d * 4, 2.0 * r * d * d, PEAK_BF16_OPS_PER_S)
             row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+            part("q8_gemv")
+            row.update(q8_library(dev, x, codes, scales))  # row 13's one call
+            part("q8_library")
         out["q8_gemv"][f"R={r} d={d}"] = row
     part("q8_gemv")
     for r, d in GEMV_DB_SHAPES:
@@ -3393,6 +3495,257 @@ def phase_tools(ph: Phase, dev, seed: int) -> dict:
             counted[k] = counted.get(k, 0) + v
     out["main_path_launches"] = counted
     out["seconds_by_tool"] = {k: v["seconds"] for k, v in out.items() if "seconds" in v}
+    ph.info.update(out)
+    return out
+
+
+QUALITY_ROWS = 1_000_000  # pq_recall_curve's rows here (4,000,000 by default)
+QUALITY_CANDS = (100, 200, 400)
+QUALITY_CURVE = ["--rows", str(QUALITY_ROWS), "--ms", "12", "--coarses", "2048",
+                 "--cands", ",".join(map(str, QUALITY_CANDS))]
+# the curve's engines and the kernel each must launch: 3 unsorted, 4 sorted (its second run
+# reads the first run's caches)
+QUALITY_ENGINES = {"pallas": "adc_scan_topk_residual", "pallas_sorted": "adc_scan_topk_sorted"}
+QUALITY_HELD = {"block_topk_adc": 1, "block_topk_adc_sorted": 1}
+QUALITY_ROW_KEYS = {"rows", "m", "coarse", "cand", "aniso_eta", "bytes_per_vec", "recall_none",
+                    "recall_in_cand", "recall_host", "scan_ms", "ms_per_query", "host_scan_ms",
+                    "engine", "device"}
+# rows each sweep writes with its default grid
+QUALITY_SWEEP_ROWS = {"quality_sweep": ("sweep.json", 8),
+                      "quality_docside_sweep": ("docside_sweep.json", 10),
+                      "quality_geometry_sweep": ("geometry_sweep.json", 8)}
+QUALITY_IR_TOL = 1e-9  # fp32 / int8 IR metrics, card against CPU (the same ranking)
+QUALITY_PQ_TOL = 0.05  # pq's: its codebooks train from the card's and the CPU's generators
+QUALITY_CONTEXT_TOL = 1e-6  # sufficiency, precision, coverage, context chars: the same chunks
+QUALITY_SCORE_TOL = 1e-5  # the mean and spread of the int8 store's scores (f32 sum orders)
+QUALITY_CONTEXT_KEYS = ("context_sufficiency", "context_precision", "context_coverage",
+                        "avg_context_length_chars", "avg_chunks_retrieved")
+QUALITY_SCORE_KEYS = ("avg_retrieval_score", "retrieval_consistency")
+
+
+@contextlib.contextmanager
+def temp_root(path: str):
+    """While open, the temporary directory (``tempfile.gettempdir()``: the
+    tools' default outputs lie under it) is ``path``."""
+    import tempfile
+
+    old = tempfile.tempdir
+    tempfile.tempdir = path
+    try:
+        yield
+    finally:
+        tempfile.tempdir = old
+
+
+def quality_close(card: dict, cpu: dict, keys, tol: float, what: str) -> float:
+    """The largest |card − CPU| over ``keys``; raises past ``tol``."""
+    worst = 0.0
+    for key in keys:
+        diff = abs(card[key] - cpu[key])
+        if not diff <= tol:
+            raise AssertionError(f"quality: {what} {key} on the card {card[key]}, on the CPU "
+                                 f"{cpu[key]}")
+        worst = max(worst, diff)
+    return worst
+
+
+def curve_scan_profile(dev, cache_dir: str) -> dict:
+    """Where one of the curve's 64-query scans (cand QUALITY_CANDS[0]) spends
+    its time, each engine's scan rebuilt by the tools' own ``engine_scan``
+    from its codes cache: its ms between CUDA events, and under
+    torch.profiler the device's busy share and the ADC kernel's ms."""
+    import torch
+
+    from crs_tpu_torch.ops.pq import PQCodebook, ResidualPQ
+    from crs_tpu_torch.tools import bench_pq_serving as bps
+    from crs_tpu_torch.tools import pq_recall_curve
+
+    (name,) = [f for f in os.listdir(cache_dir) if f.startswith("codes_")]
+    codes = pq_recall_curve.load_npz(os.path.join(cache_dir, name), dev)
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    rpq = ResidualPQ(rotation=put(codes["rotation"]), coarse=put(codes["coarse"]),
+                     codebook=PQCodebook(put(codes["centroids"])))
+    ext = codes["ext"]
+    # the tool's corpus at its defaults (4,096 centers, sigma 0.35) and its 64 queries
+    corpus = bps.ClusteredCorpus(rpq.rotation.shape[0], 4096, 0.35, dev,
+                                 min(bps.CHUNK, QUALITY_ROWS))
+    queries = corpus.queries(corpus.chunk(0), 64)
+    out = {}
+    for engine in QUALITY_ENGINES:
+        scan = bps.engine_scan(engine, rpq, ext, QUALITY_ROWS, rpq.coarse.shape[0],
+                                           64, 2048, dev)
+        call = lambda: scan(queries, QUALITY_CANDS[0])  # noqa: E731
+        ms = device_ms(dev, call, iters=3)
+        out[engine] = {"scan_ms": ms, **device_profile(call, ms, kernels={"adc": ("adc_scan",)})}
+    empty_cache(dev)
+    return out
+
+
+def phase_quality(ph: Phase, dev, seed: int) -> dict:
+    """The PQ recall-curve tools and the retrieval-quality tools of the port on
+    the card, each through its own ``main`` as a user runs it (standard
+    output captured, default outputs in a temporary directory):
+    pq_recall_curve at QUALITY_ROWS rows × 384 (M 12, coarse 2048, cands
+    100, 200, 400) with ``pallas`` (kernel 3), then ``pallas_sorted``
+    (kernel 4) from the same caches; curve_report on both files;
+    plot_pq_curve where matplotlib is installed (else its refusal);
+    ir_eval (section judgments, fp32 / int8 / pq), quality_eval,
+    oracle_bounds, quality_diag and the three sweeps (default grids) on the
+    held-out corpus and questions. The first scan of each shape the curve
+    makes is held against its plain version (ADC bit for bit); ir_eval,
+    quality_eval and quality_diag also run on the CPU and the card's numbers
+    are held against the CPU's (these stores are too small for a kernel:
+    their numbers are about quality); each sweep's matched-context row
+    equals quality_eval's on the card. Launch counts are read around each
+    tool."""
+    import tempfile
+
+    import torch
+
+    from crs_tpu_torch.evaluation.visualizer import _mpl
+    from crs_tpu_torch.tools import (curve_report, ir_eval, oracle_bounds, output_dir,
+                                     plot_pq_curve, pq_recall_curve, quality_diag,
+                                     quality_docside_sweep, quality_eval, quality_geometry_sweep,
+                                     quality_sweep)
+
+    def load(path):
+        with open(path) as f:
+            return json.load(f)
+
+    out, checks = {}, {}
+    kind = torch.cuda.get_device_name(dev)
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as tmp, temp_root(tmp), \
+            scans_held_against_plain(checks):
+        curves = []
+        for engine, kernel in QUALITY_ENGINES.items():
+            path = os.path.join(tmp, f"curve_{engine}.json")
+            run = run_tool(pq_recall_curve.main, QUALITY_CURVE + ["--engine", engine, "--out",
+                                                                  path],
+                           f"pq_recall_curve {engine}", (kernel,))
+            rows = [json.loads(line) for line in run.pop("lines")]
+            if load(path) != rows or [r["cand"] for r in rows] != list(QUALITY_CANDS) or any(
+                    set(r) != QUALITY_ROW_KEYS or r["engine"] != engine or r["device"] != kind
+                    or r["rows"] != QUALITY_ROWS or not 0 < r["recall_host"] <= 1
+                    or not 0 <= r["recall_none"] <= r["recall_in_cand"] <= 1 for r in rows):
+                raise AssertionError(f"quality: pq_recall_curve {engine} printed {rows}")
+            for r in rows:
+                finite_positive(r["scan_ms"], f"pq_recall_curve {engine} cand {r['cand']}")
+            out[f"pq_recall_curve_{engine}"] = dict(run, rows=rows)
+            curves.append(path)
+            empty_cache(dev)
+        cache = sorted(os.listdir(output_dir("pq_curve")))
+        if len(cache) != 3:  # truth, mirror, codes: the sorted run trained nothing anew
+            raise AssertionError(f"quality: the curve's caches are {cache}")
+        out["curve_scan_profile"] = curve_scan_profile(dev, output_dir("pq_curve"))
+        run = run_tool(curve_report.main, curves, "curve_report")
+        table = [line for line in run["lines"] if line.startswith(f"| {QUALITY_ROWS} |")]
+        if len(table) != 2 * len(QUALITY_CANDS) or not any(
+                line.startswith("VERDICT criterion") for line in run["lines"]):
+            raise AssertionError(f"quality: curve_report printed {run['lines']}")
+        out["curve_report"] = run
+        figure = os.path.join(tmp, "pq_curve")
+        if _mpl() is not None:
+            run = run_tool(plot_pq_curve.main, curves + ["--out", figure], "plot_pq_curve")
+            if not all(os.path.getsize(f"{figure}.{ext}") for ext in ("png", "pdf")):
+                raise AssertionError(f"quality: plot_pq_curve wrote {os.listdir(tmp)}")
+            out["plot_pq_curve"] = dict(run, ran=True)
+        else:  # the card's machine may lack matplotlib: the tool refuses, writing nothing
+            try:
+                plot_pq_curve.main(curves + ["--out", figure])
+                raise AssertionError("quality: plot_pq_curve ran without matplotlib")
+            except RuntimeError as e:
+                if os.path.exists(f"{figure}.png") or "needs matplotlib" not in str(e):
+                    raise
+                out["plot_pq_curve"] = {"ran": False, "refused": str(e)}
+        out["matplotlib"] = _mpl() is not None
+
+        # the retrieval-quality tools, on the held-out corpus and questions
+        run = run_tool(ir_eval.main, ["--judgments", "section"], "ir_eval")
+        card_ir = load(os.path.join(output_dir("ir_eval"), "ir_summary.json"))
+        out["ir_eval"] = dict(run, summary=card_ir)
+        run = run_tool(quality_eval.main, [], "quality_eval")
+        out["quality_eval"] = run
+        run = run_tool(oracle_bounds.main, [], "oracle_bounds")
+        oracle = load(os.path.join(output_dir("oracle_bounds"), "oracle_bounds.json"))
+        card_qe = {name: load(os.path.join(output_dir("quality_eval"), name))
+                   for name in sorted(os.listdir(output_dir("quality_eval")))}
+        matched = card_qe["retrieval_quality_matched-ctx90_10q.json"]
+        if oracle["ours_10q"]["coverage"] != round(matched["context_coverage"], 4) or not (
+                matched["context_coverage"] <= oracle["10q"]["oracle_coverage"] + 1e-9):
+            raise AssertionError(f"quality: oracle_bounds wrote {oracle}")
+        out["oracle_bounds"] = dict(run, oracle=oracle)
+        run = run_tool(quality_diag.main, [], "quality_diag")
+        out["quality_diag"] = run
+        for name, (fname, count) in QUALITY_SWEEP_ROWS.items():
+            mod = {"quality_sweep": quality_sweep, "quality_docside_sweep": quality_docside_sweep,
+                   "quality_geometry_sweep": quality_geometry_sweep}[name]
+            run = run_tool(mod.main, [], name)
+            rows = load(os.path.join(output_dir(name), fname))
+            if len(rows) != count:
+                raise AssertionError(f"quality: {name} wrote {len(rows)} rows: {rows}")
+            out[name] = dict(run, first_row=rows[0])
+        # each sweep's first row is the matched-context pipeline of quality_eval (docside
+        # writes its metrics rounded to 4 digits)
+        want = [matched[k] for k in ("context_sufficiency", "context_precision",
+                                     "context_coverage")]
+        docside = out["quality_docside_sweep"]["first_row"]["10q"]
+        for name, got in (("quality_sweep", out["quality_sweep"]["first_row"]["q10"]),
+                          ("quality_geometry_sweep",
+                           out["quality_geometry_sweep"]["first_row"]["q10"])):
+            if any(abs(g - w) > QUALITY_CONTEXT_TOL for g, w in zip(got, want, strict=True)):
+                raise AssertionError(f"quality: {name}'s first row {got}, quality_eval {want}")
+        if [docside[k] for k in ("suf", "prec", "cov")] != [round(w, 4) for w in want]:
+            raise AssertionError(f"quality: quality_docside_sweep's first row {docside}, "
+                                 f"quality_eval {want}")
+
+        # the card against the CPU: the same numbers
+        cpu = {}
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ir_eval.main(["--judgments", "section", "--out", os.path.join(tmp, "cpu_ir"),
+                          "--device", "cpu"])
+            quality_eval.main(["--output-dir", os.path.join(tmp, "cpu_qe"), "--device", "cpu"])
+        cpu_ir = load(os.path.join(tmp, "cpu_ir", "ir_summary.json"))
+        with contextlib.redirect_stdout(io.StringIO()) as diag_cpu:
+            quality_diag.main(["--device", "cpu"])
+        worst = {"ir": 0.0, "ir_pq": 0.0, "context": 0.0, "score": 0.0}
+        for fmt, metrics in cpu_ir["section"].items():
+            if not isinstance(metrics, dict):
+                if card_ir["section"][fmt] != metrics:
+                    raise AssertionError(f"quality: ir_eval {fmt} {card_ir['section'][fmt]} "
+                                         f"on the card, {metrics} on the CPU")
+                continue
+            keys = [k for k in metrics if k.startswith(("precision_at", "recall_at", "f1_at",
+                                                        "mrr", "map"))]
+            tol, slot = (QUALITY_PQ_TOL, "ir_pq") if fmt == "pq" else (QUALITY_IR_TOL, "ir")
+            worst[slot] = max(worst[slot], quality_close(card_ir["section"][fmt], metrics, keys,
+                                                         tol, f"ir_eval {fmt}"))
+        for name, card in card_qe.items():
+            cpu_m = load(os.path.join(tmp, "cpu_qe", name))
+            worst["context"] = max(worst["context"], quality_close(
+                card, cpu_m, QUALITY_CONTEXT_KEYS, QUALITY_CONTEXT_TOL, name))
+            worst["score"] = max(worst["score"], quality_close(
+                card, cpu_m, QUALITY_SCORE_KEYS, QUALITY_SCORE_TOL, name))
+        if diag_cpu.getvalue().strip().splitlines() != out["quality_diag"]["lines"]:
+            raise AssertionError("quality: quality_diag's lines differ between the card and the "
+                                 "CPU")
+        cpu["seconds"] = time.perf_counter() - t0
+        cpu["max_abs_diff"] = worst
+        out["card_against_cpu"] = cpu
+    for name, count in QUALITY_HELD.items():
+        if sum(key.split()[0] == name for key in checks) < count:
+            raise AssertionError(f"quality: fewer than {count} {name} shapes held: "
+                                 f"{sorted(checks)}")
+    out["scans_held_against_plain"] = checks
+    counted = {}
+    for run in out.values():
+        for k, v in (run.get("launches", {}) if isinstance(run, dict) else {}).items():
+            counted[k] = counted.get(k, 0) + v
+    out["main_path_launches"] = counted
+    out["seconds_by_tool"] = {k: v["seconds"] for k, v in out.items()
+                              if isinstance(v, dict) and "seconds" in v}
     ph.info.update(out)
     return out
 
@@ -5899,8 +6252,8 @@ def kernel_table(res: dict) -> list:
             "replaces": line, "launches": gemv["main_path_launches"][name],
             "max_abs_err": max(v["max_abs_err"] for v in gemv[name].values()),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            "library_composition_ms": comp, "library_ms": row.get("library_ms")})
-    rows[-1]["library_note"] = db.get("library_note", db.get("library_call"))
+            "library_composition_ms": comp, "library_ms": row.get("library_ms"),
+            "library_note": row.get("library_note", row.get("library_call"))})
     rows[-3]["by_variant_ms"] = {k.split()[0]: v["ms"] for k, v in gemv["q4_probe_matmul"].items()
                                  if "ms" in v}
     for row in rows:  # kernel 8 on the chain tool's q4 variant
@@ -5908,16 +6261,19 @@ def kernel_table(res: dict) -> list:
             row["launches_gemv_tools"] = gemv["main_path_launches"]["q4_matmul"]
     multi = res["multi"]  # the mesh path's launches (kernels 1, 2, 3 and 10; 0 elsewhere)
     tools = res["tools"]["main_path_launches"]  # the serving and scale tools' path
+    quality = res["quality"]["main_path_launches"]  # the recall curve's and quality tools' path
     for row in rows:
         row["launches_multi"] = multi.get(MULTI_LAUNCH_KEY.get(row["name"], ""), 0)
         row["launches_tools"] = tools.get(TOOLS_LAUNCH_KEY.get(row["name"], ""), 0)
+        row["launches_quality"] = quality.get(TOOLS_LAUNCH_KEY.get(row["name"], ""), 0)
     return rows
 
 
 ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted_adc",
               "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "gemv",
-              "tools", "faults", "bench", "full", "formats", "add", "multi", "generate", "evaluate",
-              "finetune", "rag", "lexical", "minilm", "cli", "generate_7b", "calibrated")
+              "tools", "quality", "faults", "bench", "full", "formats", "add", "multi", "generate",
+              "evaluate", "finetune", "rag", "lexical", "minilm", "cli", "generate_7b",
+              "calibrated")
 # selectable with --phases, not run by default: the mesh path across every rank of a
 # torchrun launch (after a separate build call)
 EXTRA_PHASES = ("ranks",)
@@ -5967,6 +6323,7 @@ def main(argv=None) -> int:
         "kernel_fused_mlp": lambda ph: phase_kernel_fused_mlp(ph, dev, args.seed),
         "gemv": lambda ph: phase_gemv(ph, dev, args.seed),
         "tools": lambda ph: phase_tools(ph, dev, args.seed),
+        "quality": lambda ph: phase_quality(ph, dev, args.seed),
         "faults": lambda ph: phase_faults(ph, dev, args.seed),
         "bench": lambda ph: phase_bench(ph, dev),
         "full": lambda ph: phase_full(ph, dev, args.seed, FULL_ROWS,

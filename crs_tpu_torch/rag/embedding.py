@@ -25,6 +25,7 @@ doc·query scores and rankings, not in the projection's columns.
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -106,6 +107,19 @@ def hashed_projection(num_features: int, dim: int, seed: int) -> np.ndarray:
     return proj.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=2)
+def _projection_host(num_features: int, dim: int, seed: int) -> torch.Tensor:
+    """:func:`hashed_projection` as a CPU tensor, kept for the next encoder
+    of its shape: the draw takes ~1 s of host time at 131,072 × 384."""
+    return torch.from_numpy(hashed_projection(num_features, dim, seed))
+
+
+def _projection(num_features: int, dim: int, seed: int, device) -> torch.Tensor:
+    """The projection on ``device``, a copy of the kept one: no two
+    encoders share its storage."""
+    return _projection_host(num_features, dim, seed).to(device, copy=True)
+
+
 def _project(proj: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """emb[b] = normalize(Σ_k w[b,k] · proj[idx[b,k]]), in row chunks so
     that the [rows, K, dim] gather never exceeds ``_GATHER_MAX_ELEMS``."""
@@ -142,8 +156,7 @@ class HashedEncoder(nn.Module):
         self.dim = dim
         self.num_features = num_features
         self.device = resolve_device(device)
-        proj = torch.from_numpy(hashed_projection(num_features, dim, seed))
-        self.register_buffer("proj", proj.to(self.device))
+        self.register_buffer("proj", _projection(num_features, dim, seed, self.device))
 
     def project(self, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return _project(self.proj, idx, w)
@@ -236,8 +249,7 @@ class LexicalLSAEncoder(nn.Module):
         self._avgdl = 1.0
         # the last fit's stage seconds and the device of its products
         self.fit_report: Dict[str, Any] = {}
-        self.register_buffer("proj", torch.from_numpy(
-            hashed_projection(num_features, dim, seed)).to(self.device))
+        self.register_buffer("proj", _projection(num_features, dim, seed, self.device))
 
     def _set_projection(self, proj: np.ndarray) -> None:
         self.proj = torch.as_tensor(np.asarray(proj, np.float32)).to(self.device)

@@ -55,7 +55,7 @@ from ..device import resolve_device
 from .timing import EagerCall
 
 __all__ = ["CHUNK", "GENERATOR_KEY", "ClusteredCorpus", "generator_name", "train_codebooks",
-           "encode_chunks", "ground_truth", "make_scan", "host_rescore", "recall",
+           "encode_chunks", "ground_truth", "engine_scan", "make_scan", "host_rescore", "recall",
            "load_cache", "main"]
 
 CHUNK = 1_000_000
@@ -164,47 +164,61 @@ def ground_truth(chunk_fn: Callable[[int], torch.Tensor], nchunks: int, chunk_ro
     return np.take_along_axis(best_i, sel, axis=1)
 
 
-def make_scan(rpq, ext_host: np.ndarray, n: int, cand: int, block_size: int, dev,
-              sorted_coarse: bool = False, coarse: int = 0, batch: int = 0,
-              report=None) -> Tuple[Scan, int]:
-    """(queries → (ADC scores, ids) [B, cand] of the fused residual-PQ scan
-    over the rows, the rows' device bytes). With ``sorted_coarse`` the rows
-    are sorted by coarse id and scanned by kernel 4 in the plan of ``batch``
-    queries; ids map back through the sort."""
-    from ..ops.scan import scan_topk_residual_pq_adc, scan_topk_residual_pq_adc_sorted
+def engine_scan(engine: str, rpq, ext_host: np.ndarray, n: int, coarse: int, batch: int,
+                block_size: int, dev, report=None) -> Callable[[torch.Tensor, int], Tuple[
+                    torch.Tensor, torch.Tensor]]:
+    """(queries, cand) → (ADC scores [B, cand], corpus ids [B, cand]) of
+    ``engine`` over the [n, M+2] rows ``ext_host``, put on ``dev`` once:
+    ``pallas``, the fused residual ADC scan (kernel 3); ``pallas_sorted``,
+    the rows sorted by coarse id and scanned by kernel 4 in the windows
+    planned for ``batch`` queries, ids mapped back through the sort on the
+    device; ``xla``, the plain all-f32 residual ADC (no kernel)."""
+    from ..ops.pq import residual_pq_adc_topk, sort_codes_by_coarse
+    from ..ops.scan import (adc_auto_group, plan_sorted_coarse_windows,
+                            scan_topk_residual_pq_adc, scan_topk_residual_pq_adc_sorted)
 
-    m2 = ext_host.shape[1]
-    if not sorted_coarse:
+    tables = (rpq.rotation, rpq.coarse, rpq.codebook.centroids)
+    if engine == "xla":  # split ext back into ids + codes
         ext_dev = torch.from_numpy(ext_host).to(dev)
-
-        def scan(q):
-            return scan_topk_residual_pq_adc(rpq.rotation, rpq.coarse, rpq.codebook.centroids,
-                                             ext_dev, q, cand, n, block_size)
-
-        return scan, ext_dev.numel()
-    from ..ops.pq import sort_codes_by_coarse
-    from ..ops.scan import adc_auto_group, plan_sorted_coarse_windows
-
+        cids_dev = ext_dev[:, 0].int() * 256 + ext_dev[:, 1].int()
+        codes_dev = ext_dev[:, 2:].int()
+        return lambda q, cand: residual_pq_adc_topk(rpq, cids_dev, codes_dev, q, cand, n)
+    if engine == "pallas":
+        ext_dev = torch.from_numpy(ext_host).to(dev)
+        return lambda q, cand: scan_topk_residual_pq_adc(*tables, ext_dev, q, cand, n, block_size)
+    if engine != "pallas_sorted":
+        raise ValueError(f"unknown engine {engine!r}; one of pallas, pallas_sorted, xla")
     t0 = time.perf_counter()
-    ext_sorted, perm, counts = sort_codes_by_coarse(ext_host, coarse)
-    group = adc_auto_group(n, batch, block_size, m2)
+    sorted_ext, perm, counts = sort_codes_by_coarse(ext_host, coarse)
+    group = adc_auto_group(n, batch, block_size, ext_host.shape[1])
     wbase = plan_sorted_coarse_windows(counts, n, block_size, group)
     if wbase is None:
         raise AssertionError("layout too fragmented for the 512-id sorted window")
+    ext_dev = torch.from_numpy(sorted_ext).to(dev)
     wbase_dev = torch.from_numpy(wbase).to(dev)
     perm_dev = torch.from_numpy(perm).long().to(dev)
-    ext_dev = torch.from_numpy(ext_sorted).to(dev)
     if report:
         report(f"sorted layout in {time.perf_counter() - t0:.1f}s "
                f"(group={group}, tiles={wbase.shape[0]})")
 
-    def scan(q):
-        s, i = scan_topk_residual_pq_adc_sorted(
-            rpq.rotation, rpq.coarse, rpq.codebook.centroids, ext_dev, wbase_dev, q, cand, n,
-            block_size, group=group)
+    def scan(q, cand):
+        s, i = scan_topk_residual_pq_adc_sorted(*tables, ext_dev, wbase_dev, q, cand, n,
+                                                block_size, group=group)
         return s, torch.where(i >= 0, perm_dev[i.clamp_min(0)], -1)
 
-    return scan, ext_dev.numel()
+    return scan
+
+
+def make_scan(rpq, ext_host: np.ndarray, n: int, cand: int, block_size: int, dev,
+              sorted_coarse: bool = False, coarse: int = 0, batch: int = 0,
+              report=None) -> Tuple[Scan, int]:
+    """(queries → (ADC scores, ids) [B, cand] of the fused residual-PQ scan
+    over the rows, the rows' device bytes): :func:`engine_scan`'s ``pallas``,
+    or with ``sorted_coarse`` its ``pallas_sorted`` in the plan of ``batch``
+    queries."""
+    scan = engine_scan("pallas_sorted" if sorted_coarse else "pallas", rpq, ext_host, n, coarse,
+                       batch, block_size, dev, report)
+    return (lambda q: scan(q, cand)), ext_host.shape[0] * ext_host.shape[1]
 
 
 def host_rescore(mirror, mirror_scales, queries: np.ndarray, adc_s: np.ndarray,

@@ -22,8 +22,9 @@ PORT_FILES = sorted((REPO / "crs_tpu_torch").rglob("*.py")) + [REPO / "chip_smok
 
 
 def _forbidden(module: str) -> bool:
+    """JAX, the JAX package, and its scripts' directories (``tools/``, ``examples/``)."""
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "crs_tpu", "optax")
+    return top in ("jax", "jaxlib", "crs_tpu", "optax", "tools", "examples")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -45,6 +46,8 @@ def test_port_imports_no_jax(path):
 def test_guard_sees_the_port():
     assert len(PORT_FILES) >= 15
     assert _forbidden("jax.numpy") and _forbidden("crs_tpu.rag") and not _forbidden("crs_tpu_torch.ops")
+    assert _forbidden("tools.ir_eval") and _forbidden("examples.quickstart")
+    assert not _forbidden("crs_tpu_torch.tools.ir_eval")
 
 
 def test_guard_sees_the_mesh_modules():
