@@ -256,7 +256,24 @@ the largest difference); any failure raises and exits non-zero:
                         through kernels 10 and 11 against the plain versions;
 27. calibrated        — the gptq and awq types of the small config loaded on the
                         card: load seconds, codes equal to the CPU load,
-                        reconstruction error against plain rounding, 16 tokens.
+                        reconstruction error against plain rounding, 16 tokens;
+28. selftrained       — self-training and the per-variant evaluation of the
+                        self-trained model (crs_tpu_torch/tools/): selftrain_lm
+                        at the JAX tool's default widths (hidden 512, 8 layers,
+                        seq 1536, batch 8) for 40 steps on SURVEY.md and 24
+                        questions from the seed: losses finite and falling, the
+                        first step's loss against the CPU, the saved checkpoint
+                        loaded on the card with the trained params' logits, the
+                        step ms, tokens/s and peak MB; the committed
+                        checkpoint's held-out byte perplexity against the CPU;
+                        eval_selftrained on it as int4 (kernel 8) and nf4
+                        (kernel 9) on a light config.json (one 16-token
+                        efficiency run, two questions, no no-RAG answers),
+                        each perplexity against the CPU's.
+
+Not run by default (``--phases``): ``ranks`` (the mesh path on every rank of a
+torchrun launch) and ``selftrained_full`` (eval_selftrained's six variants at
+the tool's own settings on the committed checkpoint).
 
 Then the kernel table line (all fourteen kernels), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA
@@ -6159,6 +6176,242 @@ def phase_ranks(ph: Phase, dev, seed: int) -> dict:
     return out
 
 
+SURVEY = os.path.join(REPO, "SURVEY.md")  # the self-train's corpus here: 49 KB of the repo's prose
+SELFTRAINED_CKPT = os.path.join(REPO, "checkpoints", "selftrained_small")
+SELFTRAIN_ARGS = ["--steps", "40", "--qa-every", "4", "--log-every", "4"]  # the JAX default widths
+SELFTRAIN_QA = 24  # QA items written from the seed: 14 to train, 10 held out
+SELFTRAIN_LOSS_RTOL = 1e-4  # the first step's loss, card against CPU (f32 sums in other orders)
+SELFTRAIN_LOGITS_ATOL = 1e-5  # the saved checkpoint's logits against the trained params'
+SELFTRAINED_PPL_RTOL = 1e-4  # the committed checkpoint's held-out perplexity, card against CPU
+SELFTRAINED_JAX_PPL = 31.7987  # selftrain_result.json: the JAX run's, on a TPU (not a target)
+SELFTRAINED_VARIANTS = {"int4": "q4_matmul", "nf4": "nf4_matmul"}  # the kernel each must launch
+
+
+def selftrain_qa(path: str, seed: int) -> str:
+    """SELFTRAIN_QA questions that quote SURVEY.md, each answered by the
+    sentence after the quote, drawn from the seed."""
+    import re
+
+    import numpy as np
+
+    with open(SURVEY, encoding="utf-8") as f:
+        sents = [s.strip() for s in re.split(r"(?<=[.!?])\s+", f.read())
+                 if 12 <= len(s.split()) <= 60]
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in sorted(rng.choice(len(sents) - 1, size=SELFTRAIN_QA, replace=False)):
+        quote = " ".join(sents[i].split()[:8])
+        items.append({"question": f"What does the survey say about {quote}?",
+                      "answer": sents[i + 1], "section": "survey"})
+    with open(path, "w") as f:
+        json.dump(items, f)
+    return path
+
+
+def selftrained_light_config(tmp: str) -> str:
+    """config.json with one efficiency run of 16 tokens at batch 1 (the
+    evaluate phase's length) and two retrieval questions answered with
+    context only, without the benchmark's unmeasured warm-up generation
+    (no no-RAG answers: the generations take most of a variant's time)."""
+    with open(CONFIG_JSON) as f:
+        cfg = json.load(f)
+    cfg["evaluation"]["efficiency"].update(num_warmup=1, num_runs=1, batch_sizes=[1],
+                                           max_new_tokens=EVAL_NEW_TOKENS)
+    cfg["evaluation"]["retrieval"].update(max_questions=2, compare_no_rag=False,
+                                          generation_warmup=False)
+    path = os.path.join(tmp, "light_config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def run_eval_variant(eval_selftrained, name: str, out: str, argv) -> tuple:
+    """One variant of eval_selftrained through its main, into ``out``, launch
+    counts reset just before and read just after: (its summary row, the counts)."""
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = eval_selftrained.main(["--variants", name, "--out", out, *argv])
+    counts = kernel_counts()
+    with open(os.path.join(out, "summary.json")) as f:
+        row = json.load(f)[name]
+    with open(os.path.join(out, name, "comprehensive_results.json")) as f:
+        row["benchmark_s"] = json.load(f)["timing"]
+    if rc != 0 or row["rc"] != 0 or row.get("perplexity") is None or row.get("f1_score") is None:
+        raise AssertionError(f"eval_selftrained {name}: rc {rc}, row {row}")
+    return row, counts
+
+
+def phase_selftrained(ph: Phase, dev, seed: int) -> dict:
+    """Self-training and the per-variant evaluation of the self-trained model
+    (crs_tpu_torch/tools/selftrain_lm.py, eval_selftrained.py) on the card.
+
+    (a) selftrain_lm at the JAX tool's default widths (hidden 512, 8 layers,
+    heads 8 / kv 4, intermediate 1536, seq 1536, batch 8) for SELFTRAIN_ARGS'
+    40 steps, a QA batch every 4th, on SURVEY.md with SELFTRAIN_QA questions
+    written from the seed: every logged loss finite, the last below the
+    first; the first step's loss against the same batch and init on the CPU
+    (SELFTRAIN_LOSS_RTOL); the saved checkpoint loaded on the card through
+    create_model_interface, its logits against the trained params'
+    (SELFTRAIN_LOGITS_ATOL); the median step ms, tokens/s and peak MB.
+    (b) the held-out byte perplexity of the committed checkpoint on the
+    committed held-out text on the card, against the CPU
+    (SELFTRAINED_PPL_RTOL), printed beside the JAX run's.
+    (c) eval_selftrained on the committed checkpoint, int4 then nf4, on a
+    light copy of config.json (selftrained_light_config): exit 0, perplexity and f1 not null, kernel 8 launched in
+    int4 and kernel 9 in nf4 (counts to 0 before each variant, read after),
+    each perplexity within EVAL_PPL_RTOL of the CPU's on the same samples."""
+    import tempfile
+
+    import torch
+
+    from crs_tpu_torch.evaluation.performance.perplexity import PerplexityEvaluator
+    from crs_tpu_torch.models import create_model_interface
+    from crs_tpu_torch.models.transformer import forward, init_params
+    from crs_tpu_torch.tools import eval_selftrained, selftrain_lm
+
+    out, parts = {}, {}
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+
+    def lap(part: str) -> None:  # the seconds since the last lap
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_selftrained_") as tmp:
+        # -- (a) the self-train
+        args = selftrain_lm.parse_args([
+            "--corpus", SURVEY, "--qa", selftrain_qa(os.path.join(tmp, "qa.json"), seed),
+            *SELFTRAIN_ARGS, "--out", os.path.join(tmp, "selftrain"), "--device", str(dev)])
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            params, cfg, result = selftrain_lm.run(args)
+        train_counts = kernel_counts()
+        lap("selftrain_tool")
+        losses = [e["loss"] for e in result["log"]]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"selftrained: losses {losses}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            data = selftrain_lm.prepare(args, cpu)
+        batches = selftrain_lm.Batches(data["windows"], data["qa_encoded"], args.batch, args.seq,
+                                       data["pad_id"], args.qa_every)
+        first = selftrain_lm.on_device(cpu, *batches.for_step(0))
+        with torch.no_grad():
+            cpu_loss = float(selftrain_lm.loss_fn(init_params(0, cfg, device=cpu), cfg, *first))
+        loss_rel = abs(losses[0] / cpu_loss - 1)
+        lap("cpu_first_loss")
+        if not loss_rel <= SELFTRAIN_LOSS_RTOL:
+            raise AssertionError(f"selftrained: first loss {losses[0]} on the card, {cpu_loss} "
+                                 f"on the CPU (rtol {SELFTRAIN_LOSS_RTOL})")
+        loaded = create_model_interface("jax", {"model_path": args.out}, device=dev)
+        loaded.load()
+        ids, mask = first[0][:2, :512].to(dev), first[1][:2, :512].to(dev)
+        with torch.no_grad():
+            logits_err = float((forward(loaded.params, loaded.cfg, ids, mask)
+                                - forward(params, cfg, ids, mask)).abs().max())
+        if not logits_err <= SELFTRAIN_LOGITS_ATOL:
+            raise AssertionError(f"selftrained: the loaded checkpoint's logits are {logits_err} "
+                                 "from the trained params'")
+        lap("checkpoint_load")
+        out["selftrain"] = {
+            "widths": {k: getattr(args, k) for k in ("hidden", "layers", "heads", "kv_heads",
+                                                     "inter", "seq", "batch", "steps")},
+            "params_millions": result["params_millions"], "losses": losses,
+            "first_loss_cpu": cpu_loss, "first_loss_rel_diff": loss_rel,
+            "heldout_byte_perplexity": result["heldout_byte_perplexity"],
+            "loaded_logits_max_abs_err": logits_err, "train_seconds": result["train_seconds"],
+            "kernel_launches": train_counts, **result["device"],
+            "data_lines": buf.getvalue().splitlines()[:3]}
+        print(f"selftrained: {result['device']['step_ms_median']:.3f} ms a step, "
+              f"{result['device']['tokens_per_s']:.0f} tokens/s, "
+              f"peak {result['device']['peak_mb']} MB", flush=True)
+        del params, loaded
+
+        # -- (b) the committed checkpoint's held-out perplexity
+        with open(CORPUS, encoding="utf-8") as f:
+            held = f.read()
+        ppl = {}
+        for where in (dev, cpu):
+            m = create_model_interface("jax", {"model_path": SELFTRAINED_CKPT}, device=where)
+            m.load()
+            ppl[where.type] = selftrain_lm.heldout_perplexity(m.params, m.cfg, held, 1536)
+            del m
+        (card_ppl, count), cpu_ppl = ppl[dev.type], ppl["cpu"][0]
+        lap("heldout_card_and_cpu")
+        ppl_rel = abs(card_ppl / cpu_ppl - 1)
+        if not ppl_rel <= SELFTRAINED_PPL_RTOL:
+            raise AssertionError(f"selftrained: held-out perplexity {card_ppl} on the card, "
+                                 f"{cpu_ppl} on the CPU (rtol {SELFTRAINED_PPL_RTOL})")
+        out["heldout"] = {"perplexity": card_ppl, "bytes": count, "cpu": cpu_ppl,
+                          "rel_diff_cpu": ppl_rel, "jax_tpu_run": SELFTRAINED_JAX_PPL,
+                          "minus_jax_tpu_run": card_ppl - SELFTRAINED_JAX_PPL}
+        print(f"selftrained: held-out byte perplexity {card_ppl:.4f} on the card, "
+              f"{SELFTRAINED_JAX_PPL} in the JAX run ({card_ppl - SELFTRAINED_JAX_PPL:+.4f})",
+              flush=True)
+        torch.cuda.empty_cache()
+
+        # -- (c) eval_selftrained, int4 and nf4
+        eval_out = os.path.join(tmp, "eval")
+        argv = ["--base-config", selftrained_light_config(tmp), "--device", str(dev)]
+        launches, rows = {}, {}
+        for name, kernel in SELFTRAINED_VARIANTS.items():
+            row, counts = run_eval_variant(eval_selftrained, name, eval_out, argv)
+            lap(f"eval_{name}")
+            if dev.type == "cuda" and counts.get(kernel, 0) < 1:  # (the CPU: plain versions)
+                raise AssertionError(f"selftrained: {name} launched no {kernel}: {counts}")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            with open(os.path.join(eval_out, f"config_{name}.json")) as f:
+                vcfg = json.load(f)
+            spec = eval_selftrained.VARIANTS[name]
+            m = create_model_interface(spec["type"], {**vcfg["model"], "model_path":
+                                                      SELFTRAINED_CKPT}, device=cpu)
+            m.load()
+            cpu_ppl = PerplexityEvaluator(m, vcfg["evaluation"]["performance"]["perplexity"]
+                                          ).calculate()["perplexity"]
+            del m
+            rel = abs(row["perplexity"] / cpu_ppl - 1)
+            if not rel <= EVAL_PPL_RTOL:
+                raise AssertionError(f"selftrained: {name} perplexity {row['perplexity']} on the "
+                                     f"card, {cpu_ppl} on the CPU (rtol {EVAL_PPL_RTOL})")
+            rows[name] = {**row, "launches": counts, "perplexity_cpu": cpu_ppl,
+                          "perplexity_rel_diff": rel}
+            lap(f"cpu_ppl_{name}")
+        out["eval"] = rows
+        out["main_path_launches"] = launches
+        out["parts_s"] = parts
+    out["note"] = ("step_ms_median: CUDA events around each training step (forward, backward, "
+                   "the clip and AdamW), the median over steps 1..; peak_mb: "
+                   "max_memory_allocated over the training; the JAX run's perplexity is a TPU "
+                   "figure, not a target")
+    ph.info.update(out)
+    return out
+
+
+def phase_selftrained_full(ph: Phase, dev) -> dict:
+    """eval_selftrained at its own settings on the committed checkpoint
+    (config.json's evaluation section, the JAX tool's overrides), all six
+    variants, one main call each (launch counts per variant): exit 0,
+    perplexity and f1 not null; each row beside the JAX run's perplexity
+    (results/selftrained/summary.json, a TPU run: quality only)."""
+    import tempfile
+
+    import torch
+
+    from crs_tpu_torch.tools import eval_selftrained
+
+    with open(os.path.join(REPO, "results", "selftrained", "summary.json")) as f:
+        jax_rows = json.load(f)
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_selftrained_full_") as tmp:
+        for name in eval_selftrained.VARIANTS:
+            row, counts = run_eval_variant(eval_selftrained, name, tmp, ["--device", str(dev)])
+            rows[name] = {**row, "launches": counts,
+                          "jax_perplexity": jax_rows[name]["perplexity"]}
+            emit({"selftrained_full": name, **rows[name]})
+            torch.cuda.empty_cache()
+    ph.info.update({"rows": rows})
+    return rows
+
+
 def kernel_table(res: dict) -> list:
     """The kernel line: every ported kernel with its launches on its main
     path and its numbers from this run."""
@@ -6266,6 +6519,8 @@ def kernel_table(res: dict) -> list:
         row["launches_multi"] = multi.get(MULTI_LAUNCH_KEY.get(row["name"], ""), 0)
         row["launches_tools"] = tools.get(TOOLS_LAUNCH_KEY.get(row["name"], ""), 0)
         row["launches_quality"] = quality.get(TOOLS_LAUNCH_KEY.get(row["name"], ""), 0)
+        if row["name"] in SELFTRAINED_VARIANTS.values():  # eval_selftrained's int4 / nf4 path
+            row["launches_selftrained"] = res["selftrained"]["main_path_launches"][row["name"]]
     return rows
 
 
@@ -6273,10 +6528,11 @@ ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted
               "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "gemv",
               "tools", "quality", "faults", "bench", "full", "formats", "add", "multi", "generate",
               "evaluate", "finetune", "rag", "lexical", "minilm", "cli", "generate_7b",
-              "calibrated")
+              "calibrated", "selftrained")
 # selectable with --phases, not run by default: the mesh path across every rank of a
-# torchrun launch (after a separate build call)
-EXTRA_PHASES = ("ranks",)
+# torchrun launch (after a separate build call), and eval_selftrained's six variants at the
+# tool's own settings
+EXTRA_PHASES = ("ranks", "selftrained_full")
 
 
 def main(argv=None) -> int:
@@ -6341,7 +6597,9 @@ def main(argv=None) -> int:
         "cli": lambda ph: phase_cli(ph, dev, shared),
         "generate_7b": lambda ph: phase_generate_7b(ph, dev, args.seed),
         "calibrated": lambda ph: phase_calibrated(ph, dev, args.seed),
+        "selftrained": lambda ph: phase_selftrained(ph, dev, args.seed),
         "ranks": lambda ph: phase_ranks(ph, dev, args.seed),
+        "selftrained_full": lambda ph: phase_selftrained_full(ph, dev),
     }
     try:
         for name in ALL_PHASES + EXTRA_PHASES:

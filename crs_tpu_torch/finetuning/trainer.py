@@ -136,16 +136,18 @@ def warmup_cosine_lr(count: int, peak: float, warmup: int, total: int) -> float:
     return float(f32(peak) * (f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t / steps))))
 
 
-def masked_loss(logits: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_loss(logits: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+                loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token softmax cross-entropy (optax's
     ``softmax_cross_entropy_with_integer_labels``: the row max taken out
-    without a gradient) summed over the positions where a token and the one
-    before it are real, over max(their count, 1)."""
+    without a gradient) summed over the positions whose token is marked in
+    ``loss_mask`` (by default ``mask``) and whose previous token is real,
+    over max(their count, 1)."""
     lg = logits[:, :-1, :]
     shifted = lg - lg.amax(dim=-1, keepdim=True).detach()
     label = torch.gather(shifted, -1, ids[:, 1:, None])[..., 0]
     losses = torch.log(torch.exp(shifted).sum(dim=-1)) - label
-    valid = mask[:, 1:] & mask[:, :-1]
+    valid = (mask if loss_mask is None else loss_mask)[:, 1:] & mask[:, :-1]
     return (losses * valid).sum() / torch.clamp_min(valid.sum(), 1)
 
 

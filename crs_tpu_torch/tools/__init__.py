@@ -16,7 +16,13 @@
   ``oracle_bounds``, ``quality_diag`` and the sweeps ``quality_sweep``,
   ``quality_docside_sweep`` and ``quality_geometry_sweep`` (their shared
   parts in ``quality_common``), on ``--corpus`` / ``--qa``: by default the
-  repository's held-out corpus and questions.
+  repository's held-out corpus and questions;
+- self-training ``selftrain_lm`` (a byte-level LM pretrained from the seeded
+  init on ``--corpus`` with QA-instruct batches from ``--qa``, f32 with
+  optax's clip and AdamW written out) and ``eval_selftrained`` (the
+  evaluation suite of ``python -m crs_tpu_torch --evaluate`` once per
+  quantization variant of its checkpoint, by default the repository's
+  ``checkpoints/selftrained_small`` on its held-out files, only read).
 
 Run each as ``python -m crs_tpu_torch.tools.<name>``; ``timing`` holds the
 timers and the launch counts. The tools that write files write them under

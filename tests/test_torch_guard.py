@@ -22,9 +22,10 @@ PORT_FILES = sorted((REPO / "crs_tpu_torch").rglob("*.py")) + [REPO / "chip_smok
 
 
 def _forbidden(module: str) -> bool:
-    """JAX, the JAX package, and its scripts' directories (``tools/``, ``examples/``)."""
+    """JAX, the JAX package, its scripts' directories (``tools/``,
+    ``examples/``) and its root scripts (``main.py``, ``bench.py``)."""
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "crs_tpu", "optax", "tools", "examples")
+    return top in ("jax", "jaxlib", "crs_tpu", "optax", "tools", "examples", "main", "bench")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -48,6 +49,16 @@ def test_guard_sees_the_port():
     assert _forbidden("jax.numpy") and _forbidden("crs_tpu.rag") and not _forbidden("crs_tpu_torch.ops")
     assert _forbidden("tools.ir_eval") and _forbidden("examples.quickstart")
     assert not _forbidden("crs_tpu_torch.tools.ir_eval")
+
+
+def test_guard_sees_the_selftrain_tools():
+    """The self-training and per-variant evaluation tools are among the files
+    the import guard reads, and the JAX command line and benchmark are refused."""
+    for rel in ("tools/selftrain_lm.py", "tools/eval_selftrained.py"):
+        assert REPO / "crs_tpu_torch" / rel in PORT_FILES, rel
+    assert _forbidden("main") and _forbidden("bench") and _forbidden("tools.selftrain_lm")
+    assert not _forbidden("crs_tpu_torch.__main__")
+    assert not _forbidden("crs_tpu_torch.tools.selftrain_lm")
 
 
 def test_guard_sees_the_mesh_modules():
