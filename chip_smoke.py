@@ -149,8 +149,9 @@ the largest difference); any failure raises and exits non-zero:
                         encoder from synthetic texts; retrieve_batch_fused at batch
                         328 through the int8 kernel (launch count must rise), timed
                         with CUDA events, plus the kernel's own time and bound;
-16. formats           — the first 524,288 of those texts and embeddings (cut
-                        from 1M in PR 18) in an fp32, a bf16, a residual pq
+16. formats           — the first 131,072 of those texts and embeddings (cut
+                        from 1M in PR 18, from 524,288 in PR 25) in an fp32,
+                        a bf16, a residual pq
                         and a plain pq store (config.json's store values):
                         retrieve_batch at batch 328 without and with PRF
                         (each format's kernel must launch), a `where`-filtered
@@ -162,7 +163,7 @@ the largest difference); any failure raises and exits non-zero:
                         (not 3), never take the exact fallback, and return the
                         unsorted store's results;
 17. add               — 65,536 rows added in 4,096-row calls to the 1M int8 and
-                        524,288-row residual pq stores: ms per add, capacity,
+                        131,072-row residual pq stores: ms per add, capacity,
                         the int8 store identical to create_index over the same
                         rows, the pq
                         codes against a CPU encode, a `where` search;
@@ -269,11 +270,20 @@ the largest difference); any failure raises and exits non-zero:
                         eval_selftrained on it as int4 (kernel 8) and nf4
                         (kernel 9) on a light config.json (one 16-token
                         efficiency run, two questions, no no-RAG answers),
-                        each perplexity against the CPU's.
+                        each perplexity against the CPU's;
+29. multihost         — the multi-host dry run (crs_tpu_torch/tools/
+                        dryrun_multihost.py) at 1 host × 1 device: its entry
+                        point in a child (exit 0, one OK line, PASS, dp_loss
+                        within 1e-4 of the JAX tool's) and, beside it, its
+                        scans and training step in this process: kernels 2
+                        and 1 once each on the 4,196-row shard (counted),
+                        against their plain versions and exact search, the
+                        child's printed values equal to this process's.
 
 Not run by default (``--phases``): ``ranks`` (the mesh path on every rank of a
-torchrun launch) and ``selftrained_full`` (eval_selftrained's six variants at
-the tool's own settings on the committed checkpoint).
+torchrun launch), ``selftrained_full`` (eval_selftrained's six variants at
+the tool's own settings on the committed checkpoint) and ``multihost_cards``
+(the dry run at 2 hosts × 2 devices over NCCL; four cards).
 
 Then the kernel table line (all fourteen kernels), the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Without CUDA
@@ -325,10 +335,10 @@ FORMAT_KERNEL = {"fp32": "scan_topk_f32", "bf16": "scan_topk_bf16",
                  "pq_plain": "adc_scan_topk_plain"}
 SCAN_BLOCK = 1024  # config.json's block_size: the kernels' main-path block
 SCAN_KB = 3  # kb of the pq stores' 64-candidate scan at 1M rows, B = 328
-# the formats phase's stores: the first half of the full phase's rows (cut from
-# FULL_ROWS in PR 18 to keep the whole run inside its time limit: PQ training
-# runs over every row, twice a pq store)
-FORMAT_ROWS = 1 << 19
+# the formats phase's stores: the first eighth of the full phase's rows (cut from
+# FULL_ROWS to a half in PR 18, to an eighth in PR 25, to keep the whole run inside its
+# time limit: PQ training runs over every row, twice a pq store)
+FORMAT_ROWS = 1 << 17
 PQ_M, PQ_C, PQ_K = 48, 2048, 256
 FLOAT_RTOL = {"fp32": 1e-5, "bf16": 1e-2}
 ID_RTOL = 1e-5  # the f32 sum-order bound: ranks farther apart must agree
@@ -6412,6 +6422,167 @@ def phase_selftrained_full(ph: Phase, dev) -> dict:
     return rows
 
 
+MULTIHOST_TOOL = "crs_tpu_torch.tools.dryrun_multihost"
+MULTIHOST_TIMEOUT_S = 300
+# the JAX tool's dp_loss (tools/dryrun_multihost.py on the CPU, 2 × 4 devices): the loss is
+# the mean over the whole batch, so every world prints it within the tool's 4 decimals
+MULTIHOST_JAX_DP_LOSS = 6.4976
+MULTIHOST_LOSS_ATOL = 1e-4
+MULTIHOST_LAUNCHES = {"int8_scan_topk": 1, "scan_topk_f32": 1}  # kernels 1 and 2, once each
+# kernel table row → its count on the dry run's path
+MULTIHOST_LAUNCH_KEY = {"int8_scan_topk": "int8_scan_topk", "scan_topk_f32_bf16": "scan_topk_f32"}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multihost_child(hosts: int, per_host: int):
+    """The dry run's entry point in a child process on the card, in a session
+    of its own so that :func:`stop_session` also stops its workers."""
+    return subprocess.Popen([sys.executable, "-m", MULTIHOST_TOOL, "--hosts", str(hosts),
+                             "--devices-per-host", str(per_host), "--port", str(free_port())],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def stop_session(proc) -> None:
+    """Kill ``proc`` and every process of its session, then reap it."""
+    import signal
+
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+    proc.communicate()
+
+
+def multihost_lines(proc, t0: float, hosts: int, world: int) -> dict:
+    """Wait for the dry run's child; exit 0, PASS last, one OK line a host
+    over ``world`` devices, each dp_loss within MULTIHOST_LOSS_ATOL of the JAX
+    tool's → {seconds, lines, parsed values of host 0's line}."""
+    import re
+
+    try:
+        stdout, stderr = proc.communicate(timeout=MULTIHOST_TIMEOUT_S)
+    except BaseException:
+        stop_session(proc)
+        raise
+    secs = time.perf_counter() - t0
+    lines = stdout.strip().splitlines()
+    pattern = re.compile(rf"MULTIHOST OK proc=(\d+) devices={world} fp32_overlap=([\d.]+) "
+                         r"int8_overlap=([\d.]+) dp_loss=([\d.]+)$")
+    found = [m for m in map(pattern.match, lines) if m]
+    if proc.returncode != 0 or not lines or lines[-1] != "MULTIHOST DRYRUN: PASS" or \
+            sorted(int(m.group(1)) for m in found) != list(range(hosts)):
+        raise AssertionError(f"multihost {hosts} × {world // hosts}: exit {proc.returncode}: "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
+    for m in found:
+        if abs(float(m.group(4)) - MULTIHOST_JAX_DP_LOSS) > MULTIHOST_LOSS_ATOL:
+            raise AssertionError(f"multihost: dp_loss {m.group(4)} against the JAX tool's "
+                                 f"{MULTIHOST_JAX_DP_LOSS}")
+    return {"seconds": secs, "lines": [m.group(0) for m in found],
+            "fp32_overlap": found[0].group(2), "int8_overlap": found[0].group(3),
+            "dp_loss": found[0].group(4)}
+
+
+def phase_multihost(ph: Phase, dev) -> dict:
+    """The multi-host dry run (crs_tpu_torch/tools/dryrun_multihost.py) on one
+    card, at 1 host × 1 device (NCCL refuses two ranks on one card):
+    (a) its entry point in a child process: exit 0, one OK line over 1
+    device, PASS, dp_loss within 1e-4 of the JAX tool's; (b) meanwhile, in
+    this process, its scans and its training step on a one-rank group: the
+    scans' 4,196-row shard through kernels 2 (fp32) and 1 (int8), exactly one
+    launch each (the main path: counts to 0 just before, read just after),
+    held against the same scans with every kernel's plain version and the
+    fp32 top-10 against exact search; the step's loss against the JAX
+    tool's; the child's printed overlaps and loss equal to this process's.
+    Returns the main path's launches by kernel."""
+    import torch
+    import torch.distributed as dist
+
+    from crs_tpu_torch.models.sharding import make_model_mesh
+    from crs_tpu_torch.ops import scan
+    from crs_tpu_torch.ops.topk import exact_topk
+    from crs_tpu_torch.parallel import corpus_mesh
+    from crs_tpu_torch.tools import dryrun_multihost as dm
+
+    t0 = time.perf_counter()
+    child = multihost_child(1, 1)
+    try:
+        mesh, model_mesh = corpus_mesh(device=dev), make_model_mesh(tp=1, device=dev)
+        vecs, queries, ids = dm.inputs()
+        reset_counts()
+        t1 = time.perf_counter()
+        found = dm.scans(mesh, vecs, queries)
+        sync(dev)
+        t2 = time.perf_counter()
+        loss, _ = dm.train_step(model_mesh, ids)
+        sync(dev)
+        t3 = time.perf_counter()
+        launches = dict(scan.STATS.by_kernel)
+        others = {k: v for k, v in kernel_counts().items() if v}
+        if launches != MULTIHOST_LAUNCHES or others:
+            raise AssertionError(f"multihost: launches {launches} {others}, want "
+                                 f"{MULTIHOST_LAUNCHES}")
+        with plain_kernels():
+            plain = dm.scans(mesh, vecs, queries)
+        err = {"fp32": check_float_ranked(found["fp32"], plain["fp32"], FLOAT_RTOL["fp32"], 1),
+               "int8": check_float_ranked(found["int8"], plain["int8"], ID_RTOL, 1)}
+        exact = exact_topk(torch.from_numpy(vecs).to(dev), torch.from_numpy(queries).to(dev),
+                           dm.K, dm.N)
+        exact_err = check_float_ranked(found["fp32"], exact, FLOAT_RTOL["fp32"], 1)
+        if abs(loss - MULTIHOST_JAX_DP_LOSS) > MULTIHOST_LOSS_ATOL:
+            raise AssertionError(f"multihost: dp_loss {loss} against the JAX tool's "
+                                 f"{MULTIHOST_JAX_DP_LOSS}")
+    except BaseException:
+        stop_session(child)
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    cli = multihost_lines(child, t0, 1, 1)
+    here = {"fp32_overlap": f"{found['fp32_overlap']:.2f}",
+            "int8_overlap": f"{found['int8_overlap']:.2f}", "dp_loss": f"{loss:.4f}"}
+    if {k: cli[k] for k in here} != here:
+        raise AssertionError(f"multihost: the child printed {cli}, this process {here}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    out = {"card": smi.stdout.strip().splitlines()[0], "hosts": 1, "devices_per_host": 1,
+           "rows_per_shard": dm.N, "child": cli,
+           "in_process": {**here, "dp_loss_exact": loss, "scans_s": t2 - t1,
+                          "train_step_s": t3 - t2, "vs_plain_max_abs": err,
+                          "fp32_vs_exact_max_abs": exact_err},
+           "jax_tool_dp_loss": MULTIHOST_JAX_DP_LOSS, "main_path_launches": launches,
+           "note": "seconds: the host clock; the child ran beside the in-process checks"}
+    ph.info.update(out)
+    return launches
+
+
+def phase_multihost_cards(ph: Phase) -> dict:
+    """The multi-host dry run across four cards as 2 hosts × 2 devices over
+    NCCL (each host's workers see only its two cards; not a default phase):
+    exit 0, two OK lines over 4 devices, PASS, each dp_loss within 1e-4 of
+    the JAX tool's. Raises on a machine with fewer than four cards."""
+    import torch
+
+    from crs_tpu_torch.tools import dryrun_multihost as dm
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"multihost_cards: needs four cards, {cards} visible")
+    cli = multihost_lines(multihost_child(2, 2), time.perf_counter(), 2, 4)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    out = {"cards": smi.stdout.strip().splitlines()[:4], "hosts": 2, "devices_per_host": 2,
+           "rows_per_shard": -(-dm.N // 4), "child": cli}
+    ph.info.update(out)
+    return out
+
+
 def kernel_table(res: dict) -> list:
     """The kernel line: every ported kernel with its launches on its main
     path and its numbers from this run."""
@@ -6515,10 +6686,12 @@ def kernel_table(res: dict) -> list:
     multi = res["multi"]  # the mesh path's launches (kernels 1, 2, 3 and 10; 0 elsewhere)
     tools = res["tools"]["main_path_launches"]  # the serving and scale tools' path
     quality = res["quality"]["main_path_launches"]  # the recall curve's and quality tools' path
+    multihost = res["multihost"]  # the multi-host dry run's path (kernels 1 and 2)
     for row in rows:
         row["launches_multi"] = multi.get(MULTI_LAUNCH_KEY.get(row["name"], ""), 0)
         row["launches_tools"] = tools.get(TOOLS_LAUNCH_KEY.get(row["name"], ""), 0)
         row["launches_quality"] = quality.get(TOOLS_LAUNCH_KEY.get(row["name"], ""), 0)
+        row["launches_multihost"] = multihost.get(MULTIHOST_LAUNCH_KEY.get(row["name"], ""), 0)
         if row["name"] in SELFTRAINED_VARIANTS.values():  # eval_selftrained's int4 / nf4 path
             row["launches_selftrained"] = res["selftrained"]["main_path_launches"][row["name"]]
     return rows
@@ -6528,11 +6701,11 @@ ALL_PHASES = ("build", "kernel", "kernel_f32_bf16", "kernel_adc", "kernel_sorted
               "kernel_segmax", "kernel_q4", "kernel_decode_attn", "kernel_fused_mlp", "gemv",
               "tools", "quality", "faults", "bench", "full", "formats", "add", "multi", "generate",
               "evaluate", "finetune", "rag", "lexical", "minilm", "cli", "generate_7b",
-              "calibrated", "selftrained")
+              "calibrated", "selftrained", "multihost")
 # selectable with --phases, not run by default: the mesh path across every rank of a
-# torchrun launch (after a separate build call), and eval_selftrained's six variants at the
-# tool's own settings
-EXTRA_PHASES = ("ranks", "selftrained_full")
+# torchrun launch (after a separate build call), eval_selftrained's six variants at the
+# tool's own settings, and the multi-host dry run across four cards
+EXTRA_PHASES = ("ranks", "selftrained_full", "multihost_cards")
 
 
 def main(argv=None) -> int:
@@ -6600,6 +6773,8 @@ def main(argv=None) -> int:
         "selftrained": lambda ph: phase_selftrained(ph, dev, args.seed),
         "ranks": lambda ph: phase_ranks(ph, dev, args.seed),
         "selftrained_full": lambda ph: phase_selftrained_full(ph, dev),
+        "multihost": lambda ph: phase_multihost(ph, dev),
+        "multihost_cards": lambda ph: phase_multihost_cards(ph),
     }
     try:
         for name in ALL_PHASES + EXTRA_PHASES:

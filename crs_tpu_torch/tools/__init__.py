@@ -22,7 +22,10 @@
   optax's clip and AdamW written out) and ``eval_selftrained`` (the
   evaluation suite of ``python -m crs_tpu_torch --evaluate`` once per
   quantization variant of its checkpoint, by default the repository's
-  ``checkpoints/selftrained_small`` on its held-out files, only read).
+  ``checkpoints/selftrained_small`` on its held-out files, only read);
+- the multi-host dry run ``dryrun_multihost``: the sharded scans and a
+  data-parallel training step across ``--hosts`` groups of processes, one
+  process a device (gloo with ``--device cpu``, NCCL on the cards).
 
 Run each as ``python -m crs_tpu_torch.tools.<name>``; ``timing`` holds the
 timers and the launch counts. The tools that write files write them under

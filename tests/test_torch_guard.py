@@ -68,6 +68,14 @@ def test_guard_sees_the_mesh_modules():
         assert REPO / "crs_tpu_torch" / rel in PORT_FILES, rel
 
 
+def test_guard_sees_the_multihost_tool():
+    """The multi-host dry run is among the files the import guard reads, and
+    the JAX tool it ports is refused."""
+    assert REPO / "crs_tpu_torch" / "tools" / "dryrun_multihost.py" in PORT_FILES
+    assert _forbidden("tools.dryrun_multihost")
+    assert not _forbidden("crs_tpu_torch.tools.dryrun_multihost")
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -146,6 +154,19 @@ def test_cuda_request_raises_without_cuda(no_cuda, name, device):
 @pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_explicit_cpu_runs(no_cuda, name):
     assert _entry_points()[name]("cpu") is not None
+
+
+@pytest.mark.parametrize("argv", [[], ["--device", "cuda"], ["--hosts", "1"],
+                                  ["--worker", "0", "--port", "1"]],
+                         ids=["default", "cuda", "one_host", "worker"])
+def test_multihost_dryrun_raises_without_a_card(no_cuda, argv):
+    """The dry run's parent and a worker refuse to run without a card unless
+    given --device cpu (whose run, eight gloo workers, is
+    tests/test_torch_tools_multihost.py's)."""
+    from crs_tpu_torch.tools import dryrun_multihost
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multihost.main(argv)
 
 
 def test_unported_options_raise():
